@@ -1,0 +1,91 @@
+"""Kernel G: ``out[p] = x[idx[p]]`` with a fused epilogue (``csrc/gather.cu``).
+
+Replaces two TPU kernels of the JAX package:
+
+- ``graphblas_tpu/ops/permute.py:_pallas_shuffle`` behind ``apply_plan``: the
+  permutation network is composed into one int32 index array, applied here in
+  one pass (epilogue ``none``, or ``pagerank`` for the fused postlude of
+  ``graphblas_tpu/models/fast.py:514-517``);
+- ``graphblas_tpu/ops/pallas_scan.py:segmented_fill_static``: with
+  ``fill_src`` as the index, epilogue ``fill`` (``idx[p] < 0`` gives 0).
+
+Launch counts are kept per role: ``gather`` (routes, any epilogue but fill)
+and ``gather_fill`` (the segmented fill).
+"""
+
+import torch
+
+from . import _build
+
+EPILOGUES = ("none", "fill", "pagerank")
+LAUNCHES = {"gather": 0, "gather_fill": 0}
+PLAIN_CALLS = {"gather": 0, "gather_fill": 0}
+
+
+def _role(epilogue):
+    return "gather_fill" if epilogue == "fill" else "gather"
+
+
+def _check(x, idx, epilogue, aux, scalar):
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"gather: unknown epilogue {epilogue!r}; expected one of {EPILOGUES}")
+    if x.dim() != 1 or idx.dim() != 1:
+        raise ValueError("gather: x and idx must be 1-D")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"gather: idx must be int32, got {idx.dtype}")
+    if x.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"gather: x must be float32 or int32, got {x.dtype}")
+    if x.device != idx.device:
+        raise ValueError(f"gather: x on {x.device} but idx on {idx.device}")
+    if epilogue == "pagerank":
+        if x.dtype != torch.float32:
+            raise TypeError("gather: the pagerank epilogue takes float32 x")
+        if aux is None or scalar is None:
+            raise ValueError("gather: the pagerank epilogue needs aux and scalar")
+        if aux.shape != idx.shape or aux.dtype != torch.float32 or aux.device != x.device:
+            raise ValueError("gather: aux must be float32, shaped like idx, on x's device")
+        if scalar.numel() != 1 or scalar.dtype != torch.float32 or scalar.device != x.device:
+            raise ValueError("gather: scalar must be a one-element float32 tensor on x's device")
+
+
+def gather_plain(x, idx, epilogue="none", aux=None, scalar=None):
+    """Plain PyTorch version of Kernel G (any device)."""
+    _check(x, idx, epilogue, aux, scalar)
+    PLAIN_CALLS[_role(epilogue)] += 1
+    i = idx.long()
+    if epilogue == "fill":
+        return torch.where(idx >= 0, x[i.clamp(min=0)], torch.zeros((), dtype=x.dtype, device=x.device))
+    y = x[i]
+    if epilogue == "pagerank":
+        c = scalar.reshape(())
+        return torch.where(aux > 0, y / aux, c / (-aux))
+    return y
+
+
+def gather(x, idx, epilogue="none", aux=None, scalar=None):
+    """``out[p] = x[idx[p]]`` then the epilogue.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel.  ``idx`` must lie in
+    ``[0, len(x))`` except, for ``fill``, where negative means "no source"."""
+    if x.device.type == "cpu":
+        return gather_plain(x, idx, epilogue, aux, scalar)
+    _check(x, idx, epilogue, aux, scalar)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"gather: no kernel for device {x.device}")
+    if not (x.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("gather: x and idx must be contiguous")
+    lib = _build.library()
+    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    n = idx.numel()
+    if epilogue == "pagerank" and not aux.is_contiguous():
+        raise ValueError("gather: aux must be contiguous")
+    with torch.cuda.device(x.device):
+        stream = _build.stream_of(x)
+        if epilogue == "pagerank":
+            rc = lib.gb_gather_pagerank(
+                x.data_ptr(), idx.data_ptr(), aux.data_ptr(), scalar.data_ptr(), out.data_ptr(), n, stream
+            )
+        else:
+            rc = lib.gb_gather32(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, stream)
+    _build.check(rc, "gather")
+    LAUNCHES[_role(epilogue)] += 1
+    return out

@@ -1,0 +1,256 @@
+"""Kernels C and S: fused segmented scans (``csrc/segscan.cu``).
+
+- ``segscan_contrib`` (Kernel C) replaces
+  ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_contrib``: per-edge
+  semiring multiply, optional integer wrap, identity at invalid slots, then a
+  segmented add/min/max inclusive scan.
+- ``segscan_state`` (Kernel S) replaces
+  ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
+  x) or SSSP (min of x + w) scan fused with the per-round state update.
+
+The plain versions are a log-step (Hillis-Steele) segmented scan over the
+flat array: ceil(log2 n) shifted ``_combine`` passes with the same prologue
+and epilogue.  Float sums therefore round in another order than the kernel's
+(and the TPU kernel's); min and max are exact.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from . import _build
+
+# The loop algorithms' "unreached" distance, as
+# graphblas_tpu/ops/pallas_scan.py:STATE_BIG: finite so BIG + w stays ordered.
+STATE_BIG = np.float32(3.4e38) / 4
+
+OPS = ("add", "min", "max")
+MULS = ("times", "plus", "second", "first")
+LAUNCHES = {"segscan_contrib": 0, "segscan_state": 0}
+PLAIN_CALLS = {"segscan_contrib": 0, "segscan_state": 0}
+
+
+def _ident(op, dtype):
+    """Identity of the scan op in ``dtype`` (graphblas_tpu/ops/pallas_scan.py:52)."""
+    if op in ("fill", "add"):
+        return 0
+    if dtype.is_floating_point:
+        return math.inf if op == "min" else -math.inf
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def _combine(op, av, af, bv, bf):
+    """Segmented-scan combine; b is later, a set flag in ``bf`` starts a
+    segment (graphblas_tpu/ops/pallas_scan.py:36)."""
+    if op == "fill":
+        newv = torch.where(bf, bv, av)
+    elif op == "add":
+        newv = torch.where(bf, bv, av + bv)
+    elif op == "min":
+        newv = torch.where(bf, bv, torch.minimum(av, bv))
+    else:
+        newv = torch.where(bf, bv, torch.maximum(av, bv))
+    return newv, af | bf
+
+
+def _compute_dtype(dtype):
+    """8-bit channels compute in int32 (graphblas_tpu/ops/pallas_scan.py:112)."""
+    return torch.int32 if dtype.itemsize == 1 else dtype
+
+
+def _scan_plain(op, v, f):
+    """Inclusive segmented scan by ceil(log2 n) shifted combines."""
+    ident = _ident(op, v.dtype)
+    n = v.shape[0]
+    d = 1
+    while d < n:
+        sv = torch.cat([torch.full((d,), ident, dtype=v.dtype, device=v.device), v[:-d]])
+        sf = torch.cat([torch.zeros(d, dtype=torch.bool, device=f.device), f[:-d]])
+        v, f = _combine(op, sv, sf, v, f)
+        d *= 2
+    return v
+
+
+def _wrap_plain(c, bits, signed):
+    """Truncate int32 contributions to ``bits`` (two's complement)."""
+    mask = (1 << bits) - 1
+    if signed:
+        half = 1 << (bits - 1)
+        return ((c + half) & mask) - half
+    return c & mask
+
+
+def _same_device(*ts):
+    dev = ts[0].device
+    for t in ts:
+        if t is not None and t.device != dev:
+            raise ValueError(f"segscan: tensors on {dev} and {t.device}")
+
+
+def _check_common(xe, w, valid, flags):
+    if xe.dim() != 1:
+        raise ValueError("segscan: xe must be 1-D")
+    n = xe.shape[0]
+    for name, t in (("valid", valid), ("flags", flags)):
+        if t.dtype != torch.bool or t.shape != (n,):
+            raise ValueError(f"segscan: {name} must be bool of xe's length")
+    if w is not None and w.shape != (n,):
+        raise ValueError("segscan: w must have xe's length")
+    _same_device(xe, w, valid, flags)
+
+
+def _check_contrib(xe, w, valid, flags, op, mul, wrap):
+    _check_common(xe, w, valid, flags)
+    if op not in OPS:
+        raise ValueError(f"segscan_contrib: op {op!r} not in {OPS}")
+    if mul not in MULS:
+        raise ValueError(f"segscan_contrib: mul {mul!r} not in {MULS}")
+    if xe.dtype not in (torch.float32, torch.int32, torch.int8):
+        raise TypeError(f"segscan_contrib: xe must be float32, int32 or int8, got {xe.dtype}")
+    if w is not None and w.dtype != xe.dtype:
+        raise TypeError(f"segscan_contrib: w is {w.dtype} but xe is {xe.dtype}")
+    if wrap is not None:
+        bits, _ = wrap
+        if xe.dtype.is_floating_point or bits not in (8, 16):
+            raise ValueError(f"segscan_contrib: wrap {wrap} needs an integer channel and 8 or 16 bits")
+
+
+def segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap=None):
+    """Plain PyTorch version of Kernel C (any device)."""
+    _check_contrib(xe, w, valid, flags, op, mul, wrap)
+    PLAIN_CALLS["segscan_contrib"] += 1
+    io = xe.dtype
+    cd = _compute_dtype(io)
+    c = xe.to(cd)
+    if w is not None:
+        wc = w.to(cd)
+        if mul == "times":
+            c = c * wc
+        elif mul == "plus":
+            c = c + wc
+        elif mul == "second":
+            c = wc
+    if wrap is not None and mul in ("times", "plus"):
+        c = _wrap_plain(c, *wrap)
+    c = torch.where(valid, c, torch.tensor(_ident(op, io), dtype=cd, device=c.device))
+    return _scan_plain(op, c, flags).to(io)
+
+
+def _scratch(n, dtype, device):
+    nb = max(1, -(-n // _build.library().gb_segscan_tile()))
+    return (
+        torch.empty(nb, dtype=dtype, device=device),
+        torch.empty(nb, dtype=torch.int32, device=device),
+        torch.empty(nb, dtype=dtype, device=device),
+    )
+
+
+def _require_cuda(name, *ts):
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    for t in ts:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
+    """Fused multiply + mask + segmented scan.  CPU tensors take the plain
+    version; CUDA tensors launch Kernel C (int8 rides it as int32)."""
+    if xe.device.type == "cpu":
+        return segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap)
+    _check_contrib(xe, w, valid, flags, op, mul, wrap)
+    _require_cuda("segscan_contrib", xe, w, valid, flags)
+    io = xe.dtype
+    cd = _compute_dtype(io)
+    x = xe.to(cd)
+    wc = w.to(cd) if w is not None else None
+    lib = _build.library()
+    n = x.numel()
+    out = torch.empty(n, dtype=cd, device=x.device)
+    agg_v, agg_f, carry = _scratch(n, cd, x.device)
+    bits, signed = wrap if wrap is not None else (0, False)
+    with torch.cuda.device(x.device):
+        rc = lib.gb_segscan_contrib(
+            x.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            agg_v.data_ptr(), agg_f.data_ptr(), carry.data_ptr(), n,
+            int(cd == torch.int32), OPS.index(op), MULS.index(mul), int(bits), int(bool(signed)),
+            float(_ident(op, io)), _build.stream_of(x),
+        )
+    _build.check(rc, "segscan_contrib")
+    LAUNCHES["segscan_contrib"] += 1
+    return out.to(io)
+
+
+def _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce):
+    _check_common(xe, w, valid, flags)
+    if mode not in ("bfs", "sssp"):
+        raise ValueError(f"segscan_state: mode {mode!r} not in ('bfs', 'sssp')")
+    if fr_reduce and mode != "sssp":
+        raise ValueError("fr_reduce is an sssp-only contract")
+    if xe.dtype != torch.float32 or (w is not None and w.dtype != torch.float32):
+        raise TypeError("segscan_state: xe and w must be float32")
+    want = torch.int32 if mode == "bfs" else torch.float32
+    if state.dtype != want or state.shape != xe.shape:
+        raise TypeError(f"segscan_state: {mode} state must be {want} of xe's length")
+    if is_last.dtype != torch.bool or is_last.shape != xe.shape:
+        raise ValueError("segscan_state: is_last must be bool of xe's length")
+    _same_device(xe, is_last, state)
+
+
+def segscan_state_plain(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=False):
+    """Plain PyTorch version of Kernel S (any device).  Returns (new_state,
+    frontier or changed f32); with ``fr_reduce`` the second output is one
+    int32 flag, 1 if any slot changed."""
+    _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce)
+    PLAIN_CALLS["segscan_state"] += 1
+    op = "max" if mode == "bfs" else "min"
+    x = xe if w is None else xe + w
+    contrib = torch.where(valid, x, torch.tensor(_ident(op, torch.float32), device=x.device))
+    out = _scan_plain(op, contrib, flags)
+    if mode == "bfs":
+        nxt = is_last & (out > 0) & (state < 0)
+        new = torch.where(nxt, torch.tensor(int(depth) + 1, dtype=torch.int32, device=state.device), state)
+        return new, nxt.to(torch.float32)
+    big = torch.tensor(STATE_BIG, dtype=torch.float32, device=state.device)
+    new = torch.where(is_last, torch.minimum(state, out), big)
+    ch = new < state
+    if fr_reduce:
+        return new, ch.any().to(torch.int32).reshape(1)
+    return new, ch.to(torch.float32)
+
+
+def segscan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=False):
+    """Fused segmented scan + BFS/SSSP state update.  CPU tensors take the
+    plain version; CUDA tensors launch Kernel S.  ``depth`` is a host int."""
+    if xe.device.type == "cpu":
+        return segscan_state_plain(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce)
+    _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce)
+    _require_cuda("segscan_state", xe, w, valid, flags, is_last, state)
+    lib = _build.library()
+    n = xe.numel()
+    dev = xe.device
+    out_state = torch.empty_like(state)
+    if fr_reduce:
+        out_fr = None
+        any_changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    else:
+        out_fr = torch.empty(n, dtype=torch.float32, device=dev)
+        any_changed = None
+    agg_v, agg_f, carry = _scratch(n, torch.float32, dev)
+    with torch.cuda.device(dev):
+        rc = lib.gb_segscan_state(
+            0 if mode == "bfs" else 1, xe.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
+            is_last.data_ptr(), state.data_ptr(), int(depth), out_state.data_ptr(), _ptr(out_fr),
+            _ptr(any_changed), agg_v.data_ptr(), agg_f.data_ptr(), carry.data_ptr(), n,
+            _build.stream_of(xe),
+        )
+    _build.check(rc, "segscan_state")
+    LAUNCHES["segscan_state"] += 1
+    return out_state, (any_changed if fr_reduce else out_fr)

@@ -1,0 +1,71 @@
+"""Graph: a padded-COO graph container of tensors.
+
+Counterpart of ``graphblas_tpu/models/graph.py``.  ``rmat`` draws its edges
+with numpy exactly as the JAX package does, so both packages see identical
+graphs from one seed.
+"""
+
+import numpy as np
+import torch
+
+from ..ops import edgewise as _ew
+
+
+class Graph:
+    """Directed graph as padded COO tensors.
+
+    n: number of nodes; src, dst: int32 (padded); weights: float32 or None;
+    valid: bool marking real edges; nedges: number of real edges."""
+
+    def __init__(self, n, src, dst, weights, valid, nedges):
+        self.n = int(n)
+        self.src = src
+        self.dst = dst
+        self.weights = weights
+        self.valid = valid
+        self.nedges = int(nedges)
+
+    @classmethod
+    def from_arrays(cls, src, dst, weights=None, *, n=None, pad_to=None, device="cpu"):
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        if n is None:
+            n = int(max(src.max(initial=-1), dst.max(initial=-1))) + 1
+        psrc, pdst, pw, valid = _ew.pad_edges(src, dst, weights, pad_to=pad_to)
+        return cls(
+            n,
+            torch.from_numpy(psrc).to(device),
+            torch.from_numpy(pdst).to(device),
+            torch.from_numpy(np.asarray(pw, np.float32)).to(device) if pw is not None else None,
+            torch.from_numpy(valid).to(device),
+            len(src),
+        )
+
+    def to(self, device):
+        w = self.weights.to(device) if self.weights is not None else None
+        return Graph(self.n, self.src.to(device), self.dst.to(device), w, self.valid.to(device), self.nedges)
+
+    def __repr__(self):
+        return f"Graph(n={self.n}, nedges={self.nedges}, padded={self.src.numel()}, device={self.src.device})"
+
+
+def rmat(scale, edge_factor=16, *, a=0.57, b=0.19, c=0.19, seed=0, weighted=False, device="cpu"):
+    """Synthetic RMAT/Graph500-style power-law graph (GAP-style benchmark input)."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    e = n * edge_factor
+    src = np.zeros(e, np.int64)
+    dst = np.zeros(e, np.int64)
+    for bit in range(scale):
+        r = rng.random(e)
+        src_bit = (r > a + b).astype(np.int64)
+        r2 = rng.random(e)
+        thresh = np.where(src_bit == 0, a / (a + b), c / (1 - a - b))
+        dst_bit = (r2 > thresh).astype(np.int64)
+        src |= src_bit << bit
+        dst |= dst_bit << bit
+    # permute ids to break locality artifacts
+    perm = rng.permutation(n)
+    src, dst = perm[src], perm[dst]
+    w = rng.random(e).astype(np.float32) * 9 + 1 if weighted else None
+    return Graph.from_arrays(src.astype(np.int32), dst.astype(np.int32), w, n=n, device=device)

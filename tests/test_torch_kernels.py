@@ -1,0 +1,295 @@
+"""Parity of the port's kernel layer with the JAX package's Pallas kernels.
+
+CPU half: each plain PyTorch version (taken by the wrappers for CPU tensors)
+against the JAX function on the same numpy inputs, the Pallas kernels run in
+interpret mode as the JAX package's own tests run them.  CUDA half (marked
+``cuda``): each hand-written kernel against its plain version on the card.
+The JAX package is imported by the ``ref`` fixture, not at import time, so
+the CUDA half also runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Tolerances: min, max, fill, gathers and all integer scans are bit-exact.  A
+float add scan rounds in another order in each implementation (the TPU
+kernel's lane/row tree, the plain log-step scan, the CUDA thread/warp tree),
+so float add compares within rtol 1e-6 on positive inputs.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from graphblas_tpu_torch import kernels
+from graphblas_tpu_torch.kernels import gather as kg
+from graphblas_tpu_torch.kernels import segscan as ks
+from graphblas_tpu_torch.ops import permute as tp
+from graphblas_tpu_torch.ops import scan as ts
+
+N = 128 * 16  # one JAX tile; the plain scan has no tiles to carry between
+DTYPES = {"f32": np.float32, "i32": np.int32, "i8": np.int8}
+
+
+def _inputs(seed, dt, n=N, positive=False):
+    rng = np.random.default_rng(seed)
+    if dt == "f32":
+        x = (rng.random(n) if positive else rng.standard_normal(n)).astype(np.float32)
+        w = (rng.random(n) * 9 + 1).astype(np.float32)
+    elif dt == "i32":
+        x = rng.integers(-300, 300, n).astype(np.int32)
+        w = rng.integers(-300, 300, n).astype(np.int32)
+    else:
+        x = rng.integers(-20, 20, n).astype(np.int8)
+        w = rng.integers(-5, 6, n).astype(np.int8)
+    valid = rng.random(n) < 0.8
+    flags = rng.random(n) < 0.125
+    flags[:7] = False  # a prefix before the first segment start
+    return x, w, valid, flags
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's kernels (the reference of the CPU half)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from graphblas_tpu.ops import pallas_scan, permute
+
+    return SimpleNamespace(jnp=jnp, scan=pallas_scan, perm=permute)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_equal(got, want):
+    np.testing.assert_array_equal(got.numpy() if isinstance(got, torch.Tensor) else got, np.asarray(want))
+
+
+# ---- fill (Kernel G, epilogue "fill") -------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["f32", "i32"])
+def test_fill_static_matches_reference(ref, dt):
+    jnp = ref.jnp
+    x, _, _, flags = _inputs(1, dt)
+    j, hp = ref.scan.build_fill_tables(flags)
+    want = ref.scan.segmented_fill_static(jnp.asarray(x), jnp.asarray(j), jnp.asarray(hp), interpret=True)
+    fill_src = ts.build_fill_tables(flags)
+    got = ts.segmented_fill_static(_t(x), _t(fill_src))
+    _assert_equal(got, want)
+    assert (fill_src[:7] == -1).all()  # "0 before the first flag"
+    assert (got[:7] == 0).all()
+
+
+# ---- contrib scan (Kernel C) ----------------------------------------------
+
+CONTRIB_CASES = (
+    [(dt, op, mul, True, None) for dt in ("f32", "i32") for op in ks.OPS for mul in ks.MULS]
+    + [("f32", op, "first", False, None) for op in ks.OPS]
+    + [("i32", "add", "times", False, None)]
+    + [("i32", op, "times", True, (8, True)) for op in ("add", "max")]
+    + [("i32", op, "plus", True, (16, False)) for op in ("add", "min")]
+    + [("i8", op, "times", True, None) for op in ("add", "min")]
+)
+
+
+@pytest.mark.parametrize("dt,op,mul,has_w,wrap", CONTRIB_CASES)
+def test_scan_contrib_matches_reference(ref, dt, op, mul, has_w, wrap):
+    jnp = ref.jnp
+    x, w, valid, flags = _inputs(2, dt, positive=True)
+    # the jitted entry point traces ``wrap``; its callers reach it inside an
+    # outer trace with ``wrap`` static, so call the function under the jit
+    fn = ref.scan.segmented_scan_contrib
+    want = (fn.__wrapped__ if wrap else fn)(
+        jnp.asarray(x), jnp.asarray(w) if has_w else None, jnp.asarray(valid), jnp.asarray(flags),
+        op, mul, interpret=True, wrap=wrap,
+    )
+    got = ts.segmented_scan_contrib(_t(x), _t(w) if has_w else None, _t(valid), _t(flags), op, mul, wrap)
+    assert got.dtype == torch.from_numpy(np.zeros(1, DTYPES[dt])).dtype
+    if dt == "f32" and op == "add":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    else:
+        _assert_equal(got, want)
+
+
+def test_scan_contrib_rejects_what_it_does_not_take():
+    x, w, valid, flags = _inputs(3, "f32")
+    with pytest.raises(ValueError):
+        ts.segmented_scan_contrib(_t(x), _t(w), _t(valid), _t(flags), "add", "times", (8, True))
+    with pytest.raises(ValueError):
+        ts.segmented_scan_contrib(_t(x), _t(w), _t(valid), _t(flags), "mul", "times")
+    with pytest.raises(TypeError):
+        ts.segmented_scan_contrib(_t(x), _t(w.astype(np.int32)), _t(valid), _t(flags), "add", "times")
+
+
+# ---- state scan (Kernel S) ------------------------------------------------
+
+
+def _state_inputs(mode, seed=4, n=N):
+    rng = np.random.default_rng(seed)
+    _, w, valid, flags = _inputs(seed, "f32", n=n)
+    is_last = np.zeros(n, bool)
+    is_last[np.flatnonzero(flags) - 1] = True
+    is_last[-1] = True
+    if mode == "bfs":
+        x = (rng.random(n) < 0.1).astype(np.float32)
+        state = np.where(rng.random(n) < 0.7, -1, rng.integers(0, 4, n)).astype(np.int32)
+        w = None
+    else:
+        x = np.where(rng.random(n) < 0.3, ts.STATE_BIG, rng.random(n) * 20).astype(np.float32)
+        state = np.where(rng.random(n) < 0.5, ts.STATE_BIG, rng.random(n) * 25).astype(np.float32)
+    return x, w, valid, flags, is_last, state
+
+
+@pytest.mark.parametrize("mode,fr_reduce", [("bfs", False), ("sssp", False), ("sssp", True)])
+def test_scan_state_matches_reference(ref, mode, fr_reduce):
+    jnp = ref.jnp
+    x, w, valid, flags, is_last, state = _state_inputs(mode)
+    depth = 2
+    want_st, want_fr = ref.scan.segmented_scan_state(
+        mode, jnp.asarray(x), None if w is None else jnp.asarray(w), jnp.asarray(valid),
+        jnp.asarray(flags), jnp.asarray(is_last), jnp.asarray(state), depth,
+        interpret=True, fr_reduce=fr_reduce,
+    )
+    got_st, got_fr = ts.segmented_scan_state(
+        mode, _t(x), None if w is None else _t(w), _t(valid), _t(flags), _t(is_last), _t(state),
+        depth, fr_reduce=fr_reduce,
+    )
+    _assert_equal(got_st, want_st)
+    if fr_reduce:
+        assert got_fr.shape == (1,) and got_fr.dtype == torch.int32
+        assert bool(got_fr[0]) == bool(np.asarray(want_fr).max() > 0)
+        assert bool(got_fr[0])  # the inputs do change some distance
+    else:
+        _assert_equal(got_fr, want_fr)
+    if mode == "sssp":
+        # the donor invariant: every non-last slot holds STATE_BIG
+        assert (got_st.numpy()[~is_last] == ts.STATE_BIG).all()
+
+
+# ---- routes (Kernel G) against apply_plan ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def network(ref):
+    """A JAX permutation network with T and RSEL stages (e_pad = 4 * 128^2)."""
+    e_pad = 4 * 128 * 128
+    perm = np.random.default_rng(5).permutation(e_pad)
+    plan = ref.perm.build_permutation_plan(perm)
+    return perm, plan
+
+
+def test_compose_reference_network_is_the_permutation(ref, network):
+    perm, plan = network
+    kinds = {s[0] for s in plan.stages}
+    assert {"S", "T"} <= kinds and kinds & {"RSEL", "ROWSEL"}
+    idx = tp.compose_reference_network(plan.stages, plan.n)
+    assert idx.dtype == np.int32
+    _assert_equal(idx, perm)
+    routed = np.asarray(ref.perm.apply_plan(ref.jnp.arange(plan.n, dtype=ref.jnp.int32), plan))
+    _assert_equal(idx, routed)
+
+
+@pytest.mark.parametrize("epilogue", [None, "pagerank"])
+def test_apply_perm_matches_apply_plan(ref, network, epilogue):
+    jnp = ref.jnp
+    perm, plan = network
+    rng = np.random.default_rng(6)
+    x = rng.random(plan.n).astype(np.float32)
+    idx = _t(tp.compose_reference_network(plan.stages, plan.n))
+    if epilogue is None:
+        want = ref.perm.apply_plan(jnp.asarray(x), plan)
+        got = tp.apply_perm(_t(x), idx)
+    else:
+        a = (rng.integers(1, 30, plan.n) * np.where(rng.random(plan.n) < 0.8, 1, -1)).astype(np.float32)
+        c = np.float32(0.37)
+
+        def post(y, aux, s):
+            return jnp.where(aux[0] > 0, y / aux[0], s[0] / (-aux[0]))
+
+        want = ref.perm.apply_plan(
+            jnp.asarray(x), plan, postlude=post, post_aux=(jnp.asarray(a),), post_scalars=(jnp.asarray(c),)
+        )
+        got = tp.apply_perm(_t(x), idx, "pagerank", aux=_t(a), scalar=torch.tensor(c))
+    _assert_equal(got, want)
+
+
+def test_wrappers_take_plain_versions_on_cpu_and_count():
+    x, w, valid, flags = _inputs(7, "f32")
+    kernels.reset_counts()
+    ts.segmented_fill_static(_t(x), _t(ts.build_fill_tables(flags)))
+    ts.segmented_scan_contrib(_t(x), _t(w), _t(valid), _t(flags), "max", "times")
+    assert kernels.plain_counts() == {"gather": 0, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0}
+    assert sum(kernels.launch_counts().values()) == 0
+    kernels.reset_counts()
+    assert sum(kernels.plain_counts().values()) == 0
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    x = torch.zeros(8, device="meta")
+    idx = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kg.gather(x, idx)
+
+
+# ---- CUDA half: kernel against plain version on the card ------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _on(dev, *arrays):
+    return [None if a is None else _t(a).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["none", "fill", "pagerank"])
+def test_cuda_gather_matches_plain(cuda, epilogue):
+    rng = np.random.default_rng(8)
+    n = 1 << 20
+    x = rng.random(n).astype(np.float32)
+    if epilogue == "fill":
+        idx = ts.build_fill_tables(rng.random(n) < 0.06)
+    else:
+        idx = rng.permutation(n).astype(np.int32)
+    a = (rng.integers(1, 30, n) * np.where(rng.random(n) < 0.8, 1, -1)).astype(np.float32)
+    xd, idxd, ad = _on(cuda, x, idx, a)
+    c = torch.tensor(0.37, device=cuda)
+    aux, scalar = (ad, c) if epilogue == "pagerank" else (None, None)
+    got = kg.gather(xd, idxd, epilogue, aux, scalar)
+    want = kg.gather_plain(xd, idxd, epilogue, aux, scalar)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,op,mul,wrap", [
+    ("f32", "add", "times", None), ("f32", "min", "plus", None), ("f32", "max", "first", None),
+    ("i32", "add", "times", (8, True)), ("i32", "min", "plus", (16, False)), ("i8", "max", "times", None),
+])
+@pytest.mark.parametrize("n", [5, 2048, (1 << 20) + 77])
+def test_cuda_scan_contrib_matches_plain(cuda, dt, op, mul, wrap, n):
+    x, w, valid, flags = _inputs(9, dt, n=n, positive=True)
+    xd, wd, vd, fd = _on(cuda, x, w, valid, flags)
+    got = ks.segscan_contrib(xd, wd, vd, fd, op, mul, wrap)
+    want = ks.segscan_contrib_plain(xd, wd, vd, fd, op, mul, wrap)
+    torch.cuda.synchronize()
+    if dt == "f32" and op == "add":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,fr_reduce", [("bfs", False), ("sssp", False), ("sssp", True)])
+def test_cuda_scan_state_matches_plain(cuda, mode, fr_reduce):
+    x, w, valid, flags, is_last, state = _state_inputs(mode, seed=10, n=(1 << 20) + 77)
+    args = _on(cuda, x, w, valid, flags, is_last, state)
+    got = ks.segscan_state(mode, *args, 3, fr_reduce)
+    want = ks.segscan_state_plain(mode, *args, 3, fr_reduce)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

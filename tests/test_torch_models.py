@@ -1,0 +1,104 @@
+"""Parity of the port's loop algorithms (graphblas_tpu_torch.models.fast) with
+the JAX package's on the CPU, on the same numpy-made graphs.
+
+Tolerances: BFS levels and SSSP distances are exact (the f32 x + w and the
+min are the same operations on both sides).  PageRank compares within
+rtol 1e-5, atol 1e-7: its float sums round in another order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from graphblas_tpu.models import fast as ref_fast
+from graphblas_tpu.models import graph as ref_graph
+from graphblas_tpu_torch import kernels
+from graphblas_tpu_torch.models import fast as port_fast
+from graphblas_tpu_torch.models import graph as port_graph
+from graphblas_tpu_torch.ops.scan import STATE_BIG
+
+
+def corner_graph():
+    """The engineered graph of tests/test_models.py: vertex 80 a sink, 81 a
+    source with no in-edges, 82 a self-loop only, 83 isolated."""
+    rng = np.random.default_rng(11)
+    n, e = 90, 400
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    keep = ~np.isin(src, [80, 82, 83]) & ~np.isin(dst, [81, 82, 83])
+    src = np.concatenate([src[keep], [82]]).astype(np.int32)
+    dst = np.concatenate([dst[keep], [82]]).astype(np.int32)
+    w = (rng.random(len(src)) * 9 + 1).astype(np.float32)
+    sources = [int(np.bincount(src, minlength=n).argmax()), 80, 81, 82, 83]
+    return ref_graph.Graph.from_arrays(src, dst, w, n=n), port_graph.Graph.from_arrays(src, dst, w, n=n), sources
+
+
+def rmat_graph():
+    g_ref = ref_graph.rmat(9, 16, seed=7, weighted=True)
+    g_port = port_graph.rmat(9, 16, seed=7, weighted=True)
+    src = np.asarray(g_ref.src)[np.asarray(g_ref.valid)]
+    outdeg = np.bincount(src, minlength=g_ref.n)
+    # the bench's pick (highest out-degree), plus a vertex with no out-edge
+    return g_ref, g_port, np.argsort(outdeg)[::-1][:2].tolist() + [int(np.flatnonzero(outdeg == 0)[0])]
+
+
+@pytest.fixture(scope="module", params=["rmat", "corners"])
+def case(request):
+    g_ref, g_port, sources = rmat_graph() if request.param == "rmat" else corner_graph()
+    src = np.asarray(g_ref.src)[np.asarray(g_ref.valid)]
+    outdeg = np.bincount(src, minlength=g_ref.n).astype(np.int32)
+    return {
+        "jplan": ref_fast.analyze(g_ref),
+        "plan": port_fast.analyze(g_port),
+        "n": g_ref.n,
+        "sources": sources,
+        "outdeg": outdeg,
+    }
+
+
+def test_bfs_level_matches_reference(case):
+    plan, jplan, n = case["plan"], case["jplan"], case["n"]
+    for s in case["sources"]:
+        want = np.asarray(ref_fast.bfs_level(jplan, s, n))
+        got = port_fast.bfs_level(plan, s, n)
+        assert got.dtype.is_floating_point is False and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"source {s}")
+        assert got[s] == 0
+
+
+def test_sssp_matches_reference(case):
+    plan, jplan, n = case["plan"], case["jplan"], case["n"]
+    for s in case["sources"]:
+        want = np.asarray(ref_fast.sssp(jplan, s, n))
+        got = port_fast.sssp(plan, s, n)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"source {s}")
+        assert got[s] == 0
+        assert ((got.numpy() == STATE_BIG) == (want == STATE_BIG)).all()
+
+
+@pytest.mark.parametrize("tol,max_iters", [(0.0, 30), (1e-6, 100)])
+def test_pagerank_matches_reference(case, tol, max_iters):
+    plan, jplan, n = case["plan"], case["jplan"], case["n"]
+    outdeg = case["outdeg"]
+    want = np.asarray(ref_fast.pagerank(jplan, jnp.asarray(outdeg), n, tol=tol, max_iters=max_iters))
+    got = port_fast.pagerank(plan, outdeg, n, tol=tol, max_iters=max_iters)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    assert abs(float(got.sum()) - 1.0) < 1e-4
+
+
+def test_loop_path_on_cpu_calls_only_plain_versions(case):
+    plan, n = case["plan"], case["n"]
+    kernels.reset_counts()
+    port_fast.bfs_level(plan, case["sources"][0], n)
+    port_fast.sssp(plan, case["sources"][0], n)
+    port_fast.pagerank(plan, None, n, tol=0.0, max_iters=2)
+    plain = kernels.plain_counts()
+    assert all(v > 0 for v in plain.values()), plain
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_plain_versions_scope_selects_plain_code():
+    assert not kernels.plain_requested()
+    with kernels.plain_versions():
+        assert kernels.plain_requested()
+    assert not kernels.plain_requested()

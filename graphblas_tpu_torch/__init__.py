@@ -1,10 +1,13 @@
 """graphblas_tpu_torch: the PyTorch + CUDA port of graphblas_tpu.
 
-This slice carries the SpMV loop path: a graph is analyzed once into an
-``ops.fastspmv.SpmvPlan``, then ``models.fast`` runs PageRank, level BFS and
-SSSP on it.  On CUDA tensors the path runs through the hand-written Hopper
-kernels of ``kernels`` (built with nvcc on first use); on CPU tensors it runs
-their plain PyTorch versions.  The package imports torch and numpy only.
+It carries the SpMV engine: a graph is analyzed once into an
+``ops.fastspmv.SpmvPlan`` (saved and loaded with ``save_spmv_plan`` /
+``load_spmv_plan``), ``ops.fastspmv.spmv`` and ``spmv_masked`` multiply on
+it, and ``models.fast`` runs PageRank, level and parent BFS and SSSP.  The
+builders put their tensors on the card unless given ``device="cpu"``.  On
+CUDA tensors the engine runs through the hand-written Hopper kernels of
+``kernels`` (built with nvcc on first use); on CPU tensors it runs their
+plain PyTorch versions.  The package imports torch and numpy only.
 """
 
 from . import kernels, models, ops

@@ -13,7 +13,7 @@
 //     fill_src[p] < 0 gives 0 (the reference's "0 before the first flag").
 //
 // Bound on the card: memory traffic.  Per output slot one streamed 4-byte
-// index read, one random 4-byte read of x, one streamed 4-byte write (plus
+// index read, one random read of x, one streamed write (plus
 // one streamed aux read for the PageRank epilogue).  At e_pad = 2^23, x is
 // 32 MB and stays resident in the 50 MB L2, so the random reads mostly hit
 // L2 instead of HBM.
@@ -37,15 +37,22 @@ inline unsigned grid_for(int64_t n) {
   return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
-// 4-byte words: serves float32 and int32 alike (the fill value 0 has the
-// same bits in both).  idx[p] < 0 gives 0.
-__global__ void gather_words(const uint32_t* __restrict__ x, const int32_t* __restrict__ idx,
-                             uint32_t* __restrict__ out, int64_t n) {
+// Words of 1, 2 or 4 bytes: one kernel serves every dtype of that width
+// (the fill value 0 has the same bits in all of them), so 8- and 16-bit
+// channels move at their own width.  idx[p] < 0 gives 0.
+template <typename W>
+__global__ void gather_words(const W* __restrict__ x, const int32_t* __restrict__ idx,
+                             W* __restrict__ out, int64_t n) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
     const int32_t j = idx[p];
-    out[p] = j >= 0 ? __ldg(x + j) : 0u;
+    out[p] = j >= 0 ? __ldg(x + j) : (W)0;
   }
+}
+
+template <typename W>
+void launch_gather(const void* x, const void* idx, void* out, int64_t n, cudaStream_t s) {
+  gather_words<W><<<grid_for(n), kThreads, 0, s>>>((const W*)x, (const int32_t*)idx, (W*)out, n);
 }
 
 // PageRank postlude of models/fast.py: a = aux[p] is the out-degree signed
@@ -65,10 +72,17 @@ __global__ void gather_pagerank(const float* __restrict__ x, const int32_t* __re
 
 }  // namespace
 
-extern "C" int gb_gather32(const void* x, const void* idx, void* out, int64_t n, void* stream) {
+// elem_bytes: 1, 2 or 4.
+extern "C" int gb_gather(const void* x, const void* idx, void* out, int64_t n, int elem_bytes,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
-    gather_words<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, n);
+    switch (elem_bytes) {
+      case 1: launch_gather<uint8_t>(x, idx, out, n, s); break;
+      case 2: launch_gather<uint16_t>(x, idx, out, n, s); break;
+      case 4: launch_gather<uint32_t>(x, idx, out, n, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Kernels C and S: inclusive segmented scans with fused prologue/epilogue.
+// Kernels C and S, and the generic scan: inclusive segmented scans with
+// fused prologue/epilogue.
 //
 // Kernel C (segscan_contrib) replaces
 //   graphblas_tpu/ops/pallas_scan.py:segmented_scan_contrib (_fused_kernel):
@@ -12,11 +13,18 @@
 //   and the frontier; SSSP writes min(dist, scan) at last slots and
 //   STATE_BIG elsewhere (the donor invariant the loop route relies on), plus
 //   per-slot changed flags or one device "any changed" flag.
+// The generic scan (segscan) replaces
+//   graphblas_tpu/ops/pallas_scan.py:segmented_scan (_kernel, _scan_tile):
+//   an inclusive segmented fill/add/min/max scan of values alone.  8- and
+//   16-bit integers widen to int32 on load and are truncated on store, as
+//   the reference computes narrow channels in int32 (add wraps the same
+//   modulo 2^k; fill, min and max are unaffected).
 //
 // Bound on the card: memory traffic.  One scan streams x, w (4 B each) and
 // the valid/flag bytes in, and the result out; the state kernel adds the
-// is_last byte and the state word in, and a second word out.  There is no
-// arithmetic to speak of.
+// is_last byte and the state word in, and a second word out; the generic
+// scan reads only the values and the flag bytes.  There is no arithmetic to
+// speak of.
 //
 // Design: the TPU kernels carry the running (value, flag) pair from tile to
 // tile through a sequential grid with an SMEM carry.  Hopper blocks run in
@@ -52,7 +60,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // np.float32(3.4e38) / 4, as graphblas_tpu/ops/pallas_scan.py:STATE_BIG
 constexpr float kStateBig = 3.4e38f / 4.0f;
 
-enum { kAdd = 0, kMin = 1, kMax = 2 };
+enum { kAdd = 0, kMin = 1, kMax = 2, kFill = 3 };
 enum { kTimes = 0, kPlus = 1, kSecond = 2, kFirst = 3 };
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
@@ -60,12 +68,15 @@ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 template <typename T, int OP>
 struct Monoid;
 
+// fill: a slot with no flag of its own takes the earlier value (apply returns
+// a); combine keeps a flagged slot's own value.
 template <int OP>
 struct Monoid<float, OP> {
   static __device__ __forceinline__ float ident() {
-    return OP == kAdd ? 0.f : (OP == kMin ? CUDART_INF_F : -CUDART_INF_F);
+    return (OP == kAdd || OP == kFill) ? 0.f : (OP == kMin ? CUDART_INF_F : -CUDART_INF_F);
   }
   static __device__ __forceinline__ float apply(float a, float b) {
+    if (OP == kFill) return a;
     if (OP == kAdd) return __fadd_rn(a, b);
     if (OP == kMin) return b < a ? b : a;
     return b > a ? b : a;
@@ -75,9 +86,10 @@ struct Monoid<float, OP> {
 template <int OP>
 struct Monoid<int32_t, OP> {
   static __device__ __forceinline__ int32_t ident() {
-    return OP == kAdd ? 0 : (OP == kMin ? INT_MAX : INT_MIN);
+    return (OP == kAdd || OP == kFill) ? 0 : (OP == kMin ? INT_MAX : INT_MIN);
   }
   static __device__ __forceinline__ int32_t apply(int32_t a, int32_t b) {
+    if (OP == kFill) return a;
     if (OP == kAdd) return (int32_t)((uint32_t)a + (uint32_t)b);  // wraps like XLA
     if (OP == kMin) return b < a ? b : a;
     return b > a ? b : a;
@@ -145,6 +157,17 @@ struct StateLoad {
   }
 };
 
+// The generic scan: the value widened to the compute type, and its flag.
+template <typename In, typename T>
+struct ValueLoad {
+  const In* v;
+  const uint8_t* flags;
+  __device__ __forceinline__ void operator()(int64_t i, T, T& ov, int& of) const {
+    ov = (T)v[i];
+    of = flags[i] != 0;
+  }
+};
+
 template <typename T>
 struct AggLoad {
   const T* v;
@@ -157,11 +180,12 @@ struct AggLoad {
 
 // ---- stores: slot, scanned value -> outputs; return 1 if "changed" --------
 
-template <typename T>
-struct ContribStore {
-  T* out;
+// The scanned value in the IO type (narrow integers truncate modulo 2^k).
+template <typename Out, typename T>
+struct ValueStore {
+  Out* out;
   __device__ __forceinline__ int operator()(int64_t i, T v) const {
-    out[i] = v;
+    out[i] = (Out)v;
     return 0;
   }
   __device__ __forceinline__ void block_done(int) const {}
@@ -394,11 +418,25 @@ int contrib_typed(const void* x, const void* w, const void* valid, const void* f
                   int wrap_signed, double invalid, cudaStream_t s) {
   const ContribLoad<T> ld{(const T*)x, (const T*)w, (const uint8_t*)valid,
                           (const uint8_t*)flags, mul, wrap_bits, wrap_signed, (T)invalid};
-  const ContribStore<T> st{(T*)out};
+  const ValueStore<T, T> st{(T*)out};
   switch (op) {
     case kAdd: return run_scan<T, kAdd>(ld, st, n, agg_v, agg_f, carry, s);
     case kMin: return run_scan<T, kMin>(ld, st, n, agg_v, agg_f, carry, s);
     case kMax: return run_scan<T, kMax>(ld, st, n, agg_v, agg_f, carry, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename In, typename T>
+int scan_typed(const void* values, const void* flags, void* out, void* agg_v, void* agg_f,
+               void* carry, int64_t n, int op, cudaStream_t s) {
+  const ValueLoad<In, T> ld{(const In*)values, (const uint8_t*)flags};
+  const ValueStore<In, T> st{(In*)out};
+  switch (op) {
+    case kAdd: return run_scan<T, kAdd>(ld, st, n, agg_v, agg_f, carry, s);
+    case kMin: return run_scan<T, kMin>(ld, st, n, agg_v, agg_f, carry, s);
+    case kMax: return run_scan<T, kMax>(ld, st, n, agg_v, agg_f, carry, s);
+    case kFill: return run_scan<T, kFill>(ld, st, n, agg_v, agg_f, carry, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -441,4 +479,21 @@ extern "C" int gb_segscan_state(int mode, const void* x, const void* w, const vo
   const SsspStore st{(const uint8_t*)is_last, (const float*)state, (float*)out_state,
                      (float*)out_fr, (int32_t*)any_changed};
   return run_scan<float, kMin>(ld, st, n, agg_v, agg_f, carry, s);
+}
+
+// The generic scan.  op: 0 add, 1 min, 2 max, 3 fill.  dtype: 0 float32,
+// 1 int32, 2 int16, 3 int8, 4 uint8 (the narrow integers compute in int32).
+// Scratch: agg_v and carry hold ceil(n / tile) values of the compute type,
+// agg_f as many int32.
+extern "C" int gb_segscan(const void* values, const void* flags, void* out, void* agg_v,
+                          void* agg_f, void* carry, int64_t n, int dtype, int op, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return scan_typed<float, float>(values, flags, out, agg_v, agg_f, carry, n, op, s);
+    case 1: return scan_typed<int32_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
+    case 2: return scan_typed<int16_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
+    case 3: return scan_typed<int8_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
+    case 4: return scan_typed<uint8_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch version.
 
 Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py`` and
-``graphblas_tpu/ops/permute.py`` that the SpMV loop path reaches.
+``graphblas_tpu/ops/permute.py`` that the SpMV engine reaches.
 
 - ``gather``: Kernel G (``csrc/gather.cu``), ``out[p] = x[idx[p]]`` with the
-  ``none``, ``fill`` and ``pagerank`` epilogues.
+  ``none``, ``fill`` and ``pagerank`` epilogues; a route's index may be the
+  composition of a network with transpose and row-select stages.
 - ``segscan``: Kernels C and S (``csrc/segscan.cu``), the fused segmented
-  scans ``segscan_contrib`` and ``segscan_state``.
+  scans ``segscan_contrib`` and ``segscan_state``, and the generic scan
+  ``segscan``.
 
 A wrapper takes its plain version for CPU tensors, launches its kernel for
 CUDA tensors, and raises for anything else; it never falls back.  Each

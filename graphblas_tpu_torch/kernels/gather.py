@@ -1,16 +1,20 @@
 """Kernel G: ``out[p] = x[idx[p]]`` with a fused epilogue (``csrc/gather.cu``).
 
-Replaces two TPU kernels of the JAX package:
+Replaces four TPU kernels of the JAX package:
 
 - ``graphblas_tpu/ops/permute.py:_pallas_shuffle`` behind ``apply_plan``: the
   permutation network is composed into one int32 index array, applied here in
   one pass (epilogue ``none``, or ``pagerank`` for the fused postlude of
   ``graphblas_tpu/models/fast.py:514-517``);
+- ``graphblas_tpu/ops/permute.py:_pallas_rsel`` and ``_pallas_shuffle_then_t``,
+  the row-select and shuffle-then-transpose stages of the same networks: they
+  are part of the composed index too;
 - ``graphblas_tpu/ops/pallas_scan.py:segmented_fill_static``: with
   ``fill_src`` as the index, epilogue ``fill`` (``idx[p] < 0`` gives 0).
 
-Launch counts are kept per role: ``gather`` (routes, any epilogue but fill)
-and ``gather_fill`` (the segmented fill).
+Channels of 1, 2 and 4 bytes move at their own width (float32, int32,
+int16, int8, uint8).  Launch counts are kept per role: ``gather`` (routes,
+any epilogue but fill) and ``gather_fill`` (the segmented fill).
 """
 
 import torch
@@ -18,6 +22,7 @@ import torch
 from . import _build
 
 EPILOGUES = ("none", "fill", "pagerank")
+DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
 LAUNCHES = {"gather": 0, "gather_fill": 0}
 PLAIN_CALLS = {"gather": 0, "gather_fill": 0}
 
@@ -33,8 +38,8 @@ def _check(x, idx, epilogue, aux, scalar):
         raise ValueError("gather: x and idx must be 1-D")
     if idx.dtype != torch.int32:
         raise TypeError(f"gather: idx must be int32, got {idx.dtype}")
-    if x.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"gather: x must be float32 or int32, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"gather: x must be one of {DTYPES}, got {x.dtype}")
     if x.device != idx.device:
         raise ValueError(f"gather: x on {x.device} but idx on {idx.device}")
     if epilogue == "pagerank":
@@ -85,7 +90,7 @@ def gather(x, idx, epilogue="none", aux=None, scalar=None):
                 x.data_ptr(), idx.data_ptr(), aux.data_ptr(), scalar.data_ptr(), out.data_ptr(), n, stream
             )
         else:
-            rc = lib.gb_gather32(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, stream)
+            rc = lib.gb_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, x.element_size(), stream)
     _build.check(rc, "gather")
     LAUNCHES[_role(epilogue)] += 1
     return out

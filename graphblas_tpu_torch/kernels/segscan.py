@@ -1,4 +1,4 @@
-"""Kernels C and S: fused segmented scans (``csrc/segscan.cu``).
+"""Kernels C and S and the generic scan: segmented scans (``csrc/segscan.cu``).
 
 - ``segscan_contrib`` (Kernel C) replaces
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_contrib``: per-edge
@@ -27,8 +27,11 @@ STATE_BIG = np.float32(3.4e38) / 4
 
 OPS = ("add", "min", "max")
 MULS = ("times", "plus", "second", "first")
-LAUNCHES = {"segscan_contrib": 0, "segscan_state": 0}
-PLAIN_CALLS = {"segscan_contrib": 0, "segscan_state": 0}
+# the generic scan's ops and dtypes, in the order of gb_segscan's codes
+SCAN_OPS = ("add", "min", "max", "fill")
+SCAN_DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
+LAUNCHES = {"segscan_contrib": 0, "segscan_state": 0, "segscan": 0}
+PLAIN_CALLS = {"segscan_contrib": 0, "segscan_state": 0, "segscan": 0}
 
 
 def _ident(op, dtype):
@@ -56,8 +59,9 @@ def _combine(op, av, af, bv, bf):
 
 
 def _compute_dtype(dtype):
-    """8-bit channels compute in int32 (graphblas_tpu/ops/pallas_scan.py:112)."""
-    return torch.int32 if dtype.itemsize == 1 else dtype
+    """8- and 16-bit integer channels compute in int32
+    (graphblas_tpu/ops/pallas_scan.py:112 widens 8-bit ones)."""
+    return torch.int32 if dtype.itemsize < 4 and not dtype.is_floating_point else dtype
 
 
 def _scan_plain(op, v, f):
@@ -254,3 +258,48 @@ def segscan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=Fa
     _build.check(rc, "segscan_state")
     LAUNCHES["segscan_state"] += 1
     return out_state, (any_changed if fr_reduce else out_fr)
+
+
+def _check_scan(values, flags, op):
+    if values.dim() != 1:
+        raise ValueError("segscan: values must be 1-D")
+    n = values.shape[0]
+    if flags.dtype != torch.bool or flags.shape != (n,):
+        raise ValueError("segscan: flags must be bool of values' length")
+    if op not in SCAN_OPS:
+        raise ValueError(f"segscan: op {op!r} not in {SCAN_OPS}")
+    if values.dtype not in SCAN_DTYPES:
+        raise TypeError(f"segscan: values must be one of {SCAN_DTYPES}, got {values.dtype}")
+    if n % 128:
+        raise ValueError(f"segscan: length {n} is not a multiple of 128")
+    _same_device(values, flags)
+
+
+def segscan_plain(values, flags, op):
+    """Plain PyTorch version of the generic scan (any device)."""
+    _check_scan(values, flags, op)
+    PLAIN_CALLS["segscan"] += 1
+    io = values.dtype
+    return _scan_plain(op, values.to(_compute_dtype(io)), flags).to(io)
+
+
+def segscan(values, flags, op):
+    """Inclusive segmented scan: ``flags`` marks segment starts; op fill, add,
+    min or max; a fill before the first flag reads 0.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if values.device.type == "cpu":
+        return segscan_plain(values, flags, op)
+    _check_scan(values, flags, op)
+    _require_cuda("segscan", values, flags)
+    lib = _build.library()
+    n = values.numel()
+    out = torch.empty_like(values)
+    agg_v, agg_f, carry = _scratch(n, _compute_dtype(values.dtype), values.device)
+    with torch.cuda.device(values.device):
+        rc = lib.gb_segscan(
+            values.data_ptr(), flags.data_ptr(), out.data_ptr(), agg_v.data_ptr(), agg_f.data_ptr(),
+            carry.data_ptr(), n, SCAN_DTYPES.index(values.dtype), SCAN_OPS.index(op), _build.stream_of(values),
+        )
+    _build.check(rc, "segscan")
+    LAUNCHES["segscan"] += 1
+    return out

@@ -2,15 +2,15 @@
 
 Counterpart of ``graphblas_tpu/models/fast.py``: ``pagerank`` (fused
 epilogue), ``bfs_level`` and ``sssp`` (donor routing and the seed round), the
-default modes of the reference.  Each ``lax.while_loop`` becomes a Python
-loop that reads one device flag per round; everything runs on the device of
-the plan.
+default modes of the reference, and ``bfs_parent`` (one masked SpMV per
+level).  Each ``lax.while_loop`` becomes a Python loop that reads one device
+flag per round; everything runs on the device of the plan.
 """
 
 import numpy as np
 import torch
 
-from ..ops.fastspmv import _seg_fill, build_spmv_plan, spmv_state, state_to_n, state_to_start_post
+from ..ops.fastspmv import _seg_fill, build_spmv_plan, spmv_masked, spmv_state, state_to_n, state_to_start_post
 from ..ops.permute import apply_perm
 from ..ops.scan import STATE_BIG, segmented_scan_state
 
@@ -95,6 +95,28 @@ def bfs_level(plan, source, n):
     out = state_to_n(plan, levels, -1)
     out[source] = 0
     return out
+
+
+def bfs_parent(plan, source, n):
+    """Parent BFS over the any_secondi semiring: parents[v] is a vertex one
+    level nearer ``source`` with an edge to v (the largest such id, as ``any``
+    is max), the source is its own parent, unreachable vertices get -1
+    (int32).  Each level is one ``spmv_masked`` with the frontier as x's
+    structure; works on plans with and without endpoint routes."""
+    source = int(source)
+    dev = plan.device
+    parents = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    parents[source] = source
+    frontier = torch.zeros(n, dtype=torch.bool, device=dev)
+    frontier[source] = True
+    dummy_x = torch.zeros(n, dtype=torch.float32, device=dev)  # secondi reads no values
+    depth = 0
+    while depth < n and bool(frontier.any()):
+        cand, reached = spmv_masked(plan, dummy_x, frontier, add="any", mul="secondi")
+        frontier = reached & (parents < 0)
+        parents = torch.where(frontier, cand, parents)
+        depth += 1
+    return parents
 
 
 def sssp(plan, source, n):

@@ -15,7 +15,8 @@ class Graph:
     """Directed graph as padded COO tensors.
 
     n: number of nodes; src, dst: int32 (padded); weights: float32 or None;
-    valid: bool marking real edges; nedges: number of real edges."""
+    valid: bool marking real edges; nedges: number of real edges.  The
+    builders put the tensors on the card unless given ``device="cpu"``."""
 
     def __init__(self, n, src, dst, weights, valid, nedges):
         self.n = int(n)
@@ -26,7 +27,7 @@ class Graph:
         self.nedges = int(nedges)
 
     @classmethod
-    def from_arrays(cls, src, dst, weights=None, *, n=None, pad_to=None, device="cpu"):
+    def from_arrays(cls, src, dst, weights=None, *, n=None, pad_to=None, device="cuda"):
         src = np.asarray(src, np.int32)
         dst = np.asarray(dst, np.int32)
         if n is None:
@@ -49,7 +50,7 @@ class Graph:
         return f"Graph(n={self.n}, nedges={self.nedges}, padded={self.src.numel()}, device={self.src.device})"
 
 
-def rmat(scale, edge_factor=16, *, a=0.57, b=0.19, c=0.19, seed=0, weighted=False, device="cpu"):
+def rmat(scale, edge_factor=16, *, a=0.57, b=0.19, c=0.19, seed=0, weighted=False, device="cuda"):
     """Synthetic RMAT/Graph500-style power-law graph (GAP-style benchmark input)."""
     rng = np.random.default_rng(seed)
     n = 1 << scale

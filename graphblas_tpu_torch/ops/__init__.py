@@ -1,4 +1,4 @@
-"""Counterpart of ``graphblas_tpu/ops`` (the SpMV loop path's part).
+"""Counterpart of ``graphblas_tpu/ops`` (the SpMV engine's part).
 
 The engine: routes (``permute``), scans (``scan``), the analyzed-COO SpMV
 (``fastspmv``) and edge-list helpers (``edgewise``)."""

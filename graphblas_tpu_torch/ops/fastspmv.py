@@ -1,17 +1,25 @@
 """Analyzed-COO SpMV: a graph is analyzed once into an ``SpmvPlan``, then
 every SpMV is expand -> route -> multiply + segmented reduce.
 
-Counterpart of ``graphblas_tpu/ops/fastspmv.py`` (the v2 and loop-layout
-paths).  The slot layout is the reference's, slot for slot: ``e_pad`` from
-``padded_size``, the same stable sorts, state at dst-segment-last slots and
-the same donor slots.  The four routes (place, perm, collect, loop) are the
-int32 index arrays the reference computes before it builds its networks,
-applied by one gather each (``ops.permute.apply_perm``).
+Counterpart of ``graphblas_tpu/ops/fastspmv.py``.  The slot layout is the
+reference's, slot for slot: ``e_pad`` from ``padded_size``, the same stable
+sorts, state at dst-segment-last slots and the same donor slots.  The four
+routes (place, perm, collect, loop) are the int32 index arrays the reference
+computes before it builds its networks, applied by one gather each
+(``ops.permute.apply_perm``).
 
-Pipeline of one loop-layout step (``spmv_state``):
+A plan built with ``endpoints=True`` (v2) expands x through the place route
+and the static fill, and collects through the collect route; without
+endpoints, x is scattered at the src-segment starts and filled by the generic
+scan, and y is read at the dst-segment ends.  Pipeline of one loop-layout
+step (``spmv_state``, v2 plans):
 
     x at src-seg-start slots --fill--> x[src] per edge (src order)
       --perm route--> dst order --contrib scan--> totals at dst-seg-last slots
+
+Plans are saved in the port's own format (``save_spmv_plan`` /
+``load_spmv_plan``: the composed index arrays, not networks);
+``plan_from_reference`` reads the JAX package's plan files.
 """
 
 import numpy as np
@@ -19,7 +27,7 @@ import torch
 
 from ..native import counting_sort
 from .permute import apply_perm, compose_reference_network, padded_size
-from .scan import _ident, build_fill_tables, segmented_fill_static, segmented_scan_contrib
+from .scan import _ident, build_fill_tables, segmented_fill_static, segmented_scan, segmented_scan_contrib
 
 # tensors of a plan, in the order of graphblas_tpu/ops/fastspmv.py:SpmvPlan
 ARRAYS = (
@@ -46,9 +54,13 @@ ARRAYS = (
 
 class SpmvPlan:
     """Static layout and routes for y[d] = REDUCE over edges (s -> d) of
-    x[s] (*) w.  A plain holder of tensors; ``to(device)`` moves them."""
+    x[s] (*) w.  A plain holder of tensors; ``to(device)`` moves them.
 
-    def __init__(self, n, e_pad, arrays, *, k_iso_dangling=0, loop_donors=False, total=False):
+    ``order_dst`` (host numpy, or None) is the build's dst-order sort of the
+    padded edge list: it lets a saved plan take new weights of the same
+    pattern (``load_spmv_plan(path, w=...)``)."""
+
+    def __init__(self, n, e_pad, arrays, *, k_iso_dangling=0, loop_donors=False, total=False, order_dst=None):
         unknown = set(arrays) - set(ARRAYS)
         if unknown:
             raise ValueError(f"SpmvPlan: unknown arrays {sorted(unknown)}")
@@ -61,6 +73,7 @@ class SpmvPlan:
         # the loop route feeds no-state start slots from identity donor slots
         self.loop_donors = bool(loop_donors)
         self.total = bool(total)
+        self.order_dst = order_dst
 
     def arrays(self):
         """The plan's tensors by name (None entries left out)."""
@@ -75,6 +88,7 @@ class SpmvPlan:
         return SpmvPlan(
             self.n, self.e_pad, moved,
             k_iso_dangling=self.k_iso_dangling, loop_donors=self.loop_donors, total=self.total,
+            order_dst=self.order_dst,
         )
 
     def __repr__(self):
@@ -94,8 +108,17 @@ def _tensor(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _padded_weights(w, e_pad):
+    """Weights as float32 or int32 (as the reference casts them), zero-padded
+    to ``e_pad``."""
+    w_arr = np.asarray(w)
+    if w_arr.dtype not in (np.dtype(np.float32), np.dtype(np.int32)):
+        w_arr = w_arr.astype(np.float32)
+    return np.concatenate([w_arr, np.zeros(e_pad - len(w_arr), w_arr.dtype)])
+
+
 def build_spmv_plan(
-    src, dst, w=None, *, n=None, endpoints=True, pad_to=0, loop_net=True, total=False, device="cpu"
+    src, dst, w=None, *, n=None, endpoints=True, pad_to=0, loop_net=True, total=False, device="cuda"
 ):
     """Analyze a COO graph into an SpmvPlan (host-side numpy, once per graph),
     with its tensors on ``device``.
@@ -128,12 +151,7 @@ def build_spmv_plan(
         dst_p[e : e + len(stateless)] = stateless.astype(np.int32)
     valid_p = np.zeros(e_pad, bool)
     valid_p[:e] = True
-    w_p = None
-    if w is not None:
-        w_arr = np.asarray(w)
-        if w_arr.dtype not in (np.dtype(np.float32), np.dtype(np.int32)):
-            w_arr = w_arr.astype(np.float32)
-        w_p = np.concatenate([w_arr, np.zeros(pad, w_arr.dtype)])
+    w_p = _padded_weights(w, e_pad) if w is not None else None
 
     order_src = counting_sort(src_p, n)
     order_dst = counting_sort(dst_p, n)
@@ -217,6 +235,7 @@ def build_spmv_plan(
     plan = SpmvPlan(
         n, e_pad, tensors,
         k_iso_dangling=k_iso_dangling, loop_donors=bool(endpoints and loop_net), total=bool(total),
+        order_dst=order_dst,
     )
     return plan.to(device)
 
@@ -238,7 +257,7 @@ def _reference_stages(data, prefix):
     return stages
 
 
-def plan_from_reference(npz_or_dict, device="cpu"):
+def plan_from_reference(npz_or_dict, device="cuda"):
     """The port's SpmvPlan from the arrays the JAX package's
     ``save_spmv_plan`` writes (a path, an open npz, or a dict): each network
     is composed into its index array, ``fill_src`` is derived from
@@ -273,6 +292,48 @@ def plan_from_reference(npz_or_dict, device="cpu"):
     return plan.to(device)
 
 
+# the tag of the port's plan files (load_spmv_plan refuses other .npz files)
+PLAN_FORMAT = "graphblas_tpu_torch.SpmvPlan/1"
+
+
+def save_spmv_plan(plan, path):
+    """Write a plan to an ``.npz`` file in the port's format: its composed
+    index arrays and tables, its scalars, and ``order_dst`` when the plan
+    has it (then ``load_spmv_plan(path, w=...)`` can swap the weights)."""
+    arrays = {k: v.cpu().numpy() for k, v in plan.arrays().items()}
+    arrays["format"] = np.asarray(PLAN_FORMAT)
+    arrays["meta"] = np.asarray([plan.n, plan.e_pad, plan.k_iso_dangling, plan.loop_donors, plan.total], np.int64)
+    if plan.order_dst is not None:
+        arrays["order_dst"] = np.asarray(plan.order_dst)
+    np.savez(path, **arrays)
+
+
+def load_spmv_plan(path, w=None, device="cuda"):
+    """Read a plan that ``save_spmv_plan`` wrote, onto ``device``.  ``w``
+    (length e, the real edges in their original order) replaces the weight
+    channel: the routes are pattern analysis only, so one file serves every
+    matrix of the same pattern, as the reference's ``load_spmv_plan``."""
+    with np.load(path, allow_pickle=False) as data:
+        if "format" not in data or str(data["format"]) != PLAN_FORMAT:
+            raise ValueError(
+                f"{path}: not a {PLAN_FORMAT} file (a JAX-package plan file reads with plan_from_reference)"
+            )
+        n, e_pad, k_iso, donors, total = (int(v) for v in data["meta"])
+        arrays = {k: _tensor(data[k]) for k in ARRAYS if k in data}
+        order_dst = np.asarray(data["order_dst"]) if "order_dst" in data else None
+    if w is not None:
+        if order_dst is None:
+            raise ValueError(f"{path}: the plan was saved without order_dst, so its weights cannot be replaced")
+        e = int(arrays["valid_dst_order"].sum())
+        if len(w) != e:
+            raise ValueError(f"load_spmv_plan: w has {len(w)} entries, the plan has {e} edges")
+        arrays["w_dst_order"] = _tensor(_padded_weights(w, e_pad)[order_dst])
+    plan = SpmvPlan(
+        n, e_pad, arrays, k_iso_dangling=k_iso, loop_donors=bool(donors), total=bool(total), order_dst=order_dst
+    )
+    return plan.to(device)
+
+
 def _seg_fill(plan, placed):
     """Segmented forward fill across src segments through ``fill_src``."""
     return segmented_fill_static(placed, plan.fill_src)
@@ -297,16 +358,122 @@ def _collect_v2(scanned, plan, ident):
 _OPS = {"plus": "add", "min": "min", "max": "max", "any": "max"}
 
 
+def _dropping_scatter(e_pad, idx, values):
+    """``out[idx[i]] = values[i]`` into zeros of length ``e_pad``, where
+    ``idx[i] == e_pad`` drops the value (the reference's ``mode="drop"``)."""
+    out = torch.zeros(e_pad + 1, dtype=values.dtype, device=values.device)
+    out[idx] = values
+    return out[:e_pad]
+
+
+def _expand_src_sorted(x, indptr_src, e_pad):
+    """x (n,) -> x[src] for src-sorted edges: scatter x at the starts of the
+    non-empty src segments (an empty segment shares its start slot with the
+    next non-empty one and must not overwrite it), then a fill scan."""
+    starts = indptr_src[:-1].long()
+    idx = torch.where(indptr_src[1:] > indptr_src[:-1], starts, e_pad)
+    placed = _dropping_scatter(e_pad, idx, x)
+    seg_start = _dropping_scatter(e_pad, idx, torch.ones_like(x, dtype=torch.bool))
+    return segmented_scan(placed, seg_start, "fill")
+
+
+def _dst_segments(indptr_dst, e_pad):
+    """(starts, ends, seg_start) of the dst segments: ``seg_start`` flags
+    every segment's start slot (an empty segment's is its successor's)."""
+    starts = indptr_dst[:-1].long()
+    ends = indptr_dst[1:].long()
+    seg_start = _dropping_scatter(e_pad, starts, torch.ones_like(starts, dtype=torch.bool))
+    return starts, ends, seg_start
+
+
+def _read_ends(scanned, starts, ends, ident):
+    """y[d] = the scan at the last slot of dst segment d (``ends`` are one
+    past it); an empty segment reads ``ident``."""
+    fill = torch.tensor(ident, dtype=scanned.dtype, device=scanned.device)
+    padded = torch.cat([fill.reshape(1), scanned])
+    return torch.where(starts == ends, fill, padded[ends])
+
+
+def _expand_dst(x, plan):
+    """x (n,) -> x[src] of every edge, in dst order."""
+    if plan.place_idx is not None:
+        xe = _expand_v2(x, plan)
+    else:
+        xe = _expand_src_sorted(x, plan.indptr_src, plan.e_pad)
+    return apply_perm(xe, plan.perm_idx)
+
+
+def _dst_reduce(plan):
+    """(seg_start, read): the dst segment-start flags of the plan, and
+    ``read(scanned, ident)``, the per-destination totals of a dst-order scan,
+    ``ident`` where a destination has no valid in-edge (v2: the collect
+    route) or no in-edge at all (no endpoint routes: the segment ends)."""
+    if plan.place_idx is not None:
+        return plan.seg_start_dst, lambda scanned, ident: _collect_v2(scanned, plan, ident)
+    starts, ends, seg_start = _dst_segments(plan.indptr_dst, plan.e_pad)
+    return seg_start, lambda scanned, ident: _read_ends(scanned, starts, ends, ident)
+
+
 def spmv(plan, x, add="plus", mul="times"):
     """y[d] = ADD over edges (s -> d) of (x[s] MUL w).  add in {plus, min,
-    max}; mul in {times, plus, first, second}.  Needs the endpoint routes."""
-    if plan.place_idx is None:
-        raise NotImplementedError("spmv: only plans built with endpoints=True are supported")
-    xe = _expand_v2(x, plan)
-    xe_dst = apply_perm(xe, plan.perm_idx)
+    max}; mul in {times, plus, first, second}.  Destinations with no valid
+    in-edge get the ADD identity."""
+    xe_dst = _expand_dst(x, plan)
     w = plan.w_dst_order if mul in ("times", "plus", "second") else None
-    scanned = segmented_scan_contrib(xe_dst, w, plan.valid_dst_order, plan.seg_start_dst, _OPS[add], mul)
-    return _collect_v2(scanned, plan, _ident(_OPS[add], scanned.dtype))
+    seg_start, read = _dst_reduce(plan)
+    scanned = segmented_scan_contrib(xe_dst, w, plan.valid_dst_order, seg_start, _OPS[add], mul)
+    return read(scanned, _ident(_OPS[add], scanned.dtype))
+
+
+def spmv_masked(plan, x, xs, add="plus", mul="times", x_full=False, wrap=None):
+    """GraphBLAS-exact SpMV that honours x's structure; returns (values,
+    struct).
+
+    y[d] = ADD over edges (s -> d) with x[s] present of (x[s] MUL w); y has an
+    entry at d iff at least one such edge exists, and reads 0 elsewhere.  The
+    structure ``xs`` rides the value routes as a float32 channel unless
+    ``x_full`` says every x is present.  add in {plus, min, max, any} (any
+    is max); mul in {times, plus, first, second, pair, secondi}: ``pair``
+    counts the present edges in one scan, ``secondi`` contributes the src
+    vertex id (the any_secondi parent-BFS semiring).  ``wrap=(bits,
+    signed)`` truncates integer contributions (after the count, for pair).
+    Counterpart of ``graphblas_tpu/ops/fastspmv.py:spmv_masked``."""
+    # with every x present, a v2 plan knows the structure statically
+    static_struct = x_full and plan.place_idx is not None
+    op = _OPS[add]
+    seg_start, read = _dst_reduce(plan)
+    if x_full:
+        validc = plan.valid_dst_order
+    else:
+        validc = plan.valid_dst_order & (_expand_dst(xs.to(torch.float32), plan) > 0.5)
+
+    if mul == "pair":
+        # every present contribution is 1: one count scan gives values and structure
+        ycnt = read(segmented_scan(validc.to(x.dtype), seg_start, "add"), 0)
+        ys = plan.dst_nonempty if static_struct else ycnt > 0
+        zero = torch.zeros((), dtype=ycnt.dtype, device=ycnt.device)
+        yv = ycnt if add == "plus" else torch.where(ycnt > 0, torch.ones_like(zero), zero)
+        if wrap is not None and add == "plus":
+            bits, signed = wrap
+            lo = -(1 << (bits - 1)) if signed else 0
+            yv = (yv - lo) % (1 << bits) + lo
+        return torch.where(ys, yv, zero), ys
+
+    if mul == "secondi":
+        xe_dst, w, chan_mul = plan.src_dst_order, None, "first"
+    else:
+        xe_dst = _expand_dst(x, plan)
+        w = plan.w_dst_order if mul in ("times", "plus", "second") else None
+        if w is not None and w.dtype != xe_dst.dtype:
+            w = w.to(xe_dst.dtype)  # e.g. float weights under an integer x
+        chan_mul = mul
+    scanned = segmented_scan_contrib(xe_dst, w, validc, seg_start, op, chan_mul, wrap)
+    yv = read(scanned, _ident(op, scanned.dtype))
+    if static_struct:
+        ys = plan.dst_nonempty
+    else:
+        ys = read(segmented_scan(validc.to(torch.float32), seg_start, "add"), 0) > 0
+    return torch.where(ys, yv, torch.zeros((), dtype=yv.dtype, device=yv.device)), ys
 
 
 def spmv_state(plan, x_start, add, mul, w=None):

@@ -1,6 +1,6 @@
 """Segmented scans of the SpMV pipeline.
 
-Counterpart of ``graphblas_tpu/ops/pallas_scan.py``.  The three entry points
+Counterpart of ``graphblas_tpu/ops/pallas_scan.py``.  The four entry points
 keep the JAX signatures, less the interpret flag; the fill tables become one
 global int32 ``fill_src`` array.  Each dispatches to its Hopper kernel
 (``kernels.gather`` for the fill, ``kernels.segscan`` for the scans), or to
@@ -21,6 +21,14 @@ def build_fill_tables(flags):
     flags = np.asarray(flags, bool)
     marked = np.where(flags, np.arange(len(flags), dtype=np.int64), -1)
     return np.maximum.accumulate(marked).astype(np.int32) if len(flags) else np.zeros(0, np.int32)
+
+
+def segmented_scan(values, flags, op):
+    """Inclusive segmented scan over a flat array whose length is a multiple
+    of 128.  ``flags`` marks segment starts; op in {"fill", "add", "min",
+    "max"}; a fill before the first flag reads 0."""
+    fn = _segscan.segscan_plain if kernels.plain_requested() else _segscan.segscan
+    return fn(values, flags, op)
 
 
 def segmented_fill_static(values, fill_src):

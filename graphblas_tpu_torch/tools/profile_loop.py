@@ -1,8 +1,9 @@
 """Where the time of the loop algorithms goes on the card.
 
 Builds the bench graph (RMAT, default scale 19, edge factor 16, seed 5),
-warms each algorithm up, then traces PageRank (10 iterations), one level BFS
-and one SSSP from the vertex of highest out-degree under ``torch.profiler``.
+warms each algorithm up, then traces PageRank (10 iterations), one level BFS,
+one parent BFS and one SSSP from the vertex of highest out-degree under
+``torch.profiler``.
 Prints, per algorithm, the wall time, the summed device time of each kernel
 and the device's busy share (device kernel time / wall time); the full
 ``key_averages`` tables go to ``--out``.
@@ -37,14 +38,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    g = rmat(args.scale, args.ef, seed=args.seed, weighted=True)
-    plan = fast.analyze(g).to(dev)
-    src = g.src.numpy()[g.valid.numpy()]
+    g = rmat(args.scale, args.ef, seed=args.seed, weighted=True, device=dev)
+    plan = fast.analyze(g)
+    src = g.src.cpu().numpy()[g.valid.cpu().numpy()]
     n = g.n
     source = int(np.argmax(np.bincount(src, minlength=n)))
     runs = {
         "pagerank x10": lambda: fast.pagerank(plan, None, n, tol=0.0, max_iters=10),
         "bfs_level": lambda: fast.bfs_level(plan, source, n),
+        "bfs_parent": lambda: fast.bfs_parent(plan, source, n),
         "sssp": lambda: fast.sssp(plan, source, n),
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

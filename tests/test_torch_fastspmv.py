@@ -5,7 +5,12 @@ the JAX package's, on the CPU.
   ``save_spmv_plan`` -> ``plan_from_reference``, array by array.
 - Every route index array equals the reference network applied to arange.
 - One iteration of each loop algorithm matches slot for slot.
-- ``spmv`` matches for plus_times, min_plus and max_first.
+- ``spmv`` matches for plus_times, min_plus and max_first, on plans with and
+  without endpoint routes; without them, the expand (``_expand_src_sorted``)
+  and the reduce (against the reference's ``_segment_reduce_dst``) match
+  slot for slot too.
+- The port's plan files round-trip array by array, and ``load_spmv_plan(w=)``
+  gives the plan a fresh build with those weights gives.
 
 Exact everywhere except float add scans, which round in another order (the
 TPU kernel's lane/row tree against the plain log-step scan): those compare
@@ -26,7 +31,7 @@ from graphblas_tpu_torch.models import fast as port_fast
 from graphblas_tpu_torch.models import graph as port_graph
 from graphblas_tpu_torch.ops import fastspmv as port_fs
 from graphblas_tpu_torch.ops.permute import apply_perm
-from graphblas_tpu_torch.ops.scan import segmented_scan_contrib, segmented_scan_state
+from graphblas_tpu_torch.ops.scan import segmented_scan, segmented_scan_contrib, segmented_scan_state
 
 
 def corner_graph():
@@ -43,7 +48,7 @@ def corner_graph():
     sources = [int(np.bincount(src, minlength=n).argmax()), 80, 81, 82, 83]
     return (
         ref_graph.Graph.from_arrays(src, dst, w, n=n),
-        port_graph.Graph.from_arrays(src, dst, w, n=n),
+        port_graph.Graph.from_arrays(src, dst, w, n=n, device="cpu"),
         sources,
     )
 
@@ -52,7 +57,7 @@ def rmat_graph():
     """RMAT scale 10, edge factor 20: e_pad = 2 * 128^2, so the reference
     networks carry T and row-select stages."""
     g_ref = ref_graph.rmat(10, 20, seed=3, weighted=True)
-    g_port = port_graph.rmat(10, 20, seed=3, weighted=True)
+    g_port = port_graph.rmat(10, 20, seed=3, weighted=True, device="cpu")
     src = np.asarray(g_ref.src)[np.asarray(g_ref.valid)]
     outdeg = np.bincount(src, minlength=g_ref.n)
     return g_ref, g_port, np.argsort(outdeg)[::-1][:3].tolist()
@@ -68,7 +73,7 @@ def case(request, tmp_path_factory):
         "g_ref": g_ref,
         "g_port": g_port,
         "jplan": jplan,
-        "carried": port_fs.plan_from_reference(str(path)),
+        "carried": port_fs.plan_from_reference(str(path), device="cpu"),
         "plan": port_fast.analyze(g_port),
         "sources": sources,
     }
@@ -84,7 +89,7 @@ def _t(a):
 
 def test_rmat_graphs_are_identical():
     g_ref = ref_graph.rmat(8, 16, seed=5, weighted=True)
-    g_port = port_graph.rmat(8, 16, seed=5, weighted=True)
+    g_port = port_graph.rmat(8, 16, seed=5, weighted=True, device="cpu")
     for name in ("src", "dst", "weights", "valid"):
         np.testing.assert_array_equal(_np(getattr(g_port, name)), np.asarray(getattr(g_ref, name)))
     assert (g_port.n, g_port.nedges) == (g_ref.n, g_ref.nedges)
@@ -116,8 +121,8 @@ def test_build_options_match_reference(tmp_path, options):
     src, dst, w = (np.asarray(a)[valid] for a in (g_ref.src, g_ref.dst, g_ref.weights))
     jplan = ref_fs.build_spmv_plan(src, dst, w, n=g_ref.n, **options)
     ref_fs.save_spmv_plan(jplan, str(tmp_path / "plan.npz"))
-    carried = port_fs.plan_from_reference(str(tmp_path / "plan.npz"))
-    plan = port_fs.build_spmv_plan(src, dst, w, n=g_port.n, **options)
+    carried = port_fs.plan_from_reference(str(tmp_path / "plan.npz"), device="cpu")
+    plan = port_fs.build_spmv_plan(src, dst, w, n=g_port.n, device="cpu", **options)
     assert (plan.e_pad, plan.total, plan.loop_donors) == (jplan.e_pad, jplan.total, jplan.loop_donors)
     assert plan.k_iso_dangling == jplan.k_iso_dangling
     assert set(plan.arrays()) >= set(carried.arrays())
@@ -238,3 +243,144 @@ def test_plan_moves_between_devices_whole(case):
     assert moved.device.type == "meta"
     assert all(t.device.type == "meta" for t in moved.arrays().values())
     assert (moved.n, moved.e_pad, moved.k_iso_dangling) == (plan.n, plan.e_pad, plan.k_iso_dangling)
+
+
+def _edges(g_ref):
+    valid = np.asarray(g_ref.valid)
+    return tuple(np.asarray(a)[valid] for a in (g_ref.src, g_ref.dst, g_ref.weights))
+
+
+def _no_pad_graph():
+    """128 edges over 100 vertices, so e_pad = 128 has no pad edge: the
+    last vertices have no in-edge and their dst segments start at e_pad."""
+    rng = np.random.default_rng(21)
+    src = rng.integers(0, 100, 128).astype(np.int32)
+    dst = rng.integers(0, 90, 128).astype(np.int32)
+    return src, dst, (rng.random(128) * 9 + 1).astype(np.float32), 100
+
+
+@pytest.fixture(scope="module", params=["rmat", "corners", "no_pad"])
+def no_endpoints(request):
+    """Reference and port plans built with endpoints=False."""
+    if request.param == "no_pad":
+        src, dst, w, n = _no_pad_graph()
+    else:
+        g_ref = rmat_graph()[0] if request.param == "rmat" else corner_graph()[0]
+        (src, dst, w), n = _edges(g_ref), g_ref.n
+    jplan = ref_fs.build_spmv_plan(src, dst, w, n=n, endpoints=False)
+    plan = port_fs.build_spmv_plan(src, dst, w, n=n, endpoints=False, device="cpu")
+    v2 = port_fs.build_spmv_plan(src, dst, w, n=n, device="cpu")
+    assert plan.place_idx is None and jplan.place_plan is None
+    return {"jplan": jplan, "plan": plan, "v2": v2}
+
+
+def test_expand_src_sorted_matches_reference(no_endpoints):
+    plan, jplan = no_endpoints["plan"], no_endpoints["jplan"]
+    ip = _np(plan.indptr_src)
+    assert (np.diff(ip) == 0).any()  # empty src segments share their start slot
+    x = np.random.default_rng(13).random(plan.n).astype(np.float32)
+    for dt in (np.float32, np.int32, np.int8):
+        xd = (x * 100).astype(dt) if dt != np.float32 else x
+        want = ref_fs._expand_src_sorted(jnp.asarray(xd), jplan.indptr_src, jplan.e_pad)
+        got = port_fs._expand_src_sorted(_t(xd), plan.indptr_src, plan.e_pad)
+        assert got.dtype == _t(xd).dtype
+        _same(got, want, f"expand {dt.__name__}")
+
+
+@pytest.mark.parametrize("kind", ["plus", "min", "max"])
+def test_dst_reduce_matches_reference_segment_reduce(no_endpoints, kind):
+    """The non-endpoint reduce of spmv (a scan over the dst segments, read at
+    their ends) against the reference's ``_segment_reduce_dst``."""
+    plan, jplan = no_endpoints["plan"], no_endpoints["jplan"]
+    seg_start, read = port_fs._dst_reduce(plan)
+    rng = np.random.default_rng(14)
+    for contrib in (rng.random(plan.e_pad).astype(np.float32), rng.integers(-50, 50, plan.e_pad).astype(np.int32)):
+        want = ref_fs._segment_reduce_dst(jnp.asarray(contrib), jplan.indptr_dst, kind)
+        op = port_fs._OPS[kind]
+        got = read(segmented_scan(_t(contrib), seg_start, op), port_fs._ident(op, _t(contrib).dtype))
+        float_add = kind == "plus" and contrib.dtype == np.float32
+        _same(got, want, f"segment reduce {kind}", rtol=1e-6 if float_add else None)
+
+
+@pytest.mark.parametrize("add,mul", [("plus", "times"), ("min", "plus"), ("max", "first"), ("max", "second")])
+def test_spmv_without_endpoints_matches_reference(no_endpoints, add, mul):
+    """Against the reference's non-v2 path, and exactly against the port's v2
+    plan: both give the same dst-order slots to the same scan."""
+    plan, jplan = no_endpoints["plan"], no_endpoints["jplan"]
+    x = np.random.default_rng(15).random(plan.n).astype(np.float32)
+    want = ref_fs.spmv(jplan, jnp.asarray(x), add, mul)
+    got = port_fs.spmv(plan, _t(x), add, mul)
+    _same(got, want, f"spmv {add}_{mul}", rtol=1e-5 if add == "plus" else None)
+    _same(got, _np(port_fs.spmv(no_endpoints["v2"], _t(x), add, mul)), "non-v2 = v2")
+
+
+def test_plan_file_round_trip(case, tmp_path):
+    plan = case["plan"]
+    path = str(tmp_path / "port_plan.npz")
+    port_fs.save_spmv_plan(plan, path)
+    loaded = port_fs.load_spmv_plan(path, device="cpu")
+    assert (loaded.n, loaded.e_pad, loaded.k_iso_dangling, loaded.loop_donors, loaded.total) == (
+        plan.n, plan.e_pad, plan.k_iso_dangling, plan.loop_donors, plan.total,
+    )
+    assert set(loaded.arrays()) == set(plan.arrays())
+    for name, a in plan.arrays().items():
+        b = getattr(loaded, name)
+        assert a.dtype == b.dtype and a.device == b.device, name
+        np.testing.assert_array_equal(_np(b), _np(a), err_msg=name)
+    np.testing.assert_array_equal(loaded.order_dst, plan.order_dst)
+
+
+@pytest.mark.parametrize("options", [{}, {"endpoints": False}, {"total": True}], ids=["v2", "no_endpoints", "total"])
+def test_load_plan_with_new_weights_equals_fresh_build(tmp_path, options):
+    g_ref, _, _ = corner_graph()
+    src, dst, w = _edges(g_ref)
+    plan = port_fs.build_spmv_plan(src, dst, w, n=g_ref.n, device="cpu", **options)
+    path = str(tmp_path / "plan.npz")
+    port_fs.save_spmv_plan(plan, path)
+    w2 = (np.random.default_rng(16).random(len(src)) * 5).astype(np.float32)
+    loaded = port_fs.load_spmv_plan(path, w=w2, device="cpu")
+    fresh = port_fs.build_spmv_plan(src, dst, w2, n=g_ref.n, device="cpu", **options)
+    assert set(loaded.arrays()) == set(fresh.arrays())
+    for name, a in fresh.arrays().items():
+        np.testing.assert_array_equal(_np(getattr(loaded, name)), _np(a), err_msg=name)
+    # integer weights stay int32, as the builder keeps them
+    w3 = np.arange(len(src), dtype=np.int32)
+    assert port_fs.load_spmv_plan(path, w=w3, device="cpu").w_dst_order.dtype == torch.int32
+    with pytest.raises(ValueError, match="edges"):
+        port_fs.load_spmv_plan(path, w=w2[:-1], device="cpu")
+
+
+def test_load_plan_refuses_other_files(case, tmp_path):
+    jpath = str(tmp_path / "jax_plan.npz")
+    ref_fs.save_spmv_plan(case["jplan"], jpath)
+    with pytest.raises(ValueError, match="plan_from_reference"):
+        port_fs.load_spmv_plan(jpath, device="cpu")
+    plan = case["plan"]
+    bare = port_fs.SpmvPlan(plan.n, plan.e_pad, plan.arrays())  # no order_dst
+    path = str(tmp_path / "bare.npz")
+    port_fs.save_spmv_plan(bare, path)
+    with pytest.raises(ValueError, match="order_dst"):
+        port_fs.load_spmv_plan(path, w=np.ones(3, np.float32), device="cpu")
+
+
+def test_builders_default_to_the_card(tmp_path):
+    """rmat, Graph.from_arrays, build_spmv_plan, plan_from_reference and
+    load_spmv_plan put their tensors on the card unless told otherwise; with
+    no card, they raise as PyTorch does (nothing falls back to the CPU)."""
+    src, dst = np.array([0, 1, 2], np.int32), np.array([1, 2, 0], np.int32)
+    port_fs.save_spmv_plan(port_fs.build_spmv_plan(src, dst, device="cpu"), str(tmp_path / "port.npz"))
+    ref_fs.save_spmv_plan(ref_fs.build_spmv_plan(src, dst), str(tmp_path / "jax.npz"))
+    calls = [
+        lambda: port_graph.rmat(4, 4, seed=1).src,
+        lambda: port_graph.Graph.from_arrays(src, dst).src,
+        lambda: port_fs.build_spmv_plan(src, dst).perm_idx,
+        lambda: port_fs.plan_from_reference(str(tmp_path / "jax.npz")).perm_idx,
+        lambda: port_fs.load_spmv_plan(str(tmp_path / "port.npz")).perm_idx,
+    ]
+    if torch.cuda.is_available():
+        for call in calls:
+            assert call().device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()

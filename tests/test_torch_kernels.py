@@ -28,7 +28,7 @@ from graphblas_tpu_torch.ops import permute as tp
 from graphblas_tpu_torch.ops import scan as ts
 
 N = 128 * 16  # one JAX tile; the plain scan has no tiles to carry between
-DTYPES = {"f32": np.float32, "i32": np.int32, "i8": np.int8}
+DTYPES = {"f32": np.float32, "i32": np.int32, "i16": np.int16, "i8": np.int8, "u8": np.uint8}
 
 
 def _inputs(seed, dt, n=N, positive=False):
@@ -79,6 +79,63 @@ def test_fill_static_matches_reference(ref, dt):
     _assert_equal(got, want)
     assert (fill_src[:7] == -1).all()  # "0 before the first flag"
     assert (got[:7] == 0).all()
+
+
+# ---- generic scan ---------------------------------------------------------
+
+
+def _scan_inputs(seed, dt, n):
+    rng = np.random.default_rng(seed)
+    if dt == "f32":
+        v = rng.random(n).astype(np.float32)  # positive: float add compares by rtol
+    elif dt == "i32":
+        v = rng.integers(-(2**30), 2**30, n).astype(np.int32)  # sums wrap at 32 bits
+    else:
+        info = np.iinfo(DTYPES[dt])
+        v = rng.integers(info.min, int(info.max) + 1, n).astype(DTYPES[dt])
+    flags = rng.random(n) < 0.125
+    flags[:7] = False  # a prefix before the first segment start
+    return v, flags
+
+
+def _check_scan(got, want, dt, op):
+    assert got.dtype == torch.from_numpy(np.zeros(1, DTYPES[dt])).dtype
+    if dt == "f32" and op == "add":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    else:
+        _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["fill", "add", "min", "max"])
+@pytest.mark.parametrize("dt", ["f32", "i32", "i16", "i8", "u8"])
+def test_segmented_scan_matches_reference(ref, dt, op):
+    v, flags = _scan_inputs(11, dt, N)
+    want = ref.scan.segmented_scan(ref.jnp.asarray(v), ref.jnp.asarray(flags), op, interpret=True)
+    got = ts.segmented_scan(_t(v), _t(flags), op)
+    _check_scan(got, want, dt, op)
+    if op == "fill":
+        assert (got[:7] == 0).all()  # "0 before the first flag"
+
+
+@pytest.mark.parametrize("dt,op", [("f32", "fill"), ("f32", "add"), ("i8", "add"), ("f32", "min")])
+def test_segmented_scan_across_reference_tiles(ref, dt, op):
+    """Two full 1024-row reference tiles and a ragged third, so the reference
+    carries across tiles and pads its last one."""
+    v, flags = _scan_inputs(12, dt, 128 * (2 * 1024 + 5))
+    want = ref.scan.segmented_scan(ref.jnp.asarray(v), ref.jnp.asarray(flags), op, interpret=True)
+    _check_scan(ts.segmented_scan(_t(v), _t(flags), op), want, dt, op)
+
+
+def test_segmented_scan_rejects_what_it_does_not_take():
+    v, flags = _scan_inputs(13, "f32", N)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ts.segmented_scan(_t(v[:100]), _t(flags[:100]), "add")
+    with pytest.raises(TypeError):
+        ts.segmented_scan(_t(v.astype(np.float64)), _t(flags), "add")
+    with pytest.raises(ValueError):
+        ts.segmented_scan(_t(v), _t(flags), "mul")
+    with pytest.raises(ValueError):
+        ts.segmented_scan(_t(v), _t(flags.astype(np.int8)), "add")
 
 
 # ---- contrib scan (Kernel C) ----------------------------------------------
@@ -179,6 +236,39 @@ def network(ref):
     return perm, plan
 
 
+def synthetic_network(e_pad, seed):
+    """S -> T(level) -> RSEL(m = 4) -> S with random tables, for
+    e_pad = 4 * 128^(level + 2): the stages of the fused shuffle-transpose and
+    the row-select kernels, as chip_smoke.py builds it at e_pad = 2^23."""
+    rng = np.random.default_rng(seed)
+    rows, m = e_pad // 128, 4
+    level = round(np.log(e_pad // (4 * 128 * 128)) / np.log(128))
+    assert 4 * 128 ** (level + 2) == e_pad
+
+    def lanes():
+        return np.argsort(rng.random((rows, 128)), axis=1).astype(np.int32)
+
+    src_top = np.argsort(rng.random((m, e_pad // (128 * m), 128)), axis=0).astype(np.int32)
+    return [("S", lanes()), ("T", level), ("RSEL", src_top, m), ("S", lanes())]
+
+
+@pytest.mark.parametrize("which", ["router", "synthetic"])
+def test_apply_network_plain_matches_apply_plan(ref, network, which):
+    """Stage by stage against the reference's non-Pallas apply_plan, on a
+    routed network (S, T and row-select stages) and on the synthetic one."""
+    jnp = ref.jnp
+    if which == "router":
+        _, plan = network
+    else:
+        plan = ref.perm.PermutePlan(4 * 128 * 128, synthetic_network(4 * 128 * 128, 22))
+    x = np.random.default_rng(23).random(plan.n).astype(np.float32)
+    want = ref.perm.apply_plan(jnp.asarray(x), plan, pallas=False)
+    got = tp.apply_network_plain(_t(x), plan.stages)
+    _assert_equal(got, want)
+    idx = _t(tp.compose_reference_network(plan.stages, plan.n))
+    _assert_equal(kg.gather(_t(x), idx), want)
+
+
 def test_compose_reference_network_is_the_permutation(ref, network):
     perm, plan = network
     kinds = {s[0] for s in plan.stages}
@@ -219,7 +309,11 @@ def test_wrappers_take_plain_versions_on_cpu_and_count():
     kernels.reset_counts()
     ts.segmented_fill_static(_t(x), _t(ts.build_fill_tables(flags)))
     ts.segmented_scan_contrib(_t(x), _t(w), _t(valid), _t(flags), "max", "times")
-    assert kernels.plain_counts() == {"gather": 0, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0}
+    ts.segmented_scan(_t(x), _t(flags), "min")
+    kg.gather(_t(x), _t(np.arange(N, dtype=np.int32)))
+    assert kernels.plain_counts() == {
+        "gather": 1, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
+    }
     assert sum(kernels.launch_counts().values()) == 0
     kernels.reset_counts()
     assert sum(kernels.plain_counts().values()) == 0
@@ -230,6 +324,8 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     idx = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         kg.gather(x, idx)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ks.segscan(torch.zeros(128, device="meta"), torch.zeros(128, dtype=torch.bool, device="meta"), "add")
 
 
 # ---- CUDA half: kernel against plain version on the card ------------------
@@ -247,11 +343,14 @@ def _on(dev, *arrays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("epilogue", ["none", "fill", "pagerank"])
-def test_cuda_gather_matches_plain(cuda, epilogue):
+@pytest.mark.parametrize(
+    "epilogue,dt",
+    [("none", "f32"), ("fill", "f32"), ("pagerank", "f32"), ("none", "i16"), ("none", "i8"), ("fill", "i8")],
+)
+def test_cuda_gather_matches_plain(cuda, epilogue, dt):
     rng = np.random.default_rng(8)
     n = 1 << 20
-    x = rng.random(n).astype(np.float32)
+    x = rng.random(n).astype(np.float32) if dt == "f32" else _scan_inputs(8, dt, n)[0]
     if epilogue == "fill":
         idx = ts.build_fill_tables(rng.random(n) < 0.06)
     else:
@@ -293,3 +392,31 @@ def test_cuda_scan_state_matches_plain(cuda, mode, fr_reduce):
     want = ks.segscan_state_plain(mode, *args, 3, fr_reduce)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["fill", "add", "min", "max"])
+@pytest.mark.parametrize("dt", ["f32", "i32", "i16", "i8", "u8"])
+@pytest.mark.parametrize("n", [128, 2048, (1 << 20) + 128 * 3])  # one slot row, one block, a ragged last block
+def test_cuda_segscan_matches_plain(cuda, dt, op, n):
+    v, flags = _scan_inputs(24, dt, n)
+    vd, fd = _on(cuda, v, flags)
+    got = ks.segscan(vd, fd, op)
+    want = ks.segscan_plain(vd, fd, op)
+    torch.cuda.synchronize()
+    if dt == "f32" and op == "add":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_network_matches_plain(cuda):
+    e_pad = 4 * 128**3
+    stages = synthetic_network(e_pad, 25)
+    x = torch.rand(e_pad, device=cuda)
+    idx = torch.from_numpy(tp.compose_reference_network(stages, e_pad)).to(cuda)
+    got = kg.gather(x, idx)
+    want = tp.apply_network_plain(x, stages)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (graphblas_tpu_torch) on one GPU.
 
-Drives the port's main path once, on the card, at the size bench.py uses:
-RMAT scale 19, edge factor 16, seed 5 (8.4 M edges, e_pad = 2^23).  The graph
-is analyzed into an SpmvPlan (and a second one without endpoint routes), then
-PageRank (50 iterations), level BFS and parent BFS from the 4 sources of
-highest out-degree, SSSP from the first of them, SpMV and three masked SpMVs
-on both plans and a parent BFS on the second run through the hand-written
-CUDA kernels.  One line per
+Drives the port's paths once each, on the card, at the sizes bench.py uses.
+The SpMV path: RMAT scale 19, edge factor 16, seed 5 (8.4 M edges, e_pad =
+2^23) is analyzed into an SpmvPlan (and a second one without endpoint
+routes), then PageRank (50 iterations), level BFS and parent BFS from the 4
+sources of highest out-degree, SSSP from the first of them, SpMV and three
+masked SpMVs on both plans and a parent BFS on the second.  The masked-SpGEMM
+path: bench.py's triangle-count workload (2^16 vertices in cliques of 64 plus
+2^17 random edges; C(L.S) = L plus_pair U), with and without bricks, and an
+RMAT scale-14 lower triangle (plus_times, min_plus).  The tropical path:
+min_plus on 2048^2 operands, as bench.py.  The roofline tool's run, with the
+compare probe.  All through the hand-written CUDA kernels.  One line per
 check:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -15,21 +19,28 @@ check:
   3. kernels: G (routes, fill, a network with T and row-select stages), C
      (add, min, max), S (BFS, SSSP) and the generic scan (fill, add, min,
      max; int32 and int8 add) against their plain PyTorch versions at e_pad,
-     with both times and, for the routes, one PyTorch indexing call's
+     with both times and, for the routes, one PyTorch indexing call's;
+     eqjoin on the SpGEMM workload's largest bucket, the tropical matmul at
+     2048^3 and the compare probe against theirs
   4. graph and plans: host build times, plan sizes on the device
   5. algorithms: kernel path against the plain path on the same card; SpMV,
      masked SpMV and parent BFS without endpoint routes against the same with
      them
   6. oracle: scipy in float64 (PageRank, BFS levels, Dijkstra) and numpy
      parents from the scipy levels
-  7. launch counts of the main path (every kernel > 0, every plain version 0)
-  8. times in bench.py's definitions (GTEPS), parent BFS in the level-BFS one
+  6s. masked SpGEMM: kernel path against the plain path; triangle counts
+     against scipy; the RMAT run against scipy float64 and a numpy oracle
+  6t. tropical matmul: kernel path against the plain path and numpy
+  6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
+  7. launch counts of each path (every kernel > 0, every plain version 0)
+  8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
+     level-BFS one
 
 then one JSON line of per-kernel numbers (time, bound, launches), and last
 the status line {"ok": true, "device": {...}}.  Any failure raises: the exit code is then not
 0 and the status line is not printed.  Without a CUDA device it fails at once.
 
-    python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5]
+    python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5] [--tc-log2 16] [--spgemm-scale 14] [--mt 2048]
 """
 
 import argparse
@@ -50,11 +61,18 @@ KERNELS = {
     "segscan_contrib": ("graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:418"),
     "segscan_state": ("graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:219"),
     "segscan": ("graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:291"),
+    "eqjoin": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/ops/pallas_eqjoin.py:126"),
+    "tropical_mxm": ("graphblas_tpu_torch/csrc/tropical.cu", "graphblas_tpu/ops/pallas_mxm.py:74"),
+    "compare_probe": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/tools/profile_spgemm_roofline.py:161"),
 }
+# the path whose run counts a kernel's launches (the rest: the SpMV path)
+PATH_OF = {"eqjoin": "spgemm", "tropical_mxm": "tropical", "compare_probe": "roofline"}
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
-# memory rate, operations over the float32 rate
+# memory rate, operations over the rate of their kind
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 67e12  # float32, an FMA counted as two
+F32_LANE_OPS_PER_S = 132 * 128 * 1.98e9  # float32 instructions (add, min, max, compare)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # int32 instructions (the eqjoin key compares)
 
 
 def say(phase, msg):
@@ -103,9 +121,9 @@ def nbytes(ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the memory and the arithmetic time."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
@@ -132,12 +150,14 @@ def synthetic_network(np, e_pad, seed):
     return stages + [("S", lanes())]
 
 
-def check_kernels(torch, e_pad, dev):
+def check_kernels(torch, e_pad, dev, tc_plan, mt):
     """Phase 3: each kernel against its plain version on the card."""
     import numpy as np
 
+    from graphblas_tpu_torch.kernels import eqjoin as ke
     from graphblas_tpu_torch.kernels import gather as kg
     from graphblas_tpu_torch.kernels import segscan as ks
+    from graphblas_tpu_torch.kernels import tropical as kt
     from graphblas_tpu_torch.ops.permute import apply_network_plain, compose_reference_network
     from graphblas_tpu_torch.ops.scan import STATE_BIG, build_fill_tables
 
@@ -158,10 +178,14 @@ def check_kernels(torch, e_pad, dev):
     c = torch.tensor(0.37, device=dev)
     results = {}
 
-    def record(name, label, kern, plain, inputs, ops_per_slot, rtol=None, library=None, reps=20):
+    def record(
+        name, label, kern, plain, inputs, ops_per_slot, rtol=None, library=None, reps=20, n_ops=None,
+        ops_per_s=F32_OPS_PER_S,
+    ):
         """Check the kernel against its plain version and time both (and the
         PyTorch call ``library``); the bound counts ``inputs`` read once,
-        the outputs written once and ``ops_per_slot`` float32 operations."""
+        the outputs written once and ``ops_per_slot`` float32 operations per
+        output slot (or ``n_ops`` operations at ``ops_per_s``)."""
         got, want = kern(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
@@ -176,7 +200,8 @@ def check_kernels(torch, e_pad, dev):
         ms = cuda_ms(torch, kern, reps)
         plain_ms = cuda_ms(torch, plain, 3)
         library_ms = cuda_ms(torch, library, reps) if library is not None else None
-        bound_ms, bound_by = bound(nbytes(inputs) + nbytes(outs), outs[0].numel() * ops_per_slot)
+        ops = outs[0].numel() * ops_per_slot if n_ops is None else n_ops
+        bound_ms, bound_by = bound(nbytes(inputs) + nbytes(outs), ops, ops_per_s)
         tol = "bit-exact" if rtol is None else f"rtol {rtol}"
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         say(
@@ -251,6 +276,37 @@ def check_kernels(torch, e_pad, dev):
     v8 = torch.randint(-128, 128, (e_pad,), generator=gen, device=dev, dtype=torch.int8)
     for label, v in (("int32 add (wraps)", v32), ("int8 add (wraps)", v8)):
         record("segscan", label, lambda: ks.segscan(v, flags, "add"), lambda: ks.segscan_plain(v, flags, "add"), (v, flags), 1)
+
+    # eqjoin on the SpGEMM workload's own largest bucket (its keys; random
+    # values in [0.5, 1.5), the workload's are all 1): plus_pair first
+    big = max(tc_plan.buckets, key=lambda b: b[0][0] * b[0][1] * b[3].shape[1])
+    (Wa, Wb), akT, bkT = big[0], big[3], big[5]
+    T = akT.shape[1]
+    avT, bvT = rand(*akT.shape) + 0.5, rand(*bkT.shape) + 0.5
+    for add, mul in (("plus", "pair"), ("plus", "times"), ("min", "plus"), ("max", "first")):
+        ins = (akT, avT if mul in ke.USES_AV else None, bkT, bvT if mul in ke.USES_BV else None)
+        record(
+            "eqjoin", f"{add}_{mul}, ({Wa}, {Wb}) bucket, T={T}", lambda: ke.eqjoin(*ins, add, mul),
+            lambda: ke.eqjoin_plain(*ins, add, mul), ins, 0, rtol=1e-5 if mul == "times" else None,
+            n_ops=Wa * Wb * T, ops_per_s=INT32_OPS_PER_S,
+        )
+    # the tropical matmul at bench.py's size: one f32 multiply and one min or
+    # max per (i, j, k); min_plus (bench.py's) first
+    ta, tb = rand(mt, mt), rand(mt, mt)
+    for add, mul in kt.SEMIRINGS:
+        record(
+            "tropical_mxm", f"{add}_{mul} {mt}^3", lambda: kt.tropical_mxm(ta, tb, add, mul),
+            lambda: kt.tropical_mxm_plain(ta, tb, add, mul), (ta, tb), 0, reps=10, n_ops=2 * mt**3,
+            ops_per_s=F32_LANE_OPS_PER_S,
+        )
+    # the compare probe: K compare-adds per element, 3 f32 instructions each
+    pa = torch.randint(0, 100, (1 << 14, 128), generator=gen, device=dev).float()
+    pb = torch.randint(0, 40, (1 << 14, 128), generator=gen, device=dev).float()
+    record(
+        "compare_probe", f"K={ke.PROBE_K} on (16384, 128)", lambda: ke.compare_probe(pa, pb),
+        lambda: ke.compare_probe_plain(pa, pb), (pa, pb), 0, n_ops=3 * ke.PROBE_K * pa.numel(),
+        ops_per_s=F32_LANE_OPS_PER_S,
+    )
     return results
 
 
@@ -292,11 +348,53 @@ def parent_oracle(np, src, dst, n, levels, source):
     return parents
 
 
+def rmat_lower(np, sps, rmat, scale, seed=5, value_seed=11):
+    """rmat(scale, 16, seed) symmetrised: its strict lower triangle L, with
+    values in [0.5, 1.5) drawn by numpy from ``value_seed``, and U = L^T."""
+    g = rmat(scale, 16, seed=seed, device="cpu")
+    v = g.valid.numpy()
+    s, d = (t.numpy()[v].astype(np.int64) for t in (g.src, g.dst))
+    r, c = np.concatenate([s, d]), np.concatenate([d, s])
+    keep = r > c
+    pat = sps.SparseMatrixData.from_arrays(r[keep], c[keep], np.ones(int(keep.sum()), np.float32), g.n, g.n, "first")
+    vals = (np.random.default_rng(value_seed).random(pat.nvals) + 0.5).astype(np.float32)
+    L = sps.SparseMatrixData(pat.rows, pat.cols, vals, g.n, g.n)
+    return L, L.transposed()
+
+
+def wedge_oracle(np, L, mr, mc):
+    """C(M) = L min_plus L^T and the match counts, by expanding for each
+    mask entry (i, j) the shorter of the rows i and j of L and looking each
+    k up in the other: min over k of L[i, k] + L[j, k] in float32 (rounded as
+    the kernel rounds: once, and a + b = b + a), or +inf without a match."""
+    n = L.ncols
+    indptr = np.searchsorted(L.rows, np.arange(L.nrows + 1))
+    di, dj = indptr[mr + 1] - indptr[mr], indptr[mc + 1] - indptr[mc]
+    x, y = np.where(di <= dj, mr, mc), np.where(di <= dj, mc, mr)
+    deg = np.minimum(di, dj)
+    first = np.cumsum(deg) - deg
+    e = np.repeat(np.arange(len(mr)), deg)
+    pos = np.repeat(indptr[x], deg) + np.arange(len(e)) - np.repeat(first, deg)
+    keys = L.rows * n + L.cols
+    q = y[e] * n + L.cols[pos]
+    p = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    found = keys[p] == q
+    sums = np.where(found, L.vals[pos] + L.vals[p], np.float32(np.inf))
+    mins = np.full(len(mr), np.inf, np.float32)
+    nz = deg > 0
+    if nz.any():
+        mins[nz] = np.minimum.reduceat(sums, first[nz])
+    return mins, np.bincount(e[found], minlength=len(mr))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
     ap.add_argument("--ef", type=int, default=16)
     ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--tc-log2", type=int, default=16, help="log2 of the SpGEMM workload's vertices")
+    ap.add_argument("--spgemm-scale", type=int, default=14, help="RMAT scale of the SpGEMM run (c)")
+    ap.add_argument("--mt", type=int, default=2048, help="the tropical matmul's size")
     args = ap.parse_args()
 
     import torch
@@ -307,11 +405,14 @@ def main():
     import numpy as np
 
     from graphblas_tpu_torch import kernels
+    from graphblas_tpu_torch.core import sparse as sps
     from graphblas_tpu_torch.kernels import _build
     from graphblas_tpu_torch.models import fast, rmat
     from graphblas_tpu_torch.ops import fastspmv as fs
+    from graphblas_tpu_torch.ops import mxm
     from graphblas_tpu_torch.ops.permute import padded_size
     from graphblas_tpu_torch.ops.scan import STATE_BIG
+    from graphblas_tpu_torch.tools import profile_spgemm_roofline as roofline
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -331,9 +432,18 @@ def main():
     say("2 build", f"nvcc {' '.join(_build.NVCC_FLAGS)}: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(_build.library_path(), REPO)}")
 
     # 3. kernels against their plain versions at the main path's shapes
+    # (eqjoin's: the SpGEMM workload's, analyzed first)
+    t0 = time.perf_counter()
+    L_tc, U_tc = roofline.bench_tc_workload(args.tc_log2)
+    t_tc_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tc_plan = sps.sparse_spgemm_analyze(L_tc, U_tc, L_tc.rows, L_tc.cols, bricks=True, reduce_net=True)
+    t_tc_plan = time.perf_counter() - t0
     n_nodes = 1 << args.scale
     e_pad = padded_size(max(n_nodes * args.ef, n_nodes))
-    kres = check_kernels(torch, e_pad, dev)
+    t0 = time.perf_counter()
+    kres = check_kernels(torch, e_pad, dev, tc_plan, args.mt)
+    say("3 kernels", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # 4. graph and plans
     t0 = time.perf_counter()
@@ -468,11 +578,133 @@ def main():
         f"dijkstra rtol 1e-5 on {int(reach.sum())} reachable, rest STATE_BIG",
     )
 
-    # 7. launch counts of the main path
-    say("7 counts", f"main path launches {launches}; plain calls {plain_calls}")
+    # 6s. masked SpGEMM: bench.py's workload with bricks and the reduce net
+    # (a), without bricks into int32 (b: eqjoin carries every entry, the
+    # scatter combine), and an RMAT lower triangle with hub splitting (c)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tc_plan_b = sps.sparse_spgemm_analyze(L_tc, U_tc, L_tc.rows, L_tc.cols)
+    t_plan_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L_rm, U_rm = rmat_lower(np, sps, rmat, args.spgemm_scale)
+    rm_plan = sps.sparse_spgemm_analyze(L_rm, U_rm, L_rm.rows, L_rm.cols, reduce_net=True)
+    t_plan_rm = time.perf_counter() - t0
+    require(any(b[0][0] == 256 for b in rm_plan.buckets), "rmat SpGEMM: no (256, .) bucket")
+    tasks_per_entry = int(np.bincount(np.concatenate([b[1] for b in rm_plan.buckets])).max())
+    require(tasks_per_entry > 1, "rmat SpGEMM: no entry spans several tasks (hub splitting)")
+    f32 = torch.float32
+    runs = {
+        "a": (tc_plan, "plus", "pair", f32),
+        "b": (tc_plan_b, "plus", "pair", torch.int32),
+        "c plus_times": (rm_plan, "plus", "times", f32),
+        "c min_plus": (rm_plan, "min", "plus", f32),
+    }
+
+    def spgemm_path():
+        return {k: sps.sparse_spgemm_execute(p, a, m, dt, keep_on_device=True) for k, (p, a, m, dt) in runs.items()}
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    sg = spgemm_path()
+    torch.cuda.synchronize()
+    sg_launches, sg_plain = kernels.launch_counts(), kernels.plain_counts()
+    with kernels.plain_versions():
+        sg_p = spgemm_path()
+    torch.cuda.synchronize()
+    for key, (acc, hit, fl) in sg.items():
+        acc_p, hit_p, fl_p = sg_p[key]
+        require(acc.shape == (runs[key][0].n_entries,) and bool(torch.isfinite(acc).all()), f"spgemm {key}: shape or non-finite")
+        require(torch.equal(hit, hit_p) and int(fl) == int(fl_p), f"spgemm {key}: hit or flops differ from the plain path")
+        if key == "c plus_times":
+            torch.testing.assert_close(acc, acc_p, rtol=1e-5, atol=0)
+        else:
+            require(torch.equal(acc, acc_p), f"spgemm {key}: values differ from the plain path")
+    import scipy.sparse as scsp
+
+    lc = scsp.csr_matrix((np.ones(L_tc.nvals), (L_tc.rows, L_tc.cols)), shape=(L_tc.nrows, L_tc.ncols))
+    tc_ref = int((lc @ lc.T.tocsr()).multiply(lc).sum())
+    tc_a, tc_b = (int(sg[k][0].double().sum()) for k in ("a", "b"))
+    require(tc_a == tc_b == tc_ref, f"triangle count: bricks {tc_a}, no bricks {tc_b}, scipy {tc_ref}")
+    require(int(sg["a"][2]) == int(sg["b"][2]) == 2 * tc_ref, "spgemm flops != 2 x the triangle count")
+    mins, counts = wedge_oracle(np, L_rm, L_rm.rows, L_rm.cols)
+    lr = scsp.csr_matrix((L_rm.vals.astype(np.float64), (L_rm.rows, L_rm.cols)), shape=(L_rm.nrows, L_rm.ncols))
+    pt_ref = np.asarray((lr @ lr.T.tocsr())[L_rm.rows, L_rm.cols]).ravel()
+    for key in ("c plus_times", "c min_plus"):
+        acc, hit, fl = (t.cpu().numpy() for t in sg[key])
+        np.testing.assert_array_equal(hit, counts > 0, err_msg=f"spgemm {key}: structure")
+        require(int(fl) == 2 * int(counts.sum()), f"spgemm {key}: flops")
+        if key == "c plus_times":
+            np.testing.assert_allclose(acc[hit], pt_ref[hit], rtol=1e-4, atol=0)
+        else:
+            np.testing.assert_array_equal(acc[hit], mins[hit], err_msg="spgemm min_plus vs the numpy oracle")
+
+    def shapes(p):
+        return [(b[0][0], b[0][1], int(b[3].shape[1])) for b in p.buckets]
+
+    say(
+        "6s spgemm",
+        f"tc workload 2^{args.tc_log2} vertices, L nnz {L_tc.nvals} (host build {t_tc_build:.2f} s); host analysis: "
+        f"bricks+net {t_tc_plan:.2f} s, {tc_plan.nbytes() / 2**30:.3f} GiB on the card, "
+        f"{0 if tc_plan.brick is None else tc_plan.brick.a_idx.shape[0]} C bricks, buckets (Wa, Wb, T) {shapes(tc_plan)}; "
+        f"no bricks {t_plan_b:.2f} s, {tc_plan_b.nbytes() / 2**30:.3f} GiB, buckets {shapes(tc_plan_b)}; "
+        f"rmat {args.spgemm_scale} L nnz {L_rm.nvals}: {t_plan_rm:.2f} s, {rm_plan.nbytes() / 2**30:.3f} GiB, "
+        f"buckets {shapes(rm_plan)}, up to {tasks_per_entry} tasks per entry. Kernel path = plain path "
+        f"(plus_times rtol 1e-5, the rest exact); triangles {tc_a} with bricks = {tc_b} without = scipy; rmat "
+        f"plus_times = scipy float64 (rtol 1e-4), min_plus = the numpy oracle exactly, {int(counts.sum())} matches; "
+        f"phase {time.perf_counter() - t_phase:.1f} s",
+    )
+
+    # 6t. the tropical matmul, bench.py's inputs (numpy seed 3), and the
+    # values-and-structure entry point on 40% structure
+    t_phase = time.perf_counter()
+    rng_t = np.random.default_rng(3)
+    ta_np, tb_np = rng_t.random((args.mt, args.mt), np.float32), rng_t.random((args.mt, args.mt), np.float32)
+    ta, tb = torch.from_numpy(ta_np).to(dev), torch.from_numpy(tb_np).to(dev)
+    sa, sb = (torch.from_numpy(rng_t.random((args.mt, args.mt)) < 0.4).to(dev) for _ in range(2))
+
+    def tropical_path():
+        return (mxm.tropical_mxm_filled(ta, tb, "min", "plus"), *mxm.tropical_mxm(ta, sa, tb, sb, "max", "plus", f32))
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    tr = tropical_path()
+    torch.cuda.synchronize()
+    tr_launches, tr_plain = kernels.launch_counts(), kernels.plain_counts()
+    with kernels.plain_versions():
+        tr_p = tropical_path()
+    for g_, p_ in zip(tr, tr_p):
+        require(torch.equal(g_, p_), "tropical: kernel path differs from the plain path")
+    rows_chk = np.random.default_rng(4).choice(args.mt, 8, replace=False)
+    want = np.stack([np.min(ta_np[i][:, None] + tb_np, axis=0) for i in rows_chk])
+    np.testing.assert_array_equal(tr[0][torch.from_numpy(rows_chk).to(dev)].cpu().numpy(), want)
+    say(
+        "6t tropical",
+        f"min_plus {args.mt}^3 (filled) and max_plus with structure: kernel path = plain path exactly; "
+        f"8 rows of min_plus = numpy float32 exactly; phase {time.perf_counter() - t_phase:.1f} s",
+    )
+
+    # 6r. the roofline tool's run: its own path, the compare probe's
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    roof = roofline.run(tc_plan)
+    torch.cuda.synchronize()
+    roof_launches, roof_plain = kernels.launch_counts(), kernels.plain_counts()
+    say("6r roofline", f"{json.dumps(roof)}; phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 7. launch counts of each path
+    path_launches = {"spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "roofline": roof_launches}
+    say(
+        "7 counts",
+        f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; tropical path {tr_launches}; roofline tool "
+        f"{roof_launches}; plain calls {plain_calls}, {sg_plain}, {tr_plain}, {roof_plain}",
+    )
     for name in KERNELS:
-        require(launches[name] > 0, f"{name} was not launched on the main path")
-    require(not any(plain_calls.values()), f"plain versions ran on the main path: {plain_calls}")
+        path = PATH_OF.get(name, "spmv")
+        require(path_launches[path][name] > 0, f"{name} was not launched on the {path} path")
+    for name in ("gather", "segscan"):
+        require(sg_launches[name] > 0, f"{name} was not launched on the SpGEMM path (the reduce net)")
+    for calls in (plain_calls, sg_plain, tr_plain, roof_plain):
+        require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above
     t_pr = wall_s(torch, lambda: fast.pagerank(plan, outdeg, n, tol=0.0, max_iters=iters)) / iters
@@ -490,13 +722,19 @@ def main():
         "sssp_ms": t_sssp * 1e3,
         "bfs_parent_ms": t_par * 1e3,
     }
+    t_sg, sg_flops = roofline.execute_seconds(tc_plan)
+    t_trop = wall_s(torch, lambda: [mxm.tropical_mxm_filled(ta, tb, "min", "plus") for _ in range(8)]) / 8
+    times.update(
+        masked_spgemm_gflops=sg_flops / t_sg / 1e9, masked_spgemm_ms=t_sg * 1e3,
+        tropical_mxm_tops=2 * args.mt**3 / t_trop / 1e12, tropical_mxm_ms=t_trop * 1e3,
+    )
     say("8 times", f"{json.dumps(times)} on {smi}; total run {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
-            **kres[name],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": path_launches[PATH_OF.get(name, "spmv")][name], **kres[name],
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -1,0 +1,716 @@
+"""Sparse COO container and the masked semiring SpGEMM, C(M) = A (+).(x) B on
+M's pattern.
+
+Counterpart of the SpGEMM part of ``graphblas_tpu/core/sparse.py``.
+``SparseMatrixData`` is the canonical row-major COO on the host (numpy);
+``sparse_spgemm_analyze`` is the host pattern analysis, copied with its
+constants, so every bucket array compares slot for slot with the reference;
+``sparse_spgemm_execute`` runs a plan on the plan's device:
+
+- each width bucket through the eqjoin kernel (``ops.eqjoin``), or, where
+  the reference also leaves its Pallas kernel (a dtype the kernel does not
+  take), through the reference's XLA formulation in plain torch;
+- the task partials combine by entry: through the reduce net where the
+  reference uses it (two routes of Kernel G and two generic scans), else one
+  scatter reduce;
+- block-dense 128 x 128 bricks, where the plan has them, as batched matmuls
+  (``torch.bmm``, full float32).
+
+The semiring is given by names: ``add`` one of plus, min, max, times, lor,
+land, any; ``mul`` one of pair, times, plus, first, second.  Typed operators
+arrive with the operator system (ROADMAP.md, queue 2).
+"""
+
+import numpy as np
+import torch
+
+from ..kernels.eqjoin import USES_AV, USES_BV
+from ..ops import eqjoin as _ej
+from ..ops.fastspmv import _complete_permutation
+from ..ops.mxm import full_f32_matmul
+from ..ops.permute import apply_perm, padded_size
+from ..ops.scan import _ident as _scan_ident
+from ..ops.scan import segmented_scan
+
+# numpy ufuncs for host-side dup combination (subset of dup_op names)
+_NP_COMBINE = {
+    "plus": np.add,
+    "times": np.multiply,
+    "min": np.minimum,
+    "max": np.maximum,
+    "lor": np.logical_or,
+    "land": np.logical_and,
+    "bor": np.bitwise_or,
+    "band": np.bitwise_and,
+}
+
+# monoids with a direct segment-reduce lowering
+_SEGMENT_OPS = {"plus", "min", "max", "times", "lor", "land", "any"}
+_SPGEMM_MULS = ("pair", "times", "plus", "first", "second")
+# the monoids the reduce net scans with (any as max, as the eqjoin kernel)
+_NET_SCAN_OPS = {"plus": "add", "min": "min", "max": "max", "any": "max"}
+
+_SPGEMM_WMAX = 256  # segment width cap; hub lists split into chunk-pair tasks
+_SPGEMM_EQ_BUDGET = 1 << 26  # eq-tensor elements per device batch
+
+
+def _not_ported(what):
+    return NotImplementedError(f"{what}: typed operators arrive with the operator system (ROADMAP.md, queue 2)")
+
+
+class SparseMatrixData:
+    """Canonical sorted-dedup'd COO of one matrix (host numpy)."""
+
+    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "_col_order")
+
+    def __init__(self, rows, cols, vals, nrows, ncols):
+        self.rows = rows  # np.int64, row-major sorted
+        self.cols = cols  # np.int64
+        self.vals = vals  # np array of the matrix dtype
+        self.nrows = int(nrows)
+        self.ncols = int(ncols)
+        self._col_order = None
+
+    @classmethod
+    def from_arrays(cls, rows, cols, vals, nrows, ncols, dup_op=None, *, sorted_dedup=False):
+        """Canonicalize (row-major sort + dup combine) host COO arrays.
+        ``dup_op`` is the name of the op that combines duplicates."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        cols = np.asarray(cols, np.int64).reshape(-1)
+        vals = np.asarray(vals).reshape(-1)
+        if not sorted_dedup and rows.size:
+            order = np.lexsort((cols, rows))
+            rows, cols, vals = rows[order], cols[order], vals[order]
+            dup = (rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])
+            if dup.any():
+                rows, cols, vals = _combine_dups(rows, cols, vals, dup, dup_op)
+        return cls(rows, cols, vals, nrows, ncols)
+
+    @property
+    def nvals(self):
+        return int(self.rows.size)
+
+    def transposed(self):
+        """Swap row/col roles (re-canonicalized; indices shared, not copied)."""
+        order = self.col_order()
+        return SparseMatrixData(self.cols[order], self.rows[order], self.vals[order], self.ncols, self.nrows)
+
+    def col_order(self):
+        """Permutation to column-major order (lazily computed and cached)."""
+        if self._col_order is None:
+            self._col_order = np.lexsort((self.rows, self.cols))
+        return self._col_order
+
+
+def _combine_dups(rows, cols, vals, dup, dup_op):
+    """Combine adjacent duplicate (row, col) runs in sorted COO arrays."""
+    if dup_op is None:
+        raise ValueError("Duplicate indices found; must provide dup_op to combine them")
+    starts = np.flatnonzero(np.concatenate([[True], ~dup]))
+    base = str(dup_op).split("[")[0]
+    np_fn = _NP_COMBINE.get(base)
+    out_rows, out_cols = rows[starts], cols[starts]
+    if np_fn is not None:
+        out_vals = np_fn.reduceat(vals, starts)
+    elif base == "first":
+        out_vals = vals[starts]
+    elif base in {"second", "any"}:
+        lasts = np.concatenate([starts[1:], [len(rows)]]) - 1
+        out_vals = vals[lasts]
+    else:
+        raise _not_ported(f"dup_op {dup_op!r}")
+    return out_rows, out_cols, out_vals
+
+
+# ---------------------------------------------------------------------------
+# host analysis
+# ---------------------------------------------------------------------------
+
+
+class SpgemmPlan:
+    """Analyzed masked-SpGEMM tasks: per-width buckets of padded key/value
+    tiles on ``device`` (the pattern-analysis step, done once per (A, B, M)
+    pattern; re-executed cheaply when values change).
+
+    ``buckets``: [((Wa, Wb), task_entry, multi, akT, avT, bkT, bvT, chunk,
+    entry_ids)], the reference's tuple: host numpy ``task_entry`` and
+    ``multi``, tensors (W, T) in the tasks-on-lanes layout, int ``chunk``
+    (T is a multiple of it) and the tensor ``entry_ids``.
+    ``reduce_net``: (order, last, seg_start, has_task) or None; ``order``
+    routes the concatenated per-task outputs into entry-grouped order, a
+    segmented scan reduces each group, and ``last`` routes each group's last
+    (total) slot to its entry position (its first ``n_entries`` slots)."""
+
+    __slots__ = ("m_rows", "m_cols", "n_entries", "buckets", "brick", "reduce_net", "device")
+
+    def __init__(self, m_rows, m_cols, n_entries, buckets, brick=None, reduce_net=None, device="cpu"):
+        self.m_rows = m_rows
+        self.m_cols = m_cols
+        self.n_entries = n_entries
+        self.buckets = buckets
+        self.brick = brick  # SpgemmBrickPlan | None
+        self.reduce_net = reduce_net
+        self.device = torch.device(device)
+
+    def nbytes(self):
+        """Bytes the plan holds on its device."""
+        ts = [t for b in self.buckets for t in (b[3], b[4], b[5], b[6], b[8])]
+        ts += list(self.reduce_net or ())
+        if self.brick is not None:
+            ts += [self.brick.a_bricks, self.brick.b_bricks, self.brick.a_idx, self.brick.b_idx, self.brick.entry_cell]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+
+class SpgemmBrickPlan:
+    """Block-dense regions of C(M) = A (.) B: where the mask and both operands
+    are dense in 128x128 bricks, the per-entry key intersections become
+    batched brick matmuls (plus an indicator matmul for the match counts and
+    the structure).  The sparse remainder stays on eqjoin."""
+
+    __slots__ = ("a_bricks", "b_bricks", "a_idx", "b_idx", "entry_cell", "kmax")
+
+    def __init__(self, a_bricks, b_bricks, a_idx, b_idx, entry_cell, kmax):
+        self.a_bricks = a_bricks  # (NA+1, 128, 128) f32; last = zeros
+        self.b_bricks = b_bricks  # (NB+1, 128, 128) f32
+        self.a_idx = a_idx  # (CB, kmax) int32 into a_bricks
+        self.b_idx = b_idx  # (CB, kmax) int32 into b_bricks
+        # per mask entry: flat cell in the (CB*16384,) brick output, or the
+        # sentinel CB*16384 (a zero pad slot) for entries outside dense bricks
+        self.entry_cell = entry_cell  # (n_entries,) int32
+        self.kmax = kmax
+
+
+def _to(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _build_reduce_net(buckets, n_entries, device):
+    """The two routes, segment starts and entry flags of the scatter-free
+    combine (the reference's two permutation networks, as index arrays:
+    out[p] = in[idx[p]])."""
+    sizes = [int(b[3].shape[1]) for b in buckets]
+    tg = sum(sizes)
+    tg_pad = padded_size(max(tg, n_entries, 256))
+    gids = np.full(tg_pad, np.iinfo(np.int64).max, np.int64)
+    pos = 0
+    for b, size in zip(buckets, sizes):
+        te = b[1]
+        gids[pos : pos + len(te)] = te
+        pos += size
+    order = np.argsort(gids, kind="stable")
+    sorted_gids = gids[order]
+    nvalid = int((sorted_gids != np.iinfo(np.int64).max).sum())
+    seg_start = np.zeros(tg_pad, bool)
+    seg_start[0] = True
+    seg_start[1:] = sorted_gids[1:] != sorted_gids[:-1]
+    counts = np.bincount(sorted_gids[:nvalid], minlength=n_entries)
+    has_task = counts > 0
+    last = np.searchsorted(sorted_gids[:nvalid], np.arange(n_entries), side="right") - 1
+    perm2 = np.full(tg_pad, -1, np.int64)
+    perm2[np.flatnonzero(has_task)] = last[has_task]
+    last_idx = _complete_permutation(perm2, tg_pad)
+    return (
+        _to(order.astype(np.int32), device),
+        _to(last_idx.astype(np.int32), device),
+        _to(seg_start, device),
+        _to(has_task, device),
+    )
+
+
+def _pow2ceil(x):
+    return 1 << np.ceil(np.log2(np.maximum(x, 1))).astype(np.int64)
+
+
+def _pow4ceil(x):
+    """Quantize tile widths to powers of 4 (4, 16, 64, 256): fewer buckets
+    means fewer kernel launches; padding waste is bounded at 4x."""
+    lg = np.ceil(np.log2(np.maximum(x, 1)))
+    return (1 << (2 * ((lg.astype(np.int64) + 1) // 2))).astype(np.int64)
+
+
+def _build_eq_tasks(out, entry_idx, mr, mc, a_indptr, a_keys, a_vals, b_indptr, b_keys, b_vals):
+    """Collect rectangular eq-join tasks for a set of mask entries against a
+    CSR-like A-row / B-col segment layout, merging into ``out`` keyed by
+    (Wa, Wb).  ``entry_idx`` are GLOBAL entry ids (several groups feed the
+    same segment-combine space)."""
+    if len(entry_idx) == 0:
+        return
+    da = (a_indptr[mr + 1] - a_indptr[mr]).astype(np.int64)
+    db = (b_indptr[mc + 1] - b_indptr[mc]).astype(np.int64)
+    wa_e = np.minimum(_SPGEMM_WMAX, np.maximum(4, _pow4ceil(da)))
+    wb_e = np.minimum(_SPGEMM_WMAX, np.maximum(4, _pow4ceil(db)))
+    nva = max(len(a_keys), 1)
+    nvb = max(len(b_keys), 1)
+    a_keys = a_keys if len(a_keys) else np.zeros(1, np.int64)
+    b_keys = b_keys if len(b_keys) else np.zeros(1, np.int64)
+    a_vals = a_vals if len(a_vals) else np.zeros(1, np.float64)
+    b_vals = b_vals if len(b_vals) else np.zeros(1, np.float64)
+    # keys only feed equality compares: int32 halves the gather traffic
+    if max(int(a_keys.max(initial=0)), int(b_keys.max(initial=0))) < (1 << 31) - 2:
+        a_keys = a_keys.astype(np.int32)
+        b_keys = b_keys.astype(np.int32)
+    pairs = wa_e * (1 << 20) + wb_e
+    # one argsort groups entries by (Wa, Wb)
+    ok = (da > 0) & (db > 0)
+    order = np.argsort(np.where(ok, pairs, -1), kind="stable")
+    order = order[ok[order]]
+    if len(order) == 0:
+        return
+    sorted_pairs = pairs[order]
+    bounds = np.flatnonzero(np.concatenate([[True], sorted_pairs[1:] != sorted_pairs[:-1]]))
+    bounds = np.concatenate([bounds, [len(order)]])
+    for g in range(len(bounds) - 1):
+        in_bucket = order[bounds[g] : bounds[g + 1]]
+        key = int(sorted_pairs[bounds[g]])
+        Wa, Wb = key >> 20, key & ((1 << 20) - 1)
+        dab, dbb = da[in_bucket], db[in_bucket]
+        na = -(-dab // Wa)
+        nb = -(-dbb // Wb)
+        ntasks = na * nb
+        rep = np.repeat(np.arange(len(in_bucket)), ntasks)
+        task_local = in_bucket[rep]
+        task_entry = entry_idx[task_local]
+        offs = np.concatenate([[0], np.cumsum(ntasks)])
+        local = np.arange(offs[-1]) - offs[rep]
+        nb_rep = np.repeat(nb, ntasks)
+        ta = local // np.maximum(nb_rep, 1)
+        tb = local % np.maximum(nb_rep, 1)
+        a_start = (a_indptr[mr[task_local]] + ta * Wa).astype(np.int64)
+        b_start = (b_indptr[mc[task_local]] + tb * Wb).astype(np.int64)
+        a_len = np.minimum(da[task_local] - ta * Wa, Wa)
+        b_len = np.minimum(db[task_local] - tb * Wb, Wb)
+        # (T, W) build: per-task W-windows are contiguous in the source
+        # arrays, so the big gathers stay cache-friendly
+        ai = a_start[:, None] + np.arange(Wa, dtype=np.int64)[None, :]
+        np.minimum(ai, nva - 1, out=ai)
+        bi = b_start[:, None] + np.arange(Wb, dtype=np.int64)[None, :]
+        np.minimum(bi, nvb - 1, out=bi)
+        am = np.arange(Wa)[None, :] < a_len[:, None]
+        bm = np.arange(Wb)[None, :] < b_len[:, None]
+        ak = np.where(am, a_keys[ai], np.asarray(-1, a_keys.dtype))
+        bk = np.where(bm, b_keys[bi], np.asarray(-2, b_keys.dtype))
+        av = np.where(am, a_vals[ai], np.zeros((), a_vals.dtype))
+        bv = np.where(bm, b_vals[bi], np.zeros((), b_vals.dtype))
+        out.setdefault((Wa, Wb), []).append((task_entry, ak, av, bk, bv))
+
+
+def _finalize_eq_buckets(task_groups, n_entries_cap, device):
+    """Pad merged (Wa, Wb) task groups and move them to ``device`` in the
+    tasks-on-lanes (W, T) layout."""
+    buckets = []
+    for (Wa, Wb), parts in sorted(task_groups.items()):
+        task_entry = np.concatenate([p[0] for p in parts])
+        ak = np.concatenate([p[1] for p in parts])
+        av = np.concatenate([p[2] for p in parts])
+        bk = np.concatenate([p[3] for p in parts])
+        bv = np.concatenate([p[4] for p in parts])
+        if len(parts) > 1 and np.any(task_entry[1:] < task_entry[:-1]):
+            # keep tasks grouped by entry id
+            order = np.argsort(task_entry, kind="stable")
+            task_entry = task_entry[order]
+            ak, av, bk, bv = ak[order], av[order], bk[order], bv[order]
+        T = len(task_entry)
+        # pad the task count to the chunk: a multiple of 512 and of the
+        # bucket's task tile, never larger than the padded task count itself
+        chunk = max(512, _SPGEMM_EQ_BUDGET // (Wa * Wb) // 512 * 512)
+        chunk = min(chunk, -(-T // 512) * 512)
+        tile = _ej.task_tile(Wa, Wb)
+        chunk = max(tile, chunk // tile * tile)
+        chunk = min(chunk, -(-T // tile) * tile)
+        pad = (-T) % chunk
+        if pad:
+            ak = np.pad(ak, ((0, pad), (0, 0)), constant_values=-1)
+            bk = np.pad(bk, ((0, pad), (0, 0)), constant_values=-2)
+            av = np.pad(av, ((0, pad), (0, 0)))
+            bv = np.pad(bv, ((0, pad), (0, 0)))
+        idt = np.int32 if n_entries_cap < (1 << 31) else np.int64
+        kdt32 = np.int32 if max(int(ak.max(initial=0)), int(bk.max(initial=0)), 2) < (1 << 31) else np.int64
+        multi = np.ones(T, bool)  # merged groups: entries may span buckets
+        buckets.append(
+            (
+                (Wa, Wb),
+                task_entry,
+                multi,
+                _to(ak.T.astype(kdt32, copy=False), device),
+                _to(av.T, device),
+                _to(bk.T.astype(kdt32, copy=False), device),
+                _to(bv.T, device),
+                chunk,
+                _to(task_entry.astype(idt), device),
+            )
+        )
+    return buckets
+
+
+def _in_sorted(values, sorted_arr):
+    if sorted_arr.size == 0:
+        return np.zeros(values.shape, bool)
+    pos = np.searchsorted(sorted_arr, values)
+    pos_c = np.minimum(pos, len(sorted_arr) - 1)
+    return sorted_arr[pos_c] == values
+
+
+def _analyze_bricks(a_sp, b_sp, b_order, m_rows, m_cols, thresh, device):
+    """Find block-dense structure; returns (SpgemmBrickPlan, in_dense_entry)
+    or (None, None) when the pattern has no brick-worthy region."""
+    nbc = -(-b_sp.ncols // 128)
+    nbk = -(-a_sp.ncols // 128)
+    cb = (m_rows >> 7) * nbc + (m_cols >> 7)
+    ubr, ucnt = np.unique(cb, return_counts=True)
+    dense_cb = ubr[ucnt >= thresh]
+    ab = (a_sp.rows >> 7) * nbk + (a_sp.cols >> 7)
+    uab, uacnt = np.unique(ab, return_counts=True)
+    dense_ab = uab[uacnt >= thresh]
+    b_rows = b_sp.rows[b_order]
+    b_cols = b_sp.cols[b_order]
+    bb = (b_rows >> 7) * nbc + (b_cols >> 7)
+    udb, udcnt = np.unique(bb, return_counts=True)
+    dense_bb = udb[udcnt >= thresh]
+    if dense_cb.size == 0 or dense_ab.size == 0 or dense_bb.size == 0:
+        return None, None
+    in_dense = _in_sorted(cb, dense_cb)
+    a_in = _in_sorted(ab, dense_ab)
+    b_in = _in_sorted(bb, dense_bb)
+
+    NA, NB, CB = len(dense_ab), len(dense_bb), len(dense_cb)
+    a_bricks = np.zeros((NA + 1, 128, 128), np.float32)
+    apos = np.searchsorted(dense_ab, ab[a_in])
+    a_bricks[apos, a_sp.rows[a_in] & 127, a_sp.cols[a_in] & 127] = a_sp.vals[a_in].astype(np.float32)
+    b_bricks = np.zeros((NB + 1, 128, 128), np.float32)
+    bpos = np.searchsorted(dense_bb, bb[b_in])
+    b_bricks[bpos, b_rows[b_in] & 127, b_cols[b_in] & 127] = b_sp.vals[b_order][b_in].astype(np.float32)
+
+    # task lists: for C brick (bi, bj), every k with A(bi, k) and B(k, bj) dense
+    a_by_row = {}
+    for idx, key in enumerate(dense_ab):
+        a_by_row.setdefault(int(key) // nbk, []).append((int(key) % nbk, idx))
+    b_by_col = {}
+    for idx, key in enumerate(dense_bb):
+        b_by_col.setdefault(int(key) % nbc, {})[int(key) // nbc] = idx
+    tasks = []
+    for key in dense_cb:
+        bi, bj = int(key) // nbc, int(key) % nbc
+        row_ks = a_by_row.get(bi, [])
+        col_ks = b_by_col.get(bj, {})
+        tasks.append([(ai_, col_ks[k]) for k, ai_ in row_ks if k in col_ks])
+    kmax = max((len(t) for t in tasks), default=0)
+    if kmax == 0:
+        return None, None
+    a_idx = np.full((CB, kmax), NA, np.int32)
+    b_idx = np.full((CB, kmax), NB, np.int32)
+    for c_i, t in enumerate(tasks):
+        for j, (ai_, bi_) in enumerate(t):
+            a_idx[c_i, j] = ai_
+            b_idx[c_i, j] = bi_
+
+    # per-entry flat cell into the (CB*16384,) brick output (+1 zero pad slot)
+    pos = np.searchsorted(dense_cb, cb)
+    cell = np.full(len(m_rows), CB * 16384, np.int64)
+    cell[in_dense] = pos[in_dense] * 16384 + (m_rows[in_dense] & 127) * 128 + (m_cols[in_dense] & 127)
+    cdt = np.int32 if CB * 16384 + 1 < (1 << 31) else np.int64
+    plan = SpgemmBrickPlan(
+        _to(a_bricks, device), _to(b_bricks, device), _to(a_idx, device), _to(b_idx, device),
+        _to(cell.astype(cdt), device), kmax,
+    )
+    return plan, in_dense
+
+
+def sparse_spgemm_analyze(
+    a_sp, b_sp, m_rows, m_cols, *, bricks=False, brick_thresh=1024, reduce_net=False, device="cuda"
+):
+    """Build the task plan for C(M) = A (.) B (host-side pattern analysis),
+    with its tensors on ``device``.
+
+    ``bricks=True`` additionally detects 128x128 block-dense regions (of the
+    mask AND both operands) and plans them as batched matmuls; only valid
+    when the semiring executes as plus_pair / plus_times over f32 (the
+    execute step checks this).  The remainder (sparse-region entries, plus
+    each dense entry's (A_rest x B) and (A_dense x B_rest) contributions)
+    stays on eqjoin.  ``reduce_net=True`` plans the scatter-free combine."""
+    m_rows = np.asarray(m_rows, np.int64)
+    m_cols = np.asarray(m_cols, np.int64)
+    n_entries = len(m_rows)
+    a_indptr = np.searchsorted(a_sp.rows, np.arange(a_sp.nrows + 1))
+    b_order = b_sp.col_order()
+    b_order_cols = b_sp.cols[b_order]
+    b_indptr = np.searchsorted(b_order_cols, np.arange(b_sp.ncols + 1))
+    a_keys_all = a_sp.cols
+    a_vals_all = a_sp.vals
+    b_keys_all = b_sp.rows[b_order]
+    b_vals_all = b_sp.vals[b_order]
+    if max(a_sp.ncols, b_sp.nrows, 2) < (1 << 31):
+        # narrow keys before tile construction: tiles are the big host arrays
+        a_keys_all = a_keys_all.astype(np.int32)
+        b_keys_all = b_keys_all.astype(np.int32)
+
+    brick = in_dense = None
+    if bricks:
+        brick, in_dense = _analyze_bricks(a_sp, b_sp, b_order, m_rows, m_cols, brick_thresh, device)
+
+    all_idx = np.arange(n_entries)
+    groups = {}
+    if brick is None:
+        _build_eq_tasks(
+            groups, all_idx, m_rows, m_cols, a_indptr, a_keys_all, a_vals_all, b_indptr, b_keys_all, b_vals_all
+        )
+    else:
+        # split operand entries into dense-brick / rest parts (order-preserving
+        # boolean selection keeps A row-sorted and B col-sorted)
+        nbk = -(-a_sp.ncols // 128)
+        nbc = -(-b_sp.ncols // 128)
+        ab = (a_sp.rows >> 7) * nbk + (a_sp.cols >> 7)
+        uab, uacnt = np.unique(ab, return_counts=True)
+        a_in = _in_sorted(ab, uab[uacnt >= brick_thresh])
+        bb = (b_sp.rows[b_order] >> 7) * nbc + (b_order_cols >> 7)
+        udb, udcnt = np.unique(bb, return_counts=True)
+        b_in = _in_sorted(bb, udb[udcnt >= brick_thresh])
+
+        def sub_rows(sel):
+            return np.searchsorted(a_sp.rows[sel], np.arange(a_sp.nrows + 1)), a_keys_all[sel], a_vals_all[sel]
+
+        def sub_cols(sel):
+            return np.searchsorted(b_order_cols[sel], np.arange(b_sp.ncols + 1)), b_keys_all[sel], b_vals_all[sel]
+
+        ad_indptr, ad_keys, ad_vals = sub_rows(a_in)
+        ar_indptr, ar_keys, ar_vals = sub_rows(~a_in)
+        br_indptr, br_keys, br_vals = sub_cols(~b_in)
+        sparse, dense = ~in_dense, in_dense
+        _build_eq_tasks(
+            groups, all_idx[sparse], m_rows[sparse], m_cols[sparse],
+            a_indptr, a_keys_all, a_vals_all, b_indptr, b_keys_all, b_vals_all,
+        )
+        # dense-entry remainder: A_rest x B_full  +  A_dense x B_rest
+        _build_eq_tasks(
+            groups, all_idx[dense], m_rows[dense], m_cols[dense],
+            ar_indptr, ar_keys, ar_vals, b_indptr, b_keys_all, b_vals_all,
+        )
+        _build_eq_tasks(
+            groups, all_idx[dense], m_rows[dense], m_cols[dense],
+            ad_indptr, ad_keys, ad_vals, br_indptr, br_keys, br_vals,
+        )
+    buckets = _finalize_eq_buckets(groups, n_entries, device)
+    rnet = _build_reduce_net(buckets, n_entries, device) if reduce_net and buckets else None
+    return SpgemmPlan(m_rows, m_cols, n_entries, buckets, brick, rnet, device)
+
+
+# ---------------------------------------------------------------------------
+# execute
+# ---------------------------------------------------------------------------
+
+
+def _check_semiring(add, mul):
+    if add not in _SEGMENT_OPS:
+        raise _not_ported(f"masked SpGEMM add {add!r} (ported: {sorted(_SEGMENT_OPS)})")
+    if mul not in _SPGEMM_MULS:
+        raise _not_ported(f"masked SpGEMM mul {mul!r} (ported: {list(_SPGEMM_MULS)})")
+
+
+def _compute_dtype(dtype):
+    """Bool reduces as int32 0/1 (torch's scatter reductions take no bool)."""
+    return torch.int32 if dtype == torch.bool else dtype
+
+
+def _extreme(dtype, which):
+    """The largest (``"max"``) or smallest value of ``dtype``; bool as 0/1."""
+    if dtype == torch.bool:
+        return int(which == "max")
+    if dtype.is_floating_point:
+        return float("inf") if which == "max" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if which == "max" else info.min
+
+
+def _bucket_kernel_ok(add, mul, akT, bkT, out_dtype):
+    """The reference's condition for its Pallas eqjoin (core/sparse.py:1440-1448,
+    less the interpret-mode size limit, a CPU speed workaround)."""
+    return (
+        _ej.supported(add, mul)
+        and akT.dtype == torch.int32
+        and bkT.dtype == torch.int32
+        and (out_dtype == torch.float32 or mul == "pair")
+    )
+
+
+def _bucket_body(akT, avT, bkT, bvT, chunk, add, mul, out_dtype):
+    """One width bucket: (vals (T,) in ``out_dtype``, nmatch (T,) int32),
+    untrimmed (pad tasks give 0 matches)."""
+    if _bucket_kernel_ok(add, mul, akT, bkT, out_dtype):
+        avv = avT.to(torch.float32) if mul in USES_AV else None
+        bvv = bvT.to(torch.float32) if mul in USES_BV else None
+        vals, nmatch = _ej.eqjoin(akT, avv, bkT, bvv, add, mul)
+        return vals.to(out_dtype), nmatch
+    return _bucket_plain(akT, avT, bkT, bvT, chunk, add, mul, out_dtype)
+
+
+def _bucket_plain(akT, avT, bkT, bvT, chunk, add, mul, out_dtype):
+    """The reference's XLA formulation (core/sparse.py:1453-1483) in plain
+    torch, for the dtypes its Pallas kernel does not take: (chunk, Wa, Wb)
+    key equalities per chunk of tasks, the product in the values' dtype,
+    reduced in ``out_dtype``."""
+    cd = _compute_dtype(out_dtype)
+    vdt = torch.promote_types(avT.dtype, bvT.dtype)
+    ak, av, bk, bv = akT.T, avT.T, bkT.T, bvT.T
+    vals, nms = [], []
+    for s in range(0, ak.shape[0], chunk):
+        akk, bkk = ak[s : s + chunk], bk[s : s + chunk]
+        eq = akk[:, :, None] == bkk[:, None, :]
+        if mul == "pair":
+            prod = torch.ones(eq.shape, dtype=cd, device=eq.device)
+        else:
+            a = av[s : s + chunk, :, None].to(vdt)
+            b = bv[s : s + chunk, None, :].to(vdt)
+            if mul == "times":
+                prod = a * b
+            elif mul == "plus":
+                prod = a + b
+            else:
+                prod = a if mul == "first" else b
+            prod = prod.to(out_dtype).to(cd).expand(eq.shape)
+        nms.append(eq.sum((1, 2), dtype=torch.int32))
+        if add == "plus":
+            val = torch.where(eq, prod, 0).sum((1, 2), dtype=cd)
+        elif add in ("min", "land"):
+            val = torch.where(eq, prod, _extreme(out_dtype, "max")).amin((1, 2))
+        elif add in ("max", "lor", "any"):
+            val = torch.where(eq, prod, _extreme(out_dtype, "min")).amax((1, 2))
+        else:  # times
+            val = torch.where(eq, prod, 1).prod((1, 2), dtype=cd)
+        vals.append(val.to(out_dtype))
+    return torch.cat(vals), torch.cat(nms)
+
+
+def _segment_reduce(contrib, valid, seg_ids, num_segments, add):
+    """(y, ys) from per-task contributions grouped by entry id: one scatter
+    reduce each (standard monoids; core/sparse.py:392-457)."""
+    out_dt = contrib.dtype
+    cd = _compute_dtype(out_dt)
+    dev = contrib.device
+    ids = seg_ids.long()
+    ys = torch.zeros(num_segments, dtype=torch.int32, device=dev).index_add_(0, ids, valid.to(torch.int32)) > 0
+    c = contrib.to(cd)
+    if add == "plus":
+        y = torch.zeros(num_segments, dtype=cd, device=dev).index_add_(0, ids, torch.where(valid, c, 0))
+    elif add == "times":
+        y = torch.ones(num_segments, dtype=cd, device=dev).scatter_reduce_(0, ids, torch.where(valid, c, 1), "prod")
+    elif add in ("min", "land"):
+        big = _extreme(out_dt, "max")
+        y = torch.full((num_segments,), big, dtype=cd, device=dev)
+        y = y.scatter_reduce_(0, ids, torch.where(valid, c, big), "amin")
+    else:  # max, lor, any
+        small = _extreme(out_dt, "min")
+        y = torch.full((num_segments,), small, dtype=cd, device=dev)
+        y = y.scatter_reduce_(0, ids, torch.where(valid, c, small), "amax")
+    y = torch.where(ys, y, 0).to(out_dt)
+    return y, ys
+
+
+def _combine_net(vs, nms, reduce_net, scan_op, n_entries):
+    """The scatter-free combine (core/sparse.py:1356-1375): route the
+    concatenated task outputs into entry order (Kernel G), scan each entry's
+    tasks (the generic scan: ``scan_op`` on the values, int32 add on the
+    counts), and route each entry's total to its position (Kernel G)."""
+    order, last, seg_start, has_task = reduce_net
+    stream_v = torch.cat(vs).to(torch.float32)
+    stream_nm = torch.cat(nms).to(torch.int32)
+    pad = seg_start.shape[0] - stream_v.shape[0]
+    if pad:
+        stream_v = torch.cat([stream_v, stream_v.new_zeros(pad)])
+        stream_nm = torch.cat([stream_nm, stream_nm.new_zeros(pad)])
+    sv = apply_perm(stream_v, order)
+    snm = apply_perm(stream_nm, order)
+    sv = torch.where(snm > 0, sv, _scan_ident(scan_op, torch.float32))
+    scanned_v = segmented_scan(sv, seg_start, scan_op)
+    scanned_nm = segmented_scan(snm, seg_start, "add")
+    out_v = apply_perm(scanned_v, last[:n_entries])
+    out_nm = apply_perm(scanned_nm, last[:n_entries])
+    hit = has_task & (out_nm > 0)
+    return torch.where(hit, out_v, 0.0), hit
+
+
+def _brick_body(brick, mul, acc, hit):
+    """Add the dense bricks' products into (acc, hit); returns (acc, hit,
+    matches).  The value product runs in full float32 (the reference's
+    ``Precision.HIGHEST``); the 0/1 indicator product is exact at any
+    precision."""
+    cb = brick.a_idx.shape[0]
+    accv = torch.zeros((cb, 128, 128), dtype=torch.float32, device=acc.device)
+    accc = torch.zeros_like(accv)
+    with full_f32_matmul():
+        for k in range(brick.kmax):
+            a = brick.a_bricks[brick.a_idx[:, k].long()]
+            b = brick.b_bricks[brick.b_idx[:, k].long()]
+            cnt = torch.bmm((a != 0).to(torch.float32), (b != 0).to(torch.float32))
+            accc += cnt
+            accv += cnt if mul == "pair" else torch.bmm(a, b)
+    pad = accv.new_zeros(1)
+    cell = brick.entry_cell.long()
+    dv = torch.cat([accv.reshape(-1), pad])[cell].to(acc.dtype)
+    dc = torch.cat([accc.reshape(-1), pad])[cell]
+    dhit = dc > 0
+    acc = torch.where(dhit & hit, acc + dv, torch.where(dhit, dv, acc))
+    return acc, hit | dhit, dc.to(torch.int64).sum()
+
+
+def sparse_spgemm_execute(plan, add, mul, out_dtype, *, keep_on_device=False):
+    """Run the analyzed masked SpGEMM on the plan's device: one eqjoin launch
+    per width bucket, the task partials combined by entry on the device.
+
+    Returns host (rows, cols, values, flops) of the entries that have a
+    match, as the reference does; ``keep_on_device=True`` returns (values
+    (n_entries,), hit, flops) as tensors instead.  ``flops`` is 2 x the
+    matches (int64)."""
+    _check_semiring(add, mul)
+    brick = plan.brick
+    if brick is not None and not (add == "plus" and mul in ("pair", "times") and out_dtype == torch.float32):
+        raise ValueError(
+            "brick-analyzed SpGEMM plan requires a plus_pair/plus_times f32 semiring; re-analyze with bricks=False"
+        )
+    n = plan.n_entries
+    dev = plan.device
+    acc = torch.zeros(n, dtype=out_dtype, device=dev)
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    matches = torch.zeros((), dtype=torch.int64, device=dev)
+    if plan.buckets:
+        vs, nms, idss = [], [], []
+        for _w, _te, _multi, akT, avT, bkT, bvT, chunk, ids in plan.buckets:
+            v, nm = _bucket_body(akT, avT, bkT, bvT, chunk, add, mul, out_dtype)
+            vs.append(v)
+            nms.append(nm)
+            idss.append(ids)
+            matches = matches + nm[: ids.shape[0]].sum(dtype=torch.int64)
+        scan_op = _NET_SCAN_OPS.get(add)
+        if plan.reduce_net is not None and scan_op is not None and out_dtype == torch.float32:
+            acc, hit = _combine_net(vs, nms, plan.reduce_net, scan_op, n)
+        else:
+            all_v = torch.cat([v[: i.shape[0]] for v, i in zip(vs, idss)])
+            all_nm = torch.cat([nm[: i.shape[0]] for nm, i in zip(nms, idss)])
+            acc, hit = _segment_reduce(all_v, all_nm > 0, torch.cat(idss), n, add)
+    if brick is not None:
+        acc, hit, brick_matches = _brick_body(brick, mul, acc, hit)
+        matches = matches + brick_matches
+    flops = 2 * matches
+    if keep_on_device:
+        return acc, hit, flops
+    keep = hit.cpu().numpy()
+    return plan.m_rows[keep], plan.m_cols[keep], acc.cpu().numpy()[keep], int(flops)
+
+
+def sparse_mxm_masked(a_sp, b_sp, m_rows, m_cols, add, mul, out_dtype, *, device="cuda"):
+    """C(M) = A (+).(x) B over sparse operands, the output restricted to M's
+    pattern (the masked dot method): for each mask entry (i, j), intersect
+    A's row i with B's column j.  Analyzes (bricks for plus_pair/plus_times
+    into float32, the reduce net for plus/min/max/any into float32) and
+    executes on ``device``.  Returns host (rows, cols, values, flops)."""
+    _check_semiring(add, mul)
+    m_rows = np.asarray(m_rows, np.int64)
+    m_cols = np.asarray(m_cols, np.int64)
+    if len(m_rows) == 0 or a_sp.nvals == 0 or b_sp.nvals == 0:
+        out_np = torch.empty(0, dtype=out_dtype).numpy().dtype
+        return np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, out_np), 0
+    f32 = out_dtype == torch.float32
+    use_bricks = add == "plus" and mul in ("pair", "times") and f32
+    use_net = add in _NET_SCAN_OPS and f32
+    plan = sparse_spgemm_analyze(
+        a_sp, b_sp, m_rows, m_cols, bricks=use_bricks, reduce_net=use_net, device=device
+    )
+    return sparse_spgemm_execute(plan, add, mul, out_dtype)

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch version.
 
-Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py`` and
-``graphblas_tpu/ops/permute.py`` that the SpMV engine reaches.
+Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py``,
+``graphblas_tpu/ops/permute.py``, ``graphblas_tpu/ops/pallas_eqjoin.py``,
+``graphblas_tpu/ops/pallas_mxm.py`` and the compare probe of
+``graphblas_tpu/tools/profile_spgemm_roofline.py``.
 
 - ``gather``: Kernel G (``csrc/gather.cu``), ``out[p] = x[idx[p]]`` with the
   ``none``, ``fill`` and ``pagerank`` epilogues; a route's index may be the
@@ -9,6 +11,9 @@ Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py`` and
 - ``segscan``: Kernels C and S (``csrc/segscan.cu``), the fused segmented
   scans ``segscan_contrib`` and ``segscan_state``, and the generic scan
   ``segscan``.
+- ``eqjoin``: the masked-SpGEMM inner loop ``eqjoin`` and the compare-rate
+  probe ``compare_probe`` (``csrc/eqjoin.cu``).
+- ``tropical``: the tropical matmul ``tropical_mxm`` (``csrc/tropical.cu``).
 
 A wrapper takes its plain version for CPU tensors, launches its kernel for
 CUDA tensors, and raises for anything else; it never falls back.  Each
@@ -24,7 +29,9 @@ the card through the plain code as the reference for its kernels.
 import contextlib
 import contextvars
 
-from . import gather, segscan
+from . import eqjoin, gather, segscan, tropical
+
+_MODULES = (gather, segscan, eqjoin, tropical)
 
 _PLAIN = contextvars.ContextVar("graphblas_tpu_torch_plain", default=False)
 
@@ -46,15 +53,15 @@ def plain_requested():
 
 def launch_counts():
     """Kernel launches since the last reset, by kernel name."""
-    return {**gather.LAUNCHES, **segscan.LAUNCHES}
+    return {k: v for m in _MODULES for k, v in m.LAUNCHES.items()}
 
 
 def plain_counts():
     """Plain-version calls since the last reset, by kernel name."""
-    return {**gather.PLAIN_CALLS, **segscan.PLAIN_CALLS}
+    return {k: v for m in _MODULES for k, v in m.PLAIN_CALLS.items()}
 
 
 def reset_counts():
-    for d in (gather.LAUNCHES, gather.PLAIN_CALLS, segscan.LAUNCHES, segscan.PLAIN_CALLS):
+    for d in [m.LAUNCHES for m in _MODULES] + [m.PLAIN_CALLS for m in _MODULES]:
         for k in d:
             d[k] = 0

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels on first use and bind them with ctypes.
 
-Every ``graphblas_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, under
-``graphblas_tpu_torch/_build/``.  The file name carries a hash of the sources
-and the flags, so an edit rebuilds and an unchanged tree reuses the library.
-The build writes to a temporary file and renames it into place, so two
+Every ``graphblas_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+for Hopper (``sm_90a``), all at once, and the objects are linked into one
+shared library with a plain C interface, under ``graphblas_tpu_torch/_build/``.
+The file name carries a hash of the sources (``*.cu`` and ``*.cuh``) and the
+flags, so an edit rebuilds and an unchanged tree reuses the library.  The
+build writes to temporary files and renames the library into place, so two
 processes building at once never load a half-written library.
 
 Counterpart of ``graphblas_tpu/native/__init__.py:_build_lib`` (the JAX
@@ -25,7 +26,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "gb_segscan_state": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _P],
     "gb_segscan": [_P] * 6 + [_I64, _I, _I, _P],
     "gb_segscan_tile": [],
+    "gb_eqjoin": [_P] * 6 + [_I, _I, _I64, _I, _I, _P],
+    "gb_compare_probe": [_P] * 3 + [_I64, _P],
+    "gb_compare_probe_k": [],
+    "gb_tropical": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -48,6 +53,10 @@ _LIB = None
 
 def sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _hashed_files():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def nvcc_path():
@@ -70,7 +79,7 @@ def nvcc_path():
 
 def library_path():
     digest = hashlib.sha256()
-    for path in sources():
+    for path in _hashed_files():
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -79,13 +88,34 @@ def library_path():
 
 
 def _compile(so_path):
+    """One nvcc per source, all started together, then one link."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, so_path)
+    nvcc = nvcc_path()
+    tag = f"tmp{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{so_path}.{tag}"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, so_path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def library():

@@ -1,0 +1,177 @@
+"""The eqjoin kernel and the compare-rate probe (``csrc/eqjoin.cu``).
+
+- ``eqjoin`` replaces ``graphblas_tpu/ops/pallas_eqjoin.py:eqjoin``: per task
+  t, ADD over (k, l) with ``akT[k, t] == bkT[l, t]`` of
+  ``MUL(avT[k, t], bvT[l, t])``, and the match count; the value is 0 where
+  nothing matched.  Pad keys -1 (A) and -2 (B) never match.
+- ``compare_probe`` replaces ``graphblas_tpu/tools/profile_spgemm_roofline.py``'s
+  ``vpu_kernel``: ``PROBE_K`` = 64 compare-adds per element,
+  ``acc += (a == b + i)``, a measured ceiling for eqjoin's roofline.
+
+The plain versions compute the same functions with torch broadcasts: eqjoin
+as (Wa, Wb, chunk) tensors over chunks of tasks, so that no tensor passes
+2^26 elements.  Float plus and times sum and multiply in another order than
+the kernel's; every other add, and pair, is exact.
+"""
+
+import math
+
+import torch
+
+from . import _build
+
+ADDS = ("plus", "min", "max", "any", "lor", "land", "times")  # gb_eqjoin's codes
+MULS = ("pair", "times", "plus", "first", "second")
+USES_AV = ("times", "plus", "first")
+USES_BV = ("times", "plus", "second")
+PROBE_K = 64
+PLAIN_ELEMENTS = 1 << 26  # the largest broadcast of the plain eqjoin
+LAUNCHES = {"eqjoin": 0, "compare_probe": 0}
+PLAIN_CALLS = {"eqjoin": 0, "compare_probe": 0}
+
+
+def _check(akT, avT, bkT, bvT, add, mul):
+    if add not in ADDS:
+        raise ValueError(f"eqjoin: add {add!r} not in {ADDS}")
+    if mul not in MULS:
+        raise ValueError(f"eqjoin: mul {mul!r} not in {MULS}")
+    if akT.dim() != 2 or bkT.dim() != 2 or akT.shape[1] != bkT.shape[1]:
+        raise ValueError(f"eqjoin: akT {tuple(akT.shape)} and bkT {tuple(bkT.shape)} must be (Wa, T) and (Wb, T)")
+    if akT.dtype != torch.int32 or bkT.dtype != torch.int32:
+        raise TypeError("eqjoin: keys must be int32")
+    for name, v, k, used in (("avT", avT, akT, mul in USES_AV), ("bvT", bvT, bkT, mul in USES_BV)):
+        if not used:
+            continue
+        if v is None:
+            raise ValueError(f"eqjoin: mul {mul!r} needs {name}")
+        if v.shape != k.shape or v.dtype != torch.float32:
+            raise ValueError(f"eqjoin: {name} must be float32 shaped like its keys")
+    devices = {t.device for t in (akT, avT, bkT, bvT) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"eqjoin: tensors on {sorted(map(str, devices))}")
+
+
+def _step(add, eq, prod):
+    """The per-k accumulator over l (pallas_eqjoin.py:91-102), for a whole
+    (Wa, Wb, c) block at once: reduce over l."""
+    if add == "plus":
+        return torch.where(eq, prod, torch.zeros((), dtype=prod.dtype, device=prod.device)).sum(1)
+    if add == "min":
+        return torch.where(eq, prod, math.inf).amin(1)
+    if add in ("max", "any"):
+        return torch.where(eq, prod, -math.inf).amax(1)
+    if add == "times":
+        return torch.where(eq, prod, 1.0).prod(1)
+    if add == "lor":
+        return (eq & (prod != 0)).any(1).to(torch.float32)
+    return (~eq | (prod != 0)).all(1).to(torch.float32)  # land
+
+
+def _combine(add, acc):
+    """The combine over k (pallas_eqjoin.py:110-120); a k without a match
+    holds the identity, which every combine leaves unchanged."""
+    if add == "plus":
+        return acc.sum(0)
+    if add == "min":
+        return acc.amin(0)
+    if add in ("max", "any", "lor"):
+        return acc.amax(0)
+    return acc.prod(0)  # times, land
+
+
+def eqjoin_plain(akT, avT, bkT, bvT, add, mul):
+    """Plain PyTorch version of the eqjoin kernel (any device)."""
+    _check(akT, avT, bkT, bvT, add, mul)
+    PLAIN_CALLS["eqjoin"] += 1
+    (Wa, T), Wb = akT.shape, bkT.shape[0]
+    dev = akT.device
+    vals = torch.empty(T, dtype=torch.float32, device=dev)
+    nm = torch.empty(T, dtype=torch.int32, device=dev)
+    chunk = max(1, PLAIN_ELEMENTS // (Wa * Wb))
+    for s in range(0, T, chunk):
+        e = min(T, s + chunk)
+        eq = akT[:, None, s:e] == bkT[None, :, s:e]  # (Wa, Wb, c)
+        if mul == "pair":
+            prod = torch.ones((), dtype=torch.float32, device=dev).expand(eq.shape)
+        else:
+            a = avT[:, None, s:e] if mul in USES_AV else None
+            b = bvT[None, :, s:e] if mul in USES_BV else None
+            if mul == "times":
+                prod = a * b
+            elif mul == "plus":
+                prod = a + b
+            else:
+                prod = (a if mul == "first" else b).expand(eq.shape)
+        n = eq.sum((0, 1), dtype=torch.int32)
+        val = _combine(add, _step(add, eq, prod))
+        vals[s:e] = torch.where(n > 0, val, torch.zeros((), dtype=torch.float32, device=dev))
+        nm[s:e] = n
+    return vals, nm
+
+
+def eqjoin(akT, avT, bkT, bvT, add, mul):
+    """Batched sorted-segment intersection under a semiring.  ``akT`` (Wa, T)
+    and ``bkT`` (Wb, T) int32; ``avT``/``bvT`` float32 of the same shapes, or
+    None where ``mul`` ignores them.  Returns (vals (T,) float32, nmatch (T,)
+    int32).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel, which takes Wa a multiple of 4."""
+    if akT.device.type == "cpu":
+        return eqjoin_plain(akT, avT, bkT, bvT, add, mul)
+    _check(akT, avT, bkT, bvT, add, mul)
+    if akT.device.type != "cuda":
+        raise RuntimeError(f"eqjoin: no kernel for device {akT.device}")
+    (Wa, T), Wb = akT.shape, bkT.shape[0]
+    if Wa % 4 or Wb < 1:
+        raise ValueError(f"eqjoin: the kernel takes Wa a multiple of 4 and Wb >= 1, got ({Wa}, {Wb})")
+    av = avT if mul in USES_AV else None
+    bv = bvT if mul in USES_BV else None
+    if not all(t.is_contiguous() for t in (akT, bkT, av, bv) if t is not None):
+        raise ValueError("eqjoin: inputs must be contiguous")
+    lib = _build.library()
+    vals = torch.empty(T, dtype=torch.float32, device=akT.device)
+    nm = torch.empty(T, dtype=torch.int32, device=akT.device)
+    with torch.cuda.device(akT.device):
+        rc = lib.gb_eqjoin(
+            akT.data_ptr(), None if av is None else av.data_ptr(), bkT.data_ptr(),
+            None if bv is None else bv.data_ptr(), vals.data_ptr(), nm.data_ptr(), Wa, Wb, T,
+            ADDS.index(add), MULS.index(mul), _build.stream_of(akT),
+        )
+    _build.check(rc, "eqjoin")
+    LAUNCHES["eqjoin"] += 1
+    return vals, nm
+
+
+def _check_probe(a, b):
+    if a.dtype != torch.float32 or b.dtype != torch.float32 or a.shape != b.shape or a.device != b.device:
+        raise ValueError("compare_probe: a and b must be float32 of one shape on one device")
+
+
+def compare_probe_plain(a, b):
+    """Plain PyTorch version of the probe (any device): ``PROBE_K`` passes."""
+    _check_probe(a, b)
+    PLAIN_CALLS["compare_probe"] += 1
+    acc = torch.zeros_like(a)
+    for i in range(PROBE_K):
+        acc = acc + (a == b + float(i)).to(torch.float32)
+    return acc
+
+
+def compare_probe(a, b):
+    """``sum over i < PROBE_K of (a == b + i)``, elementwise, float32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if a.device.type == "cpu":
+        return compare_probe_plain(a, b)
+    _check_probe(a, b)
+    if a.device.type != "cuda":
+        raise RuntimeError(f"compare_probe: no kernel for device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("compare_probe: inputs must be contiguous")
+    lib = _build.library()
+    if lib.gb_compare_probe_k() != PROBE_K:
+        raise RuntimeError("compare_probe: the kernel's K differs from PROBE_K")
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        rc = lib.gb_compare_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), _build.stream_of(a))
+    _build.check(rc, "compare_probe")
+    LAUNCHES["compare_probe"] += 1
+    return out

@@ -12,7 +12,10 @@ the CUDA half also runs where JAX is absent:
 Tolerances: min, max, fill, gathers and all integer scans are bit-exact.  A
 float add scan rounds in another order in each implementation (the TPU
 kernel's lane/row tree, the plain log-step scan, the CUDA thread/warp tree),
-so float add compares within rtol 1e-6 on positive inputs.
+so float add compares within rtol 1e-6 on positive inputs.  eqjoin is exact
+but for float plus and times accumulations of values (each implementation
+sums or multiplies the matches in its own order: rtol 1e-5); the tropical
+matmul and the compare probe are bit-exact.
 """
 
 from types import SimpleNamespace
@@ -22,8 +25,12 @@ import pytest
 import torch
 
 from graphblas_tpu_torch import kernels
+from graphblas_tpu_torch.kernels import eqjoin as ke
 from graphblas_tpu_torch.kernels import gather as kg
 from graphblas_tpu_torch.kernels import segscan as ks
+from graphblas_tpu_torch.kernels import tropical as kt
+from graphblas_tpu_torch.ops import eqjoin as te
+from graphblas_tpu_torch.ops import mxm as tm
 from graphblas_tpu_torch.ops import permute as tp
 from graphblas_tpu_torch.ops import scan as ts
 
@@ -52,9 +59,9 @@ def _inputs(seed, dt, n=N, positive=False):
 def ref():
     """The JAX package's kernels (the reference of the CPU half)."""
     jnp = pytest.importorskip("jax.numpy")
-    from graphblas_tpu.ops import pallas_scan, permute
+    from graphblas_tpu.ops import pallas_eqjoin, pallas_mxm, pallas_scan, permute
 
-    return SimpleNamespace(jnp=jnp, scan=pallas_scan, perm=permute)
+    return SimpleNamespace(jnp=jnp, scan=pallas_scan, perm=permute, eqjoin=pallas_eqjoin, mxm=pallas_mxm)
 
 
 def _t(a):
@@ -311,8 +318,14 @@ def test_wrappers_take_plain_versions_on_cpu_and_count():
     ts.segmented_scan_contrib(_t(x), _t(w), _t(valid), _t(flags), "max", "times")
     ts.segmented_scan(_t(x), _t(flags), "min")
     kg.gather(_t(x), _t(np.arange(N, dtype=np.int32)))
+    ak, av, bk, bv = _eqjoin_inputs(4, 16, 512, seed=7)
+    te.eqjoin(_t(ak), _t(av), _t(bk), _t(bv), "plus", "times")
+    a = torch.rand(8, 4, generator=torch.Generator().manual_seed(7))
+    tm.tropical_mxm_filled(a, a.T, "min", "plus")
+    ke.compare_probe(a, a)
     assert kernels.plain_counts() == {
         "gather": 1, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
+        "eqjoin": 1, "compare_probe": 1, "tropical_mxm": 1,
     }
     assert sum(kernels.launch_counts().values()) == 0
     kernels.reset_counts()
@@ -326,6 +339,148 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         kg.gather(x, idx)
     with pytest.raises(RuntimeError, match="no kernel"):
         ks.segscan(torch.zeros(128, device="meta"), torch.zeros(128, dtype=torch.bool, device="meta"), "add")
+    keys = torch.zeros((4, 512), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ke.eqjoin(keys, None, keys, None, "plus", "pair")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kt.tropical_mxm(torch.zeros(4, 4, device="meta"), torch.zeros(4, 4, device="meta"), "min", "plus")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ke.compare_probe(torch.zeros(8, device="meta"), torch.zeros(8, device="meta"))
+
+
+# ---- eqjoin ----------------------------------------------------------------
+
+
+def _eqjoin_inputs(Wa, Wb, T, seed, nan=False):
+    """Key tiles over a small key range (so tasks match), each task's tail
+    padded with -1 (A) / -2 (B); values in [-1.5, 1.5).  ``nan`` puts one NaN
+    value of A on a match."""
+    rng = np.random.default_rng(seed)
+    ak = rng.integers(0, 3 * max(Wa, Wb), (Wa, T)).astype(np.int32)
+    bk = rng.integers(0, 3 * max(Wa, Wb), (Wb, T)).astype(np.int32)
+    ak[np.arange(Wa)[:, None] >= rng.integers(1, Wa + 1, T)[None, :]] = -1
+    bk[np.arange(Wb)[:, None] >= rng.integers(0, Wb + 1, T)[None, :]] = -2
+    av = (rng.random((Wa, T)) * 3 - 1.5).astype(np.float32)
+    bv = (rng.random((Wb, T)) * 3 - 1.5).astype(np.float32)
+    if nan:
+        bk[0, 5] = ak[0, 5]
+        av[0, 5] = np.nan
+    return ak, av, bk, bv
+
+
+def _eqjoin_rtol(add, mul):
+    """Float plus / times accumulations of values round in each
+    implementation's own order; everything else is exact."""
+    return 1e-5 if add in ("plus", "times") and mul != "pair" else None
+
+
+def _assert_eqjoin_equal(got, want, add, mul):
+    (gv, gn), (wv, wn) = got, want
+    _assert_equal(gn, wn)
+    rtol = _eqjoin_rtol(add, mul)
+    if rtol is None:
+        _assert_equal(gv, wv)
+    else:
+        np.testing.assert_allclose(np.asarray(gv), np.asarray(wv), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("mul", sorted(ke.MULS))
+@pytest.mark.parametrize("add", sorted(ke.ADDS))
+@pytest.mark.parametrize("Wa,Wb", [(4, 16), (16, 64)])
+def test_eqjoin_matches_reference(ref, Wa, Wb, add, mul):
+    """Every add and multiply of the reference's _ADD_OPS x _MUL_OPS, with pad
+    keys and one NaN value on a match."""
+    jnp = ref.jnp
+    assert te.supported(add, mul) and ref.eqjoin.supported(add, mul)
+    ak, av, bk, bv = _eqjoin_inputs(Wa, Wb, 512, seed=Wa + Wb, nan=True)
+    want = ref.eqjoin.eqjoin(
+        jnp.asarray(ak), jnp.asarray(av) if mul != "pair" else None, jnp.asarray(bk),
+        jnp.asarray(bv) if mul in ("times", "plus", "second") else None, add=add, mul=mul, interpret=True,
+    )
+    got = te.eqjoin(_t(ak), _t(av), _t(bk), _t(bv), add, mul)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    _assert_eqjoin_equal(got, want, add, mul)
+    assert int(got[1].sum()) > 0 and (got[1].numpy() == 0).any()  # matches and empty tasks both occur
+    if mul in ("times", "plus", "first") and add not in ("lor", "land"):
+        assert np.isnan(got[0][5].item())  # the NaN propagates (lor / land read it as nonzero)
+
+
+def test_eqjoin_task_tile_is_the_reference_padding_rule(ref):
+    for Wa in (4, 16, 64, 256):
+        for Wb in (4, 16, 64, 256):
+            assert te.task_tile(Wa, Wb) == ref.eqjoin.task_tile(Wa, Wb)
+    assert ke.ADDS and set(ke.ADDS) == ref.eqjoin._ADD_OPS and set(ke.MULS) == ref.eqjoin._MUL_OPS
+
+
+def test_eqjoin_rejects_what_it_does_not_take():
+    ak, av, bk, bv = (_t(a) for a in _eqjoin_inputs(4, 16, 512, seed=3))
+    with pytest.raises(ValueError):
+        te.eqjoin(ak, av, bk, bv, "minus", "times")
+    with pytest.raises(ValueError):
+        te.eqjoin(ak, None, bk, bv, "plus", "times")
+    with pytest.raises(TypeError):
+        te.eqjoin(ak.long(), av, bk, bv, "plus", "times")
+    with pytest.raises(ValueError):
+        te.eqjoin(ak, av, bk[:, :256], bv[:, :256], "plus", "times")
+
+
+# ---- tropical matmul ------------------------------------------------------
+
+
+def _tropical_inputs(m, k, n, seed, nan=False):
+    rng = np.random.default_rng(seed)
+    av = (rng.random((m, k)) * 10).astype(np.float32)
+    bv = (rng.random((k, n)) * 10).astype(np.float32)
+    as_, bs = rng.random((m, k)) < 0.4, rng.random((k, n)) < 0.4
+    if nan:
+        av[1, 2], as_[1, 2] = np.nan, True
+    return av, as_, bv, bs
+
+
+@pytest.mark.parametrize("add,mul", list(kt.SEMIRINGS))
+@pytest.mark.parametrize("shape", [(48, 72, 33), (130, 520, 2050)])  # the second crosses every TPU tile edge
+def test_tropical_mxm_matches_reference(ref, add, mul, shape):
+    jnp = ref.jnp
+    av, as_, bv, bs = _tropical_inputs(*shape, seed=sum(shape), nan=shape[0] < 100)
+    wv, ws = ref.mxm.tropical_mxm(
+        jnp.asarray(av), jnp.asarray(as_), jnp.asarray(bv), jnp.asarray(bs), add, mul, np.float32, interpret=True
+    )
+    gv, gs = tm.tropical_mxm(_t(av), _t(as_), _t(bv), _t(bs), add, mul, torch.float32)
+    assert gv.dtype == torch.float32 and gs.dtype == torch.bool
+    _assert_equal(gs, ws)
+    _assert_equal(gv, wv)  # bit-exact, NaN where the reference has NaN
+    assert tm.is_tropical(add, mul, np.float32) and not tm.is_tropical(add, mul, np.int32)
+
+
+def test_tropical_mxm_filled_on_filled_arrays(ref):
+    rng = np.random.default_rng(31)
+    a = np.where(rng.random((40, 70)) < 0.3, np.inf, rng.random((40, 70)) * 5).astype(np.float32)
+    b = np.where(rng.random((70, 20)) < 0.3, np.inf, rng.random((70, 20)) * 5).astype(np.float32)
+    want = ref.mxm.tropical_mxm_filled(ref.jnp.asarray(a), ref.jnp.asarray(b), "min", "plus", interpret=True)
+    _assert_equal(tm.tropical_mxm_filled(_t(a), _t(b), "min", "plus"), want)
+
+
+def test_tropical_mxm_rejects_what_it_does_not_take():
+    a = torch.zeros(4, 5)
+    with pytest.raises(ValueError):
+        kt.tropical_mxm(a, a, "min", "plus")  # (4, 5) x (4, 5)
+    with pytest.raises(ValueError):
+        kt.tropical_mxm(a, a.T, "plus", "times")
+    with pytest.raises(TypeError):
+        kt.tropical_mxm(a.double(), a.T.double(), "min", "plus")
+
+
+# ---- compare probe --------------------------------------------------------
+
+
+def test_compare_probe_matches_numpy():
+    rng = np.random.default_rng(32)
+    a = rng.integers(0, 100, (256, 128)).astype(np.float32)
+    b = rng.integers(0, 40, (256, 128)).astype(np.float32)
+    want = sum((a == b + np.float32(i)).astype(np.float32) for i in range(ke.PROBE_K))
+    got = ke.compare_probe(_t(a), _t(b))
+    _assert_equal(got, want)
+    assert 0 < got.sum() < got.numel()
 
 
 # ---- CUDA half: kernel against plain version on the card ------------------
@@ -418,5 +573,45 @@ def test_cuda_gather_network_matches_plain(cuda):
     idx = torch.from_numpy(tp.compose_reference_network(stages, e_pad)).to(cuda)
     got = kg.gather(x, idx)
     want = tp.apply_network_plain(x, stages)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add,mul", [
+    ("plus", "pair"), ("plus", "times"), ("min", "plus"), ("max", "first"), ("any", "second"),
+    ("lor", "pair"), ("land", "times"), ("times", "plus"),
+])
+@pytest.mark.parametrize("Wa,Wb,T", [(4, 4, 1000), (16, 64, 4096), (64, 256, 512), (256, 256, 700)])
+def test_cuda_eqjoin_matches_plain(cuda, Wa, Wb, T, add, mul):
+    args = _on(cuda, *_eqjoin_inputs(Wa, Wb, T, seed=Wa * Wb + T, nan=True))
+    got = ke.eqjoin(*args, add, mul)
+    want = ke.eqjoin_plain(*args, add, mul)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    rtol = _eqjoin_rtol(add, mul)
+    torch.testing.assert_close(got[0], want[0], rtol=rtol or 0, atol=1e-6 if rtol else 0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add,mul", list(kt.SEMIRINGS))
+@pytest.mark.parametrize("shape", [(1, 1, 1), (65, 17, 129), (300, 1000, 77), (128, 2048, 256)])
+def test_cuda_tropical_mxm_matches_plain(cuda, add, mul, shape):
+    av, as_, bv, bs = _tropical_inputs(*shape, seed=sum(shape), nan=shape[0] > 1)
+    fill = kt.fill_value(add)
+    a, b = _on(cuda, np.where(as_, av, fill).astype(np.float32), np.where(bs, bv, fill).astype(np.float32))
+    got = kt.tropical_mxm(a, b, add, mul)
+    want = kt.tropical_mxm_plain(a, b, add, mul)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1 << 14, 128), (1000, 3)])
+def test_cuda_compare_probe_matches_plain(cuda, shape):
+    rng = np.random.default_rng(33)
+    a, b = _on(cuda, rng.integers(0, 100, shape).astype(np.float32), rng.integers(0, 40, shape).astype(np.float32))
+    got = ke.compare_probe(a, b)
+    want = ke.compare_probe_plain(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

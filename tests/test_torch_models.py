@@ -115,8 +115,8 @@ def test_pagerank_matches_reference(case, tol, max_iters):
 
 
 def test_loop_path_on_cpu_calls_only_plain_versions(case):
-    """The slice on CPU tensors: every plain version of its kernels runs, no
-    kernel launches."""
+    """The SpMV slice on CPU tensors: every plain version of its kernels runs,
+    no other plain version and no kernel launches."""
     plan, n = case["plan"], case["n"]
     kernels.reset_counts()
     port_fast.bfs_level(plan, case["sources"][0], n)
@@ -125,7 +125,9 @@ def test_loop_path_on_cpu_calls_only_plain_versions(case):
     port_fast.bfs_parent(plan, case["sources"][0], n)
     port_fs.spmv(case["plan_ne"], torch.ones(n), "min", "plus")
     plain = kernels.plain_counts()
-    assert all(v > 0 for v in plain.values()), plain
+    spmv_kernels = ("gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan")
+    assert all(plain[k] > 0 for k in spmv_kernels), plain
+    assert all(v == 0 for k, v in plain.items() if k not in spmv_kernels), plain
     assert sum(kernels.launch_counts().values()) == 0
 
 

@@ -16,9 +16,11 @@ check:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. build: the kernels built from graphblas_tpu_torch/csrc with nvcc
-  3. kernels: G (routes, fill, a network with T and row-select stages), C
-     (add, min, max), S (BFS, SSSP) and the generic scan (fill, add, min,
-     max; int32 and int8 add) against their plain PyTorch versions at e_pad,
+  3. kernels: G (routes, fill, a network with T and row-select stages, a
+     route on unaligned views, the L2 probe: a route with x of 2^20 slots), C
+     (add, min, max; with flags at 1/16 and with none, the longest
+     look-back), S (BFS, SSSP) and the generic scan (fill, add, min, max;
+     int32 and int8 add) against their plain PyTorch versions at e_pad,
      with both times and, for the routes, one PyTorch indexing call's;
      eqjoin on the SpGEMM workload's largest bucket, the tropical matmul at
      2048^3 and the compare probe against theirs
@@ -242,13 +244,33 @@ def check_kernels(torch, e_pad, dev, tc_plan, mt):
         "gather", f"network {kinds}", lambda: kg.gather(x, net_idx), lambda: apply_network_plain(x, stages_dev),
         (x, net_idx), 0, library=lambda: x[net_idx],
     )
-    for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
-        record(
-            "segscan_contrib", f"{op}/{mul}",
-            lambda: ks.segscan_contrib(x, w, valid, flags, op, mul),
-            lambda: ks.segscan_contrib_plain(x, w, valid, flags, op, mul),
-            (x, w if mul != "first" else None, valid, flags), 2, rtol=1e-6 if op == "add" else None,
-        )
+    # G on unaligned views (x one slot, the index three slots into their
+    # buffers), in the same launch as aligned ones
+    x_buf = torch.empty(e_pad + 1, device=dev)
+    x_buf[1:] = x
+    perm_buf = torch.empty(e_pad + 3, dtype=torch.int32, device=dev)
+    perm_buf[3:] = perm
+    xv, pv = x_buf[1:], perm_buf[3:]
+    record(
+        "gather", "route on unaligned views", lambda: kg.gather(xv, pv), lambda: kg.gather_plain(xv, pv), (xv, pv), 0,
+        library=lambda: xv[pv],
+    )
+    # the L2 probe: the same route with x of 2^20 slots (4 MB, surely resident)
+    x_small = rand(1 << 20)
+    idx_small = torch.randint(0, 1 << 20, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    record(
+        "gather", "L2 probe: x of 2^20 slots", lambda: kg.gather(x_small, idx_small),
+        lambda: kg.gather_plain(x_small, idx_small), (x_small, idx_small), 0, library=lambda: x_small[idx_small],
+    )
+    no_flags = torch.zeros(e_pad, dtype=torch.bool, device=dev)
+    for fl, flabel in ((flags, ""), (no_flags, ", no flags (the longest look-back)")):
+        for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
+            record(
+                "segscan_contrib", f"{op}/{mul}{flabel}",
+                lambda: ks.segscan_contrib(x, w, valid, fl, op, mul),
+                lambda: ks.segscan_contrib_plain(x, w, valid, fl, op, mul),
+                (x, w if mul != "first" else None, valid, fl), 2, rtol=1e-6 if op == "add" else None,
+            )
     frontier = (rand(e_pad) < 0.05).float()
     levels = torch.where(rand(e_pad) < 0.7, -1, torch.randint(0, 4, (e_pad,), generator=gen, device=dev)).to(torch.int32)
     record(

@@ -21,28 +21,47 @@
 //   modulo 2^k; fill, min and max are unaffected).
 //
 // Bound on the card: memory traffic.  One scan streams x, w (4 B each) and
-// the valid/flag bytes in, and the result out; the state kernel adds the
-// is_last byte and the state word in, and a second word out; the generic
-// scan reads only the values and the flag bytes.  There is no arithmetic to
-// speak of.
+// the valid/flag bytes in, and the result out (14 B a slot for C); the state
+// kernel adds the is_last byte and the state word in, and a second word out;
+// the generic scan reads only the values and the flag bytes.  There is no
+// arithmetic to speak of.
 //
-// Design: the TPU kernels carry the running (value, flag) pair from tile to
-// tile through a sequential grid with an SMEM carry.  Hopper blocks run in
-// no order, so this is reduce-then-scan in three launches:
+// The TPU kernels carry the running (value, flag) pair from tile to tile
+// through a sequential grid with an SMEM carry.  Hopper blocks run in no
+// order, so the carry has to cross blocks.
+//
+// Kernel C is one launch, a single pass with decoupled look-back (below,
+// "the single pass"): each input byte crosses memory once.  Persistent
+// blocks take 2048-slot tiles from a ticket counter; a full tile of aligned
+// inputs arrives in shared memory by Hopper's bulk copy (cp.async.bulk, an
+// mbarrier counting its bytes) while the block scans the tile before it; a
+// ragged or unaligned tile is read with plain loads in the same kernel.  The
+// carry goes through one 64-bit descriptor a tile.  Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (chip_smoke.py phase 3, 2^23 slots, flags at
+// 1/16): add/times 0.064 ms against the 0.035 ms bound, where the three
+// launches took 0.097; with no flag at all, the longest look-back, 0.077-0.081
+// ms.  A variant that read full tiles by 16-byte loads into registers in
+// place of the bulk copies took 0.077-0.084 ms with flags.
+//
+// Kernel S and the generic scan are still reduce-then-scan in three
+// launches:
 //   1. every block reduces its tile of kTile slots to one (value, has-flag)
 //      aggregate;
 //   2. one block scans the aggregates into per-tile carries (4096 of them at
 //      e_pad = 2^23);
 //   3. every block rescans its tile with its carry and applies the epilogue.
 // Phases 1 and 3 both read the inputs, so the input bytes cross memory
-// twice; at e_pad = 2^23 the second read partly hits the 50 MB L2.  A tile is
-// staged through shared memory (striped, coalesced global accesses; padded
-// to avoid bank conflicts), each thread scans kItems consecutive slots,
-// then warp shuffles and one warp-total pass combine the threads.  Float
-// arithmetic uses the _rn intrinsics so no multiply is contracted into an
-// FMA: products and sums round exactly as in the plain PyTorch version.
-// Offsets are 64-bit.  Nothing is allocated and nothing synchronises the
-// host: the wrapper passes the scratch arrays.
+// twice; their tiles are staged through shared memory (striped, coalesced
+// global accesses, padded against bank conflicts).  The single pass takes a
+// Tile (loads) and a Store (epilogue), so they can move onto it with their
+// own.
+//
+// In both, each thread scans kItems consecutive slots, then warp shuffles
+// and one warp-total pass combine the threads.  Float arithmetic uses the
+// _rn intrinsics so no multiply is contracted into an FMA: products and sums
+// round exactly as in the plain PyTorch version.  Offsets are 64-bit.
+// Nothing is allocated and nothing synchronises the host: the wrapper
+// passes the scratch arrays.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -84,6 +103,12 @@ struct Monoid<float, OP> {
 };
 
 template <int OP>
+struct Monoid<double, OP> {  // the single pass's carry of float sums
+  static __device__ __forceinline__ double ident() { return 0.0; }
+  static __device__ __forceinline__ double apply(double a, double b) { return __dadd_rn(a, b); }
+};
+
+template <int OP>
 struct Monoid<int32_t, OP> {
   static __device__ __forceinline__ int32_t ident() {
     return (OP == kAdd || OP == kFill) ? 0 : (OP == kMin ? INT_MAX : INT_MIN);
@@ -113,6 +138,16 @@ __device__ __forceinline__ int32_t wrap_to(int32_t c, int bits, int is_signed) {
   return (int32_t)((uint32_t)c & ((1u << bits) - 1u));
 }
 
+// the 32 bits of a 4-byte value (the single pass's vector loads and stores)
+__device__ __forceinline__ uint32_t to_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t to_bits(int32_t v) { return (uint32_t)v; }
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t b);
+template <>
+__device__ __forceinline__ float from_bits<float>(uint32_t b) { return __uint_as_float(b); }
+template <>
+__device__ __forceinline__ int32_t from_bits<int32_t>(uint32_t b) { return (int32_t)b; }
+
 // b := a (+) b, where a is the earlier pair; a set flag in b starts a segment.
 template <typename T, int OP>
 __device__ __forceinline__ void combine(T av, int af, T& bv, int& bf) {
@@ -130,16 +165,18 @@ struct ContribLoad {
   const uint8_t* flags;
   int mul, wrap_bits, wrap_signed;
   T invalid;  // the monoid identity in the IO type's range (int8 IO computes in int32)
-  __device__ __forceinline__ void operator()(int64_t i, T, T& v, int& f) const {
-    T c = x[i];
+  // the prologue: multiply, wrap, the identity at invalid slots
+  __device__ __forceinline__ T contrib(T c, T wv, int ok) const {
     if (w != nullptr) {
-      const T wv = w[i];
       if (mul == kTimes) c = mul_rn(c, wv);
       else if (mul == kPlus) c = add_rn(c, wv);
       else if (mul == kSecond) c = wv;
     }
     if (wrap_bits > 0 && (mul == kTimes || mul == kPlus)) c = wrap_to(c, wrap_bits, wrap_signed);
-    v = valid[i] ? c : invalid;
+    return ok ? c : invalid;
+  }
+  __device__ __forceinline__ void operator()(int64_t i, T, T& v, int& f) const {
+    v = contrib(x[i], w != nullptr ? w[i] : (T)0, valid[i]);
     f = flags[i] != 0;
   }
 };
@@ -189,6 +226,22 @@ struct ValueStore {
     return 0;
   }
   __device__ __forceinline__ void block_done(int) const {}
+  // slots i0 .. i0 + kItems - 1 (i0 a multiple of kItems; out from the
+  // caching allocator, so a full run of 4-byte words is 32-byte aligned)
+  __device__ __forceinline__ void items(int64_t i0, const T (&v)[kItems], int64_t n) const {
+    if (sizeof(Out) == 4 && i0 + kItems <= n) {
+      uint32_t u[kItems];
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) u[k] = to_bits((Out)v[k]);
+      uint4* p = reinterpret_cast<uint4*>(out + i0);
+      p[0] = make_uint4(u[0], u[1], u[2], u[3]);
+      p[1] = make_uint4(u[4], u[5], u[6], u[7]);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (i0 + k < n) out[i0 + k] = (Out)v[k];
+  }
 };
 
 struct BfsStore {
@@ -412,17 +465,329 @@ int run_scan(const Load& ld, const Store& st, int64_t n, void* agg_v, void* agg_
   return (int)cudaGetLastError();
 }
 
+// ---- the single pass (Kernel C) ------------------------------------------
+//
+// Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
+// with Decoupled Look-back", NVIDIA 2016) on (value, flag) pairs.  A block
+// takes its tiles from a ticket counter in order, so a tile only ever waits
+// on tiles that running blocks hold.  Each tile publishes one 64-bit
+// descriptor: its aggregate first, its inclusive prefix once it knows it.
+// One warp looks back over up to 32 predecessors at a time and stops at an
+// inclusive prefix or at an aggregate with its flag set: a segment starts in
+// that tile, so nothing earlier reaches this one.
+
+// descriptor: bits 0-60 the value, bit 61 has-flag, bits 62-63 the status
+enum : uint32_t { kNone = 0, kAggregate = 1, kPrefix = 2 };
+
+// The type the look-back carries.  Float sums chain in double: a segment
+// that spans k tiles would otherwise round its prefix k times in float (at
+// 2^23 slots in one segment that is 1.6e-6 relative, past the 1e-6 the
+// port holds float add scans to), so the descriptor keeps the double with
+// its 3 lowest mantissa bits dropped (61 bits).  Everything else is exact
+// in its own 32 bits.
+template <typename T, int OP>
+struct Carry { using type = T; };
+template <>
+struct Carry<float, kAdd> { using type = double; };
+
+__device__ __forceinline__ uint64_t value_bits(double v) {
+  return (uint64_t)__double_as_longlong(v) >> 3;
+}
+__device__ __forceinline__ uint64_t value_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint64_t value_bits(int32_t v) { return (uint32_t)v; }
+template <typename C>
+__device__ __forceinline__ C value_of(uint64_t d);
+template <>
+__device__ __forceinline__ double value_of<double>(uint64_t d) {
+  return __longlong_as_double((long long)(d << 3));
+}
+template <>
+__device__ __forceinline__ float value_of<float>(uint64_t d) { return __uint_as_float((uint32_t)d); }
+template <>
+__device__ __forceinline__ int32_t value_of<int32_t>(uint64_t d) { return (int32_t)(uint32_t)d; }
+constexpr int kStages = 2;  // the ring of tiles a block keeps in flight
+
+template <typename C>
+__device__ __forceinline__ uint64_t pack(C v, int f, uint32_t status) {
+  return value_bits(v) | ((uint64_t)(f != 0) << 61) | ((uint64_t)status << 62);
+}
+__device__ __forceinline__ uint32_t status_of(uint64_t d) { return (uint32_t)(d >> 62); }
+__device__ __forceinline__ int flag_of(uint64_t d) { return (int)((d >> 61) & 1); }
+__device__ __forceinline__ uint64_t value_field(uint64_t d) { return d & ((1ull << 61) - 1); }
+// A descriptor is one 64-bit word that carries its own value, so nothing
+// else needs ordering around it: relaxed gpu-scope accesses suffice, and a
+// publish does not wait for the thread's earlier stores as a release would.
+__device__ __forceinline__ void st_desc(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ uint64_t ld_desc(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Hopper's bulk copies: global -> shared, completion counted in bytes on an
+// mbarrier.  Addresses and sizes are multiples of 16 bytes.
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem(dst)),
+      "l"(src), "r"(bytes), "r"(smem(bar))
+      : "memory");
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// kItems consecutive 4-byte words (32-byte aligned), or bytes (8-aligned),
+// from a stage in shared memory.
+template <typename T>
+__device__ __forceinline__ void ld_items(T (&d)[kItems], const T* s) {
+  const uint4 a = reinterpret_cast<const uint4*>(s)[0];
+  const uint4 b = reinterpret_cast<const uint4*>(s)[1];
+  const uint32_t u[kItems] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) d[k] = from_bits<T>(u[k]);
+}
+__device__ __forceinline__ void ld_items(uint8_t (&d)[kItems], const uint8_t* s) {
+  const uint2 a = *reinterpret_cast<const uint2*>(s);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) d[k] = (uint8_t)(((k < 4 ? a.x : a.y) >> (8 * (k & 3))) & 0xff);
+}
+
+// Kernel C's tile: x, w, valid and flags of kTile slots.  A full tile of
+// 16-byte aligned arrays arrives by bulk copy into a stage of the ring; the
+// ragged last tile and unaligned views are read with plain loads.
+template <typename T>
+struct ContribTile {
+  struct Stage {
+    T x[kTile];
+    T w[kTile];
+    uint8_t valid[kTile];
+    uint8_t flags[kTile];
+  };
+  ContribLoad<T> ld;
+  int bulk_ok;  // every input 16-byte aligned
+
+  __device__ __forceinline__ bool staged(int64_t t, int64_t n) const {
+    return bulk_ok && (t + 1) * kTile <= n;
+  }
+  // thread 0: start the copies of tile t into stage sg
+  __device__ __forceinline__ void issue(Stage& sg, uint64_t* bar, int64_t t, int64_t n) const {
+    if (!staged(t, n)) return;
+    const int64_t base = t * kTile;
+    const uint32_t words = kTile * sizeof(T);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(bar, (ld.w != nullptr ? 2 * words : words) + 2 * kTile);
+    bulk_load(sg.x, ld.x + base, words, bar);
+    if (ld.w != nullptr) bulk_load(sg.w, ld.w + base, words, bar);
+    bulk_load(sg.valid, ld.valid + base, kTile, bar);
+    bulk_load(sg.flags, ld.flags + base, kTile, bar);
+  }
+  // the contributions and flags of slots i0 .. i0 + kItems - 1 of tile t
+  __device__ __forceinline__ void items(const Stage& sg, int64_t t, int i0, int64_t n,
+                                        T (&v)[kItems], int (&f)[kItems], T ident) const {
+    const int64_t base = t * kTile;
+    if (staged(t, n)) {
+      T xs[kItems], ws[kItems];
+      uint8_t vs[kItems], fs[kItems];
+      ld_items(xs, sg.x + i0);
+      if (ld.w != nullptr) ld_items(ws, sg.w + i0);
+      ld_items(vs, sg.valid + i0);
+      ld_items(fs, sg.flags + i0);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        v[k] = ld.contrib(xs[k], ld.w != nullptr ? ws[k] : (T)0, vs[k]);
+        f[k] = fs[k] != 0;
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      v[k] = ident;
+      f[k] = 0;
+      if (base + i0 + k < n) ld(base + i0 + k, ident, v[k], f[k]);
+    }
+  }
+};
+
+// Exclusive prefix of tile t (warp 0, every lane gets it).  Publishes the
+// tile's aggregate, looks back, then publishes its inclusive prefix.
+template <typename T, int OP>
+__device__ __forceinline__ T look_back(uint64_t* desc, int64_t t, T agg_v, int agg_f) {
+  const int lane = threadIdx.x & 31;
+  const T ident = Monoid<T, OP>::ident();
+  if (t == 0) {
+    if (lane == 0) st_desc(desc, pack(agg_v, agg_f, kPrefix));
+    return ident;
+  }
+  if (lane == 0) st_desc(desc + t, pack(agg_v, agg_f, kAggregate));
+  T run_v = ident;  // the predecessors combined so far, in array order
+  int run_f = 0;
+  for (int64_t end = t;; end -= 32) {
+    const int64_t i = end - 1 - lane;  // lane 0 the nearest predecessor
+    uint64_t d = i >= 0 ? ld_desc(desc + i) : pack(ident, 0, kPrefix);
+    unsigned stops, need;
+    for (;;) {
+      const uint32_t status = status_of(d);
+      const bool stop = status == kPrefix || (status == kAggregate && flag_of(d));
+      stops = __ballot_sync(kFull, stop);
+      const unsigned ready = __ballot_sync(kFull, status != kNone);
+      // lanes up to the nearest stop, or all 32
+      need = stops ? ((stops & (0u - stops)) << 1) - 1u : kFull;
+      if ((ready & need) == need) break;
+      if (status == kNone) d = ld_desc(desc + i);
+    }
+    T wv = ident;
+    int wf = 0;
+    if ((need >> lane) & 1) {
+      wv = value_of<T>(value_field(d));
+      wf = flag_of(d);
+    }
+    // combine the window, later lanes being earlier tiles
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const T ov = __shfl_down_sync(kFull, wv, off);
+      const int of = __shfl_down_sync(kFull, wf, off);
+      if (lane + off < 32) combine<T, OP>(ov, of, wv, wf);
+    }
+    wv = __shfl_sync(kFull, wv, 0);
+    wf = __shfl_sync(kFull, wf, 0);
+    combine<T, OP>(wv, wf, run_v, run_f);
+    if (stops) break;
+  }
+  if (lane == 0) {
+    T inc_v = agg_v;
+    int inc_f = agg_f;
+    combine<T, OP>(run_v, run_f, inc_v, inc_f);
+    st_desc(desc + t, pack(inc_v, inc_f, kPrefix));
+  }
+  return run_v;
+}
+
+// Persistent blocks, each with a ring of kStages tiles: the next ticket's
+// copy is in flight while this tile scans.
+template <typename T, int OP, class Tile, class Store>
+__global__ void __launch_bounds__(kThreads, 5)  // 5 blocks an SM, as the ring's shared memory allows
+    scan_onepass(Tile tl, Store st, int64_t n, int64_t ntiles, uint64_t* desc,
+                 unsigned* ticket) {
+  __shared__ __align__(128) typename Tile::Stage s_stage[kStages];
+  __shared__ uint64_t s_bar[kStages];
+  __shared__ int64_t s_tile[kStages];
+  using C = typename Carry<T, OP>::type;
+  __shared__ T s_wv[kWarps + 1];
+  __shared__ int s_wf[kWarps + 1];
+  __shared__ C s_prefix;
+  const T ident = Monoid<T, OP>::ident();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kStages; ++k) mbar_init(&s_bar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    s_tile[0] = atomicAdd(ticket, 1u);
+    if (s_tile[0] < ntiles) tl.issue(s_stage[0], &s_bar[0], s_tile[0], n);
+  }
+  __syncthreads();
+  uint32_t parity = 0;  // bit k: the phase stage k waits for next
+  for (int sg = 0;; sg ^= 1) {
+    const int64_t t = s_tile[sg];
+    if (t >= ntiles) break;
+    if (threadIdx.x == 0) {
+      const int64_t nt = atomicAdd(ticket, 1u);
+      s_tile[sg ^ 1] = nt;
+      if (nt < ntiles) tl.issue(s_stage[sg ^ 1], &s_bar[sg ^ 1], nt, n);
+    }
+    if (tl.staged(t, n)) {
+      mbar_wait(&s_bar[sg], (parity >> sg) & 1u);
+      parity ^= 1u << sg;
+    }
+    T v[kItems];
+    int f[kItems];
+    const int i0 = threadIdx.x * kItems;
+    tl.items(s_stage[sg], t, i0, n, v, f, ident);
+    T rv = ident;
+    int rf = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      T bv = v[k];
+      int bf = f[k];
+      combine<T, OP>(rv, rf, bv, bf);
+      rv = bv;
+      rf = bf;
+    }
+    T ev, tv;
+    int ef, tf;
+    block_exclusive<T, OP>(rv, rf, ev, ef, tv, tf, s_wv, s_wf);
+    if (threadIdx.x < 32) {
+      const C p = look_back<C, OP>(desc, t, (C)tv, tf);
+      if (threadIdx.x == 0) s_prefix = p;
+    }
+    __syncthreads();
+    C ec = (C)ev;
+    combine<C, OP>(s_prefix, 0, ec, ef);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      C vc = (C)v[k];
+      combine<C, OP>(ec, ef, vc, f[k]);
+      ec = vc;
+      ef = f[k];
+      v[k] = (T)vc;
+    }
+    st.items(t * kTile + i0, v, n);
+    __syncthreads();  // the stage and s_prefix are free again
+  }
+}
+
+template <typename T, int OP, class Tile, class Store>
+int run_onepass(const Tile& tl, const Store& st, int64_t n, void* tile_state, cudaStream_t s) {
+  if (n > 0) {
+    const int64_t ntiles = (n + kTile - 1) / kTile;
+    auto kernel = scan_onepass<T, OP, Tile, Store>;
+    static int per_sm = 0;  // resident blocks per SM, once per instantiation
+    if (per_sm == 0) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int64_t grid = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    if (grid > ntiles) grid = ntiles;
+    uint64_t* desc = (uint64_t*)tile_state;
+    kernel<<<(unsigned)grid, kThreads, 0, s>>>(tl, st, n, ntiles, desc, (unsigned*)(desc + ntiles));
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int contrib_typed(const void* x, const void* w, const void* valid, const void* flags, void* out,
-                  void* agg_v, void* agg_f, void* carry, int64_t n, int op, int mul, int wrap_bits,
-                  int wrap_signed, double invalid, cudaStream_t s) {
+                  void* tile_state, int64_t n, int op, int mul, int wrap_bits, int wrap_signed,
+                  double invalid, cudaStream_t s) {
   const ContribLoad<T> ld{(const T*)x, (const T*)w, (const uint8_t*)valid,
                           (const uint8_t*)flags, mul, wrap_bits, wrap_signed, (T)invalid};
+  const int bulk_ok = aligned16(x) && (w == nullptr || aligned16(w)) && aligned16(valid) &&
+                      aligned16(flags);
+  const ContribTile<T> tl{ld, bulk_ok};
   const ValueStore<T, T> st{(T*)out};
   switch (op) {
-    case kAdd: return run_scan<T, kAdd>(ld, st, n, agg_v, agg_f, carry, s);
-    case kMin: return run_scan<T, kMin>(ld, st, n, agg_v, agg_f, carry, s);
-    case kMax: return run_scan<T, kMax>(ld, st, n, agg_v, agg_f, carry, s);
+    case kAdd: return run_onepass<T, kAdd>(tl, st, n, tile_state, s);
+    case kMin: return run_onepass<T, kMin>(tl, st, n, tile_state, s);
+    case kMax: return run_onepass<T, kMax>(tl, st, n, tile_state, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -447,17 +812,18 @@ extern "C" int gb_segscan_tile() { return kTile; }
 
 // op: 0 add, 1 min, 2 max.  mul: 0 times, 1 plus, 2 second, 3 first
 // (ignored when w is null).  wrap_bits 0 = no wrap.  invalid: the value
-// written at invalid slots (the identity in the IO type's range).  Scratch: agg_v and carry
-// hold ceil(n / tile) values of the IO type, agg_f as many int32.
+// written at invalid slots (the identity in the IO type's range).
+// tile_state: ceil(n / tile) + 1 zeroed 64-bit words (the tiles'
+// descriptors, then the ticket counter).
 extern "C" int gb_segscan_contrib(const void* x, const void* w, const void* valid,
-                                  const void* flags, void* out, void* agg_v, void* agg_f,
-                                  void* carry, int64_t n, int is_int, int op, int mul,
-                                  int wrap_bits, int wrap_signed, double invalid, void* stream) {
+                                  const void* flags, void* out, void* tile_state, int64_t n,
+                                  int is_int, int op, int mul, int wrap_bits, int wrap_signed,
+                                  double invalid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_int)
-    return contrib_typed<int32_t>(x, w, valid, flags, out, agg_v, agg_f, carry, n, op, mul,
-                                  wrap_bits, wrap_signed, invalid, s);
-  return contrib_typed<float>(x, w, valid, flags, out, agg_v, agg_f, carry, n, op, mul, wrap_bits,
+    return contrib_typed<int32_t>(x, w, valid, flags, out, tile_state, n, op, mul, wrap_bits,
+                                  wrap_signed, invalid, s);
+  return contrib_typed<float>(x, w, valid, flags, out, tile_state, n, op, mul, wrap_bits,
                               wrap_signed, invalid, s);
 }
 

@@ -37,7 +37,7 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "gb_gather": [_P, _P, _P, _I64, _I, _P],
     "gb_gather_pagerank": [_P, _P, _P, _P, _P, _I64, _P],
-    "gb_segscan_contrib": [_P] * 8 + [_I64, _I, _I, _I, _I, _I, ctypes.c_double, _P],
+    "gb_segscan_contrib": [_P] * 6 + [_I64, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     "gb_segscan_state": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _P],
     "gb_segscan": [_P] * 6 + [_I64, _I, _I, _P],
     "gb_segscan_tile": [],

@@ -15,6 +15,11 @@ Replaces four TPU kernels of the JAX package:
 Channels of 1, 2 and 4 bytes move at their own width (float32, int32,
 int16, int8, uint8).  Launch counts are kept per role: ``gather`` (routes,
 any epilogue but fill) and ``gather_fill`` (the segmented fill).
+
+On the card a thread keeps 8 random loads of x in flight; idx, aux and out
+stream through L2 evict-first while x is read evict-last, so that x stays
+resident where it fits (``csrc/gather.cu`` says what bounds the kernel).
+Views at any alignment run in the same launch.
 """
 
 import torch

@@ -8,6 +8,12 @@
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
   x) or SSSP (min of x + w) scan fused with the per-round state update.
 
+On the card Kernel C is one launch, a single-pass scan with decoupled
+look-back: its wrapper zeroes one scratch array, the tiles' descriptors and a
+ticket counter (one memset).  Kernel S and the generic scan are
+reduce-then-scan in three launches, with scratch for the tile aggregates and
+carries.
+
 The plain versions are a log-step (Hillis-Steele) segmented scan over the
 flat array: ceil(log2 n) shifted ``_combine`` passes with the same prologue
 and epilogue.  Float sums therefore round in another order than the kernel's
@@ -178,12 +184,13 @@ def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
     lib = _build.library()
     n = x.numel()
     out = torch.empty(n, dtype=cd, device=x.device)
-    agg_v, agg_f, carry = _scratch(n, cd, x.device)
+    # the tiles' descriptors and the ticket counter, zeroed: one memset
+    tile_state = torch.zeros(-(-n // lib.gb_segscan_tile()) + 1, dtype=torch.int64, device=x.device)
     bits, signed = wrap if wrap is not None else (0, False)
     with torch.cuda.device(x.device):
         rc = lib.gb_segscan_contrib(
             x.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            agg_v.data_ptr(), agg_f.data_ptr(), carry.data_ptr(), n,
+            tile_state.data_ptr(), n,
             int(cd == torch.int32), OPS.index(op), MULS.index(mul), int(bits), int(bool(signed)),
             float(_ident(op, io)), _build.stream_of(x),
         )

@@ -1,0 +1,195 @@
+"""Kernels G and C alone on the card: CUDA-event times, the L2 probe, ptxas.
+
+- ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu`` and ``csrc/segscan.cu``
+  with the build's own flags: registers, stack and spills of every kernel of
+  the two files (the whole listing goes to ``--out``).
+- ``gather``: Kernel G's route over an int32 index of 2^log2n slots, random
+  over len(x), with x of 2^20 (surely resident in the 50 MB L2), 2^21, 2^22,
+  2^23 (the main path's) and 2^24 float32 slots: the L2 probe.  Then the
+  PageRank epilogue and the segmented fill at 2^log2n, as
+  ``chip_smoke.py`` phase 3 builds them.
+- ``contrib``: Kernel C at 2^log2n, add/times, min/plus and max/first, with
+  flags at 1/16 (the main path's mean segment) and with no flag at all (the
+  longest look-back); then a route followed by C on its output, the main
+  path's order.
+- ``l2 window``, last: the route over a permutation of 2^log2n slots once
+  more under an L2 access-policy window that marks x persisting (set on the
+  stream by libcuda's cuStreamSetAttribute, then cleared and the carve-out
+  given back): the second design for keeping x resident, beside the cache
+  hints.
+
+Each time is the mean of ``--reps`` launches between two CUDA events, after
+one warm-up launch (warm L2: the inputs were just written).  One line per
+time, the card's name and power limit first, then one JSON line of all times.
+
+    python -m graphblas_tpu_torch.tools.probe_kernels [--log2n 23] [--reps 50] [--out chiprun_out/ptxas.txt]
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+
+
+def ptxas_report(build, out_path):
+    """Registers, stack and spills of each kernel of gather.cu and
+    segscan.cu, as ptxas prints them for the build's flags."""
+    lines = []
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    nvcc = build.nvcc_path()
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    with open(out_path, "w") as f:
+        for name in ("gather.cu", "segscan.cu"):
+            src = os.path.join(build.CSRC_DIR, name)
+            obj = os.path.join(os.path.dirname(out_path) or ".", f"{name}.ptxas.o")
+            proc = subprocess.run(
+                [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src],
+                capture_output=True, text=True, check=True,
+            )
+            os.remove(obj)
+            f.write(f"==== {name} ====\n{proc.stderr}\n")
+            func = None
+            for line in proc.stderr.splitlines():
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    func = m.group(1)
+                    if os.path.exists(filt):
+                        func = subprocess.run([filt, func], capture_output=True, text=True).stdout.strip()
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m and func:
+                    stack, st, ld = m.groups()
+                m = re.search(r"Used (\d+) registers", line)
+                if m and func:
+                    lines.append(f"{name}: {m.group(1)} regs, stack {stack}, spills {st}/{ld} B: {func[:150]}")
+                    func = None
+    return lines
+
+
+class _Window(ctypes.Structure):  # CUaccessPolicyWindow
+    _fields_ = [
+        ("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t), ("hit_ratio", ctypes.c_float),
+        ("hit_prop", ctypes.c_int), ("miss_prop", ctypes.c_int),
+    ]
+
+
+class _AttrValue(ctypes.Union):  # CUlaunchAttributeValue, padded to 64 bytes
+    _fields_ = [("pad", ctypes.c_char * 64), ("window", _Window)]
+
+
+def l2_window(stream, t):
+    """Set (t a tensor) or clear (t None) an L2 access-policy window on the
+    stream by libcuda's cuStreamSetAttribute: t's bytes persisting, as far
+    as the card's persisting carve-out reaches.  Returns the window's bytes
+    and hit ratio."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *a):
+        rc = getattr(cu, name)(*a)
+        if rc != 0:
+            raise RuntimeError(f"probe_kernels: {name} returned CUresult {rc}")
+
+    dev = ctypes.c_int()
+    call("cuCtxGetDevice", ctypes.byref(dev))
+    max_persist, max_window = ctypes.c_int(), ctypes.c_int()
+    call("cuDeviceGetAttribute", ctypes.byref(max_persist), 108, dev)  # MAX_PERSISTING_L2_CACHE_SIZE
+    call("cuDeviceGetAttribute", ctypes.byref(max_window), 109, dev)  # MAX_ACCESS_POLICY_WINDOW_SIZE
+    value = _AttrValue()
+    if t is not None:
+        call("cuCtxSetLimit", 0x06, ctypes.c_size_t(max_persist.value))  # PERSISTING_L2_CACHE_SIZE
+        nbytes = min(t.numel() * t.element_size(), max_window.value)
+        ratio = min(1.0, max_persist.value / nbytes)
+        value.window = _Window(t.data_ptr(), nbytes, ratio, 2, 1)  # hit PERSISTING, miss STREAMING
+    call("cuStreamSetAttribute", ctypes.c_void_p(stream), 1, ctypes.byref(value))  # ACCESS_POLICY_WINDOW
+    if t is None:  # give the carve-out back to normal lines too
+        call("cuCtxResetPersistingL2Cache")
+        call("cuCtxSetLimit", 0x06, ctypes.c_size_t(0))
+        return 0, 0.0
+    return nbytes, ratio
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2n", type=int, default=23)
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--out", default="chiprun_out/ptxas.txt")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_kernels: no CUDA device")
+    from graphblas_tpu_torch.kernels import _build
+    from graphblas_tpu_torch.kernels import gather as kg
+    from graphblas_tpu_torch.kernels import segscan as ks
+    from graphblas_tpu_torch.ops.scan import build_fill_tables
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    print(card, flush=True)
+    for line in ptxas_report(_build, args.out):
+        print(f"[ptxas] {line}", flush=True)
+    _build.library()
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / args.reps
+
+    times = {}
+
+    def report(key, t):
+        times[key] = t
+        print(f"[time] {key}: {t:.4f} ms", flush=True)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    n = 1 << args.log2n
+    for k in (20, 21, 22, 23, 24):
+        x = torch.rand(1 << k, generator=gen, device=dev)
+        idx = torch.randint(0, 1 << k, (n,), generator=gen, device=dev, dtype=torch.int32)
+        report(f"gather route, x 2^{k}", ms(lambda: kg.gather(x, idx)))
+    x = torch.rand(n, generator=gen, device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    aux = torch.randint(1, 30, (n,), generator=gen, device=dev).float()
+    aux = aux * torch.where(torch.rand(n, generator=gen, device=dev) < 0.8, 1.0, -1.0)
+    c = torch.tensor(0.37, device=dev)
+    report("gather route, permutation", ms(lambda: kg.gather(x, perm)))
+    report("gather pagerank", ms(lambda: kg.gather(x, perm, "pagerank", aux, c)))
+    flags = torch.rand(n, generator=gen, device=dev) < 1 / 16
+    fill_src = torch.from_numpy(build_fill_tables(flags.cpu().numpy())).to(dev)
+    report("gather fill", ms(lambda: kg.gather(x, fill_src, "fill")))
+    w = torch.rand(n, generator=gen, device=dev) * 9 + 1
+    valid = torch.rand(n, generator=gen, device=dev) < 0.9
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    for label, fl in (("flags 1/16", flags), ("no flags", none)):
+        for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
+            wv = None if mul == "first" else w
+            report(f"contrib {op}/{mul}, {label}", ms(lambda: ks.segscan_contrib(x, wv, valid, fl, op, mul)))
+    # the path's order: a route, then C on its output (does x's evict-last
+    # residency slow the next kernel?)
+    report(
+        "route then contrib add/times",
+        ms(lambda: ks.segscan_contrib(kg.gather(x, perm), w, valid, flags, "add", "times")),
+    )
+    # last, as the persisting carve-out it sets aside slows what follows
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nbytes, ratio = l2_window(stream, x)
+    print(f"[l2 window] {nbytes} bytes of x persisting, hit ratio {ratio:.3f}", flush=True)
+    report("gather route, permutation, L2 window on x", ms(lambda: kg.gather(x, perm)))
+    l2_window(stream, None)
+    print(json.dumps({"card": card, "log2n": args.log2n, "reps": args.reps, "ms": times}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

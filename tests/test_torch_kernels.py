@@ -176,6 +176,88 @@ def test_scan_contrib_matches_reference(ref, dt, op, mul, has_w, wrap):
         _assert_equal(got, want)
 
 
+def _look_back_model(op, v, f, tile, seed, window=4):
+    """Kernel C's single pass, modelled in Python: tiles of ``tile`` slots
+    run in a seeded random order of steps; a tile first publishes its
+    aggregate, then looks back over up to ``window`` predecessors at a time,
+    blocked while one of them up to the nearest stop has published nothing.
+    It stops at an inclusive prefix or at an aggregate whose flag is set;
+    then it scans its own slots from that prefix and publishes its own."""
+    combine = {
+        "add": lambda a, b: a + b, "min": min, "max": max, "fill": lambda a, b: a,
+    }[op]
+    ident = ks._ident(op, torch.int64)
+
+    def join(a, b):  # b later; a set flag in b starts a segment
+        return (b[0] if b[1] else combine(a[0], b[0]), a[1] or b[1])
+
+    vals, flags = v.tolist(), f.tolist()
+    nt = -(-len(vals) // tile)
+    aggs = []
+    for t in range(nt):
+        acc = (ident, False)
+        for i in range(t * tile, min((t + 1) * tile, len(vals))):
+            acc = join(acc, (vals[i], flags[i]))
+        aggs.append(acc)
+    desc = [None] * nt  # None, ("A", (v, f)) or ("P", (v, f))
+    out = [None] * len(vals)
+    rng = np.random.default_rng(seed)
+    pending = list(range(nt))
+    waits = 0
+    while pending:
+        t = pending[rng.integers(len(pending))]
+        if desc[t] is None:
+            desc[t] = ("P" if t == 0 else "A", aggs[t])
+            if t > 0:
+                continue
+        if t > 0:
+            run, end, blocked = (ident, False), t, False
+            while True:
+                win = [desc[j] if j >= 0 else ("P", (ident, False)) for j in range(end - 1, end - 1 - window, -1)]
+                stop = next((k for k, d in enumerate(win) if d and (d[0] == "P" or d[1][1])), None)
+                upto = win if stop is None else win[: stop + 1]
+                if any(d is None for d in upto):
+                    blocked = True
+                    break
+                for d in upto:  # nearest first, so each is earlier than ``run``
+                    run = join(d[1], run)
+                if stop is not None:
+                    break
+                end -= window
+            if blocked:
+                waits += 1
+                continue
+        else:
+            run = (ident, False)
+        acc = run
+        for i in range(t * tile, min((t + 1) * tile, len(vals))):
+            acc = join(acc, (vals[i], flags[i]))
+            out[i] = acc[0]
+        desc[t] = ("P", join(run, aggs[t]))
+        pending.remove(t)
+    return torch.tensor(out, dtype=torch.int64), waits
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max", "fill"])
+@pytest.mark.parametrize("flags_kind", ["random", "none", "tile_starts", "sparse"])
+def test_look_back_model_matches_plain_scan(op, flags_kind):
+    """The rule Kernel C relies on: a look-back that stops at an inclusive
+    prefix or a flagged aggregate, with tiles finishing in any order, gives
+    the inclusive segmented scan."""
+    rng = np.random.default_rng(40)
+    n, tile = 517, 8
+    v = torch.from_numpy(rng.integers(-50, 50, n))
+    f = {
+        "random": rng.random(n) < 0.2,
+        "none": np.zeros(n, bool),
+        "tile_starts": np.arange(n) % tile == 0,
+        "sparse": rng.random(n) < 0.01,
+    }[flags_kind]
+    got, waits = _look_back_model(op, v, torch.from_numpy(f), tile, seed=41)
+    assert waits > 0  # some look-backs found a predecessor with nothing published
+    assert torch.equal(got, ks._scan_plain(op, v, torch.from_numpy(f)))
+
+
 def test_scan_contrib_rejects_what_it_does_not_take():
     x, w, valid, flags = _inputs(3, "f32")
     with pytest.raises(ValueError):
@@ -615,3 +697,150 @@ def test_cuda_compare_probe_matches_plain(cuda, shape):
     want = ke.compare_probe_plain(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---- CUDA half: G and C at the edges of their designs ----------------------
+
+
+def _view(dev, arr, offset):
+    """``arr`` on the card as a view ``offset`` elements into a larger
+    allocation: offsets 1-3 leave it off 16-byte alignment."""
+    t = _t(arr)
+    buf = torch.zeros(len(arr) + offset, dtype=t.dtype, device=dev)
+    buf[offset:] = t.to(dev)
+    return buf[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 3), (3, 1), (2, 2)])  # x's, idx's
+@pytest.mark.parametrize("n", [1, 3, 4097, (1 << 20) + 5])
+@pytest.mark.parametrize("dt", ["f32", "i32", "i16", "i8", "u8"])
+def test_cuda_gather_lengths_widths_views(cuda, dt, n, offsets):
+    """The route at lengths around a warp's step of 8 x 32 slots, every word
+    width, on views at every alignment."""
+    rng = np.random.default_rng(n + 7 * offsets[0] + offsets[1])
+    nx = max(n // 3, 1)
+    x = rng.random(nx).astype(np.float32) if dt == "f32" else _scan_inputs(n, dt, nx)[0]
+    idx = rng.integers(0, nx, n).astype(np.int32)
+    xd, idd = _view(cuda, x, offsets[0]), _view(cuda, idx, offsets[1])
+    got = kg.gather(xd, idd)
+    want = kg.gather_plain(xd, idd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 2, 3), (3, 0, 1), (2, 1, 0)])  # x's, idx's, aux's
+@pytest.mark.parametrize("n", [1, 3, 4097, (1 << 20) + 5])
+def test_cuda_gather_fill_and_pagerank_on_views(cuda, n, offsets):
+    """fill with negative indices (a prefix before the first flag) and the
+    PageRank epilogue, at every alignment of x, idx and aux."""
+    rng = np.random.default_rng(n + 11 * offsets[1])
+    x = rng.random(n).astype(np.float32)
+    flags = rng.random(n) < 0.06
+    flags[: min(n, 5)] = False
+    fill_src = ts.build_fill_tables(flags)
+    perm = rng.permutation(n).astype(np.int32)
+    a = (rng.integers(1, 30, n) * np.where(rng.random(n) < 0.8, 1, -1)).astype(np.float32)
+    xd = _view(cuda, x, offsets[0])
+    fd, pd, ad = _view(cuda, fill_src, offsets[1]), _view(cuda, perm, offsets[1]), _view(cuda, a, offsets[2])
+    c = torch.tensor(0.37, device=cuda)
+    for args in ((xd, fd, "fill"), (xd, pd, "pagerank", ad, c)):
+        got = kg.gather(*args)
+        want = kg.gather_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert (kg.gather(xd, fd, "fill")[: min(n, 5)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_gather_x_larger_than_l2(cuda):
+    """x of 2^24 float32 slots (64 MB, more than the 50 MB L2)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(42)
+    x = torch.rand(1 << 24, generator=gen, device=cuda)
+    idx = torch.randint(0, 1 << 24, ((1 << 23) + 3,), generator=gen, device=cuda, dtype=torch.int32)
+    got = kg.gather(x, idx)
+    want = kg.gather_plain(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _contrib_inputs_on(dev, n, pattern, seed):
+    """Kernel C's inputs made on the card; ``pattern`` places the flags."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.rand(n, generator=gen, device=dev)
+    w = torch.rand(n, generator=gen, device=dev) * 9 + 1
+    valid = torch.rand(n, generator=gen, device=dev) < 0.9
+    slot = torch.arange(n, device=dev)
+    flags = {
+        "none": torch.zeros(n, dtype=torch.bool, device=dev),
+        "every": torch.ones(n, dtype=torch.bool, device=dev),
+        "first": slot == 0,
+        "tile_starts": slot % kernels._build.library().gb_segscan_tile() == 0,
+        "random": torch.rand(n, generator=gen, device=dev) < 1 / 16,
+    }[pattern]
+    return x, w, valid, flags
+
+
+def _check_contrib(got, want, dt, op):
+    if dt == "f32" and op == "add":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["none", "every", "first", "tile_starts", "random"])
+@pytest.mark.parametrize("n", [1, 5, 2047, 2049, (1 << 20) + 77, 1 << 25])
+def test_cuda_scan_contrib_lengths_and_flags(cuda, n, pattern):
+    """The single pass at lengths around its 2048-slot tile and up to 2^25,
+    with no flag at all (the look-back walks the whole chain), a flag at
+    every slot, only at slot 0, only at tile starts, and at random."""
+    x, w, valid, flags = _contrib_inputs_on(cuda, n, pattern, seed=n)
+    for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
+        wv = None if mul == "first" else w
+        got = ks.segscan_contrib(x, wv, valid, flags, op, mul)
+        want = ks.segscan_contrib_plain(x, wv, valid, flags, op, mul)
+        torch.cuda.synchronize()
+        _check_contrib(got, want, "f32", op)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_contrib_twenty_calls_in_a_row(cuda):
+    """Each call zeroes its descriptors and ticket afresh: 20 calls without a
+    synchronisation between them, alternating inputs, all agree."""
+    ins = [_contrib_inputs_on(cuda, (1 << 20) + 77, p, seed=5) for p in ("none", "random")]
+    outs = [ks.segscan_contrib(*ins[k % 2], "add", "times") for k in range(20)]
+    wants = [ks.segscan_contrib_plain(*ins[k], "add", "times") for k in range(2)]
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        _check_contrib(got, wants[k % 2], "f32", "add")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,op,mul,has_w,wrap", CONTRIB_CASES)
+def test_cuda_scan_contrib_every_op_mul_wrap(cuda, dt, op, mul, has_w, wrap):
+    """Every op x mul x wrap of the reference's cases, over several tiles."""
+    x, w, valid, flags = _inputs(43, dt, n=3 * 2048 + 100, positive=True)
+    xd, wd, vd, fd = _on(cuda, x, w if has_w else None, valid, flags)
+    got = ks.segscan_contrib(xd, wd, vd, fd, op, mul, wrap)
+    want = ks.segscan_contrib_plain(xd, wd, vd, fd, op, mul, wrap)
+    torch.cuda.synchronize()
+    _check_contrib(got, want, dt, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0, 0, 0), (0, 2, 0, 0), (0, 0, 3, 1), (3, 1, 2, 5)])  # x, w, valid, flags
+@pytest.mark.parametrize("pattern", ["none", "random"])
+def test_cuda_scan_contrib_on_views(cuda, offsets, pattern):
+    """Unaligned views take the plain loads inside the same single pass."""
+    n = (1 << 20) + 77
+    ins = [t.cpu().numpy() for t in _contrib_inputs_on(cuda, n, pattern, seed=9)]
+    xd, wd, vd, fd = (_view(cuda, a, o) for a, o in zip(ins, offsets))
+    for op, mul in (("add", "times"), ("min", "plus")):
+        got = ks.segscan_contrib(xd, wd, vd, fd, op, mul)
+        want = ks.segscan_contrib_plain(xd, wd, vd, fd, op, mul)
+        torch.cuda.synchronize()
+        _check_contrib(got, want, "f32", op)

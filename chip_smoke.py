@@ -19,11 +19,14 @@ check:
   3. kernels: G (routes, fill, a network with T and row-select stages, a
      route on unaligned views, the L2 probe: a route with x of 2^20 slots), C
      (add, min, max; with flags at 1/16 and with none, the longest
-     look-back), S (BFS, SSSP) and the generic scan (fill, add, min, max;
-     int32 and int8 add) against their plain PyTorch versions at e_pad,
+     look-back), S (BFS, SSSP) and the generic scan (f32 fill, add, min,
+     max; int32, int16 and int8 add, a uint8 fill, f32 add on a view one
+     slot into its buffer) against their plain PyTorch versions at e_pad,
      with both times and, for the routes, one PyTorch indexing call's;
-     eqjoin on the SpGEMM workload's largest bucket, the tropical matmul at
-     2048^3 and the compare probe against theirs
+     eqjoin on every bucket of the SpGEMM workload's plan (plus_pair, device
+     ms by the profiler, summed per execute against the summed bounds) and
+     four semirings on its largest bucket and on the RMAT plan's (256, 256)
+     one, the tropical matmul at 2048^3 and the compare probe against theirs
   4. graph and plans: host build times, plan sizes on the device
   5. algorithms: kernel path against the plain path on the same card; SpMV,
      masked SpMV and parent BFS without endpoint routes against the same with
@@ -152,7 +155,7 @@ def synthetic_network(np, e_pad, seed):
     return stages + [("S", lanes())]
 
 
-def check_kernels(torch, e_pad, dev, tc_plan, mt):
+def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
     """Phase 3: each kernel against its plain version on the card."""
     import numpy as np
 
@@ -295,23 +298,71 @@ def check_kernels(torch, e_pad, dev, tc_plan, mt):
             (x, flags), 1, rtol=1e-6 if op == "add" else None,
         )
     v32 = torch.randint(-(2**30), 2**30, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    v16 = torch.randint(-(2**15), 2**15, (e_pad,), generator=gen, device=dev, dtype=torch.int16)
     v8 = torch.randint(-128, 128, (e_pad,), generator=gen, device=dev, dtype=torch.int8)
-    for label, v in (("int32 add (wraps)", v32), ("int8 add (wraps)", v8)):
-        record("segscan", label, lambda: ks.segscan(v, flags, "add"), lambda: ks.segscan_plain(v, flags, "add"), (v, flags), 1)
+    u8 = torch.randint(0, 256, (e_pad,), generator=gen, device=dev, dtype=torch.uint8)
+    for label, v, op in (
+        ("int32 add (wraps)", v32, "add"), ("int16 add (wraps)", v16, "add"), ("int8 add (wraps)", v8, "add"),
+        ("uint8 fill", u8, "fill"),
+    ):
+        record("segscan", label, lambda: ks.segscan(v, flags, op), lambda: ks.segscan_plain(v, flags, op), (v, flags), 1)
+    # f32 add on a view one slot into its buffer (off 16-byte alignment: the plain loads)
+    x_buf = torch.empty(e_pad + 128, device=dev)
+    x_buf[1 : e_pad + 1] = x
+    xv1 = x_buf[1 : e_pad + 1]
+    record(
+        "segscan", "f32 add on a view one slot in", lambda: ks.segscan(xv1, flags, "add"),
+        lambda: ks.segscan_plain(xv1, flags, "add"), (xv1, flags), 1, rtol=1e-6,
+    )
 
-    # eqjoin on the SpGEMM workload's own largest bucket (its keys; random
-    # values in [0.5, 1.5), the workload's are all 1): plus_pair first
-    big = max(tc_plan.buckets, key=lambda b: b[0][0] * b[0][1] * b[3].shape[1])
-    (Wa, Wb), akT, bkT = big[0], big[3], big[5]
-    T = akT.shape[1]
-    avT, bvT = rand(*akT.shape) + 0.5, rand(*bkT.shape) + 0.5
-    for add, mul in (("plus", "pair"), ("plus", "times"), ("min", "plus"), ("max", "first")):
-        ins = (akT, avT if mul in ke.USES_AV else None, bkT, bvT if mul in ke.USES_BV else None)
-        record(
-            "eqjoin", f"{add}_{mul}, ({Wa}, {Wb}) bucket, T={T}", lambda: ke.eqjoin(*ins, add, mul),
-            lambda: ke.eqjoin_plain(*ins, add, mul), ins, 0, rtol=1e-5 if mul == "times" else None,
-            n_ops=Wa * Wb * T, ops_per_s=INT32_OPS_PER_S,
+    # eqjoin on every bucket of the bench SpGEMM plan (its keys, plus_pair
+    # as the execute runs it): bit-exact against the plain version, device
+    # ms by the profiler; the sums are eqjoin's figures for one execute
+    t_eq = time.perf_counter()
+    rows = roofline.bucket_table(tc_plan)
+    plain_sum, err = 0.0, 0.0
+    for b, r in zip(tc_plan.buckets, rows):
+        ins = (b[3], None, b[5], None)
+        got, want = ke.eqjoin(*ins, "plus", "pair"), ke.eqjoin_plain(*ins, "plus", "pair")
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            require(torch.equal(g, p), f"eqjoin ({r['Wa']}, {r['Wb']}) bucket: kernel differs from its plain version")
+            err = max(err, abs_err(g, p))
+        plain_sum += cuda_ms(torch, lambda: ke.eqjoin_plain(*ins, "plus", "pair"), 2)
+        say(
+            "3 kernels",
+            f"eqjoin plus_pair, ({r['Wa']}, {r['Wb']}) bucket, T={r['T']}, {r['lanes']} lanes a task: bit-exact, "
+            f"kernel {r['ms']:.4f} ms (device), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
         )
+    eq_ms, eq_bound = sum(r["ms"] for r in rows), sum(r["bound_ms"] for r in rows)
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "compares")
+    results["eqjoin"] = {
+        "max_abs_err": err, "ms": eq_ms, "plain_ms": plain_sum, "bound_ms": eq_bound,
+        "bound_by": "operations" if by_ops >= eq_bound / 2 else "bytes", "library_ms": None,
+    }
+    say(
+        "3 kernels",
+        f"eqjoin per bench execute ({len(rows)} buckets, plus_pair): kernel {eq_ms:.4f} ms (device) against "
+        f"{eq_bound:.4f} ms of bounds; plain {plain_sum:.4f} ms; {time.perf_counter() - t_eq:.1f} s",
+    )
+    # the four semirings on the bench plan's largest bucket and the RMAT
+    # plan's widest, (256, 256) at scale 14 (their keys; the RMAT plan's own
+    # values, random ones in [0.5, 1.5) on the bench plan, whose values are all 1)
+    big = max(tc_plan.buckets, key=lambda b: b[0][0] * b[0][1] * b[3].shape[1])
+    wide = max(rm_plan.buckets, key=lambda b: b[0][0] * b[0][1])
+    for label, b, avT, bvT in (
+        ("bench", big, rand(*big[3].shape) + 0.5, rand(*big[5].shape) + 0.5), ("rmat", wide, wide[4], wide[6]),
+    ):
+        (Wa, Wb), akT, bkT = b[0], b[3], b[5]
+        T = akT.shape[1]
+        shape = f"{label} ({Wa}, {Wb}) bucket, T={T}, {ke.lanes_per_task(Wa, Wb, T)} lanes a task"
+        for add, mul in (("plus", "pair"), ("plus", "times"), ("min", "plus"), ("max", "first")):
+            ins = (akT, avT if mul in ke.USES_AV else None, bkT, bvT if mul in ke.USES_BV else None)
+            record(
+                "eqjoin", f"{add}_{mul}, {shape}",
+                lambda: ke.eqjoin(*ins, add, mul), lambda: ke.eqjoin_plain(*ins, add, mul), ins, 0,
+                rtol=1e-5 if mul == "times" else None, n_ops=Wa * Wb * T, ops_per_s=INT32_OPS_PER_S,
+            )
     # the tropical matmul at bench.py's size: one f32 multiply and one min or
     # max per (i, j, k); min_plus (bench.py's) first
     ta, tb = rand(mt, mt), rand(mt, mt)
@@ -368,20 +419,6 @@ def parent_oracle(np, src, dst, n, levels, source):
     np.maximum.at(parents, dst[nearer], src[nearer])
     parents[source] = source
     return parents
-
-
-def rmat_lower(np, sps, rmat, scale, seed=5, value_seed=11):
-    """rmat(scale, 16, seed) symmetrised: its strict lower triangle L, with
-    values in [0.5, 1.5) drawn by numpy from ``value_seed``, and U = L^T."""
-    g = rmat(scale, 16, seed=seed, device="cpu")
-    v = g.valid.numpy()
-    s, d = (t.numpy()[v].astype(np.int64) for t in (g.src, g.dst))
-    r, c = np.concatenate([s, d]), np.concatenate([d, s])
-    keep = r > c
-    pat = sps.SparseMatrixData.from_arrays(r[keep], c[keep], np.ones(int(keep.sum()), np.float32), g.n, g.n, "first")
-    vals = (np.random.default_rng(value_seed).random(pat.nvals) + 0.5).astype(np.float32)
-    L = sps.SparseMatrixData(pat.rows, pat.cols, vals, g.n, g.n)
-    return L, L.transposed()
 
 
 def wedge_oracle(np, L, mr, mc):
@@ -454,17 +491,21 @@ def main():
     say("2 build", f"nvcc {' '.join(_build.NVCC_FLAGS)}: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(_build.library_path(), REPO)}")
 
     # 3. kernels against their plain versions at the main path's shapes
-    # (eqjoin's: the SpGEMM workload's, analyzed first)
+    # (eqjoin's: the SpGEMM plans', analyzed first)
     t0 = time.perf_counter()
     L_tc, U_tc = roofline.bench_tc_workload(args.tc_log2)
     t_tc_build = time.perf_counter() - t0
     t0 = time.perf_counter()
     tc_plan = sps.sparse_spgemm_analyze(L_tc, U_tc, L_tc.rows, L_tc.cols, bricks=True, reduce_net=True)
     t_tc_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L_rm, U_rm = roofline.rmat_lower(args.spgemm_scale)
+    rm_plan = sps.sparse_spgemm_analyze(L_rm, U_rm, L_rm.rows, L_rm.cols, reduce_net=True)
+    t_plan_rm = time.perf_counter() - t0
     n_nodes = 1 << args.scale
     e_pad = padded_size(max(n_nodes * args.ef, n_nodes))
     t0 = time.perf_counter()
-    kres = check_kernels(torch, e_pad, dev, tc_plan, args.mt)
+    kres = check_kernels(torch, e_pad, dev, tc_plan, rm_plan, args.mt, roofline)
     say("3 kernels", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # 4. graph and plans
@@ -607,10 +648,6 @@ def main():
     t0 = time.perf_counter()
     tc_plan_b = sps.sparse_spgemm_analyze(L_tc, U_tc, L_tc.rows, L_tc.cols)
     t_plan_b = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    L_rm, U_rm = rmat_lower(np, sps, rmat, args.spgemm_scale)
-    rm_plan = sps.sparse_spgemm_analyze(L_rm, U_rm, L_rm.rows, L_rm.cols, reduce_net=True)
-    t_plan_rm = time.perf_counter() - t0
     require(any(b[0][0] == 256 for b in rm_plan.buckets), "rmat SpGEMM: no (256, .) bucket")
     tasks_per_entry = int(np.bincount(np.concatenate([b[1] for b in rm_plan.buckets])).max())
     require(tasks_per_entry > 1, "rmat SpGEMM: no entry spans several tasks (hub splitting)")

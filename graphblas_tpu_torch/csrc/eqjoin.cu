@@ -13,18 +13,36 @@
 // Bound on the card: the key compares.  Each of the Wa * Wb compares of a
 // task is one int32 instruction (64 a cycle per SM), so Wa * Wb * T over
 // 132 * 64 * 1.98 GHz; the bytes ((Wa + Wb) * T keys and values, read once)
-// are far less at these widths.
+// are far less at these widths.  In practice a compare costs about four
+// instructions (the compare, the select or min, the accumulate, the count).
 //
-// Design: one thread per task, so the threads of a warp read neighbouring
-// tasks and a (k, .) row of the (W, T) layout is one coalesced load.  A
-// thread holds KB keys of A (and their values and KB accumulators) in
-// registers and streams B's keys past them, so one load of B feeds KB
-// compares; B's column chunk of the block is re-read Wa / KB times from L1 or
-// L2.  The order of the arithmetic is the TPU kernel's: per k an accumulator
-// over l in order, then a combine over k in order.  Float products and sums
-// round once each (__fmul_rn, __fadd_rn: no FMA contraction); min and max
-// propagate NaN as jnp.minimum / jnp.maximum do.  The all-pairs compare
-// stays; a merge intersection (Wa + Wb compares a task) is later work.
+// Design: the host picks one of two layouts per bucket from (Wa, Wb, T)
+// alone (kernels/eqjoin.py:lanes_per_task); either is one launch.
+// - One thread a task, for buckets with many tasks or little work a task
+//   (the (64, 4) bucket of 1.3 M tasks).  The threads of a warp read
+//   neighbouring tasks, so a (k, .) row of the (W, T) layout is one
+//   coalesced load.  A thread holds KB keys of A (and their values and KB
+//   accumulators) in registers and streams B's keys past them, so one load
+//   of B feeds KB compares.
+// - g lanes a task (g = 2 .. 32, a power of two, at most Wa, Wa / g <= 8),
+//   where T threads would leave the card idle: a (256, 256) bucket of 512
+//   tasks ran on 4 of 132 SMs at 0.41 ms.  Lane j owns A's keys k in
+//   [j * Wa / g, (j + 1) * Wa / g) with their accumulators in registers; the
+//   block stages B's keys (and values) for its tasks in shared memory by
+//   cp.async, in the (l, task) order of the global arrays, and every lane of
+//   a task reads B's key l by broadcast.  The combine over k passes the
+//   running total from lane to lane by shuffles (Wa combine steps against
+//   Wa * Wb / g compares a lane), or, where any order gives the same bits
+//   (min, max, lor, land; counts of pair products), runs as a butterfly;
+//   the match counts sum by shuffles in any order (integers).
+// The host's choice weighs the two by a cost model fitted to a sweep of
+// every bucket in every layout on the card (kernels/eqjoin.py).
+// Both keep the order of the arithmetic of the TPU kernel: per k an
+// accumulator over l in order, then a combine over k in order, so the two
+// layouts agree bit for bit.  Float products and sums round once each
+// (__fmul_rn, __fadd_rn: no FMA contraction); min and max propagate NaN as
+// jnp.minimum / jnp.maximum do.  The all-pairs compare stays (it holds for
+// any keys); a merge intersection needs sorted, duplicate-free chunks.
 //
 // compare_probe replaces graphblas_tpu/tools/profile_spgemm_roofline.py:
 // vpu_kernel: K = 64 fused compare-adds per element, acc += (a == b + i), on
@@ -124,9 +142,134 @@ eqjoin_kernel(const int32_t* __restrict__ ak, const float* __restrict__ av, cons
   nm_out[t] = nm;
 }
 
+// ---- g lanes a task ---------------------------------------------------------
+
+constexpr int kLaneThreads = 128;  // a block: 128 / g tasks
+constexpr int kStageB = 2048;      // (l, task) slots of B a block stages at a time
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Whether the combine over k gives the same bits in any order: min, max
+// (NaN-propagating, -0.0 below +0.0), lor and land (0/1 values) always;
+// plus and times of pair products too, whose accumulators are match counts
+// (exact in float while Wa * Wb < 2^24) or ones.
+template <int ADD, int MUL>
+__device__ __forceinline__ bool any_order(int Wa, int Wb) {
+  if (ADD == ADD_MIN || ADD == ADD_MAX || ADD == ADD_LOR || ADD == ADD_LAND) return true;
+  return MUL == MUL_PAIR && (int64_t)Wa * Wb < (1 << 24);
+}
+
+// KPL = Wa / g keys of A a lane; lg = log2(g).
+template <int ADD, int MUL, int KPL>
+__global__ void __launch_bounds__(kLaneThreads)
+eqjoin_lanes(const int32_t* __restrict__ ak, const float* __restrict__ av, const int32_t* __restrict__ bk,
+             const float* __restrict__ bv, float* __restrict__ out, int32_t* __restrict__ nm_out, int Wb,
+             int64_t T, int lg) {
+  constexpr bool kUseAv = MUL == MUL_TIMES || MUL == MUL_PLUS || MUL == MUL_FIRST;
+  constexpr bool kUseBv = MUL == MUL_TIMES || MUL == MUL_PLUS || MUL == MUL_SECOND;
+  __shared__ int32_t s_bk[kStageB];
+  __shared__ float s_bv[kUseBv ? kStageB : 1];
+  const int g = 1 << lg;
+  const int ltb = 7 - lg;                // log2 of the block's tasks (kLaneThreads = 2^7)
+  const int j = threadIdx.x & (g - 1);  // the lane within its task
+  const int tl = threadIdx.x >> lg;     // the task within the block
+  const int64_t t0 = (int64_t)blockIdx.x << ltb;
+  const int64_t t = t0 + tl;
+  const bool live = t < T;
+  int32_t a[KPL];
+  float va[KPL], acc[KPL];
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int64_t k = j * KPL + i;
+    a[i] = live ? __ldg(ak + k * T + t) : -1;
+    va[i] = kUseAv && live ? __ldg(av + k * T + t) : 0.f;
+    acc[i] = ident<ADD>();
+  }
+  int nm = 0;
+  const int rows = kStageB >> ltb;  // B's keys a stage holds for each task
+  for (int l0 = 0; l0 < Wb; l0 += rows) {
+    const int nl = min(rows, Wb - l0);
+    if (l0 > 0) __syncthreads();  // every lane is done with the last stage
+    for (int e = threadIdx.x; e < (nl << ltb); e += kLaneThreads) {
+      const int l = e >> ltb;
+      const int64_t tt = t0 + (e & ((1 << ltb) - 1));
+      if (tt < T) {
+        const int64_t src = (int64_t)(l0 + l) * T + tt;
+        cp_async4(&s_bk[e], bk + src);
+        if (kUseBv) cp_async4(&s_bv[e], bv + src);
+      } else {
+        s_bk[e] = -2;
+        if (kUseBv) s_bv[e] = 0.f;
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+#pragma unroll 4
+    for (int l = 0; l < nl; ++l) {
+      const int32_t b = s_bk[(l << ltb) + tl];
+      const float vb = kUseBv ? s_bv[(l << ltb) + tl] : 0.f;
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const bool eq = a[i] == b;
+        nm += eq;
+        acc[i] = step<ADD>(acc[i], eq, product<MUL>(va[i], vb));
+      }
+    }
+  }
+  float total = ident<ADD>();
+  if (any_order<ADD, MUL>(KPL << lg, Wb)) {
+    // a combine that is exact in any order: each lane's keys, then a
+    // butterfly over the task's lanes
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) total = combine<ADD>(total, acc[i]);
+    for (int off = g >> 1; off > 0; off >>= 1) total = combine<ADD>(total, __shfl_xor_sync(0xffffffffu, total, off));
+  } else {
+    // the combine over k in order: lane 0's keys, then lane 1's, ...; each
+    // step hands the running total on to the whole group
+    const int base = (threadIdx.x & 31) & ~(g - 1);  // the task's first lane in the warp
+    for (int src = 0; src < g; ++src) {
+      if (j == src) {
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) total = combine<ADD>(total, acc[i]);
+      }
+      total = __shfl_sync(0xffffffffu, total, base + src);
+    }
+  }
+  for (int off = g >> 1; off > 0; off >>= 1) nm += __shfl_xor_sync(0xffffffffu, nm, off);
+  if (j == 0 && live) {
+    out[t] = nm > 0 ? total : 0.f;
+    nm_out[t] = nm;
+  }
+}
+
+template <int ADD, int MUL, int KPL>
+void launch_lanes(const void* ak, const void* av, const void* bk, const void* bv, void* out, void* nm, int Wb,
+                  int64_t T, int lg, cudaStream_t s) {
+  const unsigned grid = (unsigned)(((T << lg) + kLaneThreads - 1) / kLaneThreads);
+  eqjoin_lanes<ADD, MUL, KPL><<<grid, kLaneThreads, 0, s>>>((const int32_t*)ak, (const float*)av,
+                                                            (const int32_t*)bk, (const float*)bv, (float*)out,
+                                                            (int32_t*)nm, Wb, T, lg);
+}
+
+// ---- the host side -----------------------------------------------------------
+
 template <int ADD, int MUL>
 void launch_eqjoin(const void* ak, const void* av, const void* bk, const void* bv, void* out, void* nm, int Wa,
-                   int Wb, int64_t T, cudaStream_t s) {
+                   int Wb, int64_t T, int lanes, cudaStream_t s) {
+  if (lanes > 1) {
+    const int lg = __builtin_ctz(lanes);
+    switch (Wa / lanes) {
+      case 1: launch_lanes<ADD, MUL, 1>(ak, av, bk, bv, out, nm, Wb, T, lg, s); break;
+      case 2: launch_lanes<ADD, MUL, 2>(ak, av, bk, bv, out, nm, Wb, T, lg, s); break;
+      case 4: launch_lanes<ADD, MUL, 4>(ak, av, bk, bv, out, nm, Wb, T, lg, s); break;
+      default: launch_lanes<ADD, MUL, 8>(ak, av, bk, bv, out, nm, Wb, T, lg, s); break;
+    }
+    return;
+  }
   const unsigned grid = (unsigned)((T + kThreads - 1) / kThreads);
   if (Wa % 16 == 0) {
     eqjoin_kernel<ADD, MUL, 16><<<grid, kThreads, 0, s>>>((const int32_t*)ak, (const float*)av,
@@ -141,13 +284,13 @@ void launch_eqjoin(const void* ak, const void* av, const void* bk, const void* b
 
 template <int ADD>
 int dispatch_mul(int mul, const void* ak, const void* av, const void* bk, const void* bv, void* out, void* nm,
-                 int Wa, int Wb, int64_t T, cudaStream_t s) {
+                 int Wa, int Wb, int64_t T, int lanes, cudaStream_t s) {
   switch (mul) {
-    case MUL_PAIR: launch_eqjoin<ADD, MUL_PAIR>(ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case MUL_TIMES: launch_eqjoin<ADD, MUL_TIMES>(ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case MUL_PLUS: launch_eqjoin<ADD, MUL_PLUS>(ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case MUL_FIRST: launch_eqjoin<ADD, MUL_FIRST>(ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case MUL_SECOND: launch_eqjoin<ADD, MUL_SECOND>(ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
+    case MUL_PAIR: launch_eqjoin<ADD, MUL_PAIR>(ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case MUL_TIMES: launch_eqjoin<ADD, MUL_TIMES>(ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case MUL_PLUS: launch_eqjoin<ADD, MUL_PLUS>(ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case MUL_FIRST: launch_eqjoin<ADD, MUL_FIRST>(ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case MUL_SECOND: launch_eqjoin<ADD, MUL_SECOND>(ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -170,21 +313,26 @@ __global__ void compare_probe_kernel(const float* __restrict__ a, const float* _
 }  // namespace
 
 // Wa must be a multiple of 4 (the analysis gives 4, 16, 64 or 256); av / bv
-// may be null when the multiply ignores them.
+// may be null when the multiply ignores them.  lanes: 1 = one thread a
+// task; else g lanes a task, a power of two up to 32 with Wa / g in
+// {1, 2, 4, 8}.
 extern "C" int gb_eqjoin(const void* ak, const void* av, const void* bk, const void* bv, void* out, void* nm,
-                         int Wa, int Wb, int64_t T, int add, int mul, void* stream) {
+                         int Wa, int Wb, int64_t T, int add, int mul, int lanes, void* stream) {
   if (Wa % 4 != 0 || Wb < 1 || T < 0) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const int kpl = Wa / lanes;
+  if (lanes > 1 && (Wa % lanes != 0 || kpl > 8 || (kpl & (kpl - 1)) != 0)) return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch (add) {
-    case ADD_PLUS: rc = dispatch_mul<ADD_PLUS>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case ADD_MIN: rc = dispatch_mul<ADD_MIN>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
+    case ADD_PLUS: rc = dispatch_mul<ADD_PLUS>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case ADD_MIN: rc = dispatch_mul<ADD_MIN>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
     case ADD_MAX:
-    case ADD_ANY: rc = dispatch_mul<ADD_MAX>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case ADD_LOR: rc = dispatch_mul<ADD_LOR>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case ADD_LAND: rc = dispatch_mul<ADD_LAND>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
-    case ADD_TIMES: rc = dispatch_mul<ADD_TIMES>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, s); break;
+    case ADD_ANY: rc = dispatch_mul<ADD_MAX>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case ADD_LOR: rc = dispatch_mul<ADD_LOR>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case ADD_LAND: rc = dispatch_mul<ADD_LAND>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
+    case ADD_TIMES: rc = dispatch_mul<ADD_TIMES>(mul, ak, av, bk, bv, out, nm, Wa, Wb, T, lanes, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return rc != 0 ? rc : (int)cudaGetLastError();

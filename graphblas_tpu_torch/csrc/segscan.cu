@@ -30,11 +30,12 @@
 // through a sequential grid with an SMEM carry.  Hopper blocks run in no
 // order, so the carry has to cross blocks.
 //
-// Kernel C is one launch, a single pass with decoupled look-back (below,
-// "the single pass"): each input byte crosses memory once.  Persistent
-// blocks take 2048-slot tiles from a ticket counter; a full tile of aligned
-// inputs arrives in shared memory by Hopper's bulk copy (cp.async.bulk, an
-// mbarrier counting its bytes) while the block scans the tile before it; a
+// Kernel C and the generic scan are one launch each, a single pass with
+// decoupled look-back (below, "the single pass"): each input byte crosses
+// memory once.  Persistent blocks take 2048-slot tiles from a ticket
+// counter; a full tile of aligned inputs arrives in shared memory by
+// Hopper's bulk copy (cp.async.bulk, an mbarrier counting its bytes) while
+// the block scans the tile before it; a
 // ragged or unaligned tile is read with plain loads in the same kernel.  The
 // carry goes through one 64-bit descriptor a tile.  Measured on an NVIDIA
 // H100 80GB HBM3 at 700 W (chip_smoke.py phase 3, 2^23 slots, flags at
@@ -43,8 +44,16 @@
 // ms.  A variant that read full tiles by 16-byte loads into registers in
 // place of the bulk copies took 0.077-0.084 ms with flags.
 //
-// Kernel S and the generic scan are still reduce-then-scan in three
-// launches:
+// The generic scan rides the same single pass with its own tile: values
+// (f32, int32, int16, int8 or uint8) and flag bytes by bulk copy, 9 B a slot
+// in f32 or int32, 3 B in int8; narrow integers widen to int32 in
+// registers and pack back into one vector store a thread.  Float add carries
+// in double across tiles, as C's does.  Measured as C (2^23 slots, flags at
+// 1/16): f32 add 0.047-0.050 ms against the 0.0225 ms bound, where the three
+// launches took 0.060-0.068; int8 add 0.046-0.063 (bound 0.0075), held, like
+// C, by each tile's latency rather than its bytes.
+//
+// Kernel S is still reduce-then-scan in three launches:
 //   1. every block reduces its tile of kTile slots to one (value, has-flag)
 //      aggregate;
 //   2. one block scans the aggregates into per-tile carries (4096 of them at
@@ -53,8 +62,7 @@
 // Phases 1 and 3 both read the inputs, so the input bytes cross memory
 // twice; their tiles are staged through shared memory (striped, coalesced
 // global accesses, padded against bank conflicts).  The single pass takes a
-// Tile (loads) and a Store (epilogue), so they can move onto it with their
-// own.
+// Tile (loads) and a Store (epilogue), so S can move onto it with its own.
 //
 // In both, each thread scans kItems consecutive slots, then warp shuffles
 // and one warp-total pass combine the threads.  Float arithmetic uses the
@@ -67,6 +75,8 @@
 #include <limits.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -227,16 +237,30 @@ struct ValueStore {
   }
   __device__ __forceinline__ void block_done(int) const {}
   // slots i0 .. i0 + kItems - 1 (i0 a multiple of kItems; out from the
-  // caching allocator, so a full run of 4-byte words is 32-byte aligned)
+  // caching allocator, so a full run of kItems values is 8 * sizeof(Out)
+  // aligned): one or two vector stores
   __device__ __forceinline__ void items(int64_t i0, const T (&v)[kItems], int64_t n) const {
-    if (sizeof(Out) == 4 && i0 + kItems <= n) {
-      uint32_t u[kItems];
+    if (i0 + kItems <= n) {
+      if constexpr (sizeof(Out) == 4) {
+        uint32_t u[kItems];
 #pragma unroll
-      for (int k = 0; k < kItems; ++k) u[k] = to_bits((Out)v[k]);
-      uint4* p = reinterpret_cast<uint4*>(out + i0);
-      p[0] = make_uint4(u[0], u[1], u[2], u[3]);
-      p[1] = make_uint4(u[4], u[5], u[6], u[7]);
-      return;
+        for (int k = 0; k < kItems; ++k) u[k] = to_bits((Out)v[k]);
+        uint4* p = reinterpret_cast<uint4*>(out + i0);
+        p[0] = make_uint4(u[0], u[1], u[2], u[3]);
+        p[1] = make_uint4(u[4], u[5], u[6], u[7]);
+        return;
+      } else {
+        constexpr int kPer = 4 / sizeof(Out);  // values a 32-bit word packs
+        uint32_t u[kItems / kPer] = {};
+#pragma unroll
+        for (int k = 0; k < kItems; ++k)
+          u[k / kPer] |= (uint32_t)(std::make_unsigned_t<Out>)(Out)v[k] << (8 * sizeof(Out) * (k % kPer));
+        if constexpr (sizeof(Out) == 2)
+          *reinterpret_cast<uint4*>(out + i0) = make_uint4(u[0], u[1], u[2], u[3]);
+        else
+          *reinterpret_cast<uint2*>(out + i0) = make_uint2(u[0], u[1]);
+        return;
+      }
     }
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
@@ -574,6 +598,19 @@ __device__ __forceinline__ void ld_items(uint8_t (&d)[kItems], const uint8_t* s)
 #pragma unroll
   for (int k = 0; k < kItems; ++k) d[k] = (uint8_t)(((k < 4 ? a.x : a.y) >> (8 * (k & 3))) & 0xff);
 }
+__device__ __forceinline__ void ld_items(int8_t (&d)[kItems], const int8_t* s) {
+  uint8_t u[kItems];
+  ld_items(u, reinterpret_cast<const uint8_t*>(s));
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) d[k] = (int8_t)u[k];
+}
+// kItems 2-byte halves (16-byte aligned): one 16-byte load
+__device__ __forceinline__ void ld_items(int16_t (&d)[kItems], const int16_t* s) {
+  const uint4 a = *reinterpret_cast<const uint4*>(s);
+  const uint32_t u[kItems / 2] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) d[k] = (int16_t)(uint16_t)(u[k / 2] >> (16 * (k & 1)));
+}
 
 // Kernel C's tile: x, w, valid and flags of kTile slots.  A full tile of
 // 16-byte aligned arrays arrives by bulk copy into a stage of the ring; the
@@ -618,6 +655,54 @@ struct ContribTile {
 #pragma unroll
       for (int k = 0; k < kItems; ++k) {
         v[k] = ld.contrib(xs[k], ld.w != nullptr ? ws[k] : (T)0, vs[k]);
+        f[k] = fs[k] != 0;
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      v[k] = ident;
+      f[k] = 0;
+      if (base + i0 + k < n) ld(base + i0 + k, ident, v[k], f[k]);
+    }
+  }
+};
+
+// The generic scan's tile: values (widened to the compute type T) and flags
+// of kTile slots, by bulk copy when the tile is full and both arrays are
+// 16-byte aligned, else by plain loads.
+template <typename In, typename T>
+struct ValueTile {
+  struct Stage {
+    In v[kTile];
+    uint8_t flags[kTile];
+  };
+  ValueLoad<In, T> ld;
+  int bulk_ok;  // values and flags 16-byte aligned
+
+  __device__ __forceinline__ bool staged(int64_t t, int64_t n) const {
+    return bulk_ok && (t + 1) * kTile <= n;
+  }
+  __device__ __forceinline__ void issue(Stage& sg, uint64_t* bar, int64_t t, int64_t n) const {
+    if (!staged(t, n)) return;
+    const int64_t base = t * kTile;
+    const uint32_t bytes = kTile * sizeof(In);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(bar, bytes + kTile);
+    bulk_load(sg.v, ld.v + base, bytes, bar);
+    bulk_load(sg.flags, ld.flags + base, kTile, bar);
+  }
+  __device__ __forceinline__ void items(const Stage& sg, int64_t t, int i0, int64_t n,
+                                        T (&v)[kItems], int (&f)[kItems], T ident) const {
+    const int64_t base = t * kTile;
+    if (staged(t, n)) {
+      In xs[kItems];
+      uint8_t fs[kItems];
+      ld_items(xs, sg.v + i0);
+      ld_items(fs, sg.flags + i0);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        v[k] = (T)xs[k];
         f[k] = fs[k] != 0;
       }
       return;
@@ -793,15 +878,16 @@ int contrib_typed(const void* x, const void* w, const void* valid, const void* f
 }
 
 template <typename In, typename T>
-int scan_typed(const void* values, const void* flags, void* out, void* agg_v, void* agg_f,
-               void* carry, int64_t n, int op, cudaStream_t s) {
+int scan_typed(const void* values, const void* flags, void* out, void* tile_state, int64_t n, int op,
+               cudaStream_t s) {
   const ValueLoad<In, T> ld{(const In*)values, (const uint8_t*)flags};
+  const ValueTile<In, T> tl{ld, aligned16(values) && aligned16(flags)};
   const ValueStore<In, T> st{(In*)out};
   switch (op) {
-    case kAdd: return run_scan<T, kAdd>(ld, st, n, agg_v, agg_f, carry, s);
-    case kMin: return run_scan<T, kMin>(ld, st, n, agg_v, agg_f, carry, s);
-    case kMax: return run_scan<T, kMax>(ld, st, n, agg_v, agg_f, carry, s);
-    case kFill: return run_scan<T, kFill>(ld, st, n, agg_v, agg_f, carry, s);
+    case kAdd: return run_onepass<T, kAdd>(tl, st, n, tile_state, s);
+    case kMin: return run_onepass<T, kMin>(tl, st, n, tile_state, s);
+    case kMax: return run_onepass<T, kMax>(tl, st, n, tile_state, s);
+    case kFill: return run_onepass<T, kFill>(tl, st, n, tile_state, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -849,17 +935,18 @@ extern "C" int gb_segscan_state(int mode, const void* x, const void* w, const vo
 
 // The generic scan.  op: 0 add, 1 min, 2 max, 3 fill.  dtype: 0 float32,
 // 1 int32, 2 int16, 3 int8, 4 uint8 (the narrow integers compute in int32).
-// Scratch: agg_v and carry hold ceil(n / tile) values of the compute type,
-// agg_f as many int32.
-extern "C" int gb_segscan(const void* values, const void* flags, void* out, void* agg_v,
-                          void* agg_f, void* carry, int64_t n, int dtype, int op, void* stream) {
+// out: a fresh allocation (its runs of kItems values take vector stores).
+// tile_state: ceil(n / tile) + 1 zeroed 64-bit words, as for
+// gb_segscan_contrib.
+extern "C" int gb_segscan(const void* values, const void* flags, void* out, void* tile_state,
+                          int64_t n, int dtype, int op, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return scan_typed<float, float>(values, flags, out, agg_v, agg_f, carry, n, op, s);
-    case 1: return scan_typed<int32_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
-    case 2: return scan_typed<int16_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
-    case 3: return scan_typed<int8_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
-    case 4: return scan_typed<uint8_t, int32_t>(values, flags, out, agg_v, agg_f, carry, n, op, s);
+    case 0: return scan_typed<float, float>(values, flags, out, tile_state, n, op, s);
+    case 1: return scan_typed<int32_t, int32_t>(values, flags, out, tile_state, n, op, s);
+    case 2: return scan_typed<int16_t, int32_t>(values, flags, out, tile_state, n, op, s);
+    case 3: return scan_typed<int8_t, int32_t>(values, flags, out, tile_state, n, op, s);
+    case 4: return scan_typed<uint8_t, int32_t>(values, flags, out, tile_state, n, op, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,10 @@
 - ``eqjoin`` replaces ``graphblas_tpu/ops/pallas_eqjoin.py:eqjoin``: per task
   t, ADD over (k, l) with ``akT[k, t] == bkT[l, t]`` of
   ``MUL(avT[k, t], bvT[l, t])``, and the match count; the value is 0 where
-  nothing matched.  Pad keys -1 (A) and -2 (B) never match.
+  nothing matched.  Pad keys -1 (A) and -2 (B) never match.  The kernel runs
+  a bucket one thread a task or g lanes a task, as ``lanes_per_task`` picks
+  from (Wa, Wb, T); ``eqjoin_in_layout`` runs any layout ``layouts(Wa)``
+  gives (both give the same bits).
 - ``compare_probe`` replaces ``graphblas_tpu/tools/profile_spgemm_roofline.py``'s
   ``vpu_kernel``: ``PROBE_K`` = 64 compare-adds per element,
   ``acc += (a == b + i)``, a measured ceiling for eqjoin's roofline.
@@ -14,6 +17,7 @@ as (Wa, Wb, chunk) tensors over chunks of tasks, so that no tensor passes
 the kernel's; every other add, and pair, is exact.
 """
 
+import functools
 import math
 
 import torch
@@ -26,6 +30,8 @@ USES_AV = ("times", "plus", "first")
 USES_BV = ("times", "plus", "second")
 PROBE_K = 64
 PLAIN_ELEMENTS = 1 << 26  # the largest broadcast of the plain eqjoin
+RESIDENT_THREADS = 132 * 2048  # an H100's resident threads: 132 SMs x 2048
+LANE_KEYS = (1, 2, 4, 8)  # A keys a lane holds in the lanes layout (the kernel's instances)
 LAUNCHES = {"eqjoin": 0, "compare_probe": 0}
 PLAIN_CALLS = {"eqjoin": 0, "compare_probe": 0}
 
@@ -109,20 +115,69 @@ def eqjoin_plain(akT, avT, bkT, bvT, add, mul):
     return vals, nm
 
 
+def _layout_cost(Wa, Wb, T, g):
+    """A task's instructions in layout g over the share of the card its
+    threads keep busy, in arbitrary units.  One thread a task: Wa * Wb
+    compares, busy from 132 x 128 threads (16 A keys in registers give each
+    thread ILP enough).  g lanes a task: 0.85 as much per compare (B's keys
+    read by broadcast from shared memory) and the combine handed from lane to
+    lane (g hops of Wa / g + 3 steps on each of g lanes, at 0.2 of a compare
+    each), busy from 132 x 512 threads.  The constants fit the per-bucket
+    sweep of tools/profile_spgemm_roofline.py --sweep on an H100 (PERF.md):
+    over the bench and RMAT-14 plans the picks sum within 3% of the best
+    layout of each bucket."""
+    if g == 1:
+        return Wa * Wb / min(1.0, T / (132 * 128))
+    return (0.85 * Wa * Wb + 0.2 * g * (Wa + 3 * g)) / min(1.0, T * g / (132 * 512))
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of ints, asked once a bucket per execute
+def lanes_per_task(Wa, Wb, T):
+    """The kernel's layout for a (Wa, Wb) bucket of T tasks: 1 is one thread
+    a task; g > 1 is g lanes of a warp a task, each holding Wa / g of its A
+    keys.  One thread a task where the tasks fill half the card's resident
+    threads (its narrow buckets are bound by bytes), or give every SM a
+    128-thread block while a task's work is small (Wa * Wb < 1024: the lanes'
+    own loads and combine outweigh what they spread; the bench plan's (16, 4)
+    and (16, 16) buckets ran 13-33% slower on lanes); otherwise the layout of
+    least ``_layout_cost``."""
+    if T >= RESIDENT_THREADS // 2 or (T >= 132 * 128 and Wa * Wb < 1024):
+        return 1
+    return min(layouts(Wa), key=lambda g: _layout_cost(Wa, Wb, T, g))
+
+
+@functools.lru_cache(maxsize=None)
+def layouts(Wa):
+    """Every layout the kernel takes for Wa: 1, and each power of two g up
+    to 32 that leaves Wa / g in ``LANE_KEYS`` (none where Wa is no power of
+    two)."""
+    return (1,) + tuple(g for g in (2, 4, 8, 16, 32) if Wa % g == 0 and Wa // g in LANE_KEYS)
+
+
 def eqjoin(akT, avT, bkT, bvT, add, mul):
     """Batched sorted-segment intersection under a semiring.  ``akT`` (Wa, T)
     and ``bkT`` (Wb, T) int32; ``avT``/``bvT`` float32 of the same shapes, or
     None where ``mul`` ignores them.  Returns (vals (T,) float32, nmatch (T,)
     int32).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which takes Wa a multiple of 4."""
+    kernel, which takes Wa a multiple of 4, in the layout that
+    ``lanes_per_task`` picks."""
     if akT.device.type == "cpu":
         return eqjoin_plain(akT, avT, bkT, bvT, add, mul)
+    (Wa, T), Wb = akT.shape, bkT.shape[0]
+    return eqjoin_in_layout(akT, avT, bkT, bvT, add, mul, lanes_per_task(Wa, Wb, T))
+
+
+def eqjoin_in_layout(akT, avT, bkT, bvT, add, mul, lanes):
+    """The kernel in the layout ``lanes`` (one of ``layouts(Wa)``), on CUDA
+    tensors: ``eqjoin``'s launch, and a way to time or test every layout."""
     _check(akT, avT, bkT, bvT, add, mul)
     if akT.device.type != "cuda":
         raise RuntimeError(f"eqjoin: no kernel for device {akT.device}")
     (Wa, T), Wb = akT.shape, bkT.shape[0]
     if Wa % 4 or Wb < 1:
         raise ValueError(f"eqjoin: the kernel takes Wa a multiple of 4 and Wb >= 1, got ({Wa}, {Wb})")
+    if lanes not in layouts(Wa):
+        raise ValueError(f"eqjoin: {lanes} lanes a task is not a layout of Wa = {Wa}: {layouts(Wa)}")
     av = avT if mul in USES_AV else None
     bv = bvT if mul in USES_BV else None
     if not all(t.is_contiguous() for t in (akT, bkT, av, bv) if t is not None):
@@ -134,7 +189,7 @@ def eqjoin(akT, avT, bkT, bvT, add, mul):
         rc = lib.gb_eqjoin(
             akT.data_ptr(), None if av is None else av.data_ptr(), bkT.data_ptr(),
             None if bv is None else bv.data_ptr(), vals.data_ptr(), nm.data_ptr(), Wa, Wb, T,
-            ADDS.index(add), MULS.index(mul), _build.stream_of(akT),
+            ADDS.index(add), MULS.index(mul), lanes, _build.stream_of(akT),
         )
     _build.check(rc, "eqjoin")
     LAUNCHES["eqjoin"] += 1

@@ -8,15 +8,15 @@
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
   x) or SSSP (min of x + w) scan fused with the per-round state update.
 
-On the card Kernel C is one launch, a single-pass scan with decoupled
-look-back: its wrapper zeroes one scratch array, the tiles' descriptors and a
-ticket counter (one memset).  Kernel S and the generic scan are
+On the card Kernel C and the generic scan are one launch each, a single-pass
+scan with decoupled look-back: the wrapper zeroes one scratch array, the
+tiles' descriptors and a ticket counter (one memset).  Kernel S is
 reduce-then-scan in three launches, with scratch for the tile aggregates and
 carries.
 
 The plain versions are a log-step (Hillis-Steele) segmented scan over the
-flat array: ceil(log2 n) shifted ``_combine`` passes with the same prologue
-and epilogue.  Float sums therefore round in another order than the kernel's
+flat array: floor(log2 n) + 1 shifted ``_combine`` passes with the same
+prologue and epilogue.  Float sums therefore round in another order than the kernel's
 (and the TPU kernel's); min and max are exact.
 """
 
@@ -71,11 +71,14 @@ def _compute_dtype(dtype):
 
 
 def _scan_plain(op, v, f):
-    """Inclusive segmented scan by ceil(log2 n) shifted combines."""
+    """Inclusive segmented scan by shifted combines, until every slot's
+    window reaches past slot 0 into the identity (floor(log2 n) + 1 of them):
+    a fill before the first flag then reads 0, slot n - 1 of a power-of-two
+    n included."""
     ident = _ident(op, v.dtype)
     n = v.shape[0]
     d = 1
-    while d < n:
+    while d <= n:
         sv = torch.cat([torch.full((d,), ident, dtype=v.dtype, device=v.device), v[:-d]])
         sf = torch.cat([torch.zeros(d, dtype=torch.bool, device=f.device), f[:-d]])
         v, f = _combine(op, sv, sf, v, f)
@@ -148,7 +151,14 @@ def segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap=None):
     return _scan_plain(op, c, flags).to(io)
 
 
+def _tile_state(lib, n, device):
+    """The single pass's scratch: the tiles' descriptors and the ticket
+    counter, zeroed (one memset)."""
+    return torch.zeros(-(-n // lib.gb_segscan_tile()) + 1, dtype=torch.int64, device=device)
+
+
 def _scratch(n, dtype, device):
+    """Kernel S's scratch: the tile aggregates (values, flags) and carries."""
     nb = max(1, -(-n // _build.library().gb_segscan_tile()))
     return (
         torch.empty(nb, dtype=dtype, device=device),
@@ -184,8 +194,7 @@ def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
     lib = _build.library()
     n = x.numel()
     out = torch.empty(n, dtype=cd, device=x.device)
-    # the tiles' descriptors and the ticket counter, zeroed: one memset
-    tile_state = torch.zeros(-(-n // lib.gb_segscan_tile()) + 1, dtype=torch.int64, device=x.device)
+    tile_state = _tile_state(lib, n, x.device)
     bits, signed = wrap if wrap is not None else (0, False)
     with torch.cuda.device(x.device):
         rc = lib.gb_segscan_contrib(
@@ -300,12 +309,12 @@ def segscan(values, flags, op):
     _require_cuda("segscan", values, flags)
     lib = _build.library()
     n = values.numel()
-    out = torch.empty_like(values)
-    agg_v, agg_f, carry = _scratch(n, _compute_dtype(values.dtype), values.device)
+    out = torch.empty(n, dtype=values.dtype, device=values.device)
+    tile_state = _tile_state(lib, n, values.device)
     with torch.cuda.device(values.device):
         rc = lib.gb_segscan(
-            values.data_ptr(), flags.data_ptr(), out.data_ptr(), agg_v.data_ptr(), agg_f.data_ptr(),
-            carry.data_ptr(), n, SCAN_DTYPES.index(values.dtype), SCAN_OPS.index(op), _build.stream_of(values),
+            values.data_ptr(), flags.data_ptr(), out.data_ptr(), tile_state.data_ptr(), n,
+            SCAN_DTYPES.index(values.dtype), SCAN_OPS.index(op), _build.stream_of(values),
         )
     _build.check(rc, "segscan")
     LAUNCHES["segscan"] += 1

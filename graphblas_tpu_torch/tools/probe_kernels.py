@@ -1,8 +1,10 @@
-"""Kernels G and C alone on the card: CUDA-event times, the L2 probe, ptxas.
+"""Kernels G, C and the generic scan alone on the card: CUDA-event times,
+the L2 probe, ptxas.
 
-- ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu`` and ``csrc/segscan.cu``
-  with the build's own flags: registers, stack and spills of every kernel of
-  the two files (the whole listing goes to ``--out``).
+- ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu``, ``csrc/segscan.cu``
+  and ``csrc/eqjoin.cu`` with the build's own flags: registers, stack and
+  spills of every kernel of the three files (the whole listing goes to
+  ``--out``).
 - ``gather``: Kernel G's route over an int32 index of 2^log2n slots, random
   over len(x), with x of 2^20 (surely resident in the 50 MB L2), 2^21, 2^22,
   2^23 (the main path's) and 2^24 float32 slots: the L2 probe.  Then the
@@ -12,6 +14,9 @@
   flags at 1/16 (the main path's mean segment) and with no flag at all (the
   longest look-back); then a route followed by C on its output, the main
   path's order.
+- ``segscan``: the generic scan at 2^log2n with flags at 1/16: add in every
+  dtype, f32 fill, min and max, a uint8 fill, f32 add with no flag and on a
+  view one slot into its buffer (the plain loads).
 - ``l2 window``, last: the route over a permutation of 2^log2n slots once
   more under an L2 access-policy window that marks x persisting (set on the
   stream by libcuda's cuStreamSetAttribute, then cleared and the carve-out
@@ -34,14 +39,15 @@ import subprocess
 
 
 def ptxas_report(build, out_path):
-    """Registers, stack and spills of each kernel of gather.cu and
-    segscan.cu, as ptxas prints them for the build's flags."""
+    """Registers, stack and spills of each kernel of gather.cu, segscan.cu
+    and eqjoin.cu, as ptxas prints them for the build's flags (eqjoin.cu's
+    many instances summed up in one line, less any that spill)."""
     lines = []
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     nvcc = build.nvcc_path()
     filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
     with open(out_path, "w") as f:
-        for name in ("gather.cu", "segscan.cu"):
+        for name in ("gather.cu", "segscan.cu", "eqjoin.cu"):
             src = os.path.join(build.CSRC_DIR, name)
             obj = os.path.join(os.path.dirname(out_path) or ".", f"{name}.ptxas.o")
             proc = subprocess.run(
@@ -50,7 +56,7 @@ def ptxas_report(build, out_path):
             )
             os.remove(obj)
             f.write(f"==== {name} ====\n{proc.stderr}\n")
-            func = None
+            func, found = None, []
             for line in proc.stderr.splitlines():
                 m = re.search(r"Function properties for (\S+)", line)
                 if m:
@@ -62,8 +68,18 @@ def ptxas_report(build, out_path):
                     stack, st, ld = m.groups()
                 m = re.search(r"Used (\d+) registers", line)
                 if m and func:
-                    lines.append(f"{name}: {m.group(1)} regs, stack {stack}, spills {st}/{ld} B: {func[:150]}")
+                    found.append((int(m.group(1)), stack, st, ld, func))
                     func = None
+            if name != "eqjoin.cu":
+                lines += [f"{name}: {r} regs, stack {s}, spills {st}/{ld} B: {fn[:150]}" for r, s, st, ld, fn in found]
+                continue
+            for family in ("eqjoin_kernel", "eqjoin_lanes", "compare_probe"):
+                rows = [x for x in found if family in x[4]]
+                if rows:
+                    regs = [x[0] for x in rows]
+                    spills = [x for x in rows if x[2] != "0" or x[3] != "0"]
+                    lines.append(f"{name}: {family} x{len(rows)}: {min(regs)}-{max(regs)} regs, {len(spills)} spill")
+                    lines += [f"{name}: {r} regs, spills {st}/{ld} B: {fn[:150]}" for r, _, st, ld, fn in spills]
     return lines
 
 
@@ -182,6 +198,24 @@ def main():
         "route then contrib add/times",
         ms(lambda: ks.segscan_contrib(kg.gather(x, perm), w, valid, flags, "add", "times")),
     )
+    # the generic scan: every dtype's add, f32's other ops, a uint8 fill, no
+    # flags, and a view one slot into its buffer
+    vals = {
+        "f32": x,
+        "int32": torch.randint(-(2**30), 2**30, (n,), generator=gen, device=dev, dtype=torch.int32),
+        "int16": torch.randint(-(2**15), 2**15, (n,), generator=gen, device=dev, dtype=torch.int16),
+        "int8": torch.randint(-128, 128, (n,), generator=gen, device=dev, dtype=torch.int8),
+        "uint8": torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8),
+    }
+    for label, v in vals.items():
+        report(f"segscan {label} add", ms(lambda: ks.segscan(v, flags, "add")))
+    for op in ("fill", "min", "max"):
+        report(f"segscan f32 {op}", ms(lambda: ks.segscan(x, flags, op)))
+    report("segscan uint8 fill", ms(lambda: ks.segscan(vals["uint8"], flags, "fill")))
+    report("segscan f32 add, no flags", ms(lambda: ks.segscan(x, none, "add")))
+    x_buf = torch.empty(n + 128, device=dev)
+    x_buf[1 : n + 1] = x
+    report("segscan f32 add, view at slot 1", ms(lambda: ks.segscan(x_buf[1 : n + 1], flags, "add")))
     # last, as the persisting carve-out it sets aside slows what follows
     stream = torch.cuda.current_stream(dev).cuda_stream
     nbytes, ratio = l2_window(stream, x)

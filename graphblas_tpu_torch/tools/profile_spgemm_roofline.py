@@ -16,6 +16,13 @@ U = L^T, bricks and the reduce net), then measures on the card:
   5. one execute under torch.profiler: its device kernel time by kernel (the
      full table goes to ``--out``); the card's busy share is that device time
      over the unprofiled ``full_ms`` (the profiler slows the host)
+  6. the per-bucket table: each bucket's (Wa, Wb, T), eqjoin's layout and
+     device ms (torch.profiler, mean of the last 19 of 20 launches), its key
+     compares, bytes and bound, for the bench plan under plus_pair and, with
+     ``--rmat-scale``, for an RMAT lower triangle L.L^T (chip_smoke.py's run
+     (c)) under plus_pair and min_plus; with ``--sweep``, every bucket in
+     every layout the kernel takes (the data behind
+     ``kernels/eqjoin.lanes_per_task``)
 
 Compares are counted on the host, Wa * Wb * T per bucket; the useful flops
 are bench.py's, 2 x the matches:
@@ -23,9 +30,13 @@ are bench.py's, 2 x the matches:
   GF_useful/s = (compares/s achieved) * (useful flops / compare)
 
 Per-bucket eqjoin times by CUDA events bottom out at the wrapper's host time
-for a small bucket; the profile's device times are the kernels'.
+for a small bucket; the profile's device times are the kernels'.  A bucket's
+bound is the larger of its bytes (keys and the values the multiply reads,
+once each, and 8 bytes a task out) over 3.35 TB/s and its compares, one
+int32 instruction each, over 132 SMs x 64 lanes x 1.98 GHz.
 
-    python -m graphblas_tpu_torch.tools.profile_spgemm_roofline [--ns-log2 16] [--out build/spgemm_profile.txt]
+    python -m graphblas_tpu_torch.tools.profile_spgemm_roofline [--ns-log2 16] [--rmat-scale 14]
+        [--sweep] [--out build/spgemm_profile.txt]
 """
 
 import argparse
@@ -41,6 +52,9 @@ from ..kernels import eqjoin as _ke
 from ..ops import eqjoin as _ej
 
 PROBE_ROWS = 1 << 14  # the probe's (rows, 128) float32 arrays
+# H100 SXM data sheet: memory rate; int32 instruction rate (64 lanes an SM)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def bench_tc_workload(ns_log2=16, csize=64, seed=7):
@@ -62,6 +76,110 @@ def bench_tc_workload(ns_log2=16, csize=64, seed=7):
         hi[keep], lo[keep], np.ones(int(keep.sum()), np.float32), ns, ns, dup_op="first"
     )
     return L, L.transposed()
+
+
+def rmat_lower(scale, seed=5, value_seed=11):
+    """rmat(scale, 16, seed) symmetrised: its strict lower triangle L, with
+    values in [0.5, 1.5) drawn by numpy from ``value_seed``, and U = L^T
+    (host containers)."""
+    from ..models import rmat
+
+    g = rmat(scale, 16, seed=seed, device="cpu")
+    v = g.valid.numpy()
+    s, d = (t.numpy()[v].astype(np.int64) for t in (g.src, g.dst))
+    r, c = np.concatenate([s, d]), np.concatenate([d, s])
+    keep = r > c
+    pat = _sp.SparseMatrixData.from_arrays(r[keep], c[keep], np.ones(int(keep.sum()), np.float32), g.n, g.n, "first")
+    vals = (np.random.default_rng(value_seed).random(pat.nvals) + 0.5).astype(np.float32)
+    L = _sp.SparseMatrixData(pat.rows, pat.cols, vals, g.n, g.n)
+    return L, L.transposed()
+
+
+def bucket_bound(Wa, Wb, T, n_bytes):
+    """(bound_ms, bound_by) of one bucket: its bytes or its key compares."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, Wa * Wb * T / INT32_OPS_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "compares")
+
+
+def bucket_table(plan, add="plus", mul="pair", reps=20, lanes=None):
+    """One row per bucket: Wa, Wb, T, the layout, eqjoin's device ms
+    (torch.profiler, mean of the last reps - 1 of ``reps`` launches in a
+    row), its compares, bytes and bound.  ``lanes`` None: the layout
+    ``eqjoin`` picks; else that layout, on the buckets that take it (the
+    rest are left out).  On a tree whose kernel has one layout only (before
+    the lanes layout: an A/B's parent) every bucket runs one thread a task."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one_layout = not hasattr(_ke, "eqjoin_in_layout")
+    ins, buckets = [], []
+    for b in plan.buckets:
+        (Wa, Wb), T = b[0], int(b[3].shape[1])
+        if one_layout:
+            g = 1
+        else:
+            g = _ke.lanes_per_task(Wa, Wb, T) if lanes is None else lanes
+            if g not in _ke.layouts(Wa):
+                continue
+        av = b[4].to(torch.float32) if mul in _ke.USES_AV else None
+        bv = b[6].to(torch.float32) if mul in _ke.USES_BV else None
+        ins.append((b[3], av, b[5], bv, add, mul, g))
+        buckets.append(b)
+
+    def launch(i):
+        return _ke.eqjoin(*i[:6]) if one_layout else _ke.eqjoin_in_layout(*i)
+
+    def device_ms(i):
+        """Mean device ms of the last reps - 1 of reps launches (a trace may
+        miss the launch that starts it, and now and then every kernel of the
+        trace: up to three traces)."""
+        launch(i)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    launch(i)
+                torch.cuda.synchronize()
+            kern = sorted(
+                (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "eqjoin" in e.name),
+                key=lambda e: e.time_range.start,
+            )[-(reps - 1) :]
+            if len(kern) == reps - 1:
+                return sum(e.time_range.elapsed_us() for e in kern) / len(kern) / 1e3
+        raise RuntimeError(f"bucket_table: {len(kern)} eqjoin kernels traced of {reps} launched, three times")
+
+    rows = []
+    for b, i in zip(buckets, ins):
+        (Wa, Wb), T = b[0], int(b[3].shape[1])
+        ms = device_ms(i)
+        n_bytes = sum(t.numel() * t.element_size() for t in i[:4] if t is not None) + 8 * T
+        bound_ms, bound_by = bucket_bound(Wa, Wb, T, n_bytes)
+        rows.append({
+            "Wa": Wa, "Wb": Wb, "T": T, "lanes": i[-1], "ms": ms, "compares": Wa * Wb * T, "bytes": n_bytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    return rows
+
+
+def layout_sweep(plan, add="plus", mul="pair", reps=20):
+    """Each bucket's device ms in every layout it takes: {(Wa, Wb, T): {g: ms}}."""
+    out = {}
+    for g in (1, 2, 4, 8, 16, 32):
+        for r in bucket_table(plan, add, mul, reps, lanes=g):
+            out.setdefault((r["Wa"], r["Wb"], r["T"]), {})[g] = r["ms"]
+    return out
+
+
+def format_table(label, rows):
+    """The table as text lines, and its sums."""
+    lines = [f"== {label}: Wa Wb T | lanes a task | device ms | compares | bound ms (by) | ms / bound"]
+    for r in rows:
+        lines.append(
+            f"  {r['Wa']:4d} {r['Wb']:4d} {r['T']:8d} | {r['lanes']:2d} | {r['ms']:.4f} | {r['compares']:.4g} | "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) | {r['ms'] / r['bound_ms']:.1f}"
+        )
+    ms, bnd = sum(r["ms"] for r in rows), sum(r["bound_ms"] for r in rows)
+    lines.append(f"  sum: {ms:.4f} ms against {bnd:.4f} ms of bounds ({len(rows)} buckets)")
+    return lines
 
 
 def bucket_compares(plan):
@@ -171,6 +289,8 @@ def profile_execute(plan, out_path):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns-log2", type=int, default=16)
+    ap.add_argument("--rmat-scale", type=int, default=14, help="the RMAT plan's scale for the bucket table (0: none)")
+    ap.add_argument("--sweep", action="store_true", help="time every bucket in every layout eqjoin takes")
     ap.add_argument("--out", default="build/spgemm_profile.txt", help="the traced execute's table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -185,6 +305,22 @@ def main():
         "wall_ms": wall_ms, "device_kernel_ms": dev_ms, "busy_share_profiled": dev_ms / wall_ms,
         "top_kernels_ms": [[k[:100], ms] for k, ms in top[:10]],
     }
+    runs = {"bench plus_pair": (plan, "plus", "pair")}
+    if args.rmat_scale:
+        Lr, Ur = rmat_lower(args.rmat_scale)
+        rplan = _sp.sparse_spgemm_analyze(Lr, Ur, Lr.rows, Lr.cols, reduce_net=True, device="cuda")
+        for add, mul in (("plus", "pair"), ("min", "plus")):
+            runs[f"rmat {args.rmat_scale} {add}_{mul}"] = (rplan, add, mul)
+    tables = {label: bucket_table(*r) for label, r in runs.items()}
+    for label, rows in tables.items():
+        print("\n".join(format_table(label, rows)), flush=True)
+    out["bucket_tables"] = tables
+    if args.sweep:
+        for label, r in runs.items():
+            print(f"== layouts, {label}: Wa Wb T | device ms by lanes a task | the pick", flush=True)
+            for (Wa, Wb, T), by_g in layout_sweep(*r).items():
+                cells = ", ".join(f"{g}: {ms:.4f}" for g, ms in by_g.items())
+                print(f"  {Wa:4d} {Wb:4d} {T:8d} | {cells} | {_ke.lanes_per_task(Wa, Wb, T)}", flush=True)
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out, indent=1), flush=True)
 

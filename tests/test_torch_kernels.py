@@ -133,6 +133,21 @@ def test_segmented_scan_across_reference_tiles(ref, dt, op):
     _check_scan(ts.segmented_scan(_t(v), _t(flags), op), want, dt, op)
 
 
+@pytest.mark.parametrize("op", ["fill", "add", "max"])
+@pytest.mark.parametrize("n", [128, 2048, 128 * 3])
+def test_segmented_scan_without_a_flag(ref, n, op):
+    """No flag at all: a fill reads 0 everywhere, the last slot of a
+    power-of-two length included (the plain log-step scan once read slot 0's
+    value there); add and max run over the whole array."""
+    v, _ = _scan_inputs(14, "f32", n)
+    flags = np.zeros(n, bool)
+    want = ref.scan.segmented_scan(ref.jnp.asarray(v), ref.jnp.asarray(flags), op, interpret=True)
+    got = ts.segmented_scan(_t(v), _t(flags), op)
+    _check_scan(got, want, "f32", op)
+    if op == "fill":
+        assert not got.any()
+
+
 def test_segmented_scan_rejects_what_it_does_not_take():
     v, flags = _scan_inputs(13, "f32", N)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -238,15 +253,33 @@ def _look_back_model(op, v, f, tile, seed, window=4):
     return torch.tensor(out, dtype=torch.int64), waits
 
 
-@pytest.mark.parametrize("op", ["add", "min", "max", "fill"])
-@pytest.mark.parametrize("flags_kind", ["random", "none", "tile_starts", "sparse"])
-def test_look_back_model_matches_plain_scan(op, flags_kind):
-    """The rule Kernel C relies on: a look-back that stops at an inclusive
-    prefix or a flagged aggregate, with tiles finishing in any order, gives
-    the inclusive segmented scan."""
+LOOK_BACK_CASES = [
+    pytest.param(op, kind, None, id=f"{kind}-{op}")
+    for kind in ("random", "none", "tile_starts", "sparse")
+    for op in ("add", "min", "max", "fill")
+] + [
+    pytest.param(op, kind, dt, id=f"{kind}-{op}-{dt}")
+    for dt in ("i8", "i16")
+    for kind in ("random", "none")
+    for op in ("add", "min", "max", "fill")
+]
+
+
+@pytest.mark.parametrize("op,flags_kind,dt", LOOK_BACK_CASES)
+def test_look_back_model_matches_plain_scan(op, flags_kind, dt):
+    """The rule Kernel C and the generic scan rely on: a look-back that stops
+    at an inclusive prefix or a flagged aggregate, with tiles finishing in
+    any order, gives the inclusive segmented scan.  The int8 / int16 cases
+    are the generic scan's: values over the whole narrow range, scanned
+    exactly and truncated to the narrow type on store, against the plain
+    version, which computes in int32 and truncates (add wraps)."""
     rng = np.random.default_rng(40)
     n, tile = 517, 8
-    v = torch.from_numpy(rng.integers(-50, 50, n))
+    if dt is None:
+        v = torch.from_numpy(rng.integers(-50, 50, n))
+    else:
+        info = np.iinfo(DTYPES[dt])
+        v = torch.from_numpy(rng.integers(info.min, int(info.max) + 1, n))
     f = {
         "random": rng.random(n) < 0.2,
         "none": np.zeros(n, bool),
@@ -255,7 +288,14 @@ def test_look_back_model_matches_plain_scan(op, flags_kind):
     }[flags_kind]
     got, waits = _look_back_model(op, v, torch.from_numpy(f), tile, seed=41)
     assert waits > 0  # some look-backs found a predecessor with nothing published
-    assert torch.equal(got, ks._scan_plain(op, v, torch.from_numpy(f)))
+    if dt is None:
+        assert torch.equal(got, ks._scan_plain(op, v, torch.from_numpy(f)))
+    else:  # segscan_plain's arithmetic (n here is no multiple of 128, which it requires)
+        narrow = v.to(_t(np.zeros(1, DTYPES[dt])).dtype)
+        want = ks._scan_plain(op, narrow.to(torch.int32), torch.from_numpy(f)).to(narrow.dtype)
+        assert torch.equal(got.to(narrow.dtype), want)
+        if op == "add" and flags_kind == "none":
+            assert got.abs().max() > np.iinfo(DTYPES[dt]).max  # the exact sums leave the range: wraps on store
 
 
 def test_scan_contrib_rejects_what_it_does_not_take():
@@ -450,6 +490,24 @@ def _eqjoin_inputs(Wa, Wb, T, seed, nan=False):
     return ak, av, bk, bv
 
 
+def _eqjoin_edge_inputs(Wa, Wb, T, seed):
+    """Unsorted keys with duplicates over a small range (so tasks match, some
+    keys more than once), each task's tail padded with -1 (A) / -2 (B);
+    values in [-1.5, 1.5) with a few NaN and 5% -0.0 among them."""
+    rng = np.random.default_rng(seed)
+    span = max(4, (Wa + Wb) // 3)
+    ak = rng.integers(0, span, (Wa, T)).astype(np.int32)
+    bk = rng.integers(0, span, (Wb, T)).astype(np.int32)
+    ak[np.arange(Wa)[:, None] >= rng.integers(1, Wa + 1, T)[None, :]] = -1
+    bk[np.arange(Wb)[:, None] >= rng.integers(0, Wb + 1, T)[None, :]] = -2
+    av = (rng.random((Wa, T)) * 3 - 1.5).astype(np.float32)
+    bv = (rng.random((Wb, T)) * 3 - 1.5).astype(np.float32)
+    for v in (av, bv):
+        v[rng.random(v.shape) < 0.05] = -0.0
+        v.flat[rng.choice(v.size, min(3, v.size), replace=False)] = np.nan
+    return ak, av, bk, bv
+
+
 def _eqjoin_rtol(add, mul):
     """Float plus / times accumulations of values round in each
     implementation's own order; everything else is exact."""
@@ -485,6 +543,93 @@ def test_eqjoin_matches_reference(ref, Wa, Wb, add, mul):
     assert int(got[1].sum()) > 0 and (got[1].numpy() == 0).any()  # matches and empty tasks both occur
     if mul in ("times", "plus", "first") and add not in ("lor", "land"):
         assert np.isnan(got[0][5].item())  # the NaN propagates (lor / land read it as nonzero)
+
+
+_EQ_IDENT = {"plus": 0.0, "lor": 0.0, "min": np.inf, "max": -np.inf, "any": -np.inf, "times": 1.0, "land": 1.0}
+
+
+def _signed_zero(a, b, r, neg):
+    """``r`` with the sign of a tie of zeros settled: -0.0 where ``neg``."""
+    both = (a == 0) & (b == 0)
+    return np.where(both, np.where(neg, np.float32(-0.0), np.float32(0.0)), r)
+
+
+def _maximum(a, b):
+    """jnp.maximum: NaN propagates, +0.0 above -0.0 (numpy's keeps b on a tie)."""
+    return _signed_zero(a, b, np.maximum(a, b), np.signbit(a) & np.signbit(b))
+
+
+def _minimum(a, b):
+    """jnp.minimum: NaN propagates, -0.0 below +0.0."""
+    return _signed_zero(a, b, np.minimum(a, b), np.signbit(a) | np.signbit(b))
+
+
+def eqjoin_order_model(ak, av, bk, bv, add, mul):
+    """The TPU kernel's order of arithmetic (graphblas_tpu/ops/pallas_eqjoin.py:
+    91-120) in numpy float32, each product and sum rounded once: per k an
+    accumulator over l in order, then a combine over k in order."""
+    f32 = np.float32
+    Wa, T = ak.shape
+    acc = np.full((Wa, T), _EQ_IDENT[add], f32)
+    nm = np.zeros(T, np.int64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for l in range(bk.shape[0]):
+            eq = ak == bk[l]
+            nm += eq.sum(0)
+            prod = {
+                "pair": lambda: np.ones_like(acc), "times": lambda: av * bv[l], "plus": lambda: av + bv[l],
+                "first": lambda: av, "second": lambda: np.broadcast_to(bv[l], acc.shape),
+            }[mul]()
+            if add == "plus":
+                acc = acc + np.where(eq, prod, f32(0))
+            elif add == "min":
+                acc = np.where(eq, _minimum(acc, prod), acc)
+            elif add in ("max", "any"):
+                acc = np.where(eq, _maximum(acc, prod), acc)
+            elif add == "times":
+                acc = np.where(eq, acc * prod, acc)
+            elif add == "lor":
+                acc = np.where(eq & (prod != 0), f32(1), acc)
+            else:  # land
+                acc = np.where(eq, acc * (prod != 0).astype(f32), acc)
+        total = np.full(T, _EQ_IDENT[add], f32)
+        for k in range(Wa):
+            if add == "plus":
+                total = total + acc[k]
+            elif add == "min":
+                total = _minimum(total, acc[k])
+            elif add in ("max", "any"):
+                total = _maximum(total, acc[k])
+            elif add == "lor":
+                total = np.fmax(total, acc[k])
+            else:  # times, land
+                total = total * acc[k]
+    return np.where(nm > 0, total, f32(0)).astype(f32), nm.astype(np.int32)
+
+
+def _assert_same_bits(got, want):
+    """Bit for bit, NaN anywhere the other has NaN (its payload aside)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize("mul", sorted(ke.MULS))
+@pytest.mark.parametrize("add", sorted(ke.ADDS))
+def test_eqjoin_order_model_matches_reference(ref, add, mul):
+    """The numpy model of the kernels' order against the Pallas kernel in
+    interpret mode, bit for bit (NaN and -0.0 values, pads, duplicate keys)."""
+    jnp = ref.jnp
+    ak, av, bk, bv = _eqjoin_edge_inputs(4, 16, 512, seed=50)
+    want = ref.eqjoin.eqjoin(
+        jnp.asarray(ak), jnp.asarray(av) if mul != "pair" else None, jnp.asarray(bk),
+        jnp.asarray(bv) if mul in ("times", "plus", "second") else None, add=add, mul=mul, interpret=True,
+    )
+    vals, nm = eqjoin_order_model(ak, av, bk, bv, add, mul)
+    _assert_equal(nm, want[1])
+    _assert_same_bits(vals, want[0])
+    assert nm.sum() > 0 and (nm == 0).any()
 
 
 def test_eqjoin_task_tile_is_the_reference_padding_rule(ref):
@@ -648,6 +793,43 @@ def test_cuda_segscan_matches_plain(cuda, dt, op, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "none"])
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("dt", ["f32", "i32", "i16", "i8", "u8"])
+def test_cuda_segscan_on_views(cuda, dt, offset, pattern):
+    """The single pass on values ``offset`` slots into their buffer (off
+    16-byte alignment: plain loads), with flags at random and with none (the
+    look-back walks the whole chain), every op."""
+    n = (1 << 20) + 128 * 3
+    v, flags = _scan_inputs(offset, dt, n)
+    if pattern == "none":
+        flags[:] = False
+    vd, fd = _view(cuda, v, offset), _view(cuda, flags, 0)
+    for op in ("fill", "add", "min", "max"):
+        got = ks.segscan(vd, fd, op)
+        want = ks.segscan_plain(vd, fd, op)
+        torch.cuda.synchronize()
+        _check_contrib(got, want, dt, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "i32", "i16", "i8", "u8"])
+def test_cuda_segscan_long_and_short(cuda, dt):
+    """2^25 slots (16,384 tiles) without a flag, and one ragged tile of 128
+    slots (the SpGEMM reduce net's short arrays), every op."""
+    for n, pattern in ((1 << 25, "none"), (128, "random")):
+        v, flags = _scan_inputs(60, dt, n)
+        if pattern == "none":
+            flags[:] = False
+        vd, fd = _on(cuda, v, flags)
+        for op in ("fill", "add", "min", "max"):
+            got = ks.segscan(vd, fd, op)
+            want = ks.segscan_plain(vd, fd, op)
+            torch.cuda.synchronize()
+            _check_contrib(got, want, dt, op)
+
+
+@pytest.mark.cuda
 def test_cuda_gather_network_matches_plain(cuda):
     e_pad = 4 * 128**3
     stages = synthetic_network(e_pad, 25)
@@ -673,6 +855,57 @@ def test_cuda_eqjoin_matches_plain(cuda, Wa, Wb, T, add, mul):
     assert torch.equal(got[1], want[1])
     rtol = _eqjoin_rtol(add, mul)
     torch.testing.assert_close(got[0], want[0], rtol=rtol or 0, atol=1e-6 if rtol else 0, equal_nan=True)
+
+
+def _eqjoin_in_every_layout(dev, ak, av, bk, bv, semirings):
+    """The kernel in each layout ``ke.layouts(Wa)`` gives, on each semiring,
+    bit for bit against the numpy order model."""
+    args = _on(dev, ak, av, bk, bv)
+    for add, mul in semirings:
+        want_v, want_n = eqjoin_order_model(ak, av, bk, bv, add, mul)
+        for lanes in ke.layouts(ak.shape[0]):
+            got_v, got_n = ke.eqjoin_in_layout(*args, add, mul, lanes)
+            torch.cuda.synchronize()
+            _assert_equal(got_n.cpu(), want_n)
+            _assert_same_bits(got_v.cpu().numpy(), want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, 513, 4097])
+@pytest.mark.parametrize("Wb", [4, 16, 64, 256])
+@pytest.mark.parametrize("Wa", [4, 16, 64, 256])
+def test_cuda_eqjoin_every_layout_matches_the_order_model(cuda, Wa, Wb, T):
+    """Every layout the host may pick, at the bucket widths the analysis
+    makes, around the warp and block sizes of both layouts: keys unsorted
+    with duplicates and pads, NaN and -0.0 values."""
+    semirings = [("plus", "pair"), ("plus", "times"), ("min", "plus"), ("max", "first"), ("times", "second")]
+    _eqjoin_in_every_layout(cuda, *_eqjoin_edge_inputs(Wa, Wb, T, seed=Wa * 7 + Wb * 3 + T), semirings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Wa,Wb,T", [(16, 64, 513), (256, 256, 31), (4, 256, 97)])
+def test_cuda_eqjoin_every_add_mul_in_every_layout(cuda, Wa, Wb, T):
+    """Every add x mul of the reference, in every layout, bit for bit."""
+    semirings = [(a, m) for a in ke.ADDS for m in ke.MULS]
+    _eqjoin_in_every_layout(cuda, *_eqjoin_edge_inputs(Wa, Wb, T, seed=T), semirings)
+
+
+@pytest.mark.cuda
+def test_cuda_eqjoin_picks_its_layout_and_counts(cuda):
+    """``eqjoin`` launches once, in the layout ``lanes_per_task`` picks, and
+    agrees with the model; a layout the kernel does not take raises."""
+    ak, av, bk, bv = _eqjoin_edge_inputs(256, 256, 512, seed=3)
+    assert ke.lanes_per_task(256, 256, 512) == 32
+    args = _on(cuda, ak, av, bk, bv)
+    kernels.reset_counts()
+    got_v, got_n = ke.eqjoin(*args, "min", "plus")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["eqjoin"] == 1 and kernels.plain_counts()["eqjoin"] == 0
+    want_v, want_n = eqjoin_order_model(ak, av, bk, bv, "min", "plus")
+    _assert_equal(got_n.cpu(), want_n)
+    _assert_same_bits(got_v.cpu().numpy(), want_v)
+    with pytest.raises(ValueError, match="not a layout"):
+        ke.eqjoin_in_layout(*args, "min", "plus", 16)  # 256 / 16 keys a lane: more than the kernel holds
 
 
 @pytest.mark.cuda

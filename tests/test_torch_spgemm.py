@@ -293,3 +293,79 @@ def test_from_arrays_combines_duplicates(dup_op, want):
     t = sp.transposed()
     assert (t.nrows, t.ncols, t.nvals) == (3, 2, 2)
     np.testing.assert_array_equal(t.rows, [1, 2])
+
+
+def _port_plan(graph):
+    """The port's plan of a test graph, from the COO arrays alone (no reference)."""
+    if graph == "hub":
+        (ar, ac, av, n), (br, bc, bv, _), mr, mc = hub_graph()
+        a = ps.SparseMatrixData.from_arrays(ar, ac, av, n, n, "first")
+        b = ps.SparseMatrixData.from_arrays(br, bc, bv, n, n, "first")
+    else:
+        r, c, v, n = clustered() if graph == "clustered" else hub_row_graph()
+        a = ps.SparseMatrixData.from_arrays(r, c, v, n, n, "first")
+        b = a.transposed()
+        if graph == "clustered":
+            mr, mc = a.rows, a.cols
+        else:
+            hub = n - 1
+            mr = np.concatenate([np.full(n, hub), np.arange(n - 1)])
+            mc = np.concatenate([np.arange(n), np.full(n - 1, hub)])
+    return ps.sparse_spgemm_analyze(a, b, mr, mc, reduce_net=True, device="cpu")
+
+
+# (Wa, Wb, T) of the bench triangle-count plan and the RMAT scale-14 plan that
+# chip_smoke.py runs, as tools/profile_spgemm_roofline.py printed them on the card
+CHIP_PLAN_SHAPES = [
+    (4, 4, 116224), (4, 16, 868352), (4, 64, 1048576), (4, 256, 2048), (16, 4, 97280), (16, 16, 86528),
+    (16, 64, 196608), (16, 256, 1024), (64, 4, 1310720), (64, 16, 262144), (64, 64, 81920), (64, 256, 2048),
+    (256, 4, 512), (256, 16, 2048), (256, 64, 8192), (256, 256, 512),
+    (4, 4, 1536), (4, 16, 4096), (4, 64, 3072), (4, 256, 12288), (16, 4, 2560), (16, 16, 3584), (16, 64, 6656),
+    (16, 256, 32768), (64, 4, 5120), (64, 16, 8192), (64, 64, 24576), (64, 256, 36864), (256, 4, 30720),
+    (256, 16, 49152), (256, 64, 73728), (256, 256, 117760),
+]
+
+
+@pytest.mark.parametrize("graph", ["clustered", "hub", "hub_row", "chip_smoke plans"])
+def test_eqjoin_layout_choice_over_the_plan_buckets(graph):
+    """The host's layout choice (``kernels.eqjoin.lanes_per_task``, a pure
+    function of Wa, Wb and T) over every bucket shape of the three test plans
+    and of chip_smoke.py's two plans: a layout the kernel takes; one thread a
+    task where the tasks alone fill half the card's resident threads, or give
+    every SM a block while a task's work is small; else the layout of least
+    modelled cost; a wide
+    bucket (Wa * Wb >= 16384) of fewer tasks than one 128-thread block per
+    SM spread over lanes, to at least one block per SM where Wa allows it."""
+    from graphblas_tpu_torch.kernels import eqjoin as ke
+
+    if graph == "chip_smoke plans":
+        shapes = CHIP_PLAN_SHAPES
+    else:
+        shapes = [(b[0][0], b[0][1], int(b[3].shape[1])) for b in _port_plan(graph).buckets]
+    assert shapes
+    for Wa, Wb, T in shapes:
+        g = ke.lanes_per_task(Wa, Wb, T)
+        assert g in ke.layouts(Wa), (Wa, Wb, T, g)
+        if T >= ke.RESIDENT_THREADS // 2 or (T >= 132 * 128 and Wa * Wb < 1024):
+            assert g == 1, (Wa, Wb, T)
+        else:  # the layout of least modelled cost
+            assert g == min(ke.layouts(Wa), key=lambda h: ke._layout_cost(Wa, Wb, T, h))
+        if Wa * Wb >= 16384 and T < 132 * 128:
+            most = max(ke.layouts(Wa))
+            assert g > 1 and -(-T * g // 128) >= min(132, -(-T * most // 128)), (Wa, Wb, T, g)
+
+
+@pytest.mark.parametrize("shape,lanes", [
+    ((256, 256, 512), 32), ((256, 4, 30720), 1), ((64, 4, 1310720), 1), ((64, 256, 36864), 8),
+    ((256, 256, 117760), 32), ((4, 256, 2048), 4), ((16, 4, 97280), 1), ((16, 16, 86528), 1),
+])
+def test_eqjoin_layout_choice_follows_the_sweep(shape, lanes):
+    """Picks the layout sweep on an H100 settled (PERF.md): the (256, 256)
+    bucket of 512 tasks on a warp a task; (256, 4) of 30,720 tasks on a
+    thread a task, where handing the combine from lane to lane costs more
+    than its 4 compares a key save; the bench's largest bucket, and its (16,
+    4) and (16, 16) ones, where lanes ran slower than a thread a task,
+    unchanged."""
+    from graphblas_tpu_torch.kernels import eqjoin as ke
+
+    assert ke.lanes_per_task(*shape) == lanes

@@ -19,14 +19,20 @@ check:
   3. kernels: G (routes, fill, a network with T and row-select stages, a
      route on unaligned views, the L2 probe: a route with x of 2^20 slots), C
      (add, min, max; with flags at 1/16 and with none, the longest
-     look-back), S (BFS, SSSP) and the generic scan (f32 fill, add, min,
-     max; int32, int16 and int8 add, a uint8 fill, f32 add on a view one
-     slot into its buffer) against their plain PyTorch versions at e_pad,
-     with both times and, for the routes, one PyTorch indexing call's;
+     look-back), S (BFS, SSSP with fr_reduce, with per-slot changed flags,
+     and without flags) and the generic scan (f32 fill, add, min, max;
+     int32, int16 and int8 add, a uint8 fill, f32 add on a view one slot
+     into its buffer) against their plain PyTorch versions at e_pad, with
+     both times and, for the routes, one PyTorch indexing call's; one NaN
+     case per scan kernel (C min, S SSSP, the generic scan's f32 min: NaN at
+     a flagged slot, mid-segment, at a thread's and a tile's first slot,
+     compared NaN for NaN and bit for bit);
      eqjoin on every bucket of the SpGEMM workload's plan (plus_pair, device
      ms by the profiler, summed per execute against the summed bounds) and
      four semirings on its largest bucket and on the RMAT plan's (256, 256)
-     one, the tropical matmul at 2048^3 and the compare probe against theirs
+     one, the tropical matmul's four semirings at 2048^3 and a ragged
+     (2047, 2045) x (2045, 2049) min_plus, and the compare probe against
+     theirs
   4. graph and plans: host build times, plan sizes on the device
   5. algorithms: kernel path against the plain path on the same card; SpMV,
      masked SpMV and parent BFS without endpoint routes against the same with
@@ -76,7 +82,13 @@ PATH_OF = {"eqjoin": "spgemm", "tropical_mxm": "tropical", "compare_probe": "roo
 # memory rate, operations over the rate of their kind
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32, an FMA counted as two
-F32_LANE_OPS_PER_S = 132 * 128 * 1.98e9  # float32 instructions (add, min, max, compare)
+# lane instructions a second at 132 SMs and 1.98 GHz: an SM dispatches 128 a
+# clock (f32 add and compare, on the 128-lane FMA pipe) and runs f32 min and
+# max (FMNMX, min.NaN / max.NaN included) at 64 a clock, the rates that
+# tools/probe_kernels.py's rate probe settled on an NVIDIA H100 80GB
+# HBM3 at 700 W (117.5 and 62.3 a clock measured; PERF.md section 6)
+F32_LANE_OPS_PER_S = 132 * 128 * 1.98e9
+FMNMX_OPS_PER_S = 132 * 64 * 1.98e9
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # int32 instructions (the eqjoin key compares)
 
 
@@ -117,9 +129,26 @@ def wall_s(torch, fn, reps=3):
 
 
 def abs_err(a, b):
-    """Largest |a - b|, with equal values (infinities included) as 0."""
+    """Largest |a - b|, with equal values (infinities included) and NaN
+    against NaN as 0."""
     d = (a.double() - b.double()).abs()
-    return float(d.masked_fill(a == b, 0).max())
+    return float(d.masked_fill((a == b) | (a.isnan() & b.isnan()), 0).max())
+
+
+def same_bits(torch, a, b):
+    """NaN where the other has NaN; every other value bit for bit (so -0.0
+    is not +0.0)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def tropical_ops_per_s(mul):
+    """The instruction rate that bounds a semiring: an f32 add and an FMNMX
+    per (i, j, k) dispatch at 128 lanes a clock in pairs (64 pairs); two FMNMX
+    per (i, j, k) run at the FMNMX rate (32 pairs)."""
+    return F32_LANE_OPS_PER_S if mul == "plus" else FMNMX_OPS_PER_S
 
 
 def nbytes(ts):
@@ -185,19 +214,22 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
 
     def record(
         name, label, kern, plain, inputs, ops_per_slot, rtol=None, library=None, reps=20, n_ops=None,
-        ops_per_s=F32_OPS_PER_S,
+        ops_per_s=F32_OPS_PER_S, nan=False,
     ):
         """Check the kernel against its plain version and time both (and the
         PyTorch call ``library``); the bound counts ``inputs`` read once,
         the outputs written once and ``ops_per_slot`` float32 operations per
-        output slot (or ``n_ops`` operations at ``ops_per_s``)."""
+        output slot (or ``n_ops`` operations at ``ops_per_s``).  ``nan``:
+        the outputs hold NaN, compared NaN for NaN and bit for bit."""
         got, want = kern(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
         pairs = list(zip(outs, want if isinstance(want, tuple) else (want,)))
         err = 0.0
         for g, p in pairs:
-            if rtol is None:
+            if nan:
+                require(same_bits(torch, g, p), f"{name} {label}: kernel differs from its plain version")
+            elif rtol is None:
                 require(torch.equal(g, p), f"{name} {label}: kernel differs from its plain version")
             else:
                 torch.testing.assert_close(g, p, rtol=rtol, atol=0)
@@ -285,12 +317,17 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
     big = torch.tensor(STATE_BIG, device=dev)
     xs = torch.where(rand(e_pad) < 0.3, big, rand(e_pad) * 20)
     dist = torch.where(rand(e_pad) < 0.5, big, rand(e_pad) * 25)
-    record(
-        "segscan_state", "sssp (fr_reduce)",
-        lambda: ks.segscan_state("sssp", xs, w, valid, flags, is_last, dist, 3, True),
-        lambda: ks.segscan_state_plain("sssp", xs, w, valid, flags, is_last, dist, 3, True),
-        (xs, w, valid, flags, is_last, dist), 3,
-    )
+    only_last = torch.arange(e_pad, device=dev) == e_pad - 1  # no flag: one segment, the longest look-back
+    for label, fl, il, fr in (
+        ("sssp (fr_reduce)", flags, is_last, True), ("sssp (per-slot changed)", flags, is_last, False),
+        ("sssp (fr_reduce), no flags", no_flags, only_last, True),
+    ):
+        record(
+            "segscan_state", label,
+            lambda: ks.segscan_state("sssp", xs, w, valid, fl, il, dist, 3, fr),
+            lambda: ks.segscan_state_plain("sssp", xs, w, valid, fl, il, dist, 3, fr),
+            (xs, w, valid, fl, il, dist), 3,
+        )
     # the generic scan: f32 add first (the structure counts of the main path)
     for op in ("add", "fill", "min", "max"):
         record(
@@ -313,6 +350,33 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
     record(
         "segscan", "f32 add on a view one slot in", lambda: ks.segscan(xv1, flags, "add"),
         lambda: ks.segscan_plain(xv1, flags, "add"), (xv1, flags), 1, rtol=1e-6,
+    )
+    # NaN through each scan kernel: at a flagged slot, mid-segment, at a
+    # thread's first slot and at a tile's first slot (NaN for NaN, bit for bit)
+    nan_at = torch.tensor([int(flags.nonzero()[3]), 4096 + 37 * 8, 3 * 2048, 5 * 2048 + 5], device=dev)
+    fl_nan = flags.clone()
+    fl_nan[nan_at[1:]] = False
+    x_nan = x.clone()
+    x_nan[nan_at] = float("nan")
+    xs_nan = xs.clone()
+    xs_nan[nan_at] = float("nan")
+    val_nan = valid.clone()
+    val_nan[nan_at] = True
+    il_nan = torch.cat([fl_nan[1:], torch.ones(1, dtype=torch.bool, device=dev)])
+    record(
+        "segscan_contrib", "min/plus with NaN", lambda: ks.segscan_contrib(x_nan, w, val_nan, fl_nan, "min", "plus"),
+        lambda: ks.segscan_contrib_plain(x_nan, w, val_nan, fl_nan, "min", "plus"), (x_nan, w, val_nan, fl_nan), 2,
+        nan=True,
+    )
+    record(
+        "segscan_state", "sssp (per-slot changed) with NaN",
+        lambda: ks.segscan_state("sssp", xs_nan, w, val_nan, fl_nan, il_nan, dist, 3),
+        lambda: ks.segscan_state_plain("sssp", xs_nan, w, val_nan, fl_nan, il_nan, dist, 3),
+        (xs_nan, w, val_nan, fl_nan, il_nan, dist), 3, nan=True,
+    )
+    record(
+        "segscan", "f32 min with NaN", lambda: ks.segscan(x_nan, fl_nan, "min"),
+        lambda: ks.segscan_plain(x_nan, fl_nan, "min"), (x_nan, fl_nan), 1, nan=True,
     )
 
     # eqjoin on every bucket of the bench SpGEMM plan (its keys, plus_pair
@@ -364,14 +428,24 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
                 rtol=1e-5 if mul == "times" else None, n_ops=Wa * Wb * T, ops_per_s=INT32_OPS_PER_S,
             )
     # the tropical matmul at bench.py's size: one f32 multiply and one min or
-    # max per (i, j, k); min_plus (bench.py's) first
+    # max per (i, j, k), each semiring against its own instruction bound;
+    # min_plus (bench.py's) first; then a ragged shape (the scalar loads; its
+    # 2047 x 2049 output is just past a wave of 128-tiles: the 64-tile form)
     ta, tb = rand(mt, mt), rand(mt, mt)
     for add, mul in kt.SEMIRINGS:
         record(
             "tropical_mxm", f"{add}_{mul} {mt}^3", lambda: kt.tropical_mxm(ta, tb, add, mul),
             lambda: kt.tropical_mxm_plain(ta, tb, add, mul), (ta, tb), 0, reps=10, n_ops=2 * mt**3,
-            ops_per_s=F32_LANE_OPS_PER_S,
+            ops_per_s=tropical_ops_per_s(mul),
         )
+    ra, rb = rand(mt - 1, mt - 3), rand(mt - 3, mt + 1)
+    record(
+        "tropical_mxm",
+        f"min_plus ragged {tuple(ra.shape)} x {tuple(rb.shape)}, tile "
+        f"{kt.tile_for(ra.shape[0], rb.shape[1], torch.cuda.get_device_properties(dev).multi_processor_count)}",
+        lambda: kt.tropical_mxm(ra, rb, "min", "plus"), lambda: kt.tropical_mxm_plain(ra, rb, "min", "plus"),
+        (ra, rb), 0, reps=10, n_ops=2 * ra.shape[0] * ra.shape[1] * rb.shape[1], ops_per_s=tropical_ops_per_s("plus"),
+    )
     # the compare probe: K compare-adds per element, 3 f32 instructions each
     pa = torch.randint(0, 100, (1 << 14, 128), generator=gen, device=dev).float()
     pb = torch.randint(0, 40, (1 << 14, 128), generator=gen, device=dev).float()

@@ -22,54 +22,59 @@
 //
 // Bound on the card: memory traffic.  One scan streams x, w (4 B each) and
 // the valid/flag bytes in, and the result out (14 B a slot for C); the state
-// kernel adds the is_last byte and the state word in, and a second word out;
-// the generic scan reads only the values and the flag bytes.  There is no
-// arithmetic to speak of.
+// kernel adds the is_last byte and the state word in, and a second word out
+// (19 B a slot for SSSP with its changed flags); the generic scan reads only
+// the values and the flag bytes.  There is no arithmetic to speak of.
 //
 // The TPU kernels carry the running (value, flag) pair from tile to tile
 // through a sequential grid with an SMEM carry.  Hopper blocks run in no
 // order, so the carry has to cross blocks.
 //
-// Kernel C and the generic scan are one launch each, a single pass with
-// decoupled look-back (below, "the single pass"): each input byte crosses
-// memory once.  Persistent blocks take 2048-slot tiles from a ticket
+// All three are one launch each, a single pass with decoupled look-back
+// (below, "the single pass"): each input byte crosses memory once.
+// Persistent blocks take tiles (2048 slots; S's 1024) from a ticket
 // counter; a full tile of aligned inputs arrives in shared memory by
 // Hopper's bulk copy (cp.async.bulk, an mbarrier counting its bytes) while
-// the block scans the tile before it; a
-// ragged or unaligned tile is read with plain loads in the same kernel.  The
-// carry goes through one 64-bit descriptor a tile.  Measured on an NVIDIA
-// H100 80GB HBM3 at 700 W (chip_smoke.py phase 3, 2^23 slots, flags at
-// 1/16): add/times 0.064 ms against the 0.035 ms bound, where the three
-// launches took 0.097; with no flag at all, the longest look-back, 0.077-0.081
-// ms.  A variant that read full tiles by 16-byte loads into registers in
-// place of the bulk copies took 0.077-0.084 ms with flags.
+// the block scans the tile before it; a ragged or unaligned tile is read
+// with plain loads in the same kernel.  The carry goes through one 64-bit descriptor a tile.  Each
+// kernel is a Tile (its loads and prologue; the ring of stages lives in
+// dynamic shared memory, sized by the Tile) and a Store (its epilogue).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3, 2^23
+// slots, flags at 1/16): C add/times 0.064 ms against the 0.035 ms bound,
+// where three launches of reduce-then-scan took 0.097; with no flag at all,
+// the longest look-back, 0.077-0.081 ms.  A variant that read full tiles by
+// 16-byte loads into registers in place of the bulk copies took 0.077-0.084
+// ms with flags.
 //
-// The generic scan rides the same single pass with its own tile: values
-// (f32, int32, int16, int8 or uint8) and flag bytes by bulk copy, 9 B a slot
-// in f32 or int32, 3 B in int8; narrow integers widen to int32 in
-// registers and pack back into one vector store a thread.  Float add carries
-// in double across tiles, as C's does.  Measured as C (2^23 slots, flags at
-// 1/16): f32 add 0.047-0.050 ms against the 0.0225 ms bound, where the three
-// launches took 0.060-0.068; int8 add 0.046-0.063 (bound 0.0075), held, like
-// C, by each tile's latency rather than its bytes.
+// The generic scan's tile: values (f32, int32, int16, int8 or uint8) and
+// flag bytes by bulk copy, 9 B a slot in f32 or int32, 3 B in int8; narrow
+// integers widen to int32 in registers and pack back into one vector store
+// a thread.  Float add carries in double across tiles, as C's does.
+// Measured as C: f32 add 0.047-0.050 ms against the 0.0225 ms bound; int8
+// add 0.046-0.063 (bound 0.0075), held, like C, by each tile's latency
+// rather than its bytes.
 //
-// Kernel S is still reduce-then-scan in three launches:
-//   1. every block reduces its tile of kTile slots to one (value, has-flag)
-//      aggregate;
-//   2. one block scans the aggregates into per-tile carries (4096 of them at
-//      e_pad = 2^23);
-//   3. every block rescans its tile with its carry and applies the epilogue.
-// Phases 1 and 3 both read the inputs, so the input bytes cross memory
-// twice; their tiles are staged through shared memory (striped, coalesced
-// global accesses, padded against bank conflicts).  The single pass takes a
-// Tile (loads) and a Store (epilogue), so S can move onto it with its own.
+// Kernel S's tile stages x, w (SSSP), valid, flags, is_last and the state
+// word: 11 B a slot for BFS, 15 B for SSSP.  Its blocks are 128 threads, so
+// a tile is 1024 slots and SSSP's two stages take 30 KB of shared memory (7
+// blocks an SM), BFS's 22 KB (9).  2048-slot tiles of 256 threads (60 KB, 3
+// blocks an SM) ran 2.5-8% slower (tools/probe_kernels.py, 2^23 slots, on an
+// NVIDIA H100 80GB HBM3 at 700 W: BFS 0.086 ms against 0.079, SSSP 0.078
+// against 0.076, the bound 0.048).  The tile hands each thread's is_last
+// bytes and state words to the store in registers beside the scanned
+// values; the store writes the new state and the frontier or changed flags
+// by vector stores, and with fr_reduce each thread ORs its tiles' changes
+// and the block raises the one device flag once, at exit.
 //
-// In both, each thread scans kItems consecutive slots, then warp shuffles
-// and one warp-total pass combine the threads.  Float arithmetic uses the
-// _rn intrinsics so no multiply is contracted into an FMA: products and sums
+// Min and max propagate NaN and put -0.0 below +0.0 (PTX min.NaN / max.NaN),
+// as jnp.minimum / jnp.maximum do in the reference.
+//
+// Each thread scans kItems consecutive slots, then warp shuffles and one
+// warp-total pass combine the threads.  Float arithmetic uses the _rn
+// intrinsics so no multiply is contracted into an FMA: products and sums
 // round exactly as in the plain PyTorch version.  Offsets are 64-bit.
 // Nothing is allocated and nothing synchronises the host: the wrapper
-// passes the scratch arrays.
+// passes the zeroed scratch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -78,21 +83,22 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPadded = kTile + kTile / 32;
+// Kernel S's blocks: 128 threads, 1024-slot tiles (its stages are wider)
+constexpr int kStateThreads = 128;
+constexpr int kStateTile = kStateThreads * kItems;
 constexpr unsigned kFull = 0xffffffffu;
 // np.float32(3.4e38) / 4, as graphblas_tpu/ops/pallas_scan.py:STATE_BIG
 constexpr float kStateBig = 3.4e38f / 4.0f;
 
 enum { kAdd = 0, kMin = 1, kMax = 2, kFill = 3 };
 enum { kTimes = 0, kPlus = 1, kSecond = 2, kFirst = 3 };
-
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
 template <typename T, int OP>
 struct Monoid;
@@ -107,8 +113,8 @@ struct Monoid<float, OP> {
   static __device__ __forceinline__ float apply(float a, float b) {
     if (OP == kFill) return a;
     if (OP == kAdd) return __fadd_rn(a, b);
-    if (OP == kMin) return b < a ? b : a;
-    return b > a ? b : a;
+    if (OP == kMin) return min_nan(a, b);
+    return max_nan(a, b);
   }
 };
 
@@ -157,6 +163,8 @@ template <>
 __device__ __forceinline__ float from_bits<float>(uint32_t b) { return __uint_as_float(b); }
 template <>
 __device__ __forceinline__ int32_t from_bits<int32_t>(uint32_t b) { return (int32_t)b; }
+template <>
+__device__ __forceinline__ uint32_t from_bits<uint32_t>(uint32_t b) { return b; }
 
 // b := a (+) b, where a is the earlier pair; a set flag in b starts a segment.
 template <typename T, int OP>
@@ -185,21 +193,8 @@ struct ContribLoad {
     if (wrap_bits > 0 && (mul == kTimes || mul == kPlus)) c = wrap_to(c, wrap_bits, wrap_signed);
     return ok ? c : invalid;
   }
-  __device__ __forceinline__ void operator()(int64_t i, T, T& v, int& f) const {
+  __device__ __forceinline__ void operator()(int64_t i, T& v, int& f) const {
     v = contrib(x[i], w != nullptr ? w[i] : (T)0, valid[i]);
-    f = flags[i] != 0;
-  }
-};
-
-struct StateLoad {
-  const float* x;
-  const float* w;  // nullptr for BFS
-  const uint8_t* valid;
-  const uint8_t* flags;
-  __device__ __forceinline__ void operator()(int64_t i, float ident, float& v, int& f) const {
-    float c = x[i];
-    if (w != nullptr) c = __fadd_rn(c, w[i]);
-    v = valid[i] ? c : ident;
     f = flags[i] != 0;
   }
 };
@@ -209,137 +204,128 @@ template <typename In, typename T>
 struct ValueLoad {
   const In* v;
   const uint8_t* flags;
-  __device__ __forceinline__ void operator()(int64_t i, T, T& ov, int& of) const {
+  __device__ __forceinline__ void operator()(int64_t i, T& ov, int& of) const {
     ov = (T)v[i];
     of = flags[i] != 0;
   }
 };
 
-template <typename T>
-struct AggLoad {
-  const T* v;
-  const int32_t* f;
-  __device__ __forceinline__ void operator()(int64_t i, T, T& ov, int& of) const {
-    ov = v[i];
-    of = f[i];
-  }
+// ---- stores: a thread's kItems scanned values -> outputs ------------------
+//
+// items(i0, v, e, n) writes slots i0 .. i0 + kItems - 1 (i0 a multiple of
+// kItems; the outputs are fresh allocations of the caching allocator, so a
+// full run of kItems 4-byte values is 32-byte aligned) from the scanned
+// values v and the tile's epilogue inputs e, and returns 1 if a slot
+// "changed"; block_done(any) runs once a block, in thread 0, with the
+// block's OR of those returns.
+
+// The tile's epilogue inputs: nothing (C and the generic scan), or S's
+// is_last bytes and state words of the thread's slots.
+struct NoEpi {};
+struct StateEpi {
+  uint8_t last[kItems];
+  uint32_t state[kItems];  // levels (int32) or dist (f32), as bits
 };
 
-// ---- stores: slot, scanned value -> outputs; return 1 if "changed" --------
+// kItems 32-bit words to out + i0: two 16-byte stores, or the slots below n
+__device__ __forceinline__ void st_items(uint32_t* out, const uint32_t (&u)[kItems], int64_t i0, int64_t n) {
+  if (i0 + kItems <= n) {
+    uint4* p = reinterpret_cast<uint4*>(out + i0);
+    p[0] = make_uint4(u[0], u[1], u[2], u[3]);
+    p[1] = make_uint4(u[4], u[5], u[6], u[7]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k)
+    if (i0 + k < n) out[i0 + k] = u[k];
+}
 
 // The scanned value in the IO type (narrow integers truncate modulo 2^k).
 template <typename Out, typename T>
 struct ValueStore {
   Out* out;
-  __device__ __forceinline__ int operator()(int64_t i, T v) const {
-    out[i] = (Out)v;
-    return 0;
-  }
   __device__ __forceinline__ void block_done(int) const {}
-  // slots i0 .. i0 + kItems - 1 (i0 a multiple of kItems; out from the
-  // caching allocator, so a full run of kItems values is 8 * sizeof(Out)
-  // aligned): one or two vector stores
-  __device__ __forceinline__ void items(int64_t i0, const T (&v)[kItems], int64_t n) const {
-    if (i0 + kItems <= n) {
-      if constexpr (sizeof(Out) == 4) {
-        uint32_t u[kItems];
+  __device__ __forceinline__ int items(int64_t i0, const T (&v)[kItems], const NoEpi&, int64_t n) const {
+    if constexpr (sizeof(Out) == 4) {
+      uint32_t u[kItems];
 #pragma unroll
-        for (int k = 0; k < kItems; ++k) u[k] = to_bits((Out)v[k]);
-        uint4* p = reinterpret_cast<uint4*>(out + i0);
-        p[0] = make_uint4(u[0], u[1], u[2], u[3]);
-        p[1] = make_uint4(u[4], u[5], u[6], u[7]);
-        return;
-      } else {
-        constexpr int kPer = 4 / sizeof(Out);  // values a 32-bit word packs
-        uint32_t u[kItems / kPer] = {};
+      for (int k = 0; k < kItems; ++k) u[k] = to_bits((Out)v[k]);
+      st_items(reinterpret_cast<uint32_t*>(out), u, i0, n);
+    } else if (i0 + kItems <= n) {
+      constexpr int kPer = 4 / sizeof(Out);  // values a 32-bit word packs
+      uint32_t u[kItems / kPer] = {};
 #pragma unroll
-        for (int k = 0; k < kItems; ++k)
-          u[k / kPer] |= (uint32_t)(std::make_unsigned_t<Out>)(Out)v[k] << (8 * sizeof(Out) * (k % kPer));
-        if constexpr (sizeof(Out) == 2)
-          *reinterpret_cast<uint4*>(out + i0) = make_uint4(u[0], u[1], u[2], u[3]);
-        else
-          *reinterpret_cast<uint2*>(out + i0) = make_uint2(u[0], u[1]);
-        return;
-      }
+      for (int k = 0; k < kItems; ++k)
+        u[k / kPer] |= (uint32_t)(std::make_unsigned_t<Out>)(Out)v[k] << (8 * sizeof(Out) * (k % kPer));
+      if constexpr (sizeof(Out) == 2)
+        *reinterpret_cast<uint4*>(out + i0) = make_uint4(u[0], u[1], u[2], u[3]);
+      else
+        *reinterpret_cast<uint2*>(out + i0) = make_uint2(u[0], u[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k)
+        if (i0 + k < n) out[i0 + k] = (Out)v[k];
     }
-#pragma unroll
-    for (int k = 0; k < kItems; ++k)
-      if (i0 + k < n) out[i0 + k] = (Out)v[k];
+    return 0;
   }
 };
 
+// BFS: at a last slot whose max reaches above 0, an unreached vertex (level
+// < 0) takes level depth + 1 and joins the frontier.
 struct BfsStore {
-  const uint8_t* is_last;
-  const int32_t* levels;
   int depth;
   int32_t* out_levels;
   float* frontier;
-  __device__ __forceinline__ int operator()(int64_t i, float v) const {
-    const int32_t lv = levels[i];
-    const bool nxt = is_last[i] && v > 0.f && lv < 0;
-    out_levels[i] = nxt ? depth + 1 : lv;
-    frontier[i] = nxt ? 1.f : 0.f;
+  __device__ __forceinline__ void block_done(int) const {}
+  __device__ __forceinline__ int items(int64_t i0, const float (&v)[kItems], const StateEpi& e, int64_t n) const {
+    uint32_t lv[kItems], fr[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int32_t l = (int32_t)e.state[k];
+      const bool nxt = e.last[k] && v[k] > 0.f && l < 0;
+      lv[k] = (uint32_t)(nxt ? depth + 1 : l);
+      fr[k] = nxt ? __float_as_uint(1.f) : 0u;
+    }
+    st_items(reinterpret_cast<uint32_t*>(out_levels), lv, i0, n);
+    st_items(reinterpret_cast<uint32_t*>(frontier), fr, i0, n);
     return 0;
   }
-  __device__ __forceinline__ void block_done(int) const {}
 };
 
+// SSSP: min(dist, scan) at last slots, STATE_BIG elsewhere (the donor
+// invariant the loop route relies on); changed = the new distance is below
+// the old, per slot or ORed into one device flag.
 struct SsspStore {
-  const uint8_t* is_last;
-  const float* dist;
   float* out_dist;
   float* changed;        // per-slot flags, or nullptr
   int32_t* any_changed;  // one device flag (fr_reduce), or nullptr
-  __device__ __forceinline__ int operator()(int64_t i, float v) const {
-    const float d = dist[i];
-    const float nw = is_last[i] ? (v < d ? v : d) : kStateBig;
-    out_dist[i] = nw;
-    const int ch = nw < d;
-    if (changed != nullptr) changed[i] = ch ? 1.f : 0.f;
-    return ch;
-  }
   __device__ __forceinline__ void block_done(int any) const {
     if (any_changed != nullptr && any) atomicMax(any_changed, 1);
+  }
+  __device__ __forceinline__ int items(int64_t i0, const float (&v)[kItems], const StateEpi& e, int64_t n) const {
+    uint32_t nd[kItems], ch[kItems];
+    int any = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const float d = __uint_as_float(e.state[k]);
+      const float nw = e.last[k] ? min_nan(d, v[k]) : kStateBig;
+      const bool c = nw < d && i0 + k < n;
+      nd[k] = __float_as_uint(nw);
+      ch[k] = c ? __float_as_uint(1.f) : 0u;
+      any |= c;
+    }
+    st_items(reinterpret_cast<uint32_t*>(out_dist), nd, i0, n);
+    if (changed != nullptr) st_items(reinterpret_cast<uint32_t*>(changed), ch, i0, n);
+    return any;
   }
 };
 
 // ---- block building blocks ------------------------------------------------
 
-template <typename T, int OP, class Load>
-__device__ __forceinline__ void load_tile(const Load& ld, int64_t base, int64_t n, T* s_v,
-                                          uint8_t* s_f) {
-  const T ident = Monoid<T, OP>::ident();
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = k * kThreads + threadIdx.x;
-    const int64_t g = base + i;
-    T v = ident;
-    int f = 0;
-    if (g < n) ld(g, ident, v, f);
-    s_v[pad(i)] = v;
-    s_f[pad(i)] = (uint8_t)f;
-  }
-  __syncthreads();
-}
-
-template <typename T, int OP>
-__device__ __forceinline__ void thread_reduce(const T* s_v, const uint8_t* s_f, T& v, int& f) {
-  v = Monoid<T, OP>::ident();
-  f = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = pad(threadIdx.x * kItems + k);
-    T bv = s_v[i];
-    int bf = s_f[i];
-    combine<T, OP>(v, f, bv, bf);
-    v = bv;
-    f = bf;
-  }
-}
-
-// Exclusive scan of one (v, f) pair per thread across the block; also gives
-// the block total.  Ends with a barrier, so the caller may reuse s_w*.
-template <typename T, int OP>
+// Exclusive scan of one (v, f) pair per thread across a block of NW warps;
+// also gives the block total.  Ends with a barrier, so the caller may reuse
+// s_w*.
+template <typename T, int OP, int NW>
 __device__ __forceinline__ void block_exclusive(T v, int f, T& ex_v, int& ex_f, T& tot_v,
                                                 int& tot_f, T* s_wv, int* s_wf) {
   const int lane = threadIdx.x & 31;
@@ -364,7 +350,7 @@ __device__ __forceinline__ void block_exclusive(T v, int f, T& ex_v, int& ex_f, 
   if (threadIdx.x == 0) {
     T rv = Monoid<T, OP>::ident();
     int rf = 0;
-    for (int k = 0; k < kWarps; ++k) {
+    for (int k = 0; k < NW; ++k) {
       T wv = s_wv[k];
       int wf = s_wf[k];
       s_wv[k] = rv;
@@ -373,123 +359,19 @@ __device__ __forceinline__ void block_exclusive(T v, int f, T& ex_v, int& ex_f, 
       rv = wv;
       rf = wf;
     }
-    s_wv[kWarps] = rv;
-    s_wf[kWarps] = rf;
+    s_wv[NW] = rv;
+    s_wf[NW] = rf;
   }
   __syncthreads();
   combine<T, OP>(s_wv[wid], s_wf[wid], xv, xf);
   ex_v = xv;
   ex_f = xf;
-  tot_v = s_wv[kWarps];
-  tot_f = s_wf[kWarps];
+  tot_v = s_wv[NW];
+  tot_f = s_wf[NW];
   __syncthreads();
 }
 
-// ---- the three phases -----------------------------------------------------
-
-template <typename T, int OP, class Load>
-__global__ void __launch_bounds__(kThreads)
-    scan_aggregates(Load ld, int64_t n, T* agg_v, int32_t* agg_f) {
-  __shared__ T s_v[kPadded];
-  __shared__ uint8_t s_f[kPadded];
-  __shared__ T s_wv[kWarps + 1];
-  __shared__ int s_wf[kWarps + 1];
-  load_tile<T, OP>(ld, (int64_t)blockIdx.x * kTile, n, s_v, s_f);
-  T v, ev, tv;
-  int f, ef, tf;
-  thread_reduce<T, OP>(s_v, s_f, v, f);
-  block_exclusive<T, OP>(v, f, ev, ef, tv, tf, s_wv, s_wf);
-  if (threadIdx.x == 0) {
-    agg_v[blockIdx.x] = tv;
-    agg_f[blockIdx.x] = tf;
-  }
-}
-
-// One block: carry[b] = aggregates 0..b-1 combined (exclusive).
-template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-    scan_carries(const T* agg_v, const int32_t* agg_f, T* carry, int64_t nb) {
-  __shared__ T s_v[kPadded];
-  __shared__ uint8_t s_f[kPadded];
-  __shared__ T s_wv[kWarps + 1];
-  __shared__ int s_wf[kWarps + 1];
-  const AggLoad<T> ld{agg_v, agg_f};
-  T run_v = Monoid<T, OP>::ident();
-  int run_f = 0;
-  for (int64_t base = 0; base < nb; base += kTile) {
-    load_tile<T, OP>(ld, base, nb, s_v, s_f);
-    T v, ev, tv;
-    int f, ef, tf;
-    thread_reduce<T, OP>(s_v, s_f, v, f);
-    block_exclusive<T, OP>(v, f, ev, ef, tv, tf, s_wv, s_wf);
-    combine<T, OP>(run_v, run_f, ev, ef);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x * kItems + k;
-      if (base + i < nb) carry[base + i] = ev;
-      T bv = s_v[pad(i)];
-      int bf = s_f[pad(i)];
-      combine<T, OP>(ev, ef, bv, bf);
-      ev = bv;
-      ef = bf;
-    }
-    combine<T, OP>(run_v, run_f, tv, tf);
-    run_v = tv;
-    run_f = tf;
-    __syncthreads();
-  }
-}
-
-template <typename T, int OP, class Load, class Store>
-__global__ void __launch_bounds__(kThreads)
-    scan_apply(Load ld, Store st, const T* carry, int64_t n) {
-  __shared__ T s_v[kPadded];
-  __shared__ uint8_t s_f[kPadded];
-  __shared__ T s_wv[kWarps + 1];
-  __shared__ int s_wf[kWarps + 1];
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  load_tile<T, OP>(ld, base, n, s_v, s_f);
-  T v, ev, tv;
-  int f, ef, tf;
-  thread_reduce<T, OP>(s_v, s_f, v, f);
-  block_exclusive<T, OP>(v, f, ev, ef, tv, tf, s_wv, s_wf);
-  combine<T, OP>(carry[blockIdx.x], 0, ev, ef);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = pad(threadIdx.x * kItems + k);
-    T bv = s_v[i];
-    int bf = s_f[i];
-    combine<T, OP>(ev, ef, bv, bf);
-    ev = bv;
-    ef = bf;
-    s_v[i] = ev;
-  }
-  __syncthreads();
-  int any = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = k * kThreads + threadIdx.x;
-    if (base + i < n) any |= st(base + i, s_v[pad(i)]);
-  }
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) st.block_done(any);
-}
-
-template <typename T, int OP, class Load, class Store>
-int run_scan(const Load& ld, const Store& st, int64_t n, void* agg_v, void* agg_f, void* carry,
-             cudaStream_t s) {
-  if (n > 0) {
-    const int64_t nb = (n + kTile - 1) / kTile;
-    scan_aggregates<T, OP, Load><<<(unsigned)nb, kThreads, 0, s>>>(ld, n, (T*)agg_v,
-                                                                   (int32_t*)agg_f);
-    scan_carries<T, OP><<<1, kThreads, 0, s>>>((const T*)agg_v, (const int32_t*)agg_f, (T*)carry,
-                                                nb);
-    scan_apply<T, OP, Load, Store><<<(unsigned)nb, kThreads, 0, s>>>(ld, st, (const T*)carry, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---- the single pass (Kernel C) ------------------------------------------
+// ---- the single pass --------------------------------------------------------
 //
 // Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
 // with Decoupled Look-back", NVIDIA 2016) on (value, flag) pairs.  A block
@@ -623,6 +505,9 @@ struct ContribTile {
     uint8_t valid[kTile];
     uint8_t flags[kTile];
   };
+  using Epi = NoEpi;
+  static constexpr int kBlock = kThreads, kSlots = kTile;
+  static constexpr int kMinBlocks = 5;  // as the ring's 40 KB allow
   ContribLoad<T> ld;
   int bulk_ok;  // every input 16-byte aligned
 
@@ -643,7 +528,7 @@ struct ContribTile {
   }
   // the contributions and flags of slots i0 .. i0 + kItems - 1 of tile t
   __device__ __forceinline__ void items(const Stage& sg, int64_t t, int i0, int64_t n,
-                                        T (&v)[kItems], int (&f)[kItems], T ident) const {
+                                        T (&v)[kItems], int (&f)[kItems], Epi&, T ident) const {
     const int64_t base = t * kTile;
     if (staged(t, n)) {
       T xs[kItems], ws[kItems];
@@ -663,7 +548,7 @@ struct ContribTile {
     for (int k = 0; k < kItems; ++k) {
       v[k] = ident;
       f[k] = 0;
-      if (base + i0 + k < n) ld(base + i0 + k, ident, v[k], f[k]);
+      if (base + i0 + k < n) ld(base + i0 + k, v[k], f[k]);
     }
   }
 };
@@ -677,6 +562,9 @@ struct ValueTile {
     In v[kTile];
     uint8_t flags[kTile];
   };
+  using Epi = NoEpi;
+  static constexpr int kBlock = kThreads, kSlots = kTile;
+  static constexpr int kMinBlocks = 5;
   ValueLoad<In, T> ld;
   int bulk_ok;  // values and flags 16-byte aligned
 
@@ -693,7 +581,7 @@ struct ValueTile {
     bulk_load(sg.flags, ld.flags + base, kTile, bar);
   }
   __device__ __forceinline__ void items(const Stage& sg, int64_t t, int i0, int64_t n,
-                                        T (&v)[kItems], int (&f)[kItems], T ident) const {
+                                        T (&v)[kItems], int (&f)[kItems], Epi&, T ident) const {
     const int64_t base = t * kTile;
     if (staged(t, n)) {
       In xs[kItems];
@@ -711,7 +599,105 @@ struct ValueTile {
     for (int k = 0; k < kItems; ++k) {
       v[k] = ident;
       f[k] = 0;
-      if (base + i0 + k < n) ld(base + i0 + k, ident, v[k], f[k]);
+      if (base + i0 + k < n) ld(base + i0 + k, v[k], f[k]);
+    }
+  }
+};
+
+// Kernel S's stage: the scan's inputs and the epilogue's, W: with w (SSSP's
+// x + w).  Every array is a multiple of 16 bytes long, so each starts on a
+// 16-byte boundary for the bulk copies.
+template <bool W>
+struct StateStage {
+  float x[kStateTile];
+  uint32_t state[kStateTile];
+  uint8_t valid[kStateTile];
+  uint8_t flags[kStateTile];
+  uint8_t is_last[kStateTile];
+};
+template <>
+struct StateStage<true> {
+  float x[kStateTile];
+  float w[kStateTile];
+  uint32_t state[kStateTile];
+  uint8_t valid[kStateTile];
+  uint8_t flags[kStateTile];
+  uint8_t is_last[kStateTile];
+};
+
+// Kernel S's tile: the prologue (x, or x + w rounded once, the identity at
+// invalid slots) and the flags, with is_last and the state handed to the
+// store; by bulk copy when the tile is full and every input is 16-byte
+// aligned, else by plain loads.
+template <bool W>
+struct StateTile {
+  static constexpr int kBlock = kStateThreads, kSlots = kStateTile;
+  using Stage = StateStage<W>;
+  using Epi = StateEpi;
+  // resident blocks an SM that the ring allows (227 KB of shared memory an
+  // SM; a block also takes 1 KB reserved and its static arrays): 7 with w,
+  // 9 without
+  static constexpr int kMinBlocks = (227 * 1024) / (kStages * (int)sizeof(Stage) + 1280);
+  const float* x;
+  const float* w;  // used only when W
+  const uint8_t* valid;
+  const uint8_t* flags;
+  const uint8_t* is_last;
+  const uint32_t* state;
+  int bulk_ok;
+
+  __device__ __forceinline__ bool staged(int64_t t, int64_t n) const {
+    return bulk_ok && (t + 1) * kSlots <= n;
+  }
+  __device__ __forceinline__ void issue(Stage& sg, uint64_t* bar, int64_t t, int64_t n) const {
+    if (!staged(t, n)) return;
+    const int64_t base = t * kSlots;
+    const uint32_t words = kSlots * 4;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(bar, (W ? 3 : 2) * words + 3 * kSlots);
+    bulk_load(sg.x, x + base, words, bar);
+    if constexpr (W) bulk_load(sg.w, w + base, words, bar);
+    bulk_load(sg.state, state + base, words, bar);
+    bulk_load(sg.valid, valid + base, kSlots, bar);
+    bulk_load(sg.flags, flags + base, kSlots, bar);
+    bulk_load(sg.is_last, is_last + base, kSlots, bar);
+  }
+  __device__ __forceinline__ static float contrib(float c, float wv, int ok, float ident) {
+    if constexpr (W) c = __fadd_rn(c, wv);
+    return ok ? c : ident;
+  }
+  __device__ __forceinline__ void items(const Stage& sg, int64_t t, int i0, int64_t n, float (&v)[kItems],
+                                        int (&f)[kItems], Epi& e, float ident) const {
+    const int64_t base = t * kSlots;
+    if (staged(t, n)) {
+      float xs[kItems], ws[kItems];
+      uint8_t vs[kItems], fs[kItems];
+      ld_items(xs, sg.x + i0);
+      if constexpr (W) ld_items(ws, sg.w + i0);
+      ld_items(vs, sg.valid + i0);
+      ld_items(fs, sg.flags + i0);
+      ld_items(e.last, sg.is_last + i0);
+      ld_items(e.state, sg.state + i0);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        v[k] = contrib(xs[k], W ? ws[k] : 0.f, vs[k], ident);
+        f[k] = fs[k] != 0;
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t g = base + i0 + k;
+      v[k] = ident;
+      f[k] = 0;
+      e.last[k] = 0;
+      e.state[k] = 0;
+      if (g < n) {
+        v[k] = contrib(x[g], W ? w[g] : 0.f, valid[g], ident);
+        f[k] = flags[g] != 0;
+        e.last[k] = is_last[g];
+        e.state[k] = state[g];
+      }
     }
   }
 };
@@ -770,18 +756,20 @@ __device__ __forceinline__ T look_back(uint64_t* desc, int64_t t, T agg_v, int a
   return run_v;
 }
 
-// Persistent blocks, each with a ring of kStages tiles: the next ticket's
-// copy is in flight while this tile scans.
+// Persistent blocks, each with a ring of kStages tiles in dynamic shared
+// memory: the next ticket's copy is in flight while this tile scans.
 template <typename T, int OP, class Tile, class Store>
-__global__ void __launch_bounds__(kThreads, 5)  // 5 blocks an SM, as the ring's shared memory allows
+__global__ void __launch_bounds__(Tile::kBlock, Tile::kMinBlocks)
     scan_onepass(Tile tl, Store st, int64_t n, int64_t ntiles, uint64_t* desc,
                  unsigned* ticket) {
-  __shared__ __align__(128) typename Tile::Stage s_stage[kStages];
+  extern __shared__ __align__(128) unsigned char s_ring[];
+  typename Tile::Stage* s_stage = reinterpret_cast<typename Tile::Stage*>(s_ring);
   __shared__ uint64_t s_bar[kStages];
   __shared__ int64_t s_tile[kStages];
   using C = typename Carry<T, OP>::type;
-  __shared__ T s_wv[kWarps + 1];
-  __shared__ int s_wf[kWarps + 1];
+  constexpr int kBlockWarps = Tile::kBlock / 32;
+  __shared__ T s_wv[kBlockWarps + 1];
+  __shared__ int s_wf[kBlockWarps + 1];
   __shared__ C s_prefix;
   const T ident = Monoid<T, OP>::ident();
   if (threadIdx.x == 0) {
@@ -792,6 +780,7 @@ __global__ void __launch_bounds__(kThreads, 5)  // 5 blocks an SM, as the ring's
   }
   __syncthreads();
   uint32_t parity = 0;  // bit k: the phase stage k waits for next
+  int any = 0;          // the store's "changed", over this thread's tiles
   for (int sg = 0;; sg ^= 1) {
     const int64_t t = s_tile[sg];
     if (t >= ntiles) break;
@@ -806,8 +795,9 @@ __global__ void __launch_bounds__(kThreads, 5)  // 5 blocks an SM, as the ring's
     }
     T v[kItems];
     int f[kItems];
+    typename Tile::Epi e;
     const int i0 = threadIdx.x * kItems;
-    tl.items(s_stage[sg], t, i0, n, v, f, ident);
+    tl.items(s_stage[sg], t, i0, n, v, f, e, ident);
     T rv = ident;
     int rf = 0;
 #pragma unroll
@@ -820,7 +810,7 @@ __global__ void __launch_bounds__(kThreads, 5)  // 5 blocks an SM, as the ring's
     }
     T ev, tv;
     int ef, tf;
-    block_exclusive<T, OP>(rv, rf, ev, ef, tv, tf, s_wv, s_wf);
+    block_exclusive<T, OP, kBlockWarps>(rv, rf, ev, ef, tv, tf, s_wv, s_wf);
     if (threadIdx.x < 32) {
       const C p = look_back<C, OP>(desc, t, (C)tv, tf);
       if (threadIdx.x == 0) s_prefix = p;
@@ -836,25 +826,31 @@ __global__ void __launch_bounds__(kThreads, 5)  // 5 blocks an SM, as the ring's
       ef = f[k];
       v[k] = (T)vc;
     }
-    st.items(t * kTile + i0, v, n);
+    any |= st.items(t * Tile::kSlots + i0, v, e, n);
     __syncthreads();  // the stage and s_prefix are free again
   }
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) st.block_done(any);
 }
 
 template <typename T, int OP, class Tile, class Store>
 int run_onepass(const Tile& tl, const Store& st, int64_t n, void* tile_state, cudaStream_t s) {
   if (n > 0) {
-    const int64_t ntiles = (n + kTile - 1) / kTile;
+    const int64_t ntiles = (n + Tile::kSlots - 1) / Tile::kSlots;
     auto kernel = scan_onepass<T, OP, Tile, Store>;
+    constexpr int ring = kStages * sizeof(typename Tile::Stage);
     static int per_sm = 0;  // resident blocks per SM, once per instantiation
-    if (per_sm == 0) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (per_sm == 0) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tile::kBlock, ring);
+    }
     int dev = 0, sms = 132;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     int64_t grid = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
     if (grid > ntiles) grid = ntiles;
     uint64_t* desc = (uint64_t*)tile_state;
-    kernel<<<(unsigned)grid, kThreads, 0, s>>>(tl, st, n, ntiles, desc, (unsigned*)(desc + ntiles));
+    kernel<<<(unsigned)grid, Tile::kBlock, ring, s>>>(tl, st, n, ntiles, desc, (unsigned*)(desc + ntiles));
   }
   return (int)cudaGetLastError();
 }
@@ -895,6 +891,7 @@ int scan_typed(const void* values, const void* flags, void* out, void* tile_stat
 }  // namespace
 
 extern "C" int gb_segscan_tile() { return kTile; }
+extern "C" int gb_segscan_state_tile() { return kStateTile; }
 
 // op: 0 add, 1 min, 2 max.  mul: 0 times, 1 plus, 2 second, 3 first
 // (ignored when w is null).  wrap_bits 0 = no wrap.  invalid: the value
@@ -915,22 +912,33 @@ extern "C" int gb_segscan_contrib(const void* x, const void* w, const void* vali
 
 // mode 0 = BFS (state int32 levels; out_fr = frontier f32),
 // mode 1 = SSSP (state f32 dist; out_fr = changed f32, or null with
-// any_changed pointing at one int32 that the kernel raises to 1).
+// any_changed pointing at one int32 that the kernel raises to 1).  w may be
+// null (the contribution is x alone).  tile_state: ceil(n /
+// gb_segscan_state_tile()) + 1 zeroed 64-bit words.  The outputs are fresh
+// allocations.
 extern "C" int gb_segscan_state(int mode, const void* x, const void* w, const void* valid,
                                 const void* flags, const void* is_last, const void* state,
                                 int depth, void* out_state, void* out_fr, void* any_changed,
-                                void* agg_v, void* agg_f, void* carry, int64_t n, void* stream) {
+                                void* tile_state, int64_t n, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const StateLoad ld{(const float*)x, (const float*)w, (const uint8_t*)valid,
-                     (const uint8_t*)flags};
+  const int bulk_ok = aligned16(x) && (w == nullptr || aligned16(w)) && aligned16(valid) &&
+                      aligned16(flags) && aligned16(is_last) && aligned16(state);
+  const float* xf = (const float*)x;
+  const float* wf = (const float*)w;
+  const uint8_t* vb = (const uint8_t*)valid;
+  const uint8_t* fb = (const uint8_t*)flags;
+  const uint8_t* lb = (const uint8_t*)is_last;
+  const uint32_t* sb = (const uint32_t*)state;
   if (mode == 0) {
-    const BfsStore st{(const uint8_t*)is_last, (const int32_t*)state, depth, (int32_t*)out_state,
-                      (float*)out_fr};
-    return run_scan<float, kMax>(ld, st, n, agg_v, agg_f, carry, s);
+    const BfsStore st{depth, (int32_t*)out_state, (float*)out_fr};
+    if (w != nullptr)
+      return run_onepass<float, kMax>(StateTile<true>{xf, wf, vb, fb, lb, sb, bulk_ok}, st, n, tile_state, s);
+    return run_onepass<float, kMax>(StateTile<false>{xf, wf, vb, fb, lb, sb, bulk_ok}, st, n, tile_state, s);
   }
-  const SsspStore st{(const uint8_t*)is_last, (const float*)state, (float*)out_state,
-                     (float*)out_fr, (int32_t*)any_changed};
-  return run_scan<float, kMin>(ld, st, n, agg_v, agg_f, carry, s);
+  const SsspStore st{(float*)out_state, (float*)out_fr, (int32_t*)any_changed};
+  if (w != nullptr)
+    return run_onepass<float, kMin>(StateTile<true>{xf, wf, vb, fb, lb, sb, bulk_ok}, st, n, tile_state, s);
+  return run_onepass<float, kMin>(StateTile<false>{xf, wf, vb, fb, lb, sb, bulk_ok}, st, n, tile_state, s);
 }
 
 // The generic scan.  op: 0 add, 1 min, 2 max, 3 fill.  dtype: 0 float32,

@@ -38,13 +38,14 @@ _SIGNATURES = {
     "gb_gather": [_P, _P, _P, _I64, _I, _P],
     "gb_gather_pagerank": [_P, _P, _P, _P, _P, _I64, _P],
     "gb_segscan_contrib": [_P] * 6 + [_I64, _I, _I, _I, _I, _I, ctypes.c_double, _P],
-    "gb_segscan_state": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _P],
+    "gb_segscan_state": [_I] + [_P] * 6 + [_I] + [_P] * 4 + [_I64, _P],
     "gb_segscan": [_P] * 4 + [_I64, _I, _I, _P],
     "gb_segscan_tile": [],
+    "gb_segscan_state_tile": [],
     "gb_eqjoin": [_P] * 6 + [_I, _I, _I64, _I, _I, _I, _P],
     "gb_compare_probe": [_P] * 3 + [_I64, _P],
     "gb_compare_probe_k": [],
-    "gb_tropical": [_P] * 3 + [_I] * 5 + [_P],
+    "gb_tropical": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -8,16 +8,15 @@
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
   x) or SSSP (min of x + w) scan fused with the per-round state update.
 
-On the card Kernel C and the generic scan are one launch each, a single-pass
-scan with decoupled look-back: the wrapper zeroes one scratch array, the
-tiles' descriptors and a ticket counter (one memset).  Kernel S is
-reduce-then-scan in three launches, with scratch for the tile aggregates and
-carries.
+On the card each is one launch of a single-pass scan with decoupled
+look-back: the wrapper zeroes one scratch array, the tiles' descriptors and a
+ticket counter (one memset).
 
 The plain versions are a log-step (Hillis-Steele) segmented scan over the
 flat array: floor(log2 n) + 1 shifted ``_combine`` passes with the same
 prologue and epilogue.  Float sums therefore round in another order than the kernel's
-(and the TPU kernel's); min and max are exact.
+(and the TPU kernel's); min and max are exact, propagate NaN and put -0.0
+below +0.0, as ``jnp.minimum`` / ``jnp.maximum`` and the kernels do.
 """
 
 import math
@@ -50,6 +49,26 @@ def _ident(op, dtype):
     return info.max if op == "min" else info.min
 
 
+def _tie_bits(a, b, r, join):
+    """``r`` where a != b; where a == b the bits of a and b joined by ``join``
+    (equal values have equal bits but for the signed zeros)."""
+    if a.dtype != torch.float32:
+        return r
+    tie = join(a.view(torch.int32), b.view(torch.int32)).view(torch.float32)
+    return torch.where(a == b, tie, r)
+
+
+def _minimum(a, b):
+    """jnp.minimum: NaN propagates and -0.0 is below +0.0 (torch.minimum
+    keeps its first operand on a tie of zeros)."""
+    return _tie_bits(a, b, torch.minimum(a, b), torch.bitwise_or)
+
+
+def _maximum(a, b):
+    """jnp.maximum: NaN propagates and +0.0 is above -0.0."""
+    return _tie_bits(a, b, torch.maximum(a, b), torch.bitwise_and)
+
+
 def _combine(op, av, af, bv, bf):
     """Segmented-scan combine; b is later, a set flag in ``bf`` starts a
     segment (graphblas_tpu/ops/pallas_scan.py:36)."""
@@ -58,9 +77,9 @@ def _combine(op, av, af, bv, bf):
     elif op == "add":
         newv = torch.where(bf, bv, av + bv)
     elif op == "min":
-        newv = torch.where(bf, bv, torch.minimum(av, bv))
+        newv = torch.where(bf, bv, _minimum(av, bv))
     else:
-        newv = torch.where(bf, bv, torch.maximum(av, bv))
+        newv = torch.where(bf, bv, _maximum(av, bv))
     return newv, af | bf
 
 
@@ -151,20 +170,10 @@ def segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap=None):
     return _scan_plain(op, c, flags).to(io)
 
 
-def _tile_state(lib, n, device):
-    """The single pass's scratch: the tiles' descriptors and the ticket
-    counter, zeroed (one memset)."""
-    return torch.zeros(-(-n // lib.gb_segscan_tile()) + 1, dtype=torch.int64, device=device)
-
-
-def _scratch(n, dtype, device):
-    """Kernel S's scratch: the tile aggregates (values, flags) and carries."""
-    nb = max(1, -(-n // _build.library().gb_segscan_tile()))
-    return (
-        torch.empty(nb, dtype=dtype, device=device),
-        torch.empty(nb, dtype=torch.int32, device=device),
-        torch.empty(nb, dtype=dtype, device=device),
-    )
+def _tile_state(n, tile, device):
+    """The single pass's scratch: the descriptors of its ``tile``-slot tiles
+    and the ticket counter, zeroed (one memset)."""
+    return torch.zeros(-(-n // tile) + 1, dtype=torch.int64, device=device)
 
 
 def _require_cuda(name, *ts):
@@ -194,7 +203,7 @@ def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
     lib = _build.library()
     n = x.numel()
     out = torch.empty(n, dtype=cd, device=x.device)
-    tile_state = _tile_state(lib, n, x.device)
+    tile_state = _tile_state(n, lib.gb_segscan_tile(), x.device)
     bits, signed = wrap if wrap is not None else (0, False)
     with torch.cuda.device(x.device):
         rc = lib.gb_segscan_contrib(
@@ -239,7 +248,7 @@ def segscan_state_plain(mode, xe, w, valid, flags, is_last, state, depth, fr_red
         new = torch.where(nxt, torch.tensor(int(depth) + 1, dtype=torch.int32, device=state.device), state)
         return new, nxt.to(torch.float32)
     big = torch.tensor(STATE_BIG, dtype=torch.float32, device=state.device)
-    new = torch.where(is_last, torch.minimum(state, out), big)
+    new = torch.where(is_last, _minimum(state, out), big)
     ch = new < state
     if fr_reduce:
         return new, ch.any().to(torch.int32).reshape(1)
@@ -263,13 +272,12 @@ def segscan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=Fa
     else:
         out_fr = torch.empty(n, dtype=torch.float32, device=dev)
         any_changed = None
-    agg_v, agg_f, carry = _scratch(n, torch.float32, dev)
+    tile_state = _tile_state(n, lib.gb_segscan_state_tile(), dev)
     with torch.cuda.device(dev):
         rc = lib.gb_segscan_state(
             0 if mode == "bfs" else 1, xe.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
             is_last.data_ptr(), state.data_ptr(), int(depth), out_state.data_ptr(), _ptr(out_fr),
-            _ptr(any_changed), agg_v.data_ptr(), agg_f.data_ptr(), carry.data_ptr(), n,
-            _build.stream_of(xe),
+            _ptr(any_changed), tile_state.data_ptr(), n, _build.stream_of(xe),
         )
     _build.check(rc, "segscan_state")
     LAUNCHES["segscan_state"] += 1
@@ -310,7 +318,7 @@ def segscan(values, flags, op):
     lib = _build.library()
     n = values.numel()
     out = torch.empty(n, dtype=values.dtype, device=values.device)
-    tile_state = _tile_state(lib, n, values.device)
+    tile_state = _tile_state(n, lib.gb_segscan_tile(), values.device)
     with torch.cuda.device(values.device):
         rc = lib.gb_segscan(
             values.data_ptr(), flags.data_ptr(), out.data_ptr(), tile_state.data_ptr(), n,

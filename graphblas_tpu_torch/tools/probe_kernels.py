@@ -1,10 +1,18 @@
-"""Kernels G, C and the generic scan alone on the card: CUDA-event times,
-the L2 probe, ptxas.
+"""Kernels G, C, S, the generic scan and the tropical matmul alone on the
+card: CUDA-event times, the L2 probe, the f32 instruction rates, ptxas and SASS.
 
-- ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu``, ``csrc/segscan.cu``
-  and ``csrc/eqjoin.cu`` with the build's own flags: registers, stack and
-  spills of every kernel of the three files (the whole listing goes to
-  ``--out``).
+- ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu``, ``csrc/segscan.cu``,
+  ``csrc/eqjoin.cu`` and ``csrc/tropical.cu`` with the build's own flags:
+  registers, stack and spills of every kernel of the four files (the whole
+  listing goes to ``--out``).
+- ``sass``: the tropical kernels' SASS (``cuobjdump -sass`` of the built
+  library, to ``--out``'s directory as ``tropical.sass``): per instance the
+  count of each opcode, and the f32 instructions per (i, j, k) of its
+  unrolled inner loop.
+- ``rate``: the rate of f32 add, min.NaN, max.NaN and min, and of the
+  pairs min_plus and min_max run per (i, j, k), from long independent
+  chains (``tools/rate_probe.cu``, built here), in lane instructions per SM
+  per clock at the card's SM clock that ``nvidia-smi`` reads after the run.
 - ``gather``: Kernel G's route over an int32 index of 2^log2n slots, random
   over len(x), with x of 2^20 (surely resident in the 50 MB L2), 2^21, 2^22,
   2^23 (the main path's) and 2^24 float32 slots: the L2 probe.  Then the
@@ -17,6 +25,12 @@ the L2 probe, ptxas.
 - ``segscan``: the generic scan at 2^log2n with flags at 1/16: add in every
   dtype, f32 fill, min and max, a uint8 fill, f32 add with no flag and on a
   view one slot into its buffer (the plain loads).
+- ``state``: Kernel S at 2^log2n: BFS, SSSP with ``fr_reduce``, SSSP with
+  per-slot changed flags, and SSSP with no flag at all.
+- ``tropical``: the four semirings at 2048^3; then min_plus in both block
+  tiles (the wrapper's pick marked) on (2047, 2045) x (2045, 2049) and x
+  (2045, 2048) (K and N no multiple of 4: the scalar loads), and at 2048^3,
+  1024^3, 512^3 and 256^3.
 - ``l2 window``, last: the route over a permutation of 2^log2n slots once
   more under an L2 access-policy window that marks x persisting (set on the
   stream by libcuda's cuStreamSetAttribute, then cleared and the carve-out
@@ -39,15 +53,16 @@ import subprocess
 
 
 def ptxas_report(build, out_path):
-    """Registers, stack and spills of each kernel of gather.cu, segscan.cu
-    and eqjoin.cu, as ptxas prints them for the build's flags (eqjoin.cu's
-    many instances summed up in one line, less any that spill)."""
+    """Registers, stack and spills of each kernel of gather.cu, segscan.cu,
+    eqjoin.cu and tropical.cu, as ptxas prints them for the build's flags
+    (eqjoin.cu's many instances summed up in one line, less any that
+    spill)."""
     lines = []
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     nvcc = build.nvcc_path()
     filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
     with open(out_path, "w") as f:
-        for name in ("gather.cu", "segscan.cu", "eqjoin.cu"):
+        for name in ("gather.cu", "segscan.cu", "eqjoin.cu", "tropical.cu"):
             src = os.path.join(build.CSRC_DIR, name)
             obj = os.path.join(os.path.dirname(out_path) or ".", f"{name}.ptxas.o")
             proc = subprocess.run(
@@ -81,6 +96,86 @@ def ptxas_report(build, out_path):
                     lines.append(f"{name}: {family} x{len(rows)}: {min(regs)}-{max(regs)} regs, {len(spills)} spill")
                     lines += [f"{name}: {r} regs, spills {st}/{ld} B: {fn[:150]}" for r, _, st, ld, fn in spills]
     return lines
+
+
+def sass_report(build, out_path):
+    """Opcode counts of each tropical kernel instance in the built library's
+    SASS, and the f32 add / FMNMX instructions per (i, j, k) of the inner
+    loop (unrolled: 8 k of 64 (i, j) pairs in the 128 x 128 tile, the counts
+    over 512; 16 k of 16 in the 64 x 64 one, over 256)."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build.library_path()], capture_output=True, text=True, check=True).stdout
+    path = os.path.join(os.path.dirname(out_path) or ".", "tropical.sass")
+    lines, func, ops = [], None, {}
+    chunks = []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func, ops = m.group(1), {}
+            chunks.append((func, ops, []))
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[A-Z0-9_.]+)?", line)
+        if m and func is not None:
+            op = m.group(1) + (m.group(2) or "")
+            ops[op] = ops.get(op, 0) + 1
+            chunks[-1][2].append(line)
+    with open(path, "w") as f:
+        for func, ops, body in chunks:
+            per_step = 512 if "tile128_kernel" in func else 256 if "tile64_kernel" in func else 0
+            if not per_step:
+                continue
+            f.write(f"==== {func} ====\n" + "\n".join(body) + "\n")
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+            fadd = sum(v for k, v in ops.items() if k.split(".")[0] == "FADD")
+            fmnmx = sum(v for k, v in ops.items() if k.split(".")[0] == "FMNMX")
+            lines.append(
+                f"{func[:90]}: FADD {fadd}, FMNMX {fmnmx}, (FADD + FMNMX) / {per_step} = "
+                f"{(fadd + fmnmx) / per_step:.3f}; "
+                f"top opcodes {top}"
+            )
+    return lines
+
+
+def instruction_rates(build, torch, dev, reps):
+    """Lane instructions a second of each probe (``tools/rate_probe.cu``),
+    and per SM per clock at the card's maximum SM clock; with the SM clock
+    that nvidia-smi reads right after the runs."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rate_probe.cu")
+    so = os.path.join(build.BUILD_DIR, "rate_probe.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", so, src], check=True)
+    lib = ctypes.CDLL(so)
+    lib.rate_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads, iters = sms * 8, 256, 1 << 14
+    out = torch.empty(blocks * threads, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    for op, (name, per_step) in enumerate((
+        ("f32 add", 1), ("min.NaN", 1), ("max.NaN", 1), ("min", 1), ("add + min.NaN", 2), ("max.NaN + min.NaN", 2),
+    )):
+        def run():
+            rc = lib.rate_probe(op, out.data_ptr(), blocks, threads, iters, stream)
+            if rc != 0:
+                raise RuntimeError(f"rate_probe: CUDA error {rc}")
+
+        run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        end.synchronize()
+        s = start.elapsed_time(end) / reps / 1e3
+        rates[name] = blocks * threads * iters * 8 * per_step / s
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    mhz = float(clock.split(",")[1])
+    per_clk = {k: v / (sms * mhz * 1e6) for k, v in rates.items()}
+    return rates, per_clk, clock
 
 
 class _Window(ctypes.Structure):  # CUaccessPolicyWindow
@@ -139,7 +234,8 @@ def main():
     from graphblas_tpu_torch.kernels import _build
     from graphblas_tpu_torch.kernels import gather as kg
     from graphblas_tpu_torch.kernels import segscan as ks
-    from graphblas_tpu_torch.ops.scan import build_fill_tables
+    from graphblas_tpu_torch.kernels import tropical as kt
+    from graphblas_tpu_torch.ops.scan import STATE_BIG, build_fill_tables
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -150,6 +246,8 @@ def main():
     for line in ptxas_report(_build, args.out):
         print(f"[ptxas] {line}", flush=True)
     _build.library()
+    for line in sass_report(_build, args.out):
+        print(f"[sass] {line}", flush=True)
 
     def ms(fn):
         fn()
@@ -216,6 +314,41 @@ def main():
     x_buf = torch.empty(n + 128, device=dev)
     x_buf[1 : n + 1] = x
     report("segscan f32 add, view at slot 1", ms(lambda: ks.segscan(x_buf[1 : n + 1], flags, "add")))
+    # Kernel S, as chip_smoke.py phase 3 builds its inputs
+    is_last = torch.cat([flags[1:], torch.ones(1, dtype=torch.bool, device=dev)])
+    frontier = (torch.rand(n, generator=gen, device=dev) < 0.05).float()
+    levels = torch.where(
+        torch.rand(n, generator=gen, device=dev) < 0.7, -1, torch.randint(0, 4, (n,), generator=gen, device=dev)
+    ).to(torch.int32)
+    big = torch.tensor(STATE_BIG, device=dev)
+    xs = torch.where(torch.rand(n, generator=gen, device=dev) < 0.3, big, torch.rand(n, generator=gen, device=dev) * 20)
+    dist = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, big, torch.rand(n, generator=gen, device=dev) * 25)
+    report("state bfs", ms(lambda: ks.segscan_state("bfs", frontier, None, valid, flags, is_last, levels, 3)))
+    report("state sssp fr_reduce", ms(lambda: ks.segscan_state("sssp", xs, w, valid, flags, is_last, dist, 3, True)))
+    report("state sssp changed", ms(lambda: ks.segscan_state("sssp", xs, w, valid, flags, is_last, dist, 3)))
+    last_only = torch.arange(n, device=dev) == n - 1  # one segment: the longest look-back
+    report("state sssp fr_reduce, no flags", ms(lambda: ks.segscan_state("sssp", xs, w, valid, none, last_only, dist, 3, True)))
+    # the tropical matmul: the four semirings at 2048^3, then min_plus on
+    # ragged shapes and at fewer output tiles than SMs, in both block tiles
+    # (the wrapper's pick marked)
+    ta, tb = torch.rand(2048, 2048, generator=gen, device=dev), torch.rand(2048, 2048, generator=gen, device=dev)
+    for add, mul in kt.SEMIRINGS:
+        report(f"tropical {add}_{mul} 2048^3", ms(lambda: kt.tropical_mxm(ta, tb, add, mul)))
+    ra, rb = torch.rand(2047, 2045, generator=gen, device=dev), torch.rand(2045, 2049, generator=gen, device=dev)
+    shapes = [(ra, rb), (ra, rb[:, :2048].contiguous())]  # K and N no multiple of 4; K alone
+    shapes += [(ta[:m, :m].contiguous(), tb[:m, :m].contiguous()) for m in (2048, 1024, 512, 256)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for a, b in shapes:
+        pick = kt.tile_for(a.shape[0], b.shape[1], sms)
+        for t in kt.TILES:
+            label = f"tropical min_plus {tuple(a.shape)} x {tuple(b.shape)}, tile {t}{' (picked)' if t == pick else ''}"
+            report(label, ms(lambda: kt.tropical_mxm_in_tile(a, b, "min", "plus", t)))
+    rates, per_clk, clock = instruction_rates(_build, torch, dev, args.reps)
+    for k in rates:
+        print(f"[rate] {k}: {rates[k] / 1e12:.3f} x 10^12 lane instructions/s, {per_clk[k]:.1f} per SM per clock "
+              "at the maximum SM clock", flush=True)
+    print(f"[rate] SM clock, maximum SM clock (MHz), read after the runs: {clock}", flush=True)
+    times.update({f"rate {k} per SM per clock": v for k, v in per_clk.items()})
     # last, as the persisting carve-out it sets aside slows what follows
     stream = torch.cuda.current_stream(dev).cuda_stream
     nbytes, ratio = l2_window(stream, x)

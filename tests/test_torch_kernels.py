@@ -201,7 +201,7 @@ def _look_back_model(op, v, f, tile, seed, window=4):
     combine = {
         "add": lambda a, b: a + b, "min": min, "max": max, "fill": lambda a, b: a,
     }[op]
-    ident = ks._ident(op, torch.int64)
+    ident = ks._ident(op, v.dtype)
 
     def join(a, b):  # b later; a set flag in b starts a segment
         return (b[0] if b[1] else combine(a[0], b[0]), a[1] or b[1])
@@ -250,7 +250,7 @@ def _look_back_model(op, v, f, tile, seed, window=4):
             out[i] = acc[0]
         desc[t] = ("P", join(run, aggs[t]))
         pending.remove(t)
-    return torch.tensor(out, dtype=torch.int64), waits
+    return torch.tensor(out, dtype=v.dtype), waits
 
 
 LOOK_BACK_CASES = [
@@ -296,6 +296,151 @@ def test_look_back_model_matches_plain_scan(op, flags_kind, dt):
         assert torch.equal(got.to(narrow.dtype), want)
         if op == "add" and flags_kind == "none":
             assert got.abs().max() > np.iinfo(DTYPES[dt]).max  # the exact sums leave the range: wraps on store
+
+
+def _state_model(mode, x, w, valid, flags, is_last, state, depth, fr_reduce, tile, seed):
+    """Kernel S on the single pass, modelled: the prologue (x + w rounded once
+    in float32, the identity at invalid slots), the look-back model's scan,
+    then the store on each tile's slots; with ``fr_reduce`` each tile ORs its
+    changes and the flag is raised if any tile's OR is set."""
+    op = "max" if mode == "bfs" else "min"
+    c = x if w is None else (x + w).astype(np.float32)
+    c = np.where(valid, c, np.float32(ks._ident(op, torch.float32))).astype(np.float32)
+    scanned, waits = _look_back_model(op, torch.from_numpy(c), torch.from_numpy(flags), tile, seed)
+    v = scanned.numpy()
+    new = np.empty_like(state)
+    fr = np.zeros(len(v), np.float32)
+    raised = False
+    for t in range(-(-len(v) // tile)):
+        sl = slice(t * tile, (t + 1) * tile)
+        if mode == "bfs":
+            nxt = is_last[sl] & (v[sl] > 0) & (state[sl] < 0)
+            new[sl] = np.where(nxt, depth + 1, state[sl])
+            fr[sl] = nxt
+        else:
+            new[sl] = np.where(is_last[sl], np.minimum(state[sl], v[sl]), ts.STATE_BIG)
+            fr[sl] = new[sl] < state[sl]
+            raised |= bool(fr[sl].any())
+    return new, (np.array([int(raised)], np.int32) if fr_reduce else fr), waits
+
+
+@pytest.mark.parametrize("flags_kind", ["random", "none"])
+@pytest.mark.parametrize("mode,fr_reduce", [("bfs", False), ("sssp", False), ("sssp", True)])
+def test_state_model_matches_plain(mode, fr_reduce, flags_kind):
+    """S's single pass with its epilogue, tiles finishing in any order,
+    against segscan_state_plain, with flags at random and with none (one
+    segment: every look-back walks to tile 0)."""
+    x, w, valid, flags, is_last, state = _state_inputs(mode, seed=44, n=517)
+    if flags_kind == "none":
+        flags[:] = False
+        is_last[:] = False
+        is_last[-1] = True
+    new, fr, waits = _state_model(mode, x, w, valid, flags, is_last, state, 2, fr_reduce, tile=8, seed=45)
+    assert waits > 0
+    want_st, want_fr = ks.segscan_state_plain(
+        mode, _t(x), None if w is None else _t(w), _t(valid), _t(flags), _t(is_last), _t(state), 2, fr_reduce
+    )
+    _assert_equal(want_st, new)
+    _assert_equal(want_fr, fr)
+    assert want_fr.any()  # the round changes something
+
+
+# ---- NaN and signed zeros through the min / max scans ----------------------
+
+NAN_CASES = [
+    ("contrib", "min"), ("contrib", "max"), ("state", "bfs"), ("state", "sssp"), ("state", "sssp_fr"),
+    ("segscan", "min"), ("segscan", "max"),
+]
+
+
+def _nan_inputs(kind, how, n, seed):
+    """Inputs of one scan with NaN at a flagged slot, mid-segment, at a
+    thread's first slot (a multiple of 8) and at a tile's first slot (a
+    multiple of 2048), every one valid, and +-0.0 among the values, the
+    weights and SSSP's distances.  Returns the call's arguments."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random(n) * 10).astype(np.float32)
+    x[rng.random(n) < 0.05] = 0.0
+    x[rng.random(n) < 0.05] = -0.0
+    flags = rng.random(n) < 1 / 16
+    valid = rng.random(n) < 0.9
+    flagged = np.flatnonzero(flags[100:]) + 100
+    mid = next(i for i in range(300, n) if not flags[i - 1] and not flags[i] and not flags[i + 1])
+    nan_at = [flagged[0], mid, 8 * 37 + 1024, 2048]
+    flags[[8 * 37 + 1024, 2048]] = False  # NaN arrives mid-segment at a thread's and a tile's first slot
+    x[nan_at] = np.nan
+    valid[nan_at] = True
+    if kind == "segscan":
+        return (_t(x), _t(flags), how)
+    w = (rng.random(n) * 3).astype(np.float32)
+    w[rng.random(n) < 0.1] = 0.0
+    w[rng.random(n) < 0.1] = -0.0
+    if kind == "contrib":
+        return (_t(x), _t(w), _t(valid), _t(flags), how, "plus" if how == "min" else "times")
+    mode = "bfs" if how == "bfs" else "sssp"
+    is_last = np.zeros(n, bool)
+    is_last[np.flatnonzero(flags) - 1] = True
+    is_last[-1] = True
+    if mode == "bfs":
+        x = np.where(np.isnan(x), x, (x > 5).astype(np.float32)).astype(np.float32)
+        state = np.where(rng.random(n) < 0.7, -1, rng.integers(0, 4, n)).astype(np.int32)
+        w = None
+    else:
+        state = np.where(rng.random(n) < 0.3, ts.STATE_BIG, rng.random(n) * 25).astype(np.float32)
+        state[rng.random(n) < 0.05] = 0.0
+        state[rng.random(n) < 0.05] = -0.0
+        state[np.flatnonzero(is_last)[5]] = np.nan  # a NaN distance at a last slot
+    return (mode, _t(x), None if w is None else _t(w), _t(valid), _t(flags), _t(is_last), _t(state), 2, how == "sssp_fr")
+
+
+def _nan_call(kind, args, plain=False):
+    """The port's scan ``kind`` on ``args``: the wrapper, or its plain version."""
+    fn = {
+        "contrib": (ks.segscan_contrib, ks.segscan_contrib_plain),
+        "state": (ks.segscan_state, ks.segscan_state_plain),
+        "segscan": (ks.segscan, ks.segscan_plain),
+    }[kind][plain]
+    out = fn(*args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _assert_nan_and_zero_bits(got, want):
+    """Equal, NaN where the other has NaN, and the signed zeros bit for bit."""
+    got, want = np.asarray(got), np.asarray(want)
+    if want.dtype == np.float32:
+        _assert_same_bits(got, want)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind,how", NAN_CASES)
+def test_scans_propagate_nan_as_the_reference(ref, kind, how):
+    """The same NaN and signed-zero inputs through the reference (Pallas in
+    interpret mode) and the port's plain versions: min / max propagate NaN
+    and put -0.0 below +0.0, as jnp.minimum / jnp.maximum do."""
+    jnp = ref.jnp
+    args = _nan_inputs(kind, how, 4096, seed=46)
+
+    def j(a):
+        return None if a is None else jnp.asarray(a.numpy())
+
+    if kind == "segscan":
+        want = (ref.scan.segmented_scan(j(args[0]), j(args[1]), how, interpret=True),)
+    elif kind == "contrib":
+        want = (ref.scan.segmented_scan_contrib.__wrapped__(*map(j, args[:4]), *args[4:], interpret=True),)
+    else:
+        mode, *arrays, depth, fr = args
+        want = ref.scan.segmented_scan_state(mode, *map(j, arrays), depth, interpret=True, fr_reduce=fr)
+    got = _nan_call(kind, args)
+    if kind == "state" and args[-1]:  # fr_reduce: one flag against the reference's per-block maxima
+        _assert_nan_and_zero_bits(got[0], want[0])
+        assert int(got[1][0]) == int(np.asarray(want[1]).max() > 0)
+    else:
+        for g, w_ in zip(got, want):
+            _assert_nan_and_zero_bits(g, w_)
+    out = np.asarray(got[0])
+    if out.dtype == np.float32:
+        assert np.isnan(out).any() and (np.signbit(out) & (out == 0)).any()
 
 
 def test_scan_contrib_rejects_what_it_does_not_take():
@@ -695,6 +840,18 @@ def test_tropical_mxm_rejects_what_it_does_not_take():
         kt.tropical_mxm(a, a.T, "plus", "times")
     with pytest.raises(TypeError):
         kt.tropical_mxm(a.double(), a.T.double(), "min", "plus")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kt.tropical_mxm_in_tile(a, a.T.contiguous(), "min", "plus", 128)  # the kernel alone: CUDA tensors only
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    (2048, 2048, 128), (2047, 2048, 128), (4096, 4096, 128),  # whole waves of 128-tiles
+    (2047, 2049, 64), (1024, 1024, 64), (512, 512, 64), (256, 256, 64),  # just past a wave; few tiles
+])
+def test_tropical_tile_for_132_sms(m, n, tile):
+    """The block tile the wrapper picks on an H100's 132 SMs, where the card
+    measured the faster form (both forms timed by tools/probe_kernels.py)."""
+    assert kt.tile_for(m, n, 132) == tile
 
 
 # ---- compare probe --------------------------------------------------------
@@ -1077,3 +1234,127 @@ def test_cuda_scan_contrib_on_views(cuda, offsets, pattern):
         want = ks.segscan_contrib_plain(xd, wd, vd, fd, op, mul)
         torch.cuda.synchronize()
         _check_contrib(got, want, "f32", op)
+
+
+# ---- CUDA half: NaN through the scans, S and the tropical matmul at their edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6784, (1 << 20) + 128 * 3])  # three tiles and a ragged fourth; many tiles
+@pytest.mark.parametrize("kind,how", NAN_CASES)
+def test_cuda_scans_propagate_nan(cuda, kind, how, n):
+    """C (min, max), S (BFS, SSSP, SSSP with fr_reduce) and the generic scan
+    (f32 min, max) with NaN at a flagged slot, mid-segment, at a thread's
+    first slot and at a tile's first slot, and +-0.0 among the values: equal
+    to the plain version, NaN for NaN, the signed zeros bit for bit."""
+    args = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in _nan_inputs(kind, how, n, seed=n))
+    got = _nan_call(kind, args)
+    want = _nan_call(kind, args, plain=True)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        _assert_nan_and_zero_bits(g.cpu(), w_.cpu())
+    assert torch.isnan(want[0]).any() if want[0].dtype == torch.float32 else True
+
+
+def _state_on(dev, mode, n, pattern, seed):
+    """S's inputs on the card: flags at random (1/16) or none at all."""
+    x, w, valid, flags, is_last, state = _state_inputs(mode, seed=seed, n=n)
+    if pattern == "none":
+        flags[:] = False
+        is_last[:] = False
+        is_last[-1] = True
+    return _on(dev, x, w, valid, flags, is_last, state)
+
+
+def _check_state(args, mode, fr_reduce, depth=3):
+    got = ks.segscan_state(mode, *args, depth, fr_reduce)
+    want = ks.segscan_state_plain(mode, *args, depth, fr_reduce)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "none"])
+@pytest.mark.parametrize("n", [1, 5, 1023, 1025, 2049, (1 << 20) + 77, 1 << 23])
+@pytest.mark.parametrize("mode,fr_reduce", [("bfs", False), ("sssp", False), ("sssp", True)])
+def test_cuda_scan_state_lengths_and_flags(cuda, mode, fr_reduce, n, pattern):
+    """S's single pass at lengths around its tile, up to e_pad = 2^23, with
+    flags at random and with none (one segment: the longest look-back)."""
+    _check_state(_state_on(cuda, mode, n, pattern, seed=n % 1000), mode, fr_reduce)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0, 0, 0, 0, 0), (0, 1, 0, 0, 0, 0), (0, 0, 3, 1, 2, 0), (0, 0, 0, 0, 0, 1)])
+@pytest.mark.parametrize("mode,fr_reduce", [("bfs", False), ("sssp", False), ("sssp", True)])
+def test_cuda_scan_state_on_views(cuda, mode, fr_reduce, offsets):
+    """Views off 16-byte alignment (x, w, valid, flags, is_last, state) take
+    the plain loads inside the same single pass."""
+    n = (1 << 20) + 77
+    arrays = _state_inputs(mode, seed=12, n=n)
+    args = [None if a is None else _view(cuda, a, o) for a, o in zip(arrays, offsets)]
+    _check_state(args, mode, fr_reduce)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_state_twenty_calls_in_a_row(cuda):
+    """Each call zeroes its descriptors and ticket afresh: 20 calls without a
+    synchronisation between them, alternating inputs and modes, all agree."""
+    ins = [
+        ("sssp", True, _state_on(cuda, "sssp", (1 << 20) + 77, "none", seed=5)),
+        ("bfs", False, _state_on(cuda, "bfs", (1 << 20) + 77, "random", seed=6)),
+    ]
+    outs = [ks.segscan_state(ins[k % 2][0], *ins[k % 2][2], 3, ins[k % 2][1]) for k in range(20)]
+    wants = [ks.segscan_state_plain(mode, *args, 3, fr) for mode, fr, args in ins]
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, wants[k % 2]))
+
+
+def _tropical_edge_inputs(m, k, n, add, seed):
+    """Filled operands with NaN, +inf and -inf among the values."""
+    av, as_, bv, bs = _tropical_inputs(m, k, n, seed)
+    fill = kt.fill_value(add)
+    a, b = np.where(as_, av, fill).astype(np.float32), np.where(bs, bv, fill).astype(np.float32)
+    rng = np.random.default_rng(seed + 1)
+    for arr in (a, b):
+        arr[rng.random(arr.shape) < 0.01] = np.inf
+        arr[rng.random(arr.shape) < 0.01] = -np.inf
+    if m * k:
+        a.flat[rng.integers(m * k)] = np.nan
+    if k * n:
+        b.flat[rng.integers(k * n)] = np.nan
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add,mul", list(kt.SEMIRINGS))
+@pytest.mark.parametrize("shape", [
+    (128, 128, 128), (256, 384, 512),  # exact 128 multiples
+    (127, 129, 1), (129, 127, 130), (1, 129, 127), (129, 1, 129),  # M, N, K of 127 / 129 / 1
+    (200, 300, 130), (131, 257, 6),  # K no multiple of 4 (the scalar loads), N no multiple of 4
+    (40, 70, 0),  # K = 0: the fill
+])
+def test_cuda_tropical_mxm_at_the_tile_edges(cuda, add, mul, shape):
+    """Both block tiles (128 x 128 with its 8-deep k step, 64 x 64) at each
+    edge, every semiring, NaN and +-inf, bit for bit against the plain
+    version; and the tile the wrapper picks."""
+    a, b = _on(cuda, *_tropical_edge_inputs(*shape, add, seed=sum(shape)))
+    want = kt.tropical_mxm_plain(a, b, add, mul).cpu().numpy()
+    for got in [kt.tropical_mxm_in_tile(a, b, add, mul, t) for t in kt.TILES] + [kt.tropical_mxm(a, b, add, mul)]:
+        torch.cuda.synchronize()
+        _assert_same_bits(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add,mul", list(kt.SEMIRINGS))
+def test_cuda_tropical_mxm_on_views(cuda, add, mul):
+    """Operands one float into their buffers (off 16-byte alignment: the
+    scalar loads), against the same operands aligned."""
+    a, b = _tropical_edge_inputs(256, 256, 256, add, seed=7)
+    av, bv = (_view(cuda, x.ravel(), 1).view(x.shape) for x in (a, b))
+    want = kt.tropical_mxm_plain(*_on(cuda, a, b), add, mul).cpu().numpy()
+    for t in kt.TILES:
+        for x, y in ((av, bv), _on(cuda, a, b)):
+            got = kt.tropical_mxm_in_tile(x, y, add, mul, t)
+            torch.cuda.synchronize()
+            _assert_same_bits(got.cpu().numpy(), want)

@@ -9,7 +9,11 @@ sources of highest out-degree, SSSP from the first of them, SpMV and three
 masked SpMVs on both plans and a parent BFS on the second.  The masked-SpGEMM
 path: bench.py's triangle-count workload (2^16 vertices in cliques of 64 plus
 2^17 random edges; C(L.S) = L plus_pair U), with and without bricks, and an
-RMAT scale-14 lower triangle (plus_times, min_plus).  The tropical path:
+RMAT scale-14 lower triangle (plus_times, min_plus), all under typed
+semirings.  The typed operator path: the scale-19 graph as a SparseMatrixData
+through sparse_mxv under six typed semirings on the plan engine and FP64 on
+the generic path, and the typed SpGEMM (plus_pair[INT64], plus_times[FP32]
+with bricks, min_plus[FP32], a user semiring).  The tropical path:
 min_plus on 2048^2 operands, as bench.py.  The roofline tool's run, with the
 compare probe.  All through the hand-written CUDA kernels.  One line per
 check:
@@ -41,9 +45,20 @@ check:
      parents from the scipy levels
   6s. masked SpGEMM: kernel path against the plain path; triangle counts
      against scipy; the RMAT run against scipy float64 and a numpy oracle
+  6o. typed operators: sparse_mxv under plus_times[FP32], min_plus[INT32],
+     plus_times[INT8], any_pair[BOOL], min_secondi[INT64] and
+     plus_times[UINT32] against spmv_masked on the same plan with the names
+     _plan_channel chooses (bit for bit, FP32 plus rtol 1e-6), and
+     plus_times[FP64] on the generic path against scipy float64; the typed
+     SpGEMM: the triangle count under plus_pair[INT64] and plus_times[FP32]
+     with bricks against scipy, RMAT-14 min_plus[FP32] against the numpy
+     oracle, a user semiring (a UDF multiply, a user integer monoid: the
+     plain bucket path) against numpy; the typed layer's host cost, plan
+     against generic, the first call's blocking plan build
   6t. tropical matmul: kernel path against the plain path and numpy
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
-  7. launch counts of each path (every kernel > 0, every plain version 0)
+  7. launch counts of each path (every kernel > 0, every plain version 0;
+     the typed paths launch G, C, the generic scan and eqjoin)
   8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
      level-BFS one
 
@@ -520,6 +535,168 @@ def wedge_oracle(np, L, mr, mc):
     return mins, np.bincount(e[found], minlength=len(mr))
 
 
+def user_oracle(np, L, mr, mc):
+    """C(M) = L (xor).(3a + b) L^T by numpy, in int32: for each mask entry
+    (i, j), every k with L[i, k] and L[j, k] present contributes
+    3 L[i, k] + L[j, k], XORed together; expands the shorter of rows i and j
+    and looks each k up in the other.  Returns (values, match counts)."""
+    n = L.ncols
+    indptr = np.searchsorted(L.rows, np.arange(L.nrows + 1))
+    di, dj = indptr[mr + 1] - indptr[mr], indptr[mc + 1] - indptr[mc]
+    swap = di > dj
+    x, y = np.where(swap, mc, mr), np.where(swap, mr, mc)
+    deg = np.minimum(di, dj)
+    first = np.cumsum(deg) - deg
+    e = np.repeat(np.arange(len(mr)), deg)
+    pos = np.repeat(indptr[x], deg) + np.arange(len(e)) - np.repeat(first, deg)
+    keys = L.rows * n + L.cols
+    q = y[e] * n + L.cols[pos]
+    p = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    found = keys[p] == q
+    e, pos, p, sw = e[found], pos[found], p[found], swap[e[found]]
+    a = np.where(sw, L.vals[p], L.vals[pos]).astype(np.int32)
+    b = np.where(sw, L.vals[pos], L.vals[p]).astype(np.int32)
+    out = np.zeros(len(mr), np.int32)
+    np.bitwise_xor.at(out, e, a * 3 + b)
+    return out, np.bincount(e, minlength=len(mr))
+
+
+def typed_phase(torch, np, dev, src, dst, w, n, xv, xs, tc_plan, tc_plan_b, tc_ref, L_rm, rm_plan):
+    """Phase 6o: the typed front of the engine (graphblas_tpu_torch.core.sparse)
+    under typed semirings, on the card.  Returns the typed paths' launch and
+    plain-call counts."""
+    from graphblas_tpu_torch import binary, kernels, monoid, semiring, tx
+    from graphblas_tpu_torch.core import dtypes as D
+    from graphblas_tpu_torch.core import sparse as sps
+    from graphblas_tpu_torch.ops import fastspmv as fs
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    A = sps.SparseMatrixData.from_arrays(dst, src, w, n, n, dup_op="min")  # pull: y[dst] (+)= A[dst, src] (x) x[src]
+    t_coo = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    xi = torch.randint(-50, 50, (n,), generator=gen, device=dev)
+    cases = {  # name -> (typed semiring, x, x's type)
+        "plus_times[FP32]": (semiring.plus_times[D.FP32], xv, D.FP32),
+        "min_plus[INT32]": (semiring.min_plus[D.INT32], xi.to(torch.int32), D.INT32),
+        "plus_times[INT8]": (semiring.plus_times[D.INT8], xi.to(torch.int8), D.INT8),
+        "any_pair[BOOL]": (semiring.any_pair[D.BOOL], xi > 0, D.BOOL),
+        "min_secondi[INT64]": (semiring.min_secondi[D.INT64], xi, D.INT64),
+        "plus_times[UINT32]": (semiring.plus_times[D.UINT32], xi + 50, D.UINT32),
+    }
+
+    def mxv(key, strategy="plan"):
+        sr, x, xt = cases[key]
+        with tx.config.set(mxv_strategy=strategy):
+            return sps.sparse_mxv(A, True, True, x, xs, sr, sr.return_type, x_type=xt)
+
+    # the first call builds the pull plan, blocking (no background build)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mxv("plus_times[FP32]")
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    plan = A.plan("pull", dev)
+
+    # user semiring at RMAT-14 size: a UDF multiply 3a + b and a user monoid
+    # (xor of a UDF) over int32 values 1..7: the plain bucket path
+    vals_i = (np.arange(L_rm.nvals) % 7 + 1).astype(np.int32)
+    L_i = sps.SparseMatrixData(L_rm.rows, L_rm.cols, vals_i, L_rm.nrows, L_rm.ncols)
+    t0 = time.perf_counter()
+    plan_i = sps.sparse_spgemm_analyze(L_i, L_i.transposed(), L_i.rows, L_i.cols)
+    t_plan_i = time.perf_counter() - t0
+    xor = monoid.register_anonymous(binary.register_anonymous(lambda a, b: a ^ b, "xor_udf"), 0)
+    user_sr = semiring.register_anonymous(xor, binary.register_anonymous(lambda a, b: a * 3 + b, "three_a_plus_b"))[D.INT32]
+    spgemm = {
+        "plus_pair[INT64] tc": (tc_plan_b, semiring.plus_pair[D.INT64], D.INT64),
+        "plus_times[FP32] tc bricks": (tc_plan, semiring.plus_times[D.FP32], D.FP32),
+        "min_plus[FP32] rmat": (rm_plan, semiring.min_plus[D.FP32], D.FP32),
+        "user rmat": (plan_i, user_sr, D.INT32),
+    }
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    got = {k: mxv(k) for k in cases}
+    sg = {k: sps.sparse_spgemm_execute(p, sr, dt, keep_on_device=True) for k, (p, sr, dt) in spgemm.items()}
+    torch.cuda.synchronize()
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+
+    # each typed call against spmv_masked on the same plan, with the channel,
+    # names and wrap that _plan_channel and _plan_mxv choose
+    direct = {
+        "plus_times[FP32]": (fs.spmv_masked(plan, xv, xs, "plus", "times"), D.FP32),
+        "min_plus[INT32]": (fs.spmv_masked(plan, xi.to(torch.int32), xs, "min", "plus"), D.INT32),
+        "plus_times[INT8]": (fs.spmv_masked(plan, xi.to(torch.int8).to(torch.int32), xs, "plus", "times", wrap=(8, True)), D.INT32),
+        "any_pair[BOOL]": (fs.spmv_masked(plan, torch.zeros(n, dtype=torch.int32, device=dev), xs, "any", "pair"), D.INT32),
+        "min_secondi[INT64]": (fs.spmv_masked(plan, xi.float(), xs, "min", "secondi"), D.INT32),
+        "plus_times[UINT32]": (fs.spmv_masked(plan, (xi + 50).to(torch.int32), xs, "plus", "times"), D.INT32),
+    }
+    notes = []
+    for key, ((yv, ys), (dv, ds)) in zip(cases, ((got[k], direct[k]) for k in cases)):
+        out = cases[key][0].return_type
+        want = D.cast(dv[0], ds, out)
+        require(yv.dtype == out.carrier and yv.shape == (n,), f"typed {key}: dtype or shape")
+        require(torch.equal(ys, dv[1]), f"typed {key}: structure differs from spmv_masked")
+        if key == "plus_times[FP32]":
+            torch.testing.assert_close(yv, want, rtol=1e-6, atol=0)
+        else:
+            require(torch.equal(yv, want), f"typed {key}: values differ from spmv_masked")
+        notes.append(f"{key} {int(ys.sum())} present")
+
+    # FP64 on the generic path against scipy float64
+    import scipy.sparse as scsp
+
+    with tx.config.set(mxv_strategy="generic"):
+        y64, s64 = sps.sparse_mxv(A, True, True, xv.double(), xs, semiring.plus_times[D.FP64], D.FP64)
+    xs_np = xs.cpu().numpy()
+    M = scsp.csr_matrix((A.vals.astype(np.float64), (A.rows, A.cols)), shape=(n, n))
+    P = scsp.csr_matrix((np.ones(A.nvals), (A.rows, A.cols)), shape=(n, n))
+    y_ref = M @ np.where(xs_np, xv.double().cpu().numpy(), 0.0)
+    s_ref = (P @ xs_np.astype(np.float64)) > 0
+    s64 = s64.cpu().numpy()
+    np.testing.assert_array_equal(s64, s_ref, err_msg="typed plus_times[FP64] generic: structure")
+    np.testing.assert_allclose(y64.cpu().numpy()[s_ref], y_ref[s_ref], rtol=1e-12, atol=0)
+
+    # the typed SpGEMM: triangle counts, the numpy oracles
+    tc64 = int(sg["plus_pair[INT64] tc"][0].sum())
+    tcb = int(sg["plus_times[FP32] tc bricks"][0].double().sum())
+    require(sg["plus_pair[INT64] tc"][0].dtype == torch.int64, "typed plus_pair[INT64]: int64 values")
+    require(tc64 == tcb == tc_ref, f"typed triangle count: plus_pair[INT64] {tc64}, plus_times[FP32] {tcb}, scipy {tc_ref}")
+    mins, counts = wedge_oracle(np, L_rm, L_rm.rows, L_rm.cols)
+    acc, hit, fl = (t.cpu().numpy() for t in sg["min_plus[FP32] rmat"])
+    np.testing.assert_array_equal(hit, counts > 0, err_msg="typed min_plus rmat: structure")
+    np.testing.assert_array_equal(acc[hit], mins[hit], err_msg="typed min_plus rmat vs the numpy oracle")
+    uv, ucount = user_oracle(np, L_i, L_i.rows, L_i.cols)
+    acc, hit, fl = (t.cpu().numpy() for t in sg["user rmat"])
+    np.testing.assert_array_equal(hit, ucount > 0, err_msg="user semiring rmat: structure")
+    np.testing.assert_array_equal(acc[hit], uv[hit], err_msg="user semiring rmat vs the numpy oracle")
+    require(int(fl) == 2 * int(ucount.sum()), "user semiring rmat: flops")
+
+    # times: the typed layer's host cost, plan against generic, the range check
+    t_typed = wall_s(torch, lambda: mxv("plus_times[FP32]"), reps=7)
+    t_direct = wall_s(torch, lambda: fs.spmv_masked(plan, xv, xs, "plus", "times"), reps=7)
+    t_generic = wall_s(torch, lambda: mxv("plus_times[FP32]", "generic"), reps=7)
+    x64 = xi.to(torch.int64)
+    t_range = wall_s(torch, lambda: sps._plan_channel(A, "plan", "plus", "times", np.dtype(np.int64), None, x64, D.INT64), reps=7)
+    say(
+        "6o typed",
+        f"SparseMatrixData of the SpMV graph ({A.nvals} entries after dup min) host {t_coo:.2f} s; first typed "
+        f"sparse_mxv (blocking plan build) {t_first * 1e3:.1f} ms; typed sparse_mxv = spmv_masked on the same plan "
+        f"(FP32 plus rtol 1e-6, the rest bit-exact): {'; '.join(notes)}; plus_times[FP64] generic = scipy float64 "
+        f"(rtol 1e-12); typed triangle count {tc64} (plus_pair[INT64]) = {tcb} (plus_times[FP32], bricks) = scipy; "
+        f"min_plus[FP32] rmat = numpy oracle exactly; user semiring (UDF mul, user monoid) rmat = numpy oracle "
+        f"exactly, {int(ucount.sum())} matches, its analysis {t_plan_i:.2f} s; plus_times[FP32] wall: typed "
+        f"{t_typed * 1e3:.3f} ms, direct spmv_masked {t_direct * 1e3:.3f} ms (typed layer {(t_typed - t_direct) * 1e3:.3f} ms "
+        f"a call), generic path {t_generic * 1e3:.3f} ms; INT64 range check {t_range * 1e3:.3f} ms; "
+        f"phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {
+        "launches": launches, "plain": plain, "typed_ms": t_typed * 1e3, "direct_ms": t_direct * 1e3,
+        "generic_ms": t_generic * 1e3, "plan_build_ms": t_first * 1e3, "range_check_ms": t_range * 1e3,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -537,7 +714,8 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from graphblas_tpu_torch import kernels
+    from graphblas_tpu_torch import kernels, semiring
+    from graphblas_tpu_torch.core import dtypes
     from graphblas_tpu_torch.core import sparse as sps
     from graphblas_tpu_torch.kernels import _build
     from graphblas_tpu_torch.models import fast, rmat
@@ -725,16 +903,16 @@ def main():
     require(any(b[0][0] == 256 for b in rm_plan.buckets), "rmat SpGEMM: no (256, .) bucket")
     tasks_per_entry = int(np.bincount(np.concatenate([b[1] for b in rm_plan.buckets])).max())
     require(tasks_per_entry > 1, "rmat SpGEMM: no entry spans several tasks (hub splitting)")
-    f32 = torch.float32
+    FP32, INT32 = dtypes.FP32, dtypes.INT32
     runs = {
-        "a": (tc_plan, "plus", "pair", f32),
-        "b": (tc_plan_b, "plus", "pair", torch.int32),
-        "c plus_times": (rm_plan, "plus", "times", f32),
-        "c min_plus": (rm_plan, "min", "plus", f32),
+        "a": (tc_plan, semiring.plus_pair[FP32], FP32),
+        "b": (tc_plan_b, semiring.plus_pair[FP32], INT32),
+        "c plus_times": (rm_plan, semiring.plus_times[FP32], FP32),
+        "c min_plus": (rm_plan, semiring.min_plus[FP32], FP32),
     }
 
     def spgemm_path():
-        return {k: sps.sparse_spgemm_execute(p, a, m, dt, keep_on_device=True) for k, (p, a, m, dt) in runs.items()}
+        return {k: sps.sparse_spgemm_execute(p, sr, dt, keep_on_device=True) for k, (p, sr, dt) in runs.items()}
 
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -787,6 +965,9 @@ def main():
         f"phase {time.perf_counter() - t_phase:.1f} s",
     )
 
+    # 6o. typed operators: the typed front of the engine on the same graphs
+    typed = typed_phase(torch, np, dev, src, dst, w, n, xv, xs, tc_plan, tc_plan_b, tc_ref, L_rm, rm_plan)
+
     # 6t. the tropical matmul, bench.py's inputs (numpy seed 3), and the
     # values-and-structure entry point on 40% structure
     t_phase = time.perf_counter()
@@ -796,7 +977,9 @@ def main():
     sa, sb = (torch.from_numpy(rng_t.random((args.mt, args.mt)) < 0.4).to(dev) for _ in range(2))
 
     def tropical_path():
-        return (mxm.tropical_mxm_filled(ta, tb, "min", "plus"), *mxm.tropical_mxm(ta, sa, tb, sb, "max", "plus", f32))
+        return (
+            mxm.tropical_mxm_filled(ta, tb, "min", "plus"), *mxm.tropical_mxm(ta, sa, tb, sb, "max", "plus", torch.float32)
+        )
 
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -826,17 +1009,21 @@ def main():
 
     # 7. launch counts of each path
     path_launches = {"spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "roofline": roof_launches}
+    ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
-        f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; tropical path {tr_launches}; roofline tool "
-        f"{roof_launches}; plain calls {plain_calls}, {sg_plain}, {tr_plain}, {roof_plain}",
+        f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
+        f"tropical path {tr_launches}; roofline tool {roof_launches}; plain calls {plain_calls}, {sg_plain}, "
+        f"{ty_plain}, {tr_plain}, {roof_plain}",
     )
     for name in KERNELS:
         path = PATH_OF.get(name, "spmv")
         require(path_launches[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("gather", "segscan"):
         require(sg_launches[name] > 0, f"{name} was not launched on the SpGEMM path (the reduce net)")
-    for calls in (plain_calls, sg_plain, tr_plain, roof_plain):
+    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
+        require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above

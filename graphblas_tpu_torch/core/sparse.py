@@ -1,36 +1,44 @@
-"""Sparse COO container and the masked semiring SpGEMM, C(M) = A (+).(x) B on
-M's pattern.
+"""Sparse COO container, the semiring SpMV over it, and the masked semiring
+SpGEMM, C(M) = A (+).(x) B on M's pattern.
 
-Counterpart of the SpGEMM part of ``graphblas_tpu/core/sparse.py``.
-``SparseMatrixData`` is the canonical row-major COO on the host (numpy);
-``sparse_spgemm_analyze`` is the host pattern analysis, copied with its
-constants, so every bucket array compares slot for slot with the reference;
-``sparse_spgemm_execute`` runs a plan on the plan's device:
+Counterpart of the typed front and the SpGEMM of ``graphblas_tpu/core/sparse.py``.
+``SparseMatrixData`` is the canonical row-major COO on the host (numpy) with
+device caches per sort order and a cached ``SpmvPlan`` per direction.  The
+entry points take typed operators (``core.operator``) with the reference's
+signatures; values ride the carriers of ``core.dtypes``.
 
-- each width bucket through the eqjoin kernel (``ops.eqjoin``), or, where
-  the reference also leaves its Pallas kernel (a dtype the kernel does not
-  take), through the reference's XLA formulation in plain torch;
-- the task partials combine by entry: through the reduce net where the
-  reference uses it (two routes of Kernel G and two generic scans), else one
-  scatter reduce;
-- block-dense 128 x 128 bricks, where the plan has them, as batched matmuls
-  (``torch.bmm``, full float32).
-
-The semiring is given by names: ``add`` one of plus, min, max, times, lor,
-land, any; ``mul`` one of pair, times, plus, first, second.  Typed operators
-arrive with the operator system (ROADMAP.md, queue 2).
+- ``sparse_mxv``: y = A (+).(x) x over one direction.  Where a plan channel
+  is exact (``_plan_channel``) and allowed (``_plan_allowed``: CUDA tensors
+  from 2^17 entries, or ``tx.config["mxv_strategy"]``), it runs on the plan
+  engine (``ops.fastspmv.spmv_masked``: Kernels G, C and the generic scan);
+  else the generic gather + ``_segment_reduce``, exact for every semiring.
+- ``sparse_spgemm_analyze`` is the host pattern analysis, copied with its
+  constants, so every bucket array compares slot for slot with the
+  reference; ``sparse_spgemm_execute`` runs a plan on the plan's device:
+  each width bucket through the eqjoin kernel (``ops.eqjoin``) where the
+  reference also takes its Pallas kernel, else the reference's XLA
+  formulation in plain torch, in the mul's own input types; the task
+  partials combine by entry through the reduce net where the reference uses
+  it (two routes of Kernel G and two generic scans), else one scatter reduce
+  (a user monoid: a segmented log-step scan per bucket, then the monoid
+  across buckets); block-dense 128 x 128 bricks, where the plan has them, as
+  batched matmuls (``torch.bmm``, full float32).
 """
 
 import numpy as np
 import torch
 
+from . import dtypes as _dt
 from ..kernels.eqjoin import USES_AV, USES_BV
 from ..ops import eqjoin as _ej
+from ..ops import fastspmv as _fs
 from ..ops.fastspmv import _complete_permutation
 from ..ops.mxm import full_f32_matmul
 from ..ops.permute import apply_perm, padded_size
 from ..ops.scan import _ident as _scan_ident
 from ..ops.scan import segmented_scan
+
+_INT32_MAX = np.iinfo(np.int32).max
 
 # numpy ufuncs for host-side dup combination (subset of dup_op names)
 _NP_COMBINE = {
@@ -46,22 +54,27 @@ _NP_COMBINE = {
 
 # monoids with a direct segment-reduce lowering
 _SEGMENT_OPS = {"plus", "min", "max", "times", "lor", "land", "any"}
-_SPGEMM_MULS = ("pair", "times", "plus", "first", "second")
 # the monoids the reduce net scans with (any as max, as the eqjoin kernel)
 _NET_SCAN_OPS = {"plus": "add", "min": "min", "max": "max", "any": "max"}
+# the plan engine's monoids and multiplies (ops.fastspmv.spmv_masked)
+_PLAN_ADDS = {"plus", "min", "max", "any"}
+_PLAN_MULS = {"times", "plus", "first", "second", "pair", "oneb"}
+_PLAN_MIN_NVALS = 1 << 17  # "auto" takes the plan from this many entries
 
 _SPGEMM_WMAX = 256  # segment width cap; hub lists split into chunk-pair tasks
 _SPGEMM_EQ_BUDGET = 1 << 26  # eq-tensor elements per device batch
 
 
-def _not_ported(what):
-    return NotImplementedError(f"{what}: typed operators arrive with the operator system (ROADMAP.md, queue 2)")
+def _mxv_strategy():
+    from ..tx import config as _txconfig
+
+    return _txconfig.get("mxv_strategy", "auto")
 
 
 class SparseMatrixData:
-    """Canonical sorted-dedup'd COO of one matrix (host numpy)."""
+    """Canonical sorted-dedup'd COO (host numpy) + device and plan caches."""
 
-    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "_col_order")
+    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "_dev", "_plans", "_col_order", "_stats")
 
     def __init__(self, rows, cols, vals, nrows, ncols):
         self.rows = rows  # np.int64, row-major sorted
@@ -69,12 +82,15 @@ class SparseMatrixData:
         self.vals = vals  # np array of the matrix dtype
         self.nrows = int(nrows)
         self.ncols = int(ncols)
+        self._dev = {}
+        self._plans = {}
         self._col_order = None
+        self._stats = {}
 
     @classmethod
     def from_arrays(cls, rows, cols, vals, nrows, ncols, dup_op=None, *, sorted_dedup=False):
         """Canonicalize (row-major sort + dup combine) host COO arrays.
-        ``dup_op`` is the name of the op that combines duplicates."""
+        ``dup_op`` combines duplicates: an operator, typed or not, or its name."""
         rows = np.asarray(rows, np.int64).reshape(-1)
         cols = np.asarray(cols, np.int64).reshape(-1)
         vals = np.asarray(vals).reshape(-1)
@@ -90,6 +106,10 @@ class SparseMatrixData:
     def nvals(self):
         return int(self.rows.size)
 
+    @property
+    def dtype(self):
+        return _dt.lookup_dtype(self.vals.dtype)
+
     def transposed(self):
         """Swap row/col roles (re-canonicalized; indices shared, not copied)."""
         order = self.col_order()
@@ -101,13 +121,78 @@ class SparseMatrixData:
             self._col_order = np.lexsort((self.rows, self.cols))
         return self._col_order
 
+    # ------------------------------------------------------------------
+    # device caches
+    # ------------------------------------------------------------------
+
+    def _idx_dtype(self):
+        return np.int32 if max(self.nrows, self.ncols) <= _INT32_MAX else np.int64
+
+    def device(self, key, device="cuda"):
+        """Device tensor cache: rows/cols/vals in row ('_r') or col ('_c')
+        order on ``device``; values in their type's carrier."""
+        device = torch.device(device)
+        ck = (key, str(device))
+        if ck not in self._dev:
+            name, order = key.rsplit("_", 1)
+            sel = self.col_order() if order == "c" else slice(None)
+            if name == "vals":
+                self._dev[ck] = _dt.to_tensor(self.vals[sel], self.dtype, device)
+            elif name in ("rows", "cols") and order in "rc":
+                a = (self.rows if name == "rows" else self.cols)[sel]
+                self._dev[ck] = torch.from_numpy(np.ascontiguousarray(a.astype(self._idx_dtype()))).to(device)
+            else:
+                raise KeyError(key)
+        return self._dev[ck]
+
+    def _vals_absmax(self):
+        """max |value| (cached; 64-bit plan-channel range gate)."""
+        if "absmax" not in self._stats:
+            v = self.vals
+            self._stats["absmax"] = float(np.max(np.abs(v.astype(np.float64)))) if v.size else 0.0
+        return self._stats["absmax"]
+
+    def _indeg_max(self, direction):
+        """max segment length over the dst axis (cached)."""
+        key = f"degmax_{direction}"
+        if key not in self._stats:
+            dst = self.rows if direction == "pull" else self.cols
+            if dst.size == 0:
+                self._stats[key] = 0
+            else:
+                _, cnt = np.unique(dst, return_counts=True)
+                self._stats[key] = int(cnt.max())
+        return self._stats[key]
+
+    # ------------------------------------------------------------------
+    # SpMV plans
+    # ------------------------------------------------------------------
+
+    def plan(self, direction, device="cuda"):
+        """SpmvPlan for 'pull' (dst=rows, src=cols) or 'push' (dst=cols) on
+        ``device``, built once (blocking: the port's plan build has no router)
+        and cached."""
+        key = (direction, str(torch.device(device)))
+        if key not in self._plans:
+            n = max(self.nrows, self.ncols)
+            src, dst = (self.cols, self.rows) if direction == "pull" else (self.rows, self.cols)
+            w = _channel_weights(self.vals)
+            self._plans[key] = _fs.build_spmv_plan(src, dst, w, n=n, loop_net=False, total=False, device=device)
+        return self._plans[key]
+
+    def plan_ready(self, direction, device="cuda"):
+        return (direction, str(torch.device(device))) in self._plans
+
 
 def _combine_dups(rows, cols, vals, dup, dup_op):
     """Combine adjacent duplicate (row, col) runs in sorted COO arrays."""
     if dup_op is None:
         raise ValueError("Duplicate indices found; must provide dup_op to combine them")
     starts = np.flatnonzero(np.concatenate([[True], ~dup]))
-    base = str(dup_op).split("[")[0]
+    name = getattr(dup_op, "name", None) or str(dup_op)
+    base = name.split("[")[0]
+    if vals.dtype.names is not None and base not in {"first", "second", "any"}:
+        raise TypeError("UDT duplicate combination on sparse storage supports only first/second/any dup_op")
     np_fn = _NP_COMBINE.get(base)
     out_rows, out_cols = rows[starts], cols[starts]
     if np_fn is not None:
@@ -118,8 +203,310 @@ def _combine_dups(rows, cols, vals, dup, dup_op):
         lasts = np.concatenate([starts[1:], [len(rows)]]) - 1
         out_vals = vals[lasts]
     else:
-        raise _not_ported(f"dup_op {dup_op!r}")
+        # generic typed op: fold each dup group left to right through the
+        # op's function, every group's k-th step in one call
+        from .operator import get_typed_op
+
+        dt = _dt.lookup_dtype(vals.dtype)
+        op_t = get_typed_op(dup_op, dt, kind="binary")
+        lens = np.diff(np.concatenate([starts, [len(rows)]]))
+        acc = _dt.to_tensor(vals[starts], dt)
+        for k in range(1, int(lens.max())):
+            live = np.flatnonzero(lens > k)
+            nxt = _dt.to_tensor(vals[starts[live] + k], dt)
+            acc[live] = _dt.cast(op_t.fn(acc[live], nxt), op_t.return_type, dt)
+        out_vals = _dt.to_numpy(acc, dt)
     return out_rows, out_cols, out_vals
+
+
+# ---------------------------------------------------------------------------
+# segmented reduction over segment ids (the sparse monoid core)
+# ---------------------------------------------------------------------------
+
+
+def _extreme(dtype, which):
+    """The largest (``"max"``) or smallest value of ``dtype``, in its ordered
+    carrier (``core.dtypes.ordered``); bool as 0/1."""
+    np_t = dtype.np_type
+    if dtype._is_complex:
+        raise TypeError(f"{dtype} has no order: no {which} to reduce with")
+    if dtype._is_bool:
+        return int(which == "max")
+    if dtype._is_float:
+        return float("inf") if which == "max" else float("-inf")
+    info = np.iinfo(np_t)
+    v = info.max if which == "max" else info.min
+    if np_t == np.uint64:
+        return int(v) - (1 << 63)  # the flipped sign bit
+    return int(v)
+
+
+def _compute_carrier(dtype):
+    """Bool reduces as int32 0/1 (torch's scatter reductions take no bool)."""
+    return torch.int32 if dtype._is_bool else dtype.carrier
+
+
+def _segment_scan_fold(eff, seg_ids, fn):
+    """Segmented inclusive log-step scan of ``eff`` under ``fn`` (combining
+    earlier, later) over runs of equal sorted ``seg_ids``."""
+    first = torch.ones_like(seg_ids, dtype=torch.bool)
+    first[1:] = seg_ids[1:] != seg_ids[:-1]
+    v, f = eff, first
+    d, n = 1, eff.shape[0]
+    while d < n:
+        nv = torch.where(f[d:], v[d:], fn(v[:-d], v[d:]))
+        v = torch.cat([v[:d], nv])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d *= 2
+    return v
+
+
+def _segment_reduce(contrib, valid, seg_ids, num_segments, monoid_t, dtype=None):
+    """Dense (y, ys) from per-edge contributions grouped by segment id.
+
+    Standard monoids are one scatter reduce (any ``seg_ids`` order); any other
+    monoid runs a segmented log-step scan with the monoid's function over
+    sorted ``seg_ids`` (exact for every associative integer or bool monoid;
+    float ones combine in another tree than the reference's
+    ``associative_scan``).  ``dtype``: the contributions' type (default the
+    monoid's)."""
+    dt = monoid_t.type_ if dtype is None else dtype
+    name = monoid_t.parent.name
+    ident = monoid_t.identity
+    dev = contrib.device
+    if contrib.numel() == 0:
+        iv = _dt.scalar_tensor(np.zeros((), dt.np_type) if ident is None else ident, dt, dev)
+        return iv.expand(num_segments).clone(), torch.zeros(num_segments, dtype=torch.bool, device=dev)
+    ids = seg_ids.long()
+    ys = torch.zeros(num_segments, dtype=torch.int32, device=dev).index_add_(0, ids, valid.to(torch.int32)) > 0
+    zero = torch.zeros((), dtype=dt.carrier, device=dev)
+    if name in _SEGMENT_OPS:
+        cd = _compute_carrier(dt)
+        c = contrib.to(cd)
+        if name == "plus":
+            y = torch.zeros(num_segments, dtype=cd, device=dev).index_add_(0, ids, torch.where(valid, c, 0))
+        elif name == "times":
+            y = torch.ones(num_segments, dtype=cd, device=dev).scatter_reduce_(0, ids, torch.where(valid, c, 1), "prod")
+        else:  # min, land; max, lor, any: in the type's order
+            which, how = ("max", "amin") if name in ("min", "land") else ("min", "amax")
+            fill = _extreme(dt, which)
+            y = torch.full((num_segments,), fill, dtype=cd, device=dev)
+            y = _dt.ordered(y.scatter_reduce_(0, ids, torch.where(valid, _dt.ordered(c, dt), fill), how), dt)
+        y = y != 0 if dt._is_bool else _dt.wrap(y, dt).to(dt.carrier)
+    else:
+        iv = _dt.scalar_tensor(ident, dt, dev)
+        eff = torch.where(valid, contrib, iv)
+        fn = monoid_t.fn
+        scanned = _segment_scan_fold(eff, ids, lambda a, b: _dt.cast(fn(a, b), monoid_t.return_type, dt))
+        is_end = torch.ones_like(ids, dtype=torch.bool)
+        is_end[:-1] = ids[1:] != ids[:-1]
+        y = iv.expand(num_segments).clone()
+        y[ids[is_end]] = scanned[is_end]
+    return torch.where(ys, y, zero), ys
+
+
+# ---------------------------------------------------------------------------
+# semiring mxv / vxm
+# ---------------------------------------------------------------------------
+
+
+def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
+    """Semiring y = A (.) x over one direction of a sparse matrix, on the
+    device of ``xv``.
+
+    pull: dst=rows/src=cols (GrB_mxv on A); push: dst=cols (vxm / mxv on A.T).
+    a_first: the stored matrix is the multiply's FIRST argument (mxv) or the
+    second (vxm).  ``xv``: x's values, a carrier tensor of type ``x_type``
+    (default: the type its dtype carries natively); ``xs``: x's structure.
+    Returns dense (values, struct) over the dst axis.
+    """
+    out_np = np.dtype(out_dtype.np_type)
+    n_out = sp.nrows if pull else sp.ncols
+    x_type = _dt.lookup_dtype(xv.dtype) if x_type is None else x_type
+    mul = sr.binaryop
+    addm = sr.monoid
+    add_name = addm.parent.name
+    pos = mul.positional
+    strategy = _mxv_strategy()
+
+    plan_mul = _plan_mul_name(mul, a_first, pos)
+    channel = None
+    if _plan_allowed(sp, strategy, xv):
+        channel = _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv, x_type)
+    if channel is not None:
+        yv, ys = _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type)
+        return yv[:n_out], ys[:n_out]
+
+    # generic gather + segment path: exact for every semiring/dtype
+    dev = xv.device
+    if pull:
+        dst, src, avals = sp.device("rows_r", dev), sp.device("cols_r", dev), sp.device("vals_r", dev)
+    else:
+        dst, src, avals = sp.device("cols_c", dev), sp.device("rows_c", dev), sp.device("vals_c", dev)
+    srcl = src.long()
+    valid = xs[srcl]
+    if pos is not None:
+        which, delta = pos
+        role = _positional_role(which, a_first)
+        if role == "src":
+            contrib = src.long() + delta
+        elif role == "dst":
+            contrib = dst.long() + delta
+        else:
+            contrib = torch.full(src.shape, delta, dtype=torch.int64, device=dev)
+        contrib = _dt.cast(contrib, _dt.INT64, out_dtype)
+    else:
+        a_t, x_t = (mul.type_, mul.type2) if a_first else (mul.type2, mul.type_)
+        a_c = _dt.cast(avals, sp.dtype, a_t)
+        x_c = _dt.cast(xv[srcl], x_type, x_t)
+        prod = mul.fn(a_c, x_c) if a_first else mul.fn(x_c, a_c)
+        contrib = _dt.cast(prod, mul.return_type, out_dtype)
+    monoid_t = addm if addm.type_ == out_dtype else _retype_monoid(addm, out_dtype)
+    return _segment_reduce(contrib, valid, dst, n_out, monoid_t)
+
+
+def _retype_monoid(monoid_t, out_dtype):
+    from .operator import get_typed_op
+
+    return get_typed_op(monoid_t.parent, out_dtype, kind="monoid")
+
+
+def _positional_role(which, a_first):
+    """Where a positional multiply's index lives for a matrix-vector product:
+    in C=A*B terms firsti=i, firstj=k, secondi=k, secondj=j.  For mxv
+    (a_first) the vector is B (k,1): j==0; for vxm the vector is A (1,k): i==0.
+    """
+    base = which
+    if base in {"firstj", "secondi"}:
+        return "src"
+    if base == "firsti":
+        return "dst" if a_first else "zero"
+    # secondj
+    return "zero" if a_first else "dst"
+
+
+def _plan_mul_name(mul, a_first, pos):
+    """Map the GraphBLAS multiply onto a fastspmv channel, or None."""
+    if pos is not None:
+        which, _ = pos
+        return "secondi" if _positional_role(which, a_first) == "src" else None
+    name = mul.parent.name
+    if name not in _PLAN_MULS:
+        return None
+    if name in {"times", "plus"}:
+        return name
+    if name in {"pair", "oneb"}:
+        return "pair"
+    # first/second: fastspmv's "first" channel is x, "second" is the weights
+    if name == "first":
+        return "second" if a_first else "first"
+    return "first" if a_first else "second"
+
+
+def _channel_weights(vals):
+    """Edge-weight channel array for the plan engine: f32 for floats, int32
+    for integer/bool dtypes (astype sign/zero-extends narrow ints and wraps
+    64-bit; 64-bit use is range-gated in _plan_channel)."""
+    if vals is None:
+        return None
+    if np.issubdtype(vals.dtype, np.floating):
+        return vals.astype(np.float32)
+    return vals.astype(np.int32)
+
+
+def _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv, x_type=None):
+    """The plan-engine payload dtype (np.float32 | np.int32) for this
+    dispatch, or None to use the generic path.
+
+    Exactness rules (GraphBLAS integer ops wrap at the output width):
+    - FP32: f32 channel (native).
+    - INT8/16/32, UINT8/16, BOOL: int32 channel, bit-exact: modular
+      arithmetic commutes with truncation, and min/max compare contributions
+      wrapped to the output width in Kernel C (``wrap``).
+    - UINT32: int32 channel for plus/any (modular / representation-agnostic);
+      min/max would compare sign-flipped: generic path.
+    - INT64/UINT64: int32 channel only when a conservative range bound on
+      every intermediate (matrix values x vector values x max in-degree for
+      plus) fits int32, else generic.  The bound reads x on the host (one
+      device sync).
+    - FP64: generic (the engine would round to f32).
+    """
+    if strategy == "generic" or plan_mul is None or add_name not in _PLAN_ADDS:
+        return None
+    if pos is not None:
+        # src-id channel is int32: exact below 2^31
+        if max(sp.nrows, sp.ncols) >= (1 << 31):
+            return None
+        return np.float32
+    kind = out_np.kind
+    if out_np == np.float32:
+        return np.float32
+    if kind == "b" or (kind in "iu" and out_np.itemsize <= 2) or out_np == np.int32:
+        return np.int32
+    if out_np == np.uint32:
+        return np.int32 if add_name in ("plus", "any") else None
+    if kind in "iu" and out_np.itemsize == 8:
+        x_type = _dt.lookup_dtype(xv.dtype) if x_type is None else x_type
+        xmax = float(_dt.cast(xv, x_type, _dt.FP64).abs().max()) if xv.numel() else 0.0
+        mmax = sp._vals_absmax()
+        if plan_mul == "times":
+            bound = mmax * xmax
+        elif plan_mul == "plus":
+            bound = mmax + xmax
+        elif plan_mul == "first":
+            bound = xmax
+        elif plan_mul == "second":
+            bound = mmax
+        else:  # pair
+            bound = 1.0
+        if add_name == "plus":
+            bound *= max(sp._indeg_max("pull"), 1)
+        return np.int32 if bound < float(1 << 31) else None
+    return None
+
+
+def _plan_allowed(sp, strategy, xv):
+    """Whether the strategy lets this dispatch take the plan engine: "plan"
+    always, "generic" never, "auto" for CUDA tensors of at least 2^17
+    entries (the plan build is host work worth it for big graphs on the
+    card; the reference's auto takes it on a TPU only).  The channel must
+    then be exact too (``_plan_channel``)."""
+    if strategy == "auto":
+        return xv.is_cuda and sp.nvals >= _PLAN_MIN_NVALS
+    return strategy == "plan"
+
+
+def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type):
+    out_np = np.dtype(out_dtype.np_type)
+    dev = xv.device
+    plan = sp.plan("pull" if pull else "push", dev)
+    n = plan.n
+    ch = _dt.INT32 if channel == np.int32 else _dt.FP32
+    # narrow integer outputs: contributions wrap to the output width in
+    # Kernel C so min/max compare the wrapped (C-semantics) values
+    wrap = None
+    if channel == np.int32 and out_np.kind in "iu" and out_np.itemsize < 4:
+        wrap = (out_np.itemsize * 8, out_np.kind == "i")
+    if plan_mul == "pair":
+        # contribution is constantly 1: spmv_masked's pair channel answers
+        # from the validity count scan alone (no value-channel expand)
+        x_in = torch.zeros(n, dtype=ch.carrier, device=dev)
+    else:
+        x_in = _dt.cast(xv, x_type, ch)
+        if x_in.shape[0] != n:
+            x_in = torch.cat([x_in, x_in.new_zeros(n - x_in.shape[0])])
+    xs_in = xs
+    if xs_in.shape[0] != n:
+        xs_in = torch.cat([xs_in, xs_in.new_zeros(n - xs_in.shape[0])])
+    # every x present: the plan knows the structure statically (a host sync)
+    x_full = bool(xs.all())
+    yv, ys = _fs.spmv_masked(plan, x_in, xs_in, add=add_name, mul=plan_mul, x_full=x_full, wrap=wrap)
+    if pos is not None:
+        _, delta = pos
+        if delta:
+            yv = yv + delta
+        yv = torch.where(ys, yv, torch.zeros((), dtype=yv.dtype, device=dev))
+    return _dt.cast(yv, _dt.lookup_dtype(yv.dtype), out_dtype), ys
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +528,11 @@ class SpgemmPlan:
     segmented scan reduces each group, and ``last`` routes each group's last
     (total) slot to its entry position (its first ``n_entries`` slots)."""
 
-    __slots__ = ("m_rows", "m_cols", "n_entries", "buckets", "brick", "reduce_net", "device")
+    __slots__ = ("m_rows", "m_cols", "n_entries", "buckets", "brick", "reduce_net", "device", "a_type", "b_type")
 
-    def __init__(self, m_rows, m_cols, n_entries, buckets, brick=None, reduce_net=None, device="cpu"):
+    def __init__(
+        self, m_rows, m_cols, n_entries, buckets, brick=None, reduce_net=None, device="cpu", a_type=None, b_type=None
+    ):
         self.m_rows = m_rows
         self.m_cols = m_cols
         self.n_entries = n_entries
@@ -151,6 +540,9 @@ class SpgemmPlan:
         self.brick = brick  # SpgemmBrickPlan | None
         self.reduce_net = reduce_net
         self.device = torch.device(device)
+        # the types of the value tiles (avT, bvT: their carriers)
+        self.a_type = a_type
+        self.b_type = b_type
 
     def nbytes(self):
         """Bytes the plan holds on its device."""
@@ -294,7 +686,7 @@ def _build_eq_tasks(out, entry_idx, mr, mc, a_indptr, a_keys, a_vals, b_indptr, 
         out.setdefault((Wa, Wb), []).append((task_entry, ak, av, bk, bv))
 
 
-def _finalize_eq_buckets(task_groups, n_entries_cap, device):
+def _finalize_eq_buckets(task_groups, n_entries_cap, device, a_type, b_type):
     """Pad merged (Wa, Wb) task groups and move them to ``device`` in the
     tasks-on-lanes (W, T) layout."""
     buckets = []
@@ -332,9 +724,9 @@ def _finalize_eq_buckets(task_groups, n_entries_cap, device):
                 task_entry,
                 multi,
                 _to(ak.T.astype(kdt32, copy=False), device),
-                _to(av.T, device),
+                _dt.to_tensor(av.T, a_type, device),
                 _to(bk.T.astype(kdt32, copy=False), device),
-                _to(bv.T, device),
+                _dt.to_tensor(bv.T, b_type, device),
                 chunk,
                 _to(task_entry.astype(idt), device),
             )
@@ -488,9 +880,9 @@ def sparse_spgemm_analyze(
             groups, all_idx[dense], m_rows[dense], m_cols[dense],
             ad_indptr, ad_keys, ad_vals, br_indptr, br_keys, br_vals,
         )
-    buckets = _finalize_eq_buckets(groups, n_entries, device)
+    buckets = _finalize_eq_buckets(groups, n_entries, device, a_sp.dtype, b_sp.dtype)
     rnet = _build_reduce_net(buckets, n_entries, device) if reduce_net and buckets else None
-    return SpgemmPlan(m_rows, m_cols, n_entries, buckets, brick, rnet, device)
+    return SpgemmPlan(m_rows, m_cols, n_entries, buckets, brick, rnet, device, a_sp.dtype, b_sp.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -498,110 +890,73 @@ def sparse_spgemm_analyze(
 # ---------------------------------------------------------------------------
 
 
-def _check_semiring(add, mul):
-    if add not in _SEGMENT_OPS:
-        raise _not_ported(f"masked SpGEMM add {add!r} (ported: {sorted(_SEGMENT_OPS)})")
-    if mul not in _SPGEMM_MULS:
-        raise _not_ported(f"masked SpGEMM mul {mul!r} (ported: {list(_SPGEMM_MULS)})")
-
-
-def _compute_dtype(dtype):
-    """Bool reduces as int32 0/1 (torch's scatter reductions take no bool)."""
-    return torch.int32 if dtype == torch.bool else dtype
-
-
-def _extreme(dtype, which):
-    """The largest (``"max"``) or smallest value of ``dtype``; bool as 0/1."""
-    if dtype == torch.bool:
-        return int(which == "max")
-    if dtype.is_floating_point:
-        return float("inf") if which == "max" else float("-inf")
-    info = torch.iinfo(dtype)
-    return info.max if which == "max" else info.min
-
-
 def _bucket_kernel_ok(add, mul, akT, bkT, out_dtype):
     """The reference's condition for its Pallas eqjoin (core/sparse.py:1440-1448,
-    less the interpret-mode size limit, a CPU speed workaround)."""
+    less the interpret-mode size limit, a CPU speed workaround): ``add`` and
+    ``mul`` are the monoid's and the multiply's names."""
     return (
         _ej.supported(add, mul)
         and akT.dtype == torch.int32
         and bkT.dtype == torch.int32
-        and (out_dtype == torch.float32 or mul == "pair")
+        and (out_dtype == _dt.FP32 or mul == "pair")
     )
 
 
-def _bucket_body(akT, avT, bkT, bvT, chunk, add, mul, out_dtype):
-    """One width bucket: (vals (T,) in ``out_dtype``, nmatch (T,) int32),
-    untrimmed (pad tasks give 0 matches)."""
-    if _bucket_kernel_ok(add, mul, akT, bkT, out_dtype):
-        avv = avT.to(torch.float32) if mul in USES_AV else None
-        bvv = bvT.to(torch.float32) if mul in USES_BV else None
-        vals, nmatch = _ej.eqjoin(akT, avv, bkT, bvv, add, mul)
-        return vals.to(out_dtype), nmatch
-    return _bucket_plain(akT, avT, bkT, bvT, chunk, add, mul, out_dtype)
+def _bucket_body(akT, avT, bkT, bvT, chunk, addm, mul, out_dtype, a_type, b_type):
+    """One width bucket: (vals (T,) in ``out_dtype``'s carrier, nmatch (T,)
+    int32), untrimmed (pad tasks give 0 matches)."""
+    name, mul_name = addm.parent.name, mul.parent.name
+    if _bucket_kernel_ok(name, mul_name, akT, bkT, out_dtype):
+        avv = _dt.cast(avT, a_type, _dt.FP32) if mul_name in USES_AV else None
+        bvv = _dt.cast(bvT, b_type, _dt.FP32) if mul_name in USES_BV else None
+        vals, nmatch = _ej.eqjoin(akT, avv, bkT, bvv, name, mul_name)
+        return _dt.cast(vals, _dt.FP32, out_dtype), nmatch
+    return _bucket_plain(akT, avT, bkT, bvT, chunk, addm, mul, out_dtype, a_type, b_type)
 
 
-def _bucket_plain(akT, avT, bkT, bvT, chunk, add, mul, out_dtype):
+def _fold(eff, fn):
+    """Fold each row of ``eff`` (in order, pairwise) under the associative
+    ``fn``; an odd tail is carried up a level unchanged."""
+    while eff.shape[1] > 1:
+        w = eff.shape[1] // 2 * 2
+        folded = fn(eff[:, 0:w:2], eff[:, 1:w:2])
+        eff = torch.cat([folded, eff[:, w:]], dim=1)
+    return eff[:, 0]
+
+
+def _bucket_plain(akT, avT, bkT, bvT, chunk, addm, mul, out_dtype, a_type, b_type):
     """The reference's XLA formulation (core/sparse.py:1453-1483) in plain
-    torch, for the dtypes its Pallas kernel does not take: (chunk, Wa, Wb)
-    key equalities per chunk of tasks, the product in the values' dtype,
-    reduced in ``out_dtype``."""
-    cd = _compute_dtype(out_dtype)
-    vdt = torch.promote_types(avT.dtype, bvT.dtype)
-    ak, av, bk, bv = akT.T, avT.T, bkT.T, bvT.T
+    torch: (chunk, Wa, Wb) key equalities per chunk of tasks, the product in
+    the multiply's own input types, reduced by the monoid in ``out_dtype``
+    (a user monoid: a pairwise fold of its function)."""
+    name = addm.parent.name
+    cd = _compute_carrier(out_dtype)
+    ak, av, bk, bv = akT.T, _dt.cast(avT, a_type, mul.type_).T, bkT.T, _dt.cast(bvT, b_type, mul.type2).T
     vals, nms = [], []
     for s in range(0, ak.shape[0], chunk):
         akk, bkk = ak[s : s + chunk], bk[s : s + chunk]
         eq = akk[:, :, None] == bkk[:, None, :]
-        if mul == "pair":
-            prod = torch.ones(eq.shape, dtype=cd, device=eq.device)
-        else:
-            a = av[s : s + chunk, :, None].to(vdt)
-            b = bv[s : s + chunk, None, :].to(vdt)
-            if mul == "times":
-                prod = a * b
-            elif mul == "plus":
-                prod = a + b
-            else:
-                prod = a if mul == "first" else b
-            prod = prod.to(out_dtype).to(cd).expand(eq.shape)
+        prod = mul.fn(av[s : s + chunk, :, None], bv[s : s + chunk, None, :])
+        prod = _dt.cast(prod, mul.return_type, out_dtype).to(cd)
         nms.append(eq.sum((1, 2), dtype=torch.int32))
-        if add == "plus":
-            val = torch.where(eq, prod, 0).sum((1, 2), dtype=cd)
-        elif add in ("min", "land"):
-            val = torch.where(eq, prod, _extreme(out_dtype, "max")).amin((1, 2))
-        elif add in ("max", "lor", "any"):
-            val = torch.where(eq, prod, _extreme(out_dtype, "min")).amax((1, 2))
-        else:  # times
-            val = torch.where(eq, prod, 1).prod((1, 2), dtype=cd)
-        vals.append(val.to(out_dtype))
+        if name == "plus":
+            val = torch.where(eq, prod, 0).sum((1, 2), dtype=None if cd.is_floating_point or cd.is_complex else torch.int64)
+        elif name in ("min", "land"):
+            big = _extreme(out_dtype, "max")
+            val = _dt.ordered(torch.where(eq, _dt.ordered(prod, out_dtype), big).amin((1, 2)), out_dtype)
+        elif name in ("max", "lor", "any"):
+            small = _extreme(out_dtype, "min")
+            val = _dt.ordered(torch.where(eq, _dt.ordered(prod, out_dtype), small).amax((1, 2)), out_dtype)
+        elif name == "times":
+            val = torch.where(eq, prod, 1).flatten(1).prod(1, dtype=None if cd.is_floating_point or cd.is_complex else torch.int64)
+        else:
+            iv = _dt.scalar_tensor(addm.identity, out_dtype, prod.device)
+            eff = torch.where(eq, prod, iv).reshape(prod.shape[0], -1)
+            fn = addm.fn
+            val = _fold(eff, lambda a, b: _dt.cast(fn(a, b), addm.return_type, out_dtype))
+        val = val != 0 if out_dtype._is_bool else _dt.wrap(val.to(out_dtype.carrier), out_dtype)
+        vals.append(val)
     return torch.cat(vals), torch.cat(nms)
-
-
-def _segment_reduce(contrib, valid, seg_ids, num_segments, add):
-    """(y, ys) from per-task contributions grouped by entry id: one scatter
-    reduce each (standard monoids; core/sparse.py:392-457)."""
-    out_dt = contrib.dtype
-    cd = _compute_dtype(out_dt)
-    dev = contrib.device
-    ids = seg_ids.long()
-    ys = torch.zeros(num_segments, dtype=torch.int32, device=dev).index_add_(0, ids, valid.to(torch.int32)) > 0
-    c = contrib.to(cd)
-    if add == "plus":
-        y = torch.zeros(num_segments, dtype=cd, device=dev).index_add_(0, ids, torch.where(valid, c, 0))
-    elif add == "times":
-        y = torch.ones(num_segments, dtype=cd, device=dev).scatter_reduce_(0, ids, torch.where(valid, c, 1), "prod")
-    elif add in ("min", "land"):
-        big = _extreme(out_dt, "max")
-        y = torch.full((num_segments,), big, dtype=cd, device=dev)
-        y = y.scatter_reduce_(0, ids, torch.where(valid, c, big), "amin")
-    else:  # max, lor, any
-        small = _extreme(out_dt, "min")
-        y = torch.full((num_segments,), small, dtype=cd, device=dev)
-        y = y.scatter_reduce_(0, ids, torch.where(valid, c, small), "amax")
-    y = torch.where(ys, y, 0).to(out_dt)
-    return y, ys
 
 
 def _combine_net(vs, nms, reduce_net, scan_op, n_entries):
@@ -651,66 +1006,74 @@ def _brick_body(brick, mul, acc, hit):
     return acc, hit | dhit, dc.to(torch.int64).sum()
 
 
-def sparse_spgemm_execute(plan, add, mul, out_dtype, *, keep_on_device=False):
-    """Run the analyzed masked SpGEMM on the plan's device: one eqjoin launch
-    per width bucket, the task partials combined by entry on the device.
+def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
+    """Run the analyzed masked SpGEMM under the typed semiring ``sr`` into
+    ``out_dtype`` on the plan's device: one eqjoin launch per width bucket,
+    the task partials combined by entry on the device.
 
     Returns host (rows, cols, values, flops) of the entries that have a
     match, as the reference does; ``keep_on_device=True`` returns (values
-    (n_entries,), hit, flops) as tensors instead.  ``flops`` is 2 x the
-    matches (int64)."""
-    _check_semiring(add, mul)
+    (n_entries,) in ``out_dtype``'s carrier, hit, flops) as tensors instead.
+    ``flops`` is 2 x the matches (int64)."""
+    mul = sr.binaryop
+    addm = sr.monoid
+    name = addm.parent.name
     brick = plan.brick
-    if brick is not None and not (add == "plus" and mul in ("pair", "times") and out_dtype == torch.float32):
+    if brick is not None and not (name == "plus" and mul.parent.name in ("pair", "times") and out_dtype == _dt.FP32):
         raise ValueError(
             "brick-analyzed SpGEMM plan requires a plus_pair/plus_times f32 semiring; re-analyze with bricks=False"
         )
     n = plan.n_entries
     dev = plan.device
-    acc = torch.zeros(n, dtype=out_dtype, device=dev)
+    acc = torch.zeros(n, dtype=out_dtype.carrier, device=dev)
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     if plan.buckets:
-        vs, nms, idss = [], [], []
+        args = (addm, mul, out_dtype, plan.a_type, plan.b_type)
+        outs = []
         for _w, _te, _multi, akT, avT, bkT, bvT, chunk, ids in plan.buckets:
-            v, nm = _bucket_body(akT, avT, bkT, bvT, chunk, add, mul, out_dtype)
-            vs.append(v)
-            nms.append(nm)
-            idss.append(ids)
+            v, nm = _bucket_body(akT, avT, bkT, bvT, chunk, *args)
+            outs.append((v, nm, ids))
             matches = matches + nm[: ids.shape[0]].sum(dtype=torch.int64)
-        scan_op = _NET_SCAN_OPS.get(add)
-        if plan.reduce_net is not None and scan_op is not None and out_dtype == torch.float32:
-            acc, hit = _combine_net(vs, nms, plan.reduce_net, scan_op, n)
+        scan_op = _NET_SCAN_OPS.get(name)
+        if name not in _SEGMENT_OPS:
+            # a user monoid: reduce each bucket's sorted tasks, then combine
+            # the buckets with the monoid (an entry may span several)
+            for v, nm, ids in outs:
+                y, ys = _segment_reduce(v[: ids.shape[0]], nm[: ids.shape[0]] > 0, ids, n, addm, out_dtype)
+                both = ys & hit
+                acc = torch.where(both, _dt.cast(addm.fn(acc, y), addm.return_type, out_dtype), torch.where(ys, y, acc))
+                hit = hit | ys
+        elif plan.reduce_net is not None and scan_op is not None and out_dtype == _dt.FP32:
+            acc, hit = _combine_net([o[0] for o in outs], [o[1] for o in outs], plan.reduce_net, scan_op, n)
         else:
-            all_v = torch.cat([v[: i.shape[0]] for v, i in zip(vs, idss)])
-            all_nm = torch.cat([nm[: i.shape[0]] for nm, i in zip(nms, idss)])
-            acc, hit = _segment_reduce(all_v, all_nm > 0, torch.cat(idss), n, add)
+            all_v = torch.cat([v[: i.shape[0]] for v, _, i in outs])
+            all_nm = torch.cat([nm[: i.shape[0]] for _, nm, i in outs])
+            acc, hit = _segment_reduce(all_v, all_nm > 0, torch.cat([i for _, _, i in outs]), n, addm, out_dtype)
     if brick is not None:
-        acc, hit, brick_matches = _brick_body(brick, mul, acc, hit)
+        acc, hit, brick_matches = _brick_body(brick, mul.parent.name, acc, hit)
         matches = matches + brick_matches
     flops = 2 * matches
     if keep_on_device:
         return acc, hit, flops
     keep = hit.cpu().numpy()
-    return plan.m_rows[keep], plan.m_cols[keep], acc.cpu().numpy()[keep], int(flops)
+    return plan.m_rows[keep], plan.m_cols[keep], _dt.to_numpy(acc, out_dtype)[keep], int(flops)
 
 
-def sparse_mxm_masked(a_sp, b_sp, m_rows, m_cols, add, mul, out_dtype, *, device="cuda"):
+def sparse_mxm_masked(a_sp, b_sp, m_rows, m_cols, sr, out_dtype, *, device="cuda"):
     """C(M) = A (+).(x) B over sparse operands, the output restricted to M's
     pattern (the masked dot method): for each mask entry (i, j), intersect
     A's row i with B's column j.  Analyzes (bricks for plus_pair/plus_times
-    into float32, the reduce net for plus/min/max/any into float32) and
-    executes on ``device``.  Returns host (rows, cols, values, flops)."""
-    _check_semiring(add, mul)
+    into FP32, the reduce net for plus/min/max/any into FP32) and executes
+    on ``device``.  Returns host (rows, cols, values, flops)."""
+    out_np = np.dtype(out_dtype.np_type)
     m_rows = np.asarray(m_rows, np.int64)
     m_cols = np.asarray(m_cols, np.int64)
     if len(m_rows) == 0 or a_sp.nvals == 0 or b_sp.nvals == 0:
-        out_np = torch.empty(0, dtype=out_dtype).numpy().dtype
         return np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, out_np), 0
-    f32 = out_dtype == torch.float32
-    use_bricks = add == "plus" and mul in ("pair", "times") and f32
-    use_net = add in _NET_SCAN_OPS and f32
-    plan = sparse_spgemm_analyze(
-        a_sp, b_sp, m_rows, m_cols, bricks=use_bricks, reduce_net=use_net, device=device
-    )
-    return sparse_spgemm_execute(plan, add, mul, out_dtype)
+    name = sr.monoid.parent.name
+    f32 = out_dtype == _dt.FP32
+    use_bricks = name == "plus" and sr.binaryop.parent.name in ("pair", "times") and f32
+    use_net = name in _NET_SCAN_OPS and f32
+    plan = sparse_spgemm_analyze(a_sp, b_sp, m_rows, m_cols, bricks=use_bricks, reduce_net=use_net, device=device)
+    return sparse_spgemm_execute(plan, sr, out_dtype)

@@ -49,12 +49,17 @@ def _ident(op, dtype):
     return info.max if op == "min" else info.min
 
 
+# the integer view of each float width (signed-zero ties)
+_FLOAT_BITS = {torch.float32: torch.int32, torch.float64: torch.int64, torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
 def _tie_bits(a, b, r, join):
     """``r`` where a != b; where a == b the bits of a and b joined by ``join``
     (equal values have equal bits but for the signed zeros)."""
-    if a.dtype != torch.float32:
+    bits = _FLOAT_BITS.get(a.dtype)
+    if bits is None:
         return r
-    tie = join(a.view(torch.int32), b.view(torch.int32)).view(torch.float32)
+    tie = join(a.view(bits), b.view(bits)).view(a.dtype)
     return torch.where(a == b, tie, r)
 
 

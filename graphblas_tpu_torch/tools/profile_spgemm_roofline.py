@@ -200,16 +200,25 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def execute_seconds(plan, add="plus", mul="pair", reps=5):
-    """bench.py's timing of one execute: a warm-up, then host seconds over
-    ``reps`` executes ending in one synchronisation.  Returns (seconds,
-    flops)."""
-    _, _, flops = _sp.sparse_spgemm_execute(plan, add, mul, torch.float32, keep_on_device=True)
+def plus_pair():
+    """bench.py's semiring, plus_pair[FP32] into FP32: (semiring, out type)."""
+    from .. import semiring
+    from ..core import dtypes
+
+    return semiring.plus_pair[dtypes.FP32], dtypes.FP32
+
+
+def execute_seconds(plan, reps=5):
+    """bench.py's timing of one plus_pair execute: a warm-up, then host
+    seconds over ``reps`` executes ending in one synchronisation.  Returns
+    (seconds, flops)."""
+    sr, out = plus_pair()
+    _, _, flops = _sp.sparse_spgemm_execute(plan, sr, out, keep_on_device=True)
     flops = int(flops)  # constant across runs: read outside the timing
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        acc, _, _ = _sp.sparse_spgemm_execute(plan, add, mul, torch.float32, keep_on_device=True)
+        acc, _, _ = _sp.sparse_spgemm_execute(plan, sr, out, keep_on_device=True)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps, flops
 
@@ -269,8 +278,10 @@ def profile_execute(plan, out_path):
     the full ``key_averages`` table goes to ``out_path``."""
     from torch.profiler import ProfilerActivity, profile
 
+    sr, out = plus_pair()
+
     def once():
-        return _sp.sparse_spgemm_execute(plan, "plus", "pair", torch.float32, keep_on_device=True)
+        return _sp.sparse_spgemm_execute(plan, sr, out, keep_on_device=True)
 
     once()
     torch.cuda.synchronize()

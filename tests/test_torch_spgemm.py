@@ -6,8 +6,9 @@ compared slot for slot (buckets, chunks, task entries, key and value tiles,
 bricks, the reduce net's routes); the execute's (acc, hit, flops) on the
 same plans, with every value exact except float plus / times accumulations
 of values, which each package sums in its own order (segment scatter, scan,
-brick matmul): rtol 1e-5.  The JAX package is imported by the ``ref``
-fixture, not at import time.
+brick matmul): rtol 1e-5.  Both packages take the same typed semirings
+(``sr(add, mul, type)``, each package's own).  The JAX package is imported
+by the ``ref`` fixture, not at import time.
 """
 
 from types import SimpleNamespace
@@ -17,9 +18,18 @@ import pytest
 import torch
 
 from graphblas_tpu_torch import kernels
+from graphblas_tpu_torch import semiring as psemiring
+from graphblas_tpu_torch.core import dtypes as pdt
 from graphblas_tpu_torch.core import sparse as ps
+from graphblas_tpu_torch.core.operator import get_typed_op as pget
 
 WMAX = ps._SPGEMM_WMAX
+
+
+def psr(add, mul, dt):
+    """The port's semiring ``add_mul`` typed at ``dt`` (a type name or DataType)."""
+    dt = pdt.lookup_dtype(dt)
+    return pget(getattr(psemiring, f"{add}_{mul}"), dt, dt, kind="semiring")
 
 
 @pytest.fixture(scope="module")
@@ -195,22 +205,24 @@ def test_execute_matches_reference(ref, graph, add, mul, out, bricks, net):
     rdt = getattr(ref.dtypes, rname)
     vt = ref.dtypes.FP64 if vdt is np.float64 else ref.dtypes.FP32
     racc, rhit, rflops = ref.sparse.sparse_spgemm_execute(rplan, ref.sr(add, mul, vt), rdt, keep_on_device=True)
+    pdtype = pdt.lookup_dtype(rname)
+    psr_t = psr(add, mul, vt.name)
     kernels.reset_counts()
-    acc, hit, flops = ps.sparse_spgemm_execute(pplan, add, mul, tdt, keep_on_device=True)
-    assert acc.dtype == tdt and hit.dtype == torch.bool and flops.dtype == torch.int64
+    acc, hit, flops = ps.sparse_spgemm_execute(pplan, psr_t, pdtype, keep_on_device=True)
+    assert acc.dtype == tdt == pdtype.carrier and hit.dtype == torch.bool and flops.dtype == torch.int64
     assert int(flops) == int(rflops) > 0
     np.testing.assert_array_equal(hit.numpy(), np.asarray(rhit))
     _values_close(acc, racc, add, mul)
     # the host form: the entries with a match
     r_rows, r_cols, r_vals, r_flops = ref.sparse.sparse_spgemm_execute(rplan, ref.sr(add, mul, vt), rdt)
-    rows, cols, vals, f = ps.sparse_spgemm_execute(pplan, add, mul, tdt)
+    rows, cols, vals, f = ps.sparse_spgemm_execute(pplan, psr_t, pdtype)
     assert f == r_flops and isinstance(f, int)
     np.testing.assert_array_equal(rows, r_rows)
     np.testing.assert_array_equal(cols, r_cols)
     assert vals.dtype == np.asarray(r_vals).dtype
     _values_close(torch.from_numpy(vals), r_vals, add, mul)
     counts = kernels.plain_counts()
-    if ps._bucket_kernel_ok(add, mul, pplan.buckets[0][3], pplan.buckets[0][5], tdt):
+    if ps._bucket_kernel_ok(add, mul, pplan.buckets[0][3], pplan.buckets[0][5], pdtype):
         assert counts["eqjoin"] > 0  # the plain version stands in for the kernel on the CPU
     else:
         assert counts["eqjoin"] == 0  # the reference's XLA formulation, in plain torch
@@ -221,9 +233,9 @@ def test_execute_matches_reference(ref, graph, add, mul, out, bricks, net):
 @pytest.mark.parametrize(
     "add,mul,dtype,kernel",
     [
-        ("plus", "times", torch.float32, True), ("lor", "pair", torch.bool, True),
-        ("plus", "pair", torch.int32, True), ("min", "plus", torch.int32, False),
-        ("plus", "times", torch.float64, False), ("max", "second", torch.float64, False),
+        ("plus", "times", pdt.FP32, True), ("lor", "pair", pdt.BOOL, True),
+        ("plus", "pair", pdt.INT32, True), ("min", "plus", pdt.INT32, False),
+        ("plus", "times", pdt.FP64, False), ("max", "second", pdt.FP64, False),
     ],
 )
 def test_bucket_branch_is_chosen_by_dtype(add, mul, dtype, kernel):
@@ -242,7 +254,7 @@ def test_mxm_masked_matches_reference_and_scipy(ref):
     (rl, ru, mr, mc), (pl, pu, _, _) = _operands(ref, "clustered")
     sr = ref.sr("plus", "pair", ref.dtypes.FP32)
     want = ref.sparse.sparse_mxm_masked(rl, ru, mr, mc, sr, ref.dtypes.FP32)
-    got = ps.sparse_mxm_masked(pl, pu, mr, mc, "plus", "pair", torch.float32, device="cpu")
+    got = ps.sparse_mxm_masked(pl, pu, mr, mc, psr("plus", "pair", "FP32"), pdt.FP32, device="cpu")
     for g, w in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(g, w)
     assert got[3] == want[3]
@@ -255,28 +267,42 @@ def test_mxm_masked_empty_operands():
     a = ps.SparseMatrixData.from_arrays([0, 1], [1, 0], np.ones(2, np.float32), 3, 3)
     empty = ps.SparseMatrixData.from_arrays([], [], np.zeros(0, np.float32), 3, 3)
     for args in ((a, empty, [0], [0]), (empty, a, [0], [0]), (a, a, [], [])):
-        rows, cols, vals, flops = ps.sparse_mxm_masked(*args, "plus", "times", torch.float64, device="cpu")
+        rows, cols, vals, flops = ps.sparse_mxm_masked(*args, psr("plus", "times", "FP32"), pdt.FP64, device="cpu")
         assert rows.shape == cols.shape == vals.shape == (0,) and vals.dtype == np.float64 and flops == 0
     # no intersection at all: nothing hits
-    rows, _, vals, flops = ps.sparse_mxm_masked(a, a, [0], [1], "plus", "times", torch.float32, device="cpu")
+    rows, _, vals, flops = ps.sparse_mxm_masked(a, a, [0], [1], psr("plus", "times", "FP32"), pdt.FP32, device="cpu")
     assert rows.size == 0 and vals.dtype == np.float32 and flops == 0
 
 
 def test_brick_plan_rejects_other_semirings(ref):
     _, pplan = _plans(ref, "clustered", True, False)
     assert pplan.brick is not None
-    for add, mul, dt in (("min", "plus", torch.float32), ("plus", "times", torch.float64)):
+    for add, mul, dt in (("min", "plus", pdt.FP32), ("plus", "times", pdt.FP64)):
         with pytest.raises(ValueError, match="bricks=False"):
-            ps.sparse_spgemm_execute(pplan, add, mul, dt)
+            ps.sparse_spgemm_execute(pplan, psr(add, mul, "FP32"), dt)
 
 
-def test_names_outside_the_ported_operators_raise():
-    a = ps.SparseMatrixData.from_arrays([0, 1], [1, 0], np.ones(2, np.float32), 3, 3)
-    for add, mul in (("bor", "pair"), ("plus", "minus")):
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            ps.sparse_mxm_masked(a, a, [0], [0], add, mul, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        ps.SparseMatrixData.from_arrays([0, 0], [1, 1], np.ones(2), 3, 3, dup_op="minus")
+def test_names_outside_the_ported_operators_raise(ref):
+    """The names the port's name-based engine refused (bor_pair, plus_minus,
+    dup_op "minus") now arrive as typed operators and agree with the
+    reference; a name that is no operator still raises."""
+    r, c = np.array([0, 1, 1, 2]), np.array([1, 0, 2, 1])
+    for vals, (add, mul) in ((np.array([3, 5, 6, 9], np.uint32), ("bor", "pair")), (np.array([1.5, 2.0, 4.0, -1.0], np.float32), ("plus", "minus"))):
+        rsp = ref.sparse.SparseMatrixData.from_arrays(r, c, vals, 3, 3)
+        psp = ps.SparseMatrixData.from_arrays(r, c, vals, 3, 3)
+        dt = vals.dtype.name.upper().replace("FLOAT", "FP")
+        want = ref.sparse.sparse_mxm_masked(rsp, rsp, [0, 1, 2], [0, 1, 2], ref.sr(add, mul, getattr(ref.dtypes, dt)), getattr(ref.dtypes, dt))
+        got = ps.sparse_mxm_masked(psp, psp, [0, 1, 2], [0, 1, 2], psr(add, mul, dt), pdt.lookup_dtype(dt), device="cpu")
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g, np.asarray(w))
+        assert got[3] == want[3]
+    with pytest.raises(AttributeError):
+        psr("plus", "no_such_op", "FP32")
+    want = ref.sparse.SparseMatrixData.from_arrays([0, 0], [1, 1], np.array([5.0, 2.0]), 3, 3, dup_op="minus")
+    got = ps.SparseMatrixData.from_arrays([0, 0], [1, 1], np.array([5.0, 2.0]), 3, 3, dup_op="minus")
+    np.testing.assert_array_equal(got.vals, want.vals)
+    with pytest.raises(ValueError, match="Unknown"):
+        ps.SparseMatrixData.from_arrays([0, 0], [1, 1], np.ones(2), 3, 3, dup_op="no_such_op")
 
 
 @pytest.mark.parametrize("dup_op,want", [

@@ -14,9 +14,12 @@ semirings.  The typed operator path: the scale-19 graph as a SparseMatrixData
 through sparse_mxv under six typed semirings on the plan engine and FP64 on
 the generic path, and the typed SpGEMM (plus_pair[INT64], plus_times[FP32]
 with bricks, min_plus[FP32], a user semiring).  The tropical path:
-min_plus on 2048^2 operands, as bench.py.  The roofline tool's run, with the
-compare probe.  All through the hand-written CUDA kernels.  One line per
-check:
+min_plus on 2048^2 operands, as bench.py.  The DSL path: the collections and
+the dense-masked engine through the public DSL only, at the dense-masked limit
+(4096^2 cells): APSP by min-plus squaring (gb_tropical at 4096^3 a round), the
+level BFS and SSSP of examples 02 and 01, and one statement of each op
+family.  The roofline tool's run, with the compare probe.  All through the
+hand-written CUDA kernels.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. build: the kernels built from graphblas_tpu_torch/csrc with nvcc
@@ -56,9 +59,24 @@ check:
      plain bucket path) against numpy; the typed layer's host cost, plan
      against generic, the first call's blocking plan build
   6t. tropical matmul: kernel path against the plain path and numpy
+  6d. the DSL (graphblas_tpu_torch.Matrix/Vector, masks, accumulators,
+     C(mask, accum, replace) << expr) on a 4096-vertex graph (8 random
+     out-edges a vertex, f32 weights in [1, 10), numpy seed 11, a zero
+     diagonal): APSP by D(accum=min) << D.mxm(D, min_plus) until it stops
+     changing (one gb_tropical launch at 4096^3 a round) against the same
+     statements on the plain versions (bit for bit) and scipy float64
+     (rtol 1e-5); example 02's level BFS (any_pair, the f32 overlap matmul)
+     and example 01's SSSP (min_plus mxv, the generic contraction) against
+     scipy; one statement of each op family at 4096^2 (mxm plus_times[FP32],
+     ewise add/mult/union, apply, select, reduce with plus, min and a user
+     monoid, extract, assign, C(~M.S, accum, replace)) against the same
+     statement in the port on the CPU; the generic contraction at 2048^2
+     (INT32 plus_times against numpy mod 2^32, FP32 min_plus against
+     gb_tropical); times (CUDA events) and peak memory
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
   7. launch counts of each path (every kernel > 0, every plain version 0;
-     the typed paths launch G, C, the generic scan and eqjoin)
+     the typed paths launch G, C, the generic scan and eqjoin; the DSL path
+     gb_tropical once an APSP round)
   8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
      level-BFS one
 
@@ -67,6 +85,7 @@ the status line {"ok": true, "device": {...}}.  Any failure raises: the exit cod
 0 and the status line is not printed.  Without a CUDA device it fails at once.
 
     python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5] [--tc-log2 16] [--spgemm-scale 14] [--mt 2048]
+        [--dsl-n 4096] [--dsl-generic-n 2048]
 """
 
 import argparse
@@ -91,8 +110,8 @@ KERNELS = {
     "tropical_mxm": ("graphblas_tpu_torch/csrc/tropical.cu", "graphblas_tpu/ops/pallas_mxm.py:74"),
     "compare_probe": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/tools/profile_spgemm_roofline.py:161"),
 }
-# the path whose run counts a kernel's launches (the rest: the SpMV path)
-PATH_OF = {"eqjoin": "spgemm", "tropical_mxm": "tropical", "compare_probe": "roofline"}
+# the paths whose runs count a kernel's launches (the rest: the SpMV path)
+PATH_OF = {"eqjoin": ("spgemm",), "tropical_mxm": ("tropical", "dsl"), "compare_probe": ("roofline",)}
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
 # memory rate, operations over the rate of their kind
 HBM_BYTES_PER_S = 3.35e12
@@ -199,7 +218,7 @@ def synthetic_network(np, e_pad, seed):
     return stages + [("S", lanes())]
 
 
-def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
+def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
     """Phase 3: each kernel against its plain version on the card."""
     import numpy as np
 
@@ -446,6 +465,15 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, roofline):
     # max per (i, j, k), each semiring against its own instruction bound;
     # min_plus (bench.py's) first; then a ragged shape (the scalar loads; its
     # 2047 x 2049 output is just past a wave of 128-tiles: the 64-tile form)
+    # the DSL path's APSP squaring at the dense-masked limit first: the row
+    # the JSON line reports
+    da = torch.where(rand(dsl_n, dsl_n) < 0.3, rand(dsl_n, dsl_n) * 9 + 1, float("inf"))
+    record(
+        "tropical_mxm", f"min_plus {dsl_n}^3 (the DSL path's APSP round)", lambda: kt.tropical_mxm(da, da, "min", "plus"),
+        lambda: kt.tropical_mxm_plain(da, da, "min", "plus"), (da,), 0, reps=5, n_ops=2 * dsl_n**3,
+        ops_per_s=tropical_ops_per_s("plus"),
+    )
+    del da
     ta, tb = rand(mt, mt), rand(mt, mt)
     for add, mul in kt.SEMIRINGS:
         record(
@@ -697,6 +725,287 @@ def typed_phase(torch, np, dev, src, dst, w, n, xv, xs, tc_plan, tc_plan_b, tc_r
     }
 
 
+def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
+    """Phase 6d: the collections and the dense-masked engine through the public
+    DSL only (graphblas_tpu_torch.Matrix/Vector/Scalar, masks, accumulators,
+    ``C(mask, accum, replace) << expr``), on the card at the dense-masked
+    limit, n_dsl^2 cells.  Returns the DSL path's launch and plain-call counts
+    and its times."""
+    import scipy.sparse as scsp
+    from scipy.sparse import csgraph
+
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Matrix, Vector, binary, dtypes, indexunary, kernels, monoid, select, semiring, unary
+
+    t_phase = time.perf_counter()
+    require(gb.tx.config["platform"] == "cuda", "collections default to the card")
+    # why integer values take the generic contraction: torch has no int32 GEMM on CUDA
+    probe = {}
+    for dt in (torch.int32, torch.int64, torch.int8):
+        x = torch.ones(64, 64, dtype=dt, device=dev)
+        try:
+            torch.matmul(x, x)
+            probe[str(dt)] = "ok"
+        except RuntimeError as exc:
+            probe[str(dt)] = f"raises ({str(exc).splitlines()[0][:60]})"
+    try:
+        torch._int_mm(torch.ones(32, 32, dtype=torch.int8, device=dev), torch.ones(32, 32, dtype=torch.int8, device=dev))
+        probe["_int_mm int8"] = "ok"
+    except RuntimeError as exc:
+        probe["_int_mm int8"] = f"raises ({str(exc).splitlines()[0][:60]})"
+    say("6d dsl", f"torch.matmul on CUDA integer tensors: {probe}")
+    n = n_dsl
+    rng = np.random.default_rng(11)
+    # the graph: 8 random out-edges a vertex, f32 weights in [1, 10), a zero diagonal
+    src = np.repeat(np.arange(n), 8)
+    dst = rng.integers(0, n, n * 8)
+    wgt = rng.uniform(1, 10, n * 8).astype(np.float32)
+    off = src != dst
+    src, dst, wgt = src[off], dst[off], wgt[off]
+    r = np.concatenate([src, np.arange(n)])
+    c = np.concatenate([dst, np.arange(n)])
+    v = np.concatenate([wgt, np.zeros(n, np.float32)])
+    times, peaks = {}, {}
+
+    def apsp():
+        D = Matrix.from_coo(r, c, v, dtypes.FP32, nrows=n, ncols=n, dup_op=binary.min, name="D")
+        rounds = 0
+        while rounds < 12:
+            prev = D.dup()
+            D(accum=binary.min) << D.mxm(D, semiring.min_plus)
+            rounds += 1
+            if D.isequal(prev):
+                break
+        return D, rounds
+
+    def bfs_sssp():
+        A = Matrix.from_coo(src, dst, True, dtypes.BOOL, nrows=n, ncols=n, dup_op=binary.lor, name="A")
+        levels = Vector(dtypes.INT64, n, name="levels")
+        frontier = Vector(dtypes.BOOL, n, name="frontier")
+        frontier[0] = True
+        levels[0] = 0
+        level = 0
+        while frontier.nvals > 0:  # example 02
+            level += 1
+            frontier(~levels.S, replace=True) << A.T.mxv(frontier, semiring.any_pair)
+            levels(frontier.S) << frontier.apply(lambda x: 0 * x + level).new(dtypes.INT64)
+        W = Matrix.from_coo(src, dst, wgt, dtypes.FP32, nrows=n, ncols=n, dup_op=binary.min, name="W")
+        dist = Vector(dtypes.FP32, n, name="dist")
+        dist[0] = 0.0
+        hops = 0
+        for _ in range(n):  # example 01
+            prev = dist.dup()
+            dist(accum=binary.min) << W.T.mxv(dist, semiring.min_plus)
+            hops += 1
+            if dist.isequal(prev):
+                break
+        return levels, dist, hops
+
+    # the op families' operands at n^2 (3. below), built on the card and on the CPU
+    prng = np.random.default_rng(12)
+
+    def coo(density):
+        cells = np.flatnonzero(prng.random(n * n) < density)
+        return cells // n, cells % n, prng.random(len(cells), np.float32)
+
+    a_coo, b_coo, c_coo, m_coo = coo(0.3), coo(0.3), coo(0.2), coo(0.5)
+    rows_ix = np.sort(prng.choice(n, n // 4, replace=False))
+    cols_ix = prng.permutation(n)[: n // 5]
+    plus_udf = monoid.register_anonymous(binary.register_anonymous(lambda x, y: x + y, "plus_udf"), 0.0)
+
+    def operands():
+        return tuple(Matrix.from_coo(*t, dtypes.FP32, nrows=n, ncols=n, name=nm) for t, nm in ((a_coo, "A"), (b_coo, "B"), (c_coo, "C"), (m_coo, "M")))
+
+    def fresh(ops):
+        """The operands with a fresh C (each statement writes into C; a dup
+        shares C's tensors, and no update writes into them)."""
+        A, B, C, M = ops
+        return A, B, C.dup(name="C"), M
+
+    statements = {
+        "mxm plus_times[FP32]": lambda A, B, C, M: C << A.mxm(B, semiring.plus_times),
+        "ewise_add": lambda A, B, C, M: C << A.ewise_add(B, binary.plus),
+        "ewise_mult": lambda A, B, C, M: C << A.ewise_mult(B, binary.times),
+        "ewise_union": lambda A, B, C, M: C << A.ewise_union(B, binary.minus, 0.5, 1.5),
+        "apply unary": lambda A, B, C, M: C << A.apply(unary.ainv),
+        "apply bound": lambda A, B, C, M: C << A.apply(binary.times, right=2.5),
+        "apply indexunary": lambda A, B, C, M: C << A.apply(indexunary.rowindex, 0),
+        "select tril": lambda A, B, C, M: C << A.select(select.tril),
+        "select valuegt": lambda A, B, C, M: C << A.select(select.valuegt, 0.5),
+        "reduce_rowwise plus": lambda A, B, C, M: A.reduce_rowwise(monoid.plus).new(),
+        "reduce_columnwise min": lambda A, B, C, M: A.reduce_columnwise(monoid.min).new(),
+        "reduce_scalar user": lambda A, B, C, M: A.reduce_scalar(plus_udf).new(),
+        "reduce_scalar plus": lambda A, B, C, M: A.reduce_scalar(monoid.plus).new(),
+        "extract": lambda A, B, C, M: A[rows_ix, cols_ix].new(),
+        "assign": lambda A, B, C, M: C.__setitem__((rows_ix, cols_ix), B[rows_ix[::-1], cols_ix].new()),
+        "C(~M.S, plus, replace)": lambda A, B, C, M: C(~M.S, accum=binary.plus, replace=True) << A.ewise_add(B, binary.plus),
+    }
+    # float plus sums up to 4096 float32 terms, in cuBLAS's or the CUDA reduction's
+    # order against the CPU's: each rounds by ~sqrt(k) ulp (1.8e-6 seen), so rtol 1e-5
+    float_plus = {"mxm plus_times[FP32]", "reduce_rowwise plus", "reduce_scalar plus"}
+
+    def result(stmt, ops):
+        ops = fresh(ops)
+        out = stmt(*ops)
+        return ops[2] if out is None or out is ops[2] else out
+
+    # the DSL path: the APSP squaring, the level BFS and SSSP, one statement of
+    # each op family; its launches are counted from here to the end of the drive
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    D, rounds = apsp()
+    torch.cuda.synchronize()
+    t_apsp = time.perf_counter() - t0
+    apsp_launches = kernels.launch_counts()["tropical_mxm"]
+    peaks["APSP"] = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    levels, dist, hops = bfs_sssp()
+    torch.cuda.synchronize()
+    t_bfs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu_ops = operands()
+    gpu_results = {name: result(stmt, gpu_ops) for name, stmt in statements.items()}
+    torch.cuda.synchronize()
+    t_ops = time.perf_counter() - t0
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+
+    # 1-2. against the same statements on the plain versions (the reference run
+    # of gb_tropical on the card), scipy float64 and the examples' oracles
+    t0 = time.perf_counter()
+    with kernels.plain_versions():
+        D_p, rounds_p = apsp()
+    t_plain = time.perf_counter() - t0
+    require(
+        rounds_p == rounds and same_bits(torch, D._values, D_p._values) and torch.equal(D._struct, D_p._struct),
+        "APSP: kernel path differs from the plain path",
+    )
+    require(apsp_launches == rounds, f"APSP: {apsp_launches} gb_tropical launches in {rounds} rounds")
+    dr, dc, dv = D.to_coo()
+    # parallel edges: keep the lightest (csr would sum their weights), as dup_op=binary.min does
+    order = np.lexsort((wgt, src * n + dst))
+    first = np.unique((src * n + dst)[order], return_index=True)[1]
+    keep = order[first]
+    gcsr = scsp.csr_matrix((wgt[keep].astype(np.float64), (src[keep], dst[keep])), shape=(n, n))
+    t0 = time.perf_counter()
+    d_ref = csgraph.shortest_path(gcsr, method="D")
+    t_scipy = time.perf_counter() - t0
+    reach = np.isfinite(d_ref)
+    require(D.nvals == int(reach.sum()), f"APSP: {D.nvals} paths, scipy {int(reach.sum())}")
+    np.testing.assert_allclose(dv.astype(np.float64), d_ref[dr.astype(np.int64), dc.astype(np.int64)], rtol=1e-5, atol=0)
+    lv_ref = csgraph.shortest_path(gcsr, method="D", unweighted=True, indices=0)
+    li, lvals = levels.to_coo()
+    require(np.array_equal(li, np.flatnonzero(np.isfinite(lv_ref))), "BFS: reached set differs from scipy")
+    require(np.array_equal(lvals, lv_ref[np.isfinite(lv_ref)].astype(np.int64)), "BFS: levels differ from scipy")
+    si, sv = dist.to_coo()
+    require(np.array_equal(si, np.flatnonzero(reach[0])), "SSSP: reached set differs from scipy")
+    np.testing.assert_allclose(sv.astype(np.float64), d_ref[0, reach[0]], rtol=1e-5, atol=0)
+    say(
+        "6d dsl",
+        f"APSP by min-plus squaring, {n} vertices, {len(src)} edges (+ the diagonal): {rounds} rounds "
+        f"= {apsp_launches} gb_tropical launches at {n}^3, kernel path = plain path bit for bit, "
+        f"{D.nvals} paths = scipy float64 Dijkstra (rtol 1e-5; scipy {t_scipy:.1f} s); host {t_apsp:.2f} s (plain "
+        f"replay {t_plain:.1f} s); level BFS (example 02) = scipy ({int(lvals.max())} levels), SSSP (example 01, "
+        f"{hops} rounds) = scipy rtol 1e-5, both {t_bfs:.2f} s; the op families' statements on the card {t_ops:.2f} s",
+    )
+
+    # 3. each op family's statement against the same statement in the port on the CPU
+    t0 = time.perf_counter()
+    with gb.tx.config.set(platform="cpu"):
+        cpu_ops = operands()
+        t_cpu_build = time.perf_counter() - t0
+        cpu_results = {name: result(stmt, cpu_ops) for name, stmt in statements.items()}
+    t_cpu = time.perf_counter() - t0
+    for name, stmt in statements.items():
+        got, want = gpu_results[name], cpu_results[name]
+        require(got.ndim == 0 or got._struct.is_cuda, f"6d {name}: the result is not on the card")
+        if got.ndim == 0:
+            ok = got.isclose(want, rel_tol=1e-5) if name in float_plus else got.isequal(want)
+            require(ok, f"6d {name}: card {got.value} != CPU {want.value}")
+        else:
+            gi, wi = got.to_coo(), want.to_coo()
+            for a_, b_ in zip(gi[:-1], wi[:-1]):
+                require(np.array_equal(a_, b_), f"6d {name}: structure differs from the CPU run")
+            if name in float_plus:
+                np.testing.assert_allclose(gi[-1], wi[-1], rtol=1e-5, atol=0, err_msg=name)
+            else:
+                require(np.array_equal(gi[-1], wi[-1]), f"6d {name}: values differ from the CPU run")
+        if name == "mxm plus_times[FP32]":
+            A_np = np.zeros((n, n)); A_np[a_coo[0], a_coo[1]] = a_coo[2]
+            B_np = np.zeros((n, n)); B_np[b_coo[0], b_coo[1]] = b_coo[2]
+            ref64 = A_np @ B_np
+            gr, gc, gv = got.to_coo()
+            np.testing.assert_allclose(gv.astype(np.float64), ref64[gr.astype(np.int64), gc.astype(np.int64)], rtol=1e-5, atol=0)
+            require(got.nvals == int(np.count_nonzero((A_np != 0).astype(np.float32) @ (B_np != 0).astype(np.float32))), "mxm structure")
+        ops = fresh(gpu_ops)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[name] = cuda_ms(torch, lambda: stmt(*ops), 5)
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+
+    # 4. the APSP statement and its kernel against the bound; the generic
+    # contraction at n_gen^2 (INT32 plus_times against numpy, FP32 min_plus
+    # against the kernel)
+    Dw = D.dup()
+    times["APSP round"] = cuda_ms(torch, lambda: Dw(accum=binary.min) << Dw.mxm(Dw, semiring.min_plus), 3)
+    from graphblas_tpu_torch.ops import mxm as pmxm
+
+    Df = torch.where(D._struct, D._values, float("inf"))
+    times["gb_tropical"] = cuda_ms(torch, lambda: pmxm.tropical_mxm_filled(Df, Df, "min", "plus"), 5)
+    bound_ms, bound_by = bound(2 * n * n * 4 + n * n * 4, 2 * n**3, tropical_ops_per_s("plus"))
+    m = n_gen
+    cells = np.flatnonzero(prng.random(m * m) < 0.25)
+    gi_coo = (cells // m, cells % m, prng.integers(-(2**31), 2**31, len(cells)).astype(np.int32))
+    Ai = Matrix.from_coo(*gi_coo, dtypes.INT32, nrows=m, ncols=m)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    Ci = Ai.mxm(Ai, semiring.plus_times).new()
+    torch.cuda.synchronize()
+    peaks[f"generic plus_times[INT32] {m}^2"] = torch.cuda.max_memory_allocated() - base
+    times[f"generic plus_times[INT32] {m}^2"] = cuda_ms(torch, lambda: Ai.mxm(Ai, semiring.plus_times).new(), 2)
+    ai_np = np.zeros((m, m), np.int64)
+    ai_np[gi_coo[0], gi_coo[1]] = gi_coo[2]
+    t0 = time.perf_counter()
+    # A @ A mod 2^32 from 16-bit halves (a = hi 2^16 + lo): lo lo + 2^16 (hi lo + lo hi),
+    # three float64 matmuls whose sums stay below 2^44, so exact
+    lo, hi = (ai_np & 0xFFFF).astype(np.float64), (ai_np >> 16).astype(np.float64)
+    ll, hl, lh = ((x @ y).astype(np.int64) for x, y in ((lo, lo), (hi, lo), (lo, hi)))
+    want_i = (ll + ((hl + lh) << 16)).astype(np.int32)
+    t_np = time.perf_counter() - t0
+    ci, cj, cv = Ci.to_coo()
+    ov = (ai_np != 0).astype(np.float32) @ (ai_np != 0).astype(np.float32)
+    require(Ci.nvals == int(np.count_nonzero(ov)), "INT32 plus_times: structure")
+    require(np.array_equal(cv, want_i[ci.astype(np.int64), cj.astype(np.int64)]), "INT32 plus_times differs from numpy mod 2^32")
+    Af = Matrix.from_coo(a_coo[0] % m, a_coo[1] % m, a_coo[2], dtypes.FP32, nrows=m, ncols=m, dup_op=binary.min)
+    kern = Af.mxm(Af, semiring.min_plus).new()
+    with gb.tx.config.set(mxm_strategy="generic"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen_ = Af.mxm(Af, semiring.min_plus).new()
+        torch.cuda.synchronize()
+        peaks[f"generic min_plus[FP32] {m}^2"] = torch.cuda.max_memory_allocated() - base
+        times[f"generic min_plus[FP32] {m}^2"] = cuda_ms(torch, lambda: Af.mxm(Af, semiring.min_plus).new(), 2)
+    require(kern.isequal(gen_, check_dtype=True), "min_plus: gb_tropical differs from the generic contraction")
+    times[f"mxm min_plus[FP32] {m}^2 (gb_tropical)"] = cuda_ms(torch, lambda: Af.mxm(Af, semiring.min_plus).new(), 5)
+    say(
+        "6d dsl",
+        f"{len(statements)} op-family statements at {n}^2 = the port on the CPU (float plus rtol 1e-5, the rest "
+        f"exact; CPU {t_cpu:.1f} s, its operands {t_cpu_build:.1f} s); "
+        f"mxm plus_times[FP32] (TF32 off) = numpy float64 rtol 1e-5; INT32 plus_times {m}^2 (generic) = numpy "
+        f"mod 2^32 exactly ({t_np:.1f} s); FP32 min_plus {m}^2 generic = gb_tropical bit for bit",
+    )
+    mib = {k: round(v / 2**20, 1) for k, v in peaks.items()}
+    say(
+        "6d dsl",
+        f"ms (CUDA events, warm): {json.dumps({k: round(t, 4) for k, t in times.items()})}; APSP round's gb_tropical "
+        f"{times['gb_tropical']:.4f} ms against its bound {bound_ms:.4f} ms ({bound_by}); peak MiB above the live "
+        f"tensors: {json.dumps(mib)}; on {smi}; phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {"launches": launches, "plain": plain, "apsp_launches": apsp_launches, "rounds": rounds}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -705,6 +1014,8 @@ def main():
     ap.add_argument("--tc-log2", type=int, default=16, help="log2 of the SpGEMM workload's vertices")
     ap.add_argument("--spgemm-scale", type=int, default=14, help="RMAT scale of the SpGEMM run (c)")
     ap.add_argument("--mt", type=int, default=2048, help="the tropical matmul's size")
+    ap.add_argument("--dsl-n", type=int, default=4096, help="the DSL phase's n (n^2 cells: the dense-masked limit)")
+    ap.add_argument("--dsl-generic-n", type=int, default=2048, help="the generic contraction's n in the DSL phase")
     args = ap.parse_args()
 
     import torch
@@ -757,7 +1068,7 @@ def main():
     n_nodes = 1 << args.scale
     e_pad = padded_size(max(n_nodes * args.ef, n_nodes))
     t0 = time.perf_counter()
-    kres = check_kernels(torch, e_pad, dev, tc_plan, rm_plan, args.mt, roofline)
+    kres = check_kernels(torch, e_pad, dev, tc_plan, rm_plan, args.mt, args.dsl_n, roofline)
     say("3 kernels", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # 4. graph and plans
@@ -999,6 +1310,10 @@ def main():
         f"8 rows of min_plus = numpy float32 exactly; phase {time.perf_counter() - t_phase:.1f} s",
     )
 
+    # 6d. the collections and the dense-masked engine, through the DSL only
+    dsl = dsl_phase(torch, np, dev, args.dsl_n, args.dsl_generic_n, smi)
+    dsl_launches, dsl_plain = dsl["launches"], dsl["plain"]
+
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()
     kernels.reset_counts()
@@ -1008,22 +1323,25 @@ def main():
     say("6r roofline", f"{json.dumps(roof)}; phase {time.perf_counter() - t_phase:.1f} s")
 
     # 7. launch counts of each path
-    path_launches = {"spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "roofline": roof_launches}
+    path_launches = {
+        "spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "dsl": dsl_launches, "roofline": roof_launches,
+    }
     ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
         f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
-        f"tropical path {tr_launches}; roofline tool {roof_launches}; plain calls {plain_calls}, {sg_plain}, "
-        f"{ty_plain}, {tr_plain}, {roof_plain}",
+        f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); roofline tool "
+        f"{roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {roof_plain}",
     )
     for name in KERNELS:
-        path = PATH_OF.get(name, "spmv")
-        require(path_launches[path][name] > 0, f"{name} was not launched on the {path} path")
+        for path in PATH_OF.get(name, ("spmv",)):
+            require(path_launches[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("gather", "segscan"):
         require(sg_launches[name] > 0, f"{name} was not launched on the SpGEMM path (the reduce net)")
     for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
-    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, roof_plain):
+    require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above
@@ -1054,7 +1372,7 @@ def main():
     for name, (source, replaces) in KERNELS.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[PATH_OF.get(name, "spmv")][name], **kres[name],
+            "launches": sum(path_launches[path][name] for path in PATH_OF.get(name, ("spmv",))), **kres[name],
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

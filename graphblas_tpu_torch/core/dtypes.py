@@ -327,9 +327,10 @@ def _supports_complex():
 _I64_MIN = -(1 << 63)
 
 
-def to_tensor(values, dtype=None, device="cpu"):
-    """Host values (numpy) -> a tensor of ``dtype``'s carrier on ``device``;
-    a UDT gives a dict of field tensors."""
+def to_tensor(values, dtype, device):
+    """Host values (numpy) -> a tensor of ``dtype``'s carrier on ``device``
+    (``dtype`` None: the values' own type); a UDT gives a dict of field
+    tensors.  The caller names the device: nothing here picks one."""
     arr = np.asarray(values)
     dtype = lookup_dtype(arr.dtype) if dtype is None else lookup_dtype(dtype)
     if dtype._is_udt:
@@ -365,7 +366,7 @@ def to_numpy(t, dtype):
     return arr.astype(dtype.np_type, copy=False)
 
 
-def scalar_tensor(value, dtype, device="cpu"):
+def scalar_tensor(value, dtype, device):
     """A 0-d carrier tensor of a host scalar of ``dtype``."""
     return to_tensor(np.asarray(value, dtype.np_type), dtype, device).reshape(())
 

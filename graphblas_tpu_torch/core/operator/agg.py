@@ -3,10 +3,8 @@
 Counterpart of ``graphblas_tpu/core/operator/agg.py``: the same recipes
 (pre-apply unary + monoid reduce + finalize, composites over
 sub-aggregators, and engine-level positional reductions) and the same
-registry, with torch finalizers.  The recipes run on collections (dispatched
-from their ``_update`` when ``op.opclass == "Aggregator"``), which the port
-does not have yet (ROADMAP.md, queue 3): an aggregator is registered and
-typed, and applying one raises until then.
+registry, with torch finalizers.  The recipes run on collections,
+dispatched from their ``_update`` when ``op.opclass == "Aggregator"``.
 """
 
 import torch
@@ -85,7 +83,16 @@ class Aggregator:
 
     def __call__(self, val, *, rowwise=False, columnwise=False):
         """Reduce a collection (``val.reduce*(self)``)."""
-        raise _needs_collections(self)
+        from ..vector import Vector
+
+        typ = type(val)
+        if typ is Vector or getattr(val, "_output_type", None) is Vector:
+            return val.reduce(self)
+        if rowwise:
+            return val.reduce_rowwise(self)
+        if columnwise:
+            return val.reduce_columnwise(self)
+        return val.reduce_scalar(self)
 
     # ---- recipe execution ---------------------------------------------------
 
@@ -162,10 +169,6 @@ class TypedAggregator:
 
     def __call__(self, val, **kwargs):
         return self.parent(val, **kwargs)
-
-
-def _needs_collections(agg):
-    return NotImplementedError(f"{agg!r} reduces a Matrix or Vector; the port has none yet (ROADMAP.md, queue 3)")
 
 
 def _deserialize_agg(name):
@@ -387,19 +390,15 @@ def _initialize(module):
         return n.ewise_mult(si, b.truediv)
 
     # --- positional / order-based (agg.ss in python-graphblas): engine-level
-    # reductions of the collections (queue 3)
-    def positional(name):
-        def custom(parent, axis):
-            raise _needs_collections(aggs[name])
+    # reductions of the collections
+    from ..reductions import agg_argminmax, agg_firstlast
 
-        return custom
-
-    make("argmin", custom=positional("argmin"), rettype=_int64_ret, types_filter=_not_complex)
-    make("argmax", custom=positional("argmax"), rettype=_int64_ret, types_filter=_not_complex)
-    make("first", custom=positional("first"))
-    make("last", custom=positional("last"))
-    make("first_index", custom=positional("first_index"), rettype=_int64_ret)
-    make("last_index", custom=positional("last_index"), rettype=_int64_ret)
+    make("argmin", custom=lambda parent, axis: agg_argminmax(parent, axis, "min", "index"), rettype=_int64_ret, types_filter=_not_complex)
+    make("argmax", custom=lambda parent, axis: agg_argminmax(parent, axis, "max", "index"), rettype=_int64_ret, types_filter=_not_complex)
+    make("first", custom=lambda parent, axis: agg_firstlast(parent, axis, "first", "value"))
+    make("last", custom=lambda parent, axis: agg_firstlast(parent, axis, "last", "value"))
+    make("first_index", custom=lambda parent, axis: agg_firstlast(parent, axis, "first", "index"), rettype=_int64_ret)
+    make("last_index", custom=lambda parent, axis: agg_firstlast(parent, axis, "last", "index"), rettype=_int64_ret)
 
     for name, agg_ in aggs.items():
         setattr(module, name, agg_)

@@ -452,14 +452,39 @@ class TypedIndexBinaryOp(TypedOpBase):
 
 
 def _call_op(op, left, right=None, *, thunk=None, left_default=None, right_default=None):
-    """Calling an op builds an expression on collections (``left.apply(op)``,
-    ``A | B`` infix expressions).  The port has no collections yet (ROADMAP.md,
-    queue 3), so no argument can be one: the reference's TypeError."""
-    raise TypeError(
-        f"Bad types when calling {op!r}: {type(left)}"
-        + ("" if right is None else f", {type(right)}")
-        + "; operators apply to Matrix/Vector collections and infix expressions"
-    )
+    """Make typed/untyped ops callable on collections & infix expressions:
+    ``unary.abs(A)`` is ``A.apply(unary.abs)``, ``binary.plus(A | B)`` an
+    ewise expression, ``binary.plus(A, 1)`` a bound apply."""
+    from ..infix import InfixExprBase
+    from ..base import BaseType
+
+    opclass = op.opclass
+    if opclass in {"UnaryOp"}:
+        return left.apply(op)
+    if opclass in {"IndexUnaryOp", "SelectOp"}:
+        if opclass == "SelectOp":
+            return left.select(op, thunk)
+        return left.apply(op, thunk=thunk)
+    if right is None:
+        if isinstance(left, InfixExprBase):
+            return left._apply_op(op, left_default=left_default, right_default=right_default)
+        raise TypeError(
+            f"Bad type when calling {op!r}.\n    - Expected an infix expression like"
+            f" (A | B) or (A & B) or (A @ B)\n    - Got {type(left)}"
+        )
+    # op(left, right) where one side may be a scalar -> bound apply
+    if isinstance(left, BaseType) or isinstance(right, BaseType):
+        from ..scalar import _is_scalar_like
+
+        if _is_scalar_like(right):
+            return left.apply(op, right=right)
+        if _is_scalar_like(left):
+            return right.apply(op, left=left)
+        raise TypeError(
+            f"Bad types when calling {op!r}. When two arguments are given, one must be a scalar.\n"
+            f"    - Got {type(left)} and {type(right)}"
+        )
+    raise TypeError(f"Bad types when calling {op!r}: {type(left)}, {type(right)}")
 
 
 # ---------------------------------------------------------------------------

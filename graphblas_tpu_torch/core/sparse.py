@@ -204,16 +204,17 @@ def _combine_dups(rows, cols, vals, dup, dup_op):
         out_vals = vals[lasts]
     else:
         # generic typed op: fold each dup group left to right through the
-        # op's function, every group's k-th step in one call
+        # op's function, every group's k-th step in one call, on the host
+        # (the COO arrays are host numpy, as the reference combines them)
         from .operator import get_typed_op
 
         dt = _dt.lookup_dtype(vals.dtype)
         op_t = get_typed_op(dup_op, dt, kind="binary")
         lens = np.diff(np.concatenate([starts, [len(rows)]]))
-        acc = _dt.to_tensor(vals[starts], dt)
+        acc = _dt.to_tensor(vals[starts], dt, "cpu")
         for k in range(1, int(lens.max())):
             live = np.flatnonzero(lens > k)
-            nxt = _dt.to_tensor(vals[starts[live] + k], dt)
+            nxt = _dt.to_tensor(vals[starts[live] + k], dt, "cpu")
             acc[live] = _dt.cast(op_t.fn(acc[live], nxt), op_t.return_type, dt)
         out_vals = _dt.to_numpy(acc, dt)
     return out_rows, out_cols, out_vals

@@ -1,0 +1,427 @@
+"""Vector: 1-D collection.
+
+Counterpart of ``graphblas_tpu/core/vector.py`` with the dense-masked
+storage (values and structure tensors on the collections' device).  A
+vector of more than ``tx.config["dense_limit"]`` entries needs the sparse
+format (ROADMAP.md, queue 4); building one raises until then.
+"""
+
+import numpy as np
+import torch
+
+from .. import exceptions as _exc
+from ..ops import densemasked as _dm
+from . import collection_ops as _cops
+from . import dtypes as _dt
+from .base import BaseExpression, BaseType, Updater
+from .expr import AmbiguousAssignOrExtract, IndexerResolver
+from .infixmethods import InfixMixin
+from .operator import get_typed_op
+from .scalar import _as_scalar, _is_scalar_like
+from .utils import check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
+
+
+def _apply_dup(rows_or_idx, values, dup_op):
+    """Host-side duplicate combination for build/from_coo."""
+    if dup_op is None:
+        raise ValueError("Duplicate indices found; must provide dup_op to combine them")
+    if isinstance(dup_op, str):
+        # strings work anywhere an op does (the op-from-string DSL)
+        from .operator.utils import binary_from_string
+
+        dup_op = binary_from_string(dup_op)
+    name = dup_op.name if hasattr(dup_op, "name") else None
+    np_fn = {
+        "plus": np.add,
+        "times": np.multiply,
+        "min": np.minimum,
+        "max": np.maximum,
+        "any": None,
+        "first": None,
+        "second": None,
+        "lor": np.logical_or,
+        "land": np.logical_and,
+    }.get(name)
+    order = np.argsort(rows_or_idx, kind="stable")
+    sorted_idx = rows_or_idx[order]
+    sorted_vals = values[order]
+    unique, starts = np.unique(sorted_idx, return_index=True)
+    if np_fn is not None:
+        combined = np_fn.reduceat(sorted_vals, starts) if hasattr(np_fn, "reduceat") else None
+        if combined is None:
+            combined = np.array([np_fn.reduce(sorted_vals[s:e]) for s, e in zip(starts, list(starts[1:]) + [len(sorted_vals)])])
+    elif name in {"first", "any"}:
+        combined = sorted_vals[starts]
+    elif name == "second":
+        ends = np.append(starts[1:], len(sorted_vals)) - 1
+        combined = sorted_vals[ends]
+    else:
+        combined = _fold_dups(sorted_vals, starts, dup_op)
+    return unique, combined.astype(values.dtype)
+
+
+def _fold_dups(sorted_vals, starts, dup_op):
+    """Fold each run of duplicates left to right through a typed op's
+    function (host tensors of the values' type)."""
+    from .operator import get_typed_op as _get
+
+    dt = _dt.lookup_dtype(sorted_vals.dtype)
+    op_t = dup_op if hasattr(dup_op, "fn") and hasattr(dup_op, "type_") else _get(dup_op, dt, kind="binary")
+    ends = np.append(starts[1:], len(sorted_vals))
+    out = []
+    for s, e in zip(starts, ends):
+        acc = _dt.to_tensor(sorted_vals[s : s + 1], dt, "cpu")
+        for i in range(s + 1, e):
+            nxt = _dt.to_tensor(sorted_vals[i : i + 1], dt, "cpu")
+            acc = _dt.cast(op_t.fn(_dt.cast(acc, dt, op_t.type_), _dt.cast(nxt, dt, op_t.type2)), op_t.return_type, dt)
+        out.append(_dt.to_numpy(acc, dt)[0])
+    return np.array(out, dtype=sorted_vals.dtype)
+
+
+class Vector(InfixMixin, BaseType):
+    """A 1-D collection of (index, value) pairs over a dtype domain, in the
+    dense-masked format."""
+
+    __slots__ = ()
+    ndim = 1
+    _output_type = None  # set after class definition
+
+    def __init__(self, dtype=_dt.FP64, size=0, *, name=None):
+        self._dtype = _dt.lookup_dtype(dtype)
+        size = ensure_int(size, "size")
+        check_storage(self._dtype, size, "Vector")
+        dev = collection_device()
+        self._values = torch.zeros((size,), dtype=self._dtype.carrier, device=dev)
+        self._struct = _dm.s_zeros((size,), dev)
+        self.name = name
+
+    @classmethod
+    def _from_arrays(cls, values, struct, dtype, name=None):
+        obj = cls.__new__(cls)
+        obj._dtype = _dt.lookup_dtype(dtype)
+        obj._values = values
+        obj._struct = struct
+        obj.name = name
+        return obj
+
+    @property
+    def size(self):
+        return self._struct.shape[0]
+
+    @property
+    def shape(self):
+        return (self.size,)
+
+    def __len__(self):
+        return self.nvals
+
+    def __sizeof__(self):
+        return object.__sizeof__(self) + self._values.nbytes + self._struct.nbytes
+
+    def __repr__(self):
+        from .formatting import format_vector
+
+        return format_vector(self)
+
+    def _repr_html_(self):
+        from .formatting import format_vector_html
+
+        return format_vector_html(self)
+
+    def __contains__(self, index):
+        idx = IndexerResolver(self, index).indices[0]
+        return bool(self._struct[idx.index])
+
+    def __iter__(self):
+        idx, _ = self.to_coo(values=False)
+        return iter(idx.tolist())
+
+    def __reduce__(self):
+        raise NotImplementedError("pickling collections is not ported yet (ROADMAP.md, queue 7)")
+
+    # -- constructors ------------------------------------------------------------
+
+    @classmethod
+    def from_coo(cls, indices, values=1.0, dtype=None, *, size=None, dup_op=None, name=None):
+        """Create from (indices, values) on the collections' device."""
+        indices = np.asarray(indices, np.int64).reshape(-1)
+        if _is_scalar_like(values):
+            values = np.full(indices.shape, values)
+        values, dtype = values_to_numpy_buffer(values, dtype)
+        values = values.reshape(-1)
+        if indices.size != values.size:
+            raise ValueError(f"`indices` and `values` have different lengths: {indices.size} != {values.size}")
+        if size is None:
+            if indices.size == 0:
+                raise ValueError("No size given and no indices to infer it from")
+            size = int(indices.max()) + 1
+        size = ensure_int(size, "size")
+        if indices.size and (indices.min() < 0 or indices.max() >= size):
+            neg = indices < 0
+            indices = np.where(neg, indices + size, indices)
+            if indices.size and (indices.min() < 0 or indices.max() >= size):
+                raise _exc.IndexOutOfBound(f"index out of range for size {size}")
+        check_storage(dtype, size, "Vector")
+        if indices.size != np.unique(indices).size:
+            indices, values = _apply_dup(indices, values, dup_op)
+        dense_v = np.zeros(size, dtype.np_type)
+        dense_s = np.zeros(size, bool)
+        dense_v[indices] = values
+        dense_s[indices] = True
+        dev = collection_device()
+        return cls._from_arrays(device_asarray(dense_v, dtype, dev), torch.from_numpy(dense_s).to(dev), dtype, name=name)
+
+    @classmethod
+    def from_pairs(cls, pairs, dtype=None, *, size=None, dup_op=None, name=None):
+        """Create from iterable of (index, value)."""
+        pairs = list(pairs)
+        if pairs:
+            indices, values = zip(*pairs)
+        else:
+            indices, values = [], []
+        return cls.from_coo(np.asarray(indices, np.int64), np.asarray(values), dtype, size=size, dup_op=dup_op, name=name)
+
+    @classmethod
+    def from_scalar(cls, value, size, dtype=None, *, name=None):
+        """Dense iso-valued vector."""
+        sc = _as_scalar(value, dtype)
+        dtype = _dt.lookup_dtype(dtype) if dtype is not None else sc.dtype
+        size = ensure_int(size, "size")
+        check_storage(dtype, size, "Vector")
+        dev = collection_device()
+        return cls._from_arrays(
+            sc._device_value(dtype, dev).expand(size).clone(), _dm.s_ones((size,), dev), dtype, name=name
+        )
+
+    @classmethod
+    def from_dense(cls, values, missing_value=None, dtype=None, *, name=None):
+        """Create from a dense array; missing_value marks absent entries."""
+        values, dtype = values_to_numpy_buffer(np.asarray(values), dtype)
+        if values.ndim != 1:
+            raise ValueError("values must be 1-dimensional for Vector.from_dense")
+        check_storage(dtype, values.size, "Vector")
+        if missing_value is None:
+            struct = np.ones(values.shape, bool)
+        else:
+            struct = values != missing_value
+        v = np.where(struct, values, np.zeros((), dtype.np_type))
+        dev = collection_device()
+        return cls._from_arrays(device_asarray(v, dtype, dev), torch.from_numpy(np.ascontiguousarray(struct)).to(dev), dtype, name=name)
+
+    @classmethod
+    def from_dict(cls, d, dtype=None, *, size=None, name=None):
+        """Create from {index: value}."""
+        indices = np.fromiter(d.keys(), np.int64, count=len(d))
+        values = np.array(list(d.values()))
+        if size is None and len(d) == 0:
+            raise ValueError("No size given and no indices to infer it from")
+        return cls.from_coo(indices, values, dtype, size=size, name=name)
+
+    # -- exporters ---------------------------------------------------------------
+
+    def to_coo(self, dtype=None, *, indices=True, values=True, sort=True):
+        """(indices, values) as numpy arrays (one read of the card)."""
+        struct = self._struct.cpu().numpy()
+        idx = np.nonzero(struct)[0].astype(np.uint64)
+        out_idx = idx if indices else None
+        out_vals = None
+        if values:
+            vals = _dt.to_numpy(self._values, self._dtype)[idx.astype(np.int64)]
+            if dtype is not None:
+                vals = vals.astype(_dt.lookup_dtype(dtype).np_type)
+            out_vals = vals
+        return out_idx, out_vals
+
+    def to_dense(self, fill_value=None, dtype=None, **opts):
+        """Dense numpy array with absent entries filled."""
+        if fill_value is None and self.nvals < self.size:
+            raise TypeError("fill_value must be given to to_dense when not all entries are present")
+        if fill_value is None:
+            fill_value = 0
+        dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
+        v = _dt.to_numpy(self._values, self._dtype).astype(dtype.np_type)
+        s = self._struct.cpu().numpy()
+        return np.where(s, v, np.asarray(fill_value, dtype.np_type))
+
+    def to_dict(self):
+        idx, vals = self.to_coo()
+        return dict(zip(idx.tolist(), vals.tolist()))
+
+    # -- maintenance -------------------------------------------------------------
+
+    def build(self, indices, values, *, dup_op=None, clear=False, size=None):
+        """Populate from coo; object must be empty unless clear=True."""
+        if not clear and self.nvals > 0:
+            raise _exc.OutputNotEmpty("Vector already contains values; use clear=True")
+        new = Vector.from_coo(indices, values, self._dtype, size=size or self.size, dup_op=dup_op)
+        if new.size != self.size and size is None:
+            raise _exc.DimensionMismatch("built vector size does not match")
+        self._set_arrays(new._values, new._struct)
+
+    def dup(self, dtype=None, *, clear=False, mask=None, name=None, **opts):
+        """Duplicate (the tensors are shared: no collection writes into its
+        own)."""
+        dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
+        if clear:
+            return Vector(dtype, self.size, name=name)
+        check_storage(dtype, 0, "Vector")
+        v = _dt.cast(self._values, self._dtype, dtype)
+        s = self._struct
+        if mask is not None:
+            from .base import _check_mask
+
+            mask = _check_mask(mask, self)
+            s = s & mask._bits()
+            v = torch.where(s, v, torch.zeros((), dtype=v.dtype, device=v.device))
+        return Vector._from_arrays(v, s, dtype, name=name)
+
+    def resize(self, size):
+        """Grow/shrink in place (into new tensors)."""
+        size = ensure_int(size, "size")
+        check_storage(self._dtype, size, "Vector")
+        cur = self.size
+        if size == cur:
+            return
+        if size < cur:
+            self._set_arrays(self._values[:size], self._struct[:size])
+        else:
+            pad = torch.nn.functional.pad
+            self._set_arrays(pad(self._values, (0, size - cur)), pad(self._struct, (0, size - cur)))
+
+    def get(self, index, default=None):
+        """Element or default."""
+        idx = IndexerResolver(self, index).indices[0]
+        if bool(self._struct[idx.index]):
+            return _dt.to_numpy(self._values[idx.index], self._dtype).item()
+        return default
+
+    # -- indexing ----------------------------------------------------------------
+
+    def __getitem__(self, keys):
+        return AmbiguousAssignOrExtract(self, IndexerResolver(self, keys))
+
+    def __setitem__(self, keys, value):
+        Updater(self)[keys] = value
+
+    def __delitem__(self, keys):
+        resolved = IndexerResolver(self, keys)
+        _cops.do_delete(self, resolved)
+
+    def _assign(self, resolved, value, *, mask, accum, replace, is_submask):
+        _cops.do_assign(self, resolved, value, mask=mask, accum=accum, replace=replace, is_submask=is_submask)
+
+    def _delete_region(self, resolved, mask=None):
+        _cops.do_delete(self, resolved, mask)
+
+    # -- operations --------------------------------------------------------------
+
+    def ewise_add(self, other, op="plus"):
+        """Union elementwise."""
+        return _cops.ewise_expr(self, other, op, "add")
+
+    def ewise_mult(self, other, op="times"):
+        """Intersection elementwise."""
+        return _cops.ewise_expr(self, other, op, "mult")
+
+    def ewise_union(self, other, op, left_default, right_default):
+        """Union with defaults."""
+        return _cops.ewise_expr(self, other, op, "union", left_default=left_default, right_default=right_default)
+
+    def vxm(self, other, op="plus_times"):
+        """Vector-matrix multiply."""
+        from .matrix import Matrix, TransposedMatrix
+
+        other = self._expect_type(other, (Matrix, TransposedMatrix), within="vxm", argname="other")
+        return _cops.mxm_expr(self, other, op, "vxm")
+
+    def apply(self, op, right=None, *, left=None, thunk=None):
+        """Elementwise transform."""
+        return _cops.apply_expr(self, op, right, left=left, thunk=thunk)
+
+    def select(self, op, thunk=None):
+        """Filter entries."""
+        return _cops.select_expr(self, op, thunk)
+
+    def reduce(self, op="plus", *, allow_empty=True):
+        """Reduce to Scalar."""
+        return _cops.reduce_scalar_expr(self, op, allow_empty, "reduce")
+
+    def inner(self, other, op="plus_times"):
+        """Dot product."""
+        other = self._expect_type(other, Vector, within="inner", argname="other")
+        return _cops.mxm_expr(self, other, op, "inner")
+
+    def outer(self, other, op="times"):
+        """Outer product."""
+        from .matrix import Matrix
+
+        other = self._expect_type(other, Vector, within="outer", argname="other")
+        op_t = get_typed_op(op, self.dtype, other.dtype, kind="binary")
+        from .operator import find_opclass
+
+        _, opclass = find_opclass(op_t)
+        if opclass == "Semiring":
+            op_t = op_t.binaryop
+
+        from .base import _same_device
+
+        _same_device(self, other, "outer")
+
+        def compute():
+            av, as_ = _dt.cast(self._values, self.dtype, op_t.type_), self._struct
+            bv, bs = _dt.cast(other._values, other.dtype, op_t.type2), other._struct
+            return _dm.kronecker(av[:, None], as_[:, None], bv[None, :], bs[None, :], op_t, op_t.return_type)
+
+        return BaseExpression(
+            "outer",
+            Matrix,
+            compute,
+            op=op_t,
+            dtype=op_t.return_type,
+            shape=(self.size, other.size),
+            args=(self, other),
+            opname=f"outer[{op_t.name}]",
+        )
+
+    def reposition(self, offset, *, size=None):
+        """Shift all entries by offset."""
+        offset = ensure_int(offset, "offset")
+        out_size = self.size if size is None else ensure_int(size, "size")
+
+        def compute():
+            dev = self._struct.device
+            idx = torch.arange(out_size, device=dev)
+            valid = (idx >= offset) & (idx - offset < self.size)
+            src = (idx - offset).clamp(0, max(self.size - 1, 0))
+            vv = torch.where(valid, self._values[src], torch.zeros((), dtype=self._values.dtype, device=dev))
+            ss = torch.where(valid, self._struct[src], False)
+            return vv, ss
+
+        return BaseExpression(
+            "reposition", Vector, compute, dtype=self.dtype, shape=(out_size,), args=(self,), opname="reposition"
+        )
+
+    # -- conversions -------------------------------------------------------------
+
+    def _as_matrix(self):
+        """Zero-copy view as an n-by-1 matrix."""
+        from .matrix import Matrix
+
+        return Matrix._from_arrays(self._values[:, None], self._struct[:, None], self._dtype, name=self.name)
+
+    @property
+    def tx(self):
+        raise NotImplementedError("Vector.tx / Vector.ss are not ported yet (ROADMAP.md, queue 7)")
+
+    ss = tx
+
+    def diag(self, k=0):
+        """Create a matrix with this vector on diagonal k."""
+        n = self.size + abs(int(k))
+        v, s = _dm.diag_build(self._values, self._struct, int(k), n, n)
+        from .matrix import Matrix
+
+        return Matrix._from_arrays(v, s, self._dtype)
+
+
+Vector._output_type = Vector

@@ -133,7 +133,7 @@ def _check_mxv(ref, name, sr_of, seed, rtol=1e-6, types=TYPES):
                 want = _ref_mxv(ref, rsp, pull, a_first, xv, xs, rt, rt.return_type, strategy)
                 try:
                     with P.tx.config.set(mxv_strategy=strategy):
-                        yv, ys = ps.sparse_mxv(psp, pull, a_first, pdt.to_tensor(xv, dtn), torch.from_numpy(xs), pt, out, x_type=pdt.lookup_dtype(dtn))
+                        yv, ys = ps.sparse_mxv(psp, pull, a_first, pdt.to_tensor(xv, dtn, "cpu"), torch.from_numpy(xs), pt, out, x_type=pdt.lookup_dtype(dtn))
                 except TypeError:
                     assert want is None  # complex any: only where the reference fails too
                     continue
@@ -216,7 +216,7 @@ def test_no_entry_point_raises_not_implemented(ref):
         assert dtn in psr
         pt, dt = psr[dtn], pdt.lookup_dtype(dtn)
         sp = ps.SparseMatrixData.from_arrays(r, c, values(dtn, len(r), rng), n, n, "first")
-        ps.sparse_mxv(sp, True, True, pdt.to_tensor(values(dtn, n, rng), dt), torch.ones(n, dtype=torch.bool), pt, pt.return_type)
+        ps.sparse_mxv(sp, True, True, pdt.to_tensor(values(dtn, n, rng), dt, "cpu"), torch.ones(n, dtype=torch.bool), pt, pt.return_type)
         ps.sparse_mxm_masked(sp, sp.transposed(), sp.rows, sp.cols, pt, pt.return_type, device="cpu")
     for name in sorted(n for n, op in P.binary._ops.items() if hasattr(op, "types") and op.positional is None):
         rop = getattr(ref.R.binary, name)

@@ -18,7 +18,10 @@ min_plus on 2048^2 operands, as bench.py.  The DSL path: the collections and
 the dense-masked engine through the public DSL only, at the dense-masked limit
 (4096^2 cells): APSP by min-plus squaring (gb_tropical at 4096^3 a round), the
 level BFS and SSSP of examples 02 and 01, and one statement of each op
-family.  The roofline tool's run, with the compare probe.  All through the
+family.  The sparse DSL path: the statements of examples 07 (PageRank), 02
+(level BFS), 01 (SSSP) and 05 (the triangle count) on sparse-format
+collections (the scale-19 graph, 2^38 cells; the triangle workload, 2^32), and
+the generic models.  The roofline tool's run, with the compare probe.  All through the
 hand-written CUDA kernels.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -73,10 +76,23 @@ hand-written CUDA kernels.  One line per check:
      statement in the port on the CPU; the generic contraction at 2048^2
      (INT32 plus_times against numpy mod 2^32, FP32 min_plus against
      gb_tropical); times (CUDA events) and peak memory
+  6s sparse dsl. Matrix.from_coo at scale 19 (sparse without a config
+     change): (a) example 07's PageRank (20 iterations, as written and with
+     the teleport term at every vertex) against its plain replay (rtol 1e-5)
+     and a float64 scipy recurrence (rtol 1e-4), patterns exact; (b) example
+     02's level BFS and (c) example 01's SSSP from the 4 sources, equal to
+     models.fast bit for bit; (d) C(L.S) << L plus_pair U on the triangle
+     workload = scipy's count; launches of G, fill, C, the generic scan and
+     eqjoin, no plain version; (e) the generic models (bfs_level, sssp =
+     models.fast; bfs_parent = the parent oracle; pagerank = models.fast rtol
+     1e-4; connected_components = scipy); host times of from_coo and the
+     first vxm, ms per DSL PageRank iteration and level BFS against
+     models.fast, plan against generic on three statements, the models' ms
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
   7. launch counts of each path (every kernel > 0, every plain version 0;
      the typed paths launch G, C, the generic scan and eqjoin; the DSL path
-     gb_tropical once an APSP round)
+     gb_tropical once an APSP round; the sparse DSL path G, fill, C, the
+     generic scan and eqjoin)
   8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
      level-BFS one
 
@@ -111,7 +127,15 @@ KERNELS = {
     "compare_probe": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/tools/profile_spgemm_roofline.py:161"),
 }
 # the paths whose runs count a kernel's launches (the rest: the SpMV path)
-PATH_OF = {"eqjoin": ("spgemm",), "tropical_mxm": ("tropical", "dsl"), "compare_probe": ("roofline",)}
+PATH_OF = {
+    "gather": ("spmv", "sparse_dsl"),
+    "gather_fill": ("spmv", "sparse_dsl"),
+    "segscan_contrib": ("spmv", "sparse_dsl"),
+    "segscan": ("spmv", "sparse_dsl"),
+    "eqjoin": ("spgemm", "sparse_dsl"),
+    "tropical_mxm": ("tropical", "dsl"),
+    "compare_probe": ("roofline",),
+}
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
 # memory rate, operations over the rate of their kind
 HBM_BYTES_PER_S = 3.35e12
@@ -1006,6 +1030,256 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
     return {"launches": launches, "plain": plain, "apsp_launches": apsp_launches, "rounds": rounds}
 
 
+def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref, lv_ref, smi):
+    """Phase 6s (sparse DSL): the python-graphblas statements of examples 07,
+    02, 01 and 05 on sparse-format collections (2^38 cells at scale 19, past
+    tx.config["dense_limit"] without any config change), through the public
+    DSL only, and the generic models over the edge-wise ops.  Returns the
+    sparse DSL path's launch and plain-call counts."""
+    import importlib
+
+    import scipy.sparse as scsp
+    from scipy.sparse import csgraph
+
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Matrix, Vector, binary, dtypes, kernels, models, monoid, semiring, unary
+    from graphblas_tpu_torch.models import fast
+    from graphblas_tpu_torch.ops.scan import STATE_BIG
+
+    t_phase = time.perf_counter()
+    n = g.n
+    FP32 = dtypes.FP32
+    times = {}
+    # the collections: A (example 07: 1.0 per edge, parallel edges merged by
+    # first) and A_w (the weights, parallel edges by the lightest)
+    t0 = time.perf_counter()
+    A = Matrix.from_coo(src, dst, 1.0, FP32, nrows=n, ncols=n, dup_op=binary.first, name="A")
+    times["from_coo s"] = time.perf_counter() - t0
+    A_w = Matrix.from_coo(src, dst, w, FP32, nrows=n, ncols=n, dup_op=binary.min, name="A_w")
+    require(A._sparse is not None and A_w._sparse is not None and A._device == dev, "A and A_w: sparse, on the card")
+    tc_n = L_tc.nrows
+    L = Matrix.from_coo(L_tc.rows, L_tc.cols, 1.0, FP32, nrows=tc_n, ncols=tc_n, name="L")
+    U = L.T.new(name="U")
+    require(L._sparse is not None and U._sparse is not None, "L and U (2^32 cells): sparse")
+    damping, pr_iters = 0.85, 20
+
+    def pagerank_dsl(first_call=None, complete=False):
+        # example 07's statements, the ranks kept in FP32 (``new(FP32)``: a
+        # Python float bound by apply gives FP64, which would send every vxm
+        # after the first to the generic path); ``complete``: the new rank
+        # starts from the teleport term at every vertex and accumulates the
+        # pulled mass (the example's apply ranks only where pulled has an entry)
+        outdeg = A.reduce_rowwise(binary.plus).new(FP32, name="outdeg")
+        inv_deg = outdeg.apply(unary.minv).new(name="inv_deg")
+        rank = Vector.from_dense(np.full(n, 1.0 / n, np.float32), name="rank")
+        teleport = (1.0 - damping) / n
+        for i in range(pr_iters):
+            contrib = rank.ewise_mult(inv_deg, binary.times).new(name="contrib")
+            t0 = time.perf_counter()
+            pulled = contrib.vxm(A, semiring.plus_first).new(name="pulled")
+            if first_call is not None and i == 0:
+                torch.cuda.synchronize()
+                first_call.append(time.perf_counter() - t0)
+            dangling = float(rank.reduce(binary.plus).new().value) - float(
+                contrib.ewise_mult(outdeg, binary.times).reduce(binary.plus).new().value
+            )
+            if complete:
+                rank = Vector.from_scalar(teleport + damping * dangling / n, n, FP32, name="rank")
+                rank(accum=binary.plus) << pulled.apply(binary.times, right=damping)
+            else:
+                rank = pulled.apply(binary.times, right=damping).apply(
+                    binary.plus, right=teleport + damping * dangling / n
+                ).new(FP32, name="rank")
+        return rank
+
+    def bfs_dsl(s):
+        # example 02's statements
+        levels = Vector(dtypes.INT64, n, name="levels")
+        frontier = Vector(dtypes.BOOL, n, name="frontier")
+        frontier[s] = True
+        levels[s] = 0
+        level = 0
+        while frontier.nvals > 0:
+            level += 1
+            frontier(~levels.S, replace=True) << A.T.mxv(frontier, semiring.any_pair)
+            levels(frontier.S) << frontier.apply(lambda x: 0 * x + level).new(dtypes.INT64)
+        return levels
+
+    def sssp_dsl(s):
+        # example 01's statements
+        dist = Vector(FP32, n, name="dist")
+        dist[s] = 0.0
+        for _ in range(n):
+            prev = dist.dup()
+            dist(accum=binary.min) << A_w.T.mxv(dist, semiring.min_plus)
+            if dist.isequal(prev):
+                break
+        return dist
+
+    def triangles_dsl():
+        # example 05's statement: C(L.S) << L plus_pair U, then the count
+        C = Matrix(FP32, tc_n, tc_n, name="C")
+        C(L.S) << L.mxm(U, semiring.plus_pair)
+        return C, int(C.reduce_scalar(monoid.plus[dtypes.INT64]).new().value)
+
+    def drive(with_triangles=True):
+        first = []
+        out = {"pagerank": pagerank_dsl(first), "pagerank complete": pagerank_dsl(complete=True)}
+        out["bfs"] = [bfs_dsl(s) for s in sources]
+        out["sssp"] = [sssp_dsl(s) for s in sources]
+        if with_triangles:
+            out["triangles"] = triangles_dsl()
+        return out, first
+
+    # (a)-(d) through the kernels: the launches counted from here
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, first = drive()
+    torch.cuda.synchronize()
+    times["drive s"] = time.perf_counter() - t0
+    times["first vxm s (the blocking push-plan build)"] = first[0]
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    # the plain replay (the triangles' host analysis, ~18 s, runs once: their
+    # check is scipy's count)
+    t0 = time.perf_counter()
+    with kernels.plain_versions():
+        want, _ = drive(with_triangles=False)
+    torch.cuda.synchronize()
+    times["plain replay s"] = time.perf_counter() - t0
+
+    # (a) PageRank: the plain replay (rtol 1e-5: the float adds are reordered),
+    # a float64 scipy oracle of the same recurrence (rtol 1e-4), the sums
+    ar, ac, _ = A.to_coo()
+    ar, ac = ar.astype(np.int64), ac.astype(np.int64)
+    a01 = scsp.csr_matrix((np.ones(len(ar)), (ar, ac)), shape=(n, n))
+    deg = np.asarray(a01.sum(axis=1)).ravel()
+    inv = 1.0 / np.where(deg > 0, deg, 1)
+    at = a01.T.tocsr()
+    pr_sums = {}
+    for key in ("pagerank", "pagerank complete"):
+        pr, pr_p = got[key], want[key]
+        pi, pv = pr.to_coo()
+        qi, qv = pr_p.to_coo()
+        require(pr.dtype == FP32, f"DSL {key}: {pr.dtype} ranks")
+        require(np.array_equal(pi, qi), f"DSL {key}: the kernel path's pattern differs from the plain path's")
+        require(bool(np.isfinite(pv).all()), f"DSL {key}: non-finite ranks")
+        np.testing.assert_allclose(pv, qv, rtol=1e-5, atol=0)
+        # the recurrence in float64, with the example's patterns
+        present, r = np.ones(n, bool), np.full(n, 1.0 / n)
+        for _ in range(pr_iters):
+            cp = present & (deg > 0)
+            contrib = np.where(cp, r * inv, 0.0)
+            dangling = r[present].sum() - (contrib * deg).sum()
+            pp = (at @ cp.astype(np.float64)) > 0
+            new = damping * (at @ contrib) + (1 - damping) / n + damping * dangling / n
+            present = np.ones(n, bool) if key == "pagerank complete" else pp
+            r = np.where(present, new, 0.0)
+        require(np.array_equal(pi.astype(np.int64), np.flatnonzero(present)), f"DSL {key}: pattern != the oracle's")
+        np.testing.assert_allclose(pv, r[present], rtol=1e-4, atol=0)
+        pr_sums[key] = (float(pv.astype(np.float64).sum()), float(r.sum()), int(present.sum()))
+    pr_sum = pr_sums["pagerank complete"][0]
+    require(abs(pr_sum - 1.0) < 1e-3, f"DSL pagerank (complete): the ranks sum to {pr_sum}")
+    # (b) level BFS = models.fast.bfs_level bit for bit
+    for s, lv, lv_p in zip(sources, got["bfs"], want["bfs"]):
+        ref = fast.bfs_level(plan, s, n).cpu().numpy()
+        require(np.array_equal(lv.to_dense(-1), ref), f"DSL BFS from {s}: levels differ from models.fast")
+        require(lv.isequal(lv_p), f"DSL BFS from {s}: kernel path differs from the plain path")
+    # (c) SSSP = models.fast.sssp bit for bit
+    for s, d, d_p in zip(sources, got["sssp"], want["sssp"]):
+        ref = fast.sssp(plan, s, n).cpu().numpy()
+        di, dv = d.to_coo()
+        require(np.array_equal(di.astype(np.int64), np.flatnonzero(ref != STATE_BIG)), f"DSL SSSP from {s}: reached set")
+        require(np.array_equal(dv.view(np.int32), ref[ref != STATE_BIG].view(np.int32)), f"DSL SSSP from {s}: distances")
+        require(d.isequal(d_p), f"DSL SSSP from {s}: kernel path differs from the plain path")
+    # (d) triangles = scipy and phase 6s
+    C, tc = got["triangles"]
+    require(C._sparse is not None and tc == tc_ref, f"DSL triangles {tc}, scipy {tc_ref}")
+    # launches on (a)-(d)
+    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
+        require(launches[name] > 0, f"sparse DSL path: {name} was not launched")
+    require(not any(plain.values()), f"sparse DSL path: plain versions ran: {plain}")
+    say(
+        "6s sparse dsl",
+        f"A: {A.nvals} entries of {n}^2 cells (sparse; host from_coo {times['from_coo s']:.2f} s), A_w {A_w.nvals}; "
+        f"(a) PageRank, example 07 ({pr_iters} it) as written and completed: kernel path = plain path rtol 1e-5, "
+        f"= the scipy float64 recurrence rtol 1e-4, patterns exact; (sum, oracle's sum, ranked vertices) "
+        f"{pr_sums} (as written, a vertex without in-edges loses its rank and its teleport term); (b) level BFS (example 02) from {sources} = models.fast.bfs_level exactly; (c) SSSP "
+        f"(example 01) = models.fast.sssp bit for bit; (d) C(L.S) << L plus_pair U: {tc} triangles = scipy; "
+        f"launches {launches}, plain calls {plain}; drive {times['drive s']:.2f} s",
+    )
+
+    # (e) the generic models on the edge-wise ops at scale 19
+    t0 = time.perf_counter()
+    gen = {}
+    for s in sources:
+        a = models.bfs_level(g, s)
+        require(torch.equal(a, fast.bfs_level(plan, s, n)), f"models.bfs_level from {s} != models.fast")
+    par = models.bfs_parent(g, sources[0]).cpu().numpy()
+    np.testing.assert_array_equal(par, parent_oracle(np, src, dst, n, lv_ref[0], sources[0]))
+    d = models.sssp(g, sources[0])
+    d_fast = fast.sssp(plan, sources[0], n)
+    reach = d_fast != STATE_BIG
+    big = importlib.import_module("graphblas_tpu_torch.models.sssp")._BIG
+    require(torch.equal(reach, d < big), "models.sssp: reached set != models.fast")
+    require(torch.equal(d[reach], d_fast[reach]), "models.sssp != models.fast bit for bit")
+    # the same recurrence at a fixed 50 iterations; rtol 1e-4: index_add_'s
+    # atomics and Kernel C's scan sum the float32 contributions in other orders
+    pr_g = models.pagerank(g, tol=0.0, max_iters=50)
+    outdeg_g = torch.from_numpy(np.bincount(src, minlength=n)).to(dev)
+    torch.testing.assert_close(pr_g, fast.pagerank(plan, outdeg_g, n, tol=0.0, max_iters=50), rtol=1e-4, atol=0)
+    cc = models.connected_components(g).cpu().numpy()
+    ncomp, lab = csgraph.connected_components(scsp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n)), directed=True, connection="weak")
+    least = np.full(ncomp, n, np.int64)
+    np.minimum.at(least, lab, np.arange(n))
+    np.testing.assert_array_equal(cc, least[lab])
+    torch.cuda.synchronize()
+    gen["check s"] = time.perf_counter() - t0
+    say(
+        "6s sparse dsl",
+        f"(e) generic models at scale {n.bit_length() - 1}: bfs_level x{len(sources)} = models.fast exactly, bfs_parent = the parent "
+        f"oracle, sssp = models.fast bit for bit, pagerank (50 it) = models.fast rtol 1e-4, connected_components = "
+        f"scipy ({ncomp} components, least vertex labels); {gen['check s']:.2f} s",
+    )
+
+    # (f) times on the card
+    times["DSL pagerank ms/iter"] = wall_s(torch, pagerank_dsl, 1) * 1e3 / pr_iters
+    times["models.fast.pagerank ms/iter"] = wall_s(torch, lambda: fast.pagerank(plan, outdeg_g, n, tol=0.0, max_iters=pr_iters)) * 1e3 / pr_iters
+    times["DSL level BFS ms"] = wall_s(torch, lambda: bfs_dsl(sources[0])) * 1e3
+    times["models.fast.bfs_level ms"] = wall_s(torch, lambda: fast.bfs_level(plan, sources[0], n)) * 1e3
+    contrib = Vector.from_dense(np.random.default_rng(7).random(n).astype(np.float32))
+    frontier = Vector.from_coo(sources, True, dtypes.BOOL, size=n)
+    dist = Vector.from_coo(sources, 0.0, FP32, size=n)
+    stmts = {
+        "vxm plus_first[FP32]": lambda: contrib.vxm(A, semiring.plus_first).new(),
+        "mxv any_pair[BOOL]": lambda: A.T.mxv(frontier, semiring.any_pair[dtypes.BOOL]).new(),
+        "mxv min_plus[FP32]": lambda: A_w.T.mxv(dist, semiring.min_plus).new(),
+    }
+    for name, stmt in stmts.items():
+        for strategy in ("plan", "generic"):
+            with gb.tx.config.set(mxv_strategy=strategy):
+                stmt()
+                times[f"{name} {strategy} ms"] = statistics.median(wall_s(torch, stmt, 1) * 1e3 for _ in range(5))
+        with gb.tx.config.set(mxv_strategy="generic"):
+            gen_out = stmt()
+        out = stmt()
+        if "plus" in name.split()[1][:4]:
+            require(out.isclose(gen_out, rel_tol=1e-5), f"{name}: plan != generic")
+        else:
+            require(out.isequal(gen_out), f"{name}: plan != generic")
+    times["models.bfs_level ms"] = wall_s(torch, lambda: models.bfs_level(g, sources[0])) * 1e3
+    times["models.bfs_parent ms"] = wall_s(torch, lambda: models.bfs_parent(g, sources[0])) * 1e3
+    times["models.sssp ms"] = wall_s(torch, lambda: models.sssp(g, sources[0])) * 1e3
+    times["models.pagerank ms (tol 1e-6)"] = wall_s(torch, lambda: models.pagerank(g)) * 1e3
+    times["models.connected_components ms"] = wall_s(torch, lambda: models.connected_components(g)) * 1e3
+    say(
+        "6s sparse dsl",
+        f"times (host s and ms, synchronised, median): {json.dumps({k: round(v, 4) for k, v in times.items()})} on {smi}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {"launches": launches, "plain": plain}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -1314,6 +1588,11 @@ def main():
     dsl = dsl_phase(torch, np, dev, args.dsl_n, args.dsl_generic_n, smi)
     dsl_launches, dsl_plain = dsl["launches"], dsl["plain"]
 
+    # 6s. the sparse DSL: examples 07, 02, 01 and 05 on sparse collections at
+    # scale 19, and the generic models
+    sparse = sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref, lv_ref, smi)
+    sp_launches, sp_plain = sparse["launches"], sparse["plain"]
+
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()
     kernels.reset_counts()
@@ -1325,13 +1604,15 @@ def main():
     # 7. launch counts of each path
     path_launches = {
         "spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "dsl": dsl_launches, "roofline": roof_launches,
+        "sparse_dsl": sp_launches,
     }
     ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
         f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
-        f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); roofline tool "
-        f"{roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {roof_plain}",
+        f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); sparse DSL path "
+        f"{sp_launches}; roofline tool {roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, "
+        f"{dsl_plain}, {sp_plain}, {roof_plain}",
     )
     for name in KERNELS:
         for path in PATH_OF.get(name, ("spmv",)):
@@ -1341,7 +1622,7 @@ def main():
     for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
     require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
-    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, roof_plain):
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above

@@ -5,7 +5,12 @@ funnels through one sink, ``BaseType._update``: it resolves the mask to a
 bool tensor, evaluates the delayed expression on the dense-masked engine,
 and applies the one mask/accum/replace merge (``ops.densemasked.masked_merge``).
 The merge returns new tensors: a collection never writes into the tensors it
-holds, so ``dup()``, masks and expression operands may share them.
+holds, so ``dup()``, masks and expression operands may share them.  Two
+sparse sinks come first: ``C(M) << A.mxm(B)`` over sparse operands into an
+empty target adopts the masked SpGEMM's sparse result, and a sparse producer
+into an unmasked, unaccumulated target is adopted wholesale; everything else
+merges densely (a sparse target densifies, guarded by
+``tx.config["densify_limit"]``).
 """
 
 import numpy as np
@@ -51,7 +56,7 @@ def _maybe_block(obj):
     (error-timing spec, see graphblas_tpu_torch.init)."""
     import graphblas_tpu_torch as _gb
 
-    if _gb.is_blocking and obj._struct.is_cuda:
+    if _gb.is_blocking and getattr(obj, "_sparse", None) is None and obj._struct.is_cuda:
         torch.cuda.synchronize(obj._struct.device)
 
 
@@ -79,7 +84,7 @@ def _burble_call(opname, args):
     def describe(a):
         if isinstance(a, BaseType):
             nm = a.name or type(a).__name__
-            fmt = "dense"
+            fmt = "sparse" if getattr(a, "_sparse", None) is not None else "dense"
             shape = "x".join(str(s) for s in getattr(a, "shape", ()))
             return f"{nm}<{fmt} {shape or 'scalar'} {a.dtype.name}>"
         if isinstance(a, BaseExpression):
@@ -199,6 +204,29 @@ class BaseType:
         if self._is_scalar:
             return self._update_from_expr(expr, accum)
 
+        # masked sparse SpGEMM: C(M) << A.mxm(B) over sparse operands with an
+        # empty target adopts the dot-method result directly
+        if (
+            mask is not None
+            and accum is None
+            and not mask.complement
+            and getattr(expr, "_sparse_masked_mxm", None) is not None
+            and self.nvals == 0
+        ):
+            with _engine_opts_ctx(opts):
+                result = expr._sparse_masked_mxm(mask)
+            if result is not None:
+                self._adopt_sparse(_retyped(result._sparse, self.dtype))
+                return
+
+        # sparse-format producer into an unmasked, unaccumulated target:
+        # adopt the sparse result wholesale (no densify anywhere)
+        if expr._sparse_compute is not None and mask is None and accum is None:
+            with _engine_opts_ctx(opts):
+                result = expr._sparse_compute()
+            self._adopt_sparse(_retyped(result._sparse, self.dtype))
+            return
+
         with _engine_opts_ctx(opts):
             zv, zs = expr._compute()
         from ..ops import densemasked as _dm
@@ -235,6 +263,13 @@ class BaseType:
 
     def _as_expression(self):
         """Wrap a plain collection as an identity expression."""
+        sparse_compute = None
+        sp0 = getattr(self, "_sparse", None)
+        if sp0 is not None:
+
+            def sparse_compute(sp=sp0, dev=self._sp_dev):
+                return type(self)._from_sparse(sp.copy(vals=sp.vals.copy()), self.dtype, device=dev)
+
         return BaseExpression(
             "identity",
             type(self),
@@ -243,6 +278,7 @@ class BaseType:
             dtype=self.dtype,
             shape=self.shape,
             args=(self,),
+            sparse_compute=sparse_compute,
         )
 
     @property
@@ -352,10 +388,18 @@ class BaseType:
     # infix operators are attached by infixmethods
 
 
+def _retyped(sp, dtype):
+    """Sparse storage with its values in ``dtype`` (a new container when they
+    convert, as numpy converts)."""
+    if sp.vals.dtype == np.dtype(dtype.np_type):
+        return sp
+    return sp.copy(vals=sp.vals.astype(dtype.np_type))
+
+
 def _same_device(a, b, within):
     """Operands of one operation live on one device (torch would copy a 0-d
     tensor across devices silently, and raise for the rest)."""
-    da, db = a._struct.device, b._struct.device
+    da, db = a._device, b._device
     if da != db:
         raise ValueError(f"{within}: operands on {da} and {db}; an operation runs on one device")
 
@@ -452,6 +496,7 @@ class BaseExpression(_InfixMixin):
         shape=None,
         args=(),
         opname=None,
+        sparse_compute=None,
     ):
         self.method_name = method_name
         self.output_type = output_cls
@@ -462,6 +507,9 @@ class BaseExpression(_InfixMixin):
         self.args = args
         self.opname = opname or method_name
         self._value = None  # autocompute cache
+        # optional sparse-format producer: () -> a collection with sparse
+        # storage (used when operands are sparse so results never densify)
+        self._sparse_compute = sparse_compute
 
     # -- introspection -------------------------------------------------------
 
@@ -507,6 +555,13 @@ class BaseExpression(_InfixMixin):
             upd = Updater(out, mask=_check_mask(mask, out) if mask is not None else None, opts=opts)
             self.op._new(upd, self)
             return out
+        if self._sparse_compute is not None and mask is None:
+            out = self._sparse_compute()
+            if dtype is not None and out_dtype != out.dtype:
+                out._sparse = _retyped(out._sparse, out_dtype)
+                out._dtype = out_dtype
+            out.name = name
+            return out
         out = self._empty_output(out_dtype, name)
         out._update(self, mask=_check_mask(mask, out) if mask is not None else None, opts=opts)
         return out
@@ -515,14 +570,22 @@ class BaseExpression(_InfixMixin):
 
     def _empty_output(self, dtype, name):
         """An empty collection for the result, on the operands' device (the
-        collections' device where no operand has one)."""
+        collections' device where no operand has one): sparse past
+        ``tx.config["dense_limit"]`` cells."""
         if self.output_type.ndim == 0:
             return self.output_type(dtype, name=name)
-        dev = next((a._struct.device for a in self.args if isinstance(getattr(a, "_struct", None), torch.Tensor)), None)
+        dev = next((d for d in (getattr(a, "_device", None) for a in self.args) if isinstance(d, torch.device)), None)
         if dev is None:
             return self.output_type(dtype, *self._shape_args(), name=name)
         shape = tuple(self._shape)
-        check_storage(dtype, int(np.prod(shape)), self.output_type.__name__)
+        check_storage(dtype, self.output_type.__name__)
+        from .sparse import _dense_limit
+
+        if int(np.prod(shape, dtype=object)) > _dense_limit():
+            from ..tx import config as _txconfig
+
+            with _txconfig.set(platform=dev.type):
+                return self.output_type(dtype, *shape, name=name)
         return self.output_type._from_arrays(
             torch.zeros(shape, dtype=dtype.carrier, device=dev), torch.zeros(shape, dtype=torch.bool, device=dev), dtype, name=name
         )

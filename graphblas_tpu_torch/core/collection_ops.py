@@ -6,9 +6,16 @@ Each builder returns a BaseExpression whose compute closure calls the engine
 ``cfunc_name`` (e.g. "GrB_Matrix_eWiseMult_BinaryOp"); here it binds typed
 torch ops into engine closures.  Operands are read when the expression is
 computed; the values handed to an op are converted to its input types
-(``_cast_values``).  The sparse branches come with the sparse format
-(ROADMAP.md, queue 4), SUMMA under a mesh with queue 8, and the edge-layout
-loop body with the compiled loops (queue 5).
+(``_cast_values``).  Where an operand is in the sparse format, the sparse
+branch runs instead: ewise, apply, select and extract as host pattern work
+with the values on the device, reduce as a segment reduce, ``mxv``/``vxm``
+on the SpMV engine (``core.sparse.sparse_mxv``: the plan channel's kernels
+or the generic gather) or, for a sparse vector or a huge output, the host
+join ``sparse_mxv_sv``, ``C(M) << A.mxm(B)`` on the masked SpGEMM
+(``sparse_mxm_masked``: eqjoin), an unmasked ``A.mxm(B)`` on
+``sparse_spgemm_full``, and assign and delete as host pattern surgery.  Not
+ported: SUMMA and the sharded plans under a mesh (``_mesh_context``:
+ROADMAP.md, queue 8) and the edge-layout loop body (queue 5).
 """
 
 import numpy as np
@@ -24,6 +31,48 @@ from .scalar import Scalar, _as_scalar, _is_scalar_like
 
 def _arrays_of(obj):
     return obj._values, obj._struct
+
+
+def _mesh_context():
+    """The engaged mesh Context: none, the mesh layer is ROADMAP.md's queue 8."""
+    return None
+
+
+def _sparse_of(obj):
+    """(SparseMatrixData, is_transposed) for sparse-format operands, else (None, False)."""
+    from .matrix import TransposedMatrix
+
+    m = obj._matrix if isinstance(obj, TransposedMatrix) else obj
+    sp = getattr(m, "_sparse", None)
+    if sp is None or m.ndim != 2:
+        return None, False
+    return sp, isinstance(obj, TransposedMatrix)
+
+
+def _sp_nonudt(sp):
+    """True for sparse data whose values support the device kernels (non-UDT)."""
+    return sp is not None and sp.vals.dtype.names is None
+
+
+def _vec_sparse_of(obj):
+    """SparseVectorData for sparse-format Vector operands, else None."""
+    return getattr(obj, "_sparse", None) if obj.ndim == 1 else None
+
+
+def _to_sv(vec):
+    """SparseVectorData view of any Vector (host conversion when dense)."""
+    from .sparse import SparseVectorData
+
+    sv = _vec_sparse_of(vec)
+    if sv is not None:
+        return sv
+    idx, vals = vec.to_coo()
+    return SparseVectorData(idx.astype(np.int64), vals, vec.size)
+
+
+def _host_scalar(sc):
+    """A Scalar's host value (a union default)."""
+    return np.asarray(sc.value if hasattr(sc, "value") else sc)[()]
 
 
 def _cast_values(v, dtype, to):
@@ -109,6 +158,32 @@ def ewise_expr(self, other, op, how, *, left_default=None, right_default=None):
             av, as_, bv, bs = _operands()
             return engine(av, as_, bv, bs, op_t)
 
+    # sparse-sparse ewise: host merge-join + device combine, no densify
+    # (keeps 2^60-scale dimensions representable)
+    sparse_fn = None
+    dev = self._device
+    uargs = {} if how != "union" else {"ld": _host_scalar(ld), "rd": _host_scalar(rd)}
+    if self.ndim == 1 and other.ndim == 1 and (_vec_sparse_of(self) is not None or _vec_sparse_of(other) is not None):
+
+        def sparse_fn():
+            from .sparse import sparse_vec_ewise
+
+            sv2 = sparse_vec_ewise(_to_sv(self), _to_sv(other), op_t, how, op_t.return_type, device=dev, **uargs)
+            return Vector._from_sparse(sv2, op_t.return_type, device=dev)
+
+    if self.ndim == 2 and other.ndim == 2:
+        a_sp, a_t = _sparse_of(self)
+        b_sp, b_t = _sparse_of(other)
+        if a_sp is not None and b_sp is not None:
+
+            def sparse_fn():
+                from .sparse import sparse_ewise
+
+                asp = a_sp.transposed() if a_t else a_sp
+                bsp = b_sp.transposed() if b_t else b_sp
+                sp2 = sparse_ewise(asp, bsp, op_t, how, op_t.return_type, device=dev, **uargs)
+                return Matrix._from_sparse(sp2, op_t.return_type, device=dev)
+
     return BaseExpression(
         f"ewise_{how}",
         out_cls,
@@ -118,6 +193,7 @@ def ewise_expr(self, other, op, how, *, left_default=None, right_default=None):
         shape=out_shape,
         args=(self, other),
         opname=f"ewise_{how}[{op_t.name}]",
+        sparse_compute=sparse_fn,
     )
 
 
@@ -163,8 +239,30 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
             v = _cast_values(v, self.dtype, op_t.type_)
             return _dm.apply_indexunary(v, s, op_t, thunk_s._device_value(device=v.device))
 
+        sparse_fn = None
+        sp, transposed = _sparse_of(self)
+        sv = _vec_sparse_of(self)
+        if _sp_nonudt(sp) and not transposed:
+
+            def sparse_fn():
+                from .sparse import sparse_apply_indexunary
+
+                dev = self._device
+                sp2 = sparse_apply_indexunary(sp, op_t, thunk_s._device_value(device=dev), op_t.return_type, dev)
+                return Matrix._from_sparse(sp2, op_t.return_type, device=dev)
+
+        elif sv is not None:
+
+            def sparse_fn():
+                from .sparse import sparse_vec_apply_indexunary
+
+                dev = self._device
+                sv2 = sparse_vec_apply_indexunary(sv, op_t, thunk_s._device_value(device=dev), op_t.return_type, dev)
+                return Vector._from_sparse(sv2, op_t.return_type, device=dev)
+
         return BaseExpression(
-            "apply", out_cls, compute, op=op_t, dtype=op_t.return_type, shape=self.shape, args=(self,), opname=f"apply[{op_t.name}]"
+            "apply", out_cls, compute, op=op_t, dtype=op_t.return_type, shape=self.shape, args=(self,), opname=f"apply[{op_t.name}]",
+            sparse_compute=sparse_fn,
         )
 
     if right is None and left is None and thunk is None:
@@ -175,11 +273,26 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
                 f"Binary op {op_t.name} passed to apply without left or right; "
                 "provide `left=` or `right=` to bind one argument"
             )
+        sp, transposed = _sparse_of(self)
+        sv = _vec_sparse_of(self)
+        sparse_fn = None
         if getattr(op_t, "positional", None) is not None:
 
             def compute():
                 v, s = _arrays_of(self)
                 return _dm.apply_positional_unary(v, s, op_t, 0)
+
+            if (_sp_nonudt(sp) and not transposed) or sv is not None:
+
+                def sparse_fn():
+                    from .sparse import sparse_apply_positional, sparse_vec_apply_positional
+
+                    pos = op_t.positional
+                    which, delta = pos if not isinstance(pos, str) else (pos, 0)
+                    out_np = np.dtype(op_t.return_type.np_type)
+                    if sv is not None:
+                        return Vector._from_sparse(sparse_vec_apply_positional(sv, which, delta, out_np), op_t.return_type, device=self._device)
+                    return Matrix._from_sparse(sparse_apply_positional(sp, which, delta, out_np), op_t.return_type, device=self._device)
 
         else:
 
@@ -188,8 +301,14 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
                 v = _cast_values(v, self.dtype, op_t.type_)
                 return _dm.apply_unary(v, s, op_t)
 
+            if (_sp_nonudt(sp) and not transposed) or sv is not None:
+
+                def sparse_fn():
+                    return _sparse_apply_values(self, sp, sv, lambda v: op_t.fn(_cast_values(v, self.dtype, op_t.type_)), op_t)
+
         return BaseExpression(
-            "apply", out_cls, compute, op=op_t, dtype=op_t.return_type, shape=self.shape, args=(self,), opname=f"apply[{op_t.name}]"
+            "apply", out_cls, compute, op=op_t, dtype=op_t.return_type, shape=self.shape, args=(self,), opname=f"apply[{op_t.name}]",
+            sparse_compute=sparse_fn,
         )
 
     if right is not None and left is not None:
@@ -209,9 +328,37 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
         b = bound._device_value(op_t.type2 if right is not None else op_t.type_, v.device)
         return _dm.apply_bound(v, s, op_t, b, "right" if right is not None else "left")
 
+    sparse_fn = None
+    sp, transposed = _sparse_of(self)
+    sv = _vec_sparse_of(self)
+    if ((_sp_nonudt(sp) and not transposed) or sv is not None) and getattr(op_t, "positional", None) is None:
+
+        def sparse_fn():
+            in_t = op_t.type_ if right is not None else op_t.type2
+            b = bound._device_value(op_t.type2 if right is not None else op_t.type_, self._device)
+            if right is not None:
+                fn = lambda v: op_t.fn(_cast_values(v, self.dtype, in_t), b)  # noqa: E731
+            else:
+                fn = lambda v: op_t.fn(b, _cast_values(v, self.dtype, in_t))  # noqa: E731
+            return _sparse_apply_values(self, sp, sv, fn, op_t)
+
     return BaseExpression(
-        "apply", out_cls, compute, op=op_t, dtype=op_t.return_type, shape=self.shape, args=(self,), opname=f"apply[{op_t.name}]"
+        "apply", out_cls, compute, op=op_t, dtype=op_t.return_type, shape=self.shape, args=(self,), opname=f"apply[{op_t.name}]",
+        sparse_compute=sparse_fn,
     )
+
+
+def _sparse_apply_values(self, sp, sv, fn, op_t):
+    """``fn`` over a sparse collection's values on its device, the pattern
+    unchanged."""
+    from .matrix import Matrix
+    from .sparse import sparse_apply_values, sparse_vec_apply_values
+    from .vector import Vector
+
+    dev = self._device
+    if sv is not None:
+        return Vector._from_sparse(sparse_vec_apply_values(sv, fn, op_t.return_type, op_t.return_type, dev), op_t.return_type, device=dev)
+    return Matrix._from_sparse(sparse_apply_values(sp, fn, op_t.return_type, op_t.return_type, dev), op_t.return_type, device=dev)
 
 
 def select_expr(self, op, thunk=None):
@@ -272,8 +419,28 @@ def select_expr(self, op, thunk=None):
         v, s = _arrays_of(self)
         return _dm.select_op(v, s, op_t, thunk_s._device_value(device=v.device))
 
+    sparse_fn = None
+    sp, transposed = _sparse_of(self)
+    sv = _vec_sparse_of(self)
+    if _sp_nonudt(sp) and not transposed:
+
+        def sparse_fn():
+            from .sparse import sparse_select
+
+            dev = self._device
+            return Matrix._from_sparse(sparse_select(sp, op_t, thunk_s._device_value(device=dev), dev), self.dtype, device=dev)
+
+    elif sv is not None:
+
+        def sparse_fn():
+            from .sparse import sparse_vec_select
+
+            dev = self._device
+            return Vector._from_sparse(sparse_vec_select(sv, op_t, thunk_s._device_value(device=dev), dev), self.dtype, device=dev)
+
     return BaseExpression(
-        "select", out_cls, compute, op=op_t, dtype=self.dtype, shape=self.shape, args=(self,), opname=f"select[{op_t.name}]"
+        "select", out_cls, compute, op=op_t, dtype=self.dtype, shape=self.shape, args=(self,), opname=f"select[{op_t.name}]",
+        sparse_compute=sparse_fn,
     )
 
 
@@ -318,10 +485,21 @@ def reduce_axis_expr(self, monoid, axis, method_name):
             method_name, Vector, None, op=monoid_t, dtype=monoid_t.return_type, shape=(out_size,), args=(self,), opname=method_name
         )
 
-    def compute():
-        v, s = _arrays_of(self)
-        v = _cast_values(v, self.dtype, monoid_t.type_)
-        return _dm.reduce_axis(v, s, monoid_t, axis)
+    sp, transposed = _sparse_of(self)
+    if _sp_nonudt(sp):
+        sp_axis = (1 - axis) if transposed else axis
+
+        def compute():
+            from .sparse import sparse_reduce_axis
+
+            return sparse_reduce_axis(sp, monoid_t, sp_axis, self._device)
+
+    else:
+
+        def compute():
+            v, s = _arrays_of(self)
+            v = _cast_values(v, self.dtype, monoid_t.type_)
+            return _dm.reduce_axis(v, s, monoid_t, axis)
 
     return BaseExpression(
         method_name, Vector, compute, op=monoid_t, dtype=monoid_t.return_type, shape=(out_size,), args=(self,), opname=f"{method_name}[{monoid_t.name}]"
@@ -336,10 +514,22 @@ def reduce_scalar_expr(self, monoid, allow_empty, method_name="reduce_scalar"):
             method_name, Scalar, None, op=monoid_t, dtype=monoid_t.return_type, shape=(), args=(self,), opname=method_name
         )
 
+    sp, _ = _sparse_of(self)
+    sv = _vec_sparse_of(self)
+
     def compute():
-        v, s = _arrays_of(self)
-        v = _cast_values(v, self.dtype, monoid_t.type_)
-        val, present = _dm.reduce_all(v, s, monoid_t)
+        if sv is not None:
+            from .sparse import sparse_vec_reduce_scalar
+
+            val, present = sparse_vec_reduce_scalar(sv, monoid_t, self._device)
+        elif _sp_nonudt(sp):
+            from .sparse import sparse_reduce_scalar
+
+            val, present = sparse_reduce_scalar(sp, monoid_t, self._device)
+        else:
+            v, s = _arrays_of(self)
+            v = _cast_values(v, self.dtype, monoid_t.type_)
+            val, present = _dm.reduce_all(v, s, monoid_t)
         if not allow_empty:
             ident = monoid_t.identity
             if ident is not None:
@@ -376,7 +566,8 @@ def _resolve_reduce_op(monoid, dtype):
 
 
 def mxm_expr(a, b, semiring_op, method_name="mxm"):
-    """GrB_mxm / mxv / vxm on the dense-masked engine."""
+    """GrB_mxm / mxv / vxm: the sparse engines where an operand matrix is
+    sparse, else the dense-masked engine."""
     from .matrix import Matrix
     from .vector import Vector
 
@@ -401,6 +592,10 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
     else:
         out_cls, shape = Matrix, (a.shape[0], b.shape[1])
     _same_device(a, b, method_name)
+
+    sparse = _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape)
+    if sparse is not None:
+        return sparse
 
     def compute():
         from ..tx import config as _txconfig
@@ -431,6 +626,113 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
         args=(a, b),
         opname=f"{method_name}[{sr.name}]",
     )
+
+
+def _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape):
+    """The expression of a product over a sparse matrix operand, or None.
+
+    mxv/vxm run the O(E) SpMV engine (``sparse_mxv``: the plan channel or the
+    generic gather + segment reduce), never densifying the matrix; with a
+    sparse vector or an output past ``dense_limit``, the host join
+    ``sparse_mxv_sv`` gives a sparse vector.  A product of two sparse
+    matrices is the unmasked ``sparse_spgemm_full`` (sparse output), and
+    ``C(M) << A.mxm(B)`` hands the masked SpGEMM to ``_update``
+    (``_sparse_masked_mxm``); its dense compute densifies the operands
+    (guarded)."""
+    from .matrix import Matrix
+    from .sparse import _dense_limit
+    from .vector import Vector
+
+    a_is_vec, b_is_vec = a.ndim == 1, b.ndim == 1
+    a_sp, a_t = _sparse_of(a) if not a_is_vec else (None, False)
+    b_sp, b_t = _sparse_of(b) if not b_is_vec else (None, False)
+    dev = a._device
+    msp = vec = pull_dir = a_first = None
+    if _sp_nonudt(a_sp) and b_is_vec:
+        # GrB_mxv: y = A (.) x ; A.T flips to the push direction
+        msp, vec, pull_dir, a_first = a_sp, b, not a_t, True
+    elif _sp_nonudt(b_sp) and a_is_vec:
+        # GrB_vxm: w = x (.) A ; the vector is the op's first arg
+        msp, vec, pull_dir, a_first = b_sp, a, b_t, False
+
+    if msp is not None:
+        n_out = shape[0]
+        out_sparse = n_out > _dense_limit()
+        if _vec_sparse_of(vec) is not None or out_sparse:
+            # a sparse vector operand and/or a huge output dimension: the host
+            # O(E log nnz(x)) join gives a SPARSE vector, nothing densifies
+            # at any dimension (the mesh's densified route: queue 8)
+            def sv_compute():
+                from .sparse import sparse_mxv_sv
+
+                sv2 = sparse_mxv_sv(msp, pull_dir, a_first, _to_sv(vec), sr, sr.return_type, device=dev)
+                return Vector._from_sparse(sv2, sr.return_type, device=dev)
+
+            def compute_dense():
+                return sv_compute()._sparse.densify(dev)
+
+            return BaseExpression(
+                method_name, out_cls, compute_dense, op=sr, dtype=sr.return_type, shape=shape, args=(a, b),
+                opname=f"{method_name}[{sr.name}]", sparse_compute=sv_compute if out_sparse else None,
+            )
+
+        def sparse_mv():  # dense vector in, dense (n_out,) out: the device engine
+            from .sparse import sparse_mxv
+
+            xv, xs = _arrays_of(vec)
+            return sparse_mxv(msp, pull_dir, a_first, xv, xs, sr, sr.return_type, x_type=vec.dtype)
+
+        return BaseExpression(
+            method_name, out_cls, sparse_mv, op=sr, dtype=sr.return_type, shape=shape, args=(a, b),
+            opname=f"{method_name}[{sr.name}]",
+        )
+
+    if not (_sp_nonudt(a_sp) and _sp_nonudt(b_sp) and not a_is_vec and not b_is_vec):
+        return None
+
+    def _operand_sps():
+        return (a_sp.transposed() if a_t else a_sp), (b_sp.transposed() if b_t else b_sp)
+
+    # masked sparse SpGEMM: consumed by _update for C(M) << A.mxm(B) (the
+    # masked dot method)
+    def sparse_masked_mxm(mask):
+        from .sparse import SparseMatrixData, sparse_mxm_masked
+
+        mp = mask.parent
+        if mp.ndim != 2 or mp.shape != shape:
+            return None
+        mr, mc, mv = mp.to_coo()
+        if not mask.structure:
+            keep = np.asarray(mv).astype(bool)
+            mr, mc = mr[keep], mc[keep]
+        asp, bsp = _operand_sps()
+        rows, cols, vals, _flops = sparse_mxm_masked(
+            asp, bsp, mr.astype(np.int64), mc.astype(np.int64), sr, sr.return_type, device=dev
+        )
+        sp = SparseMatrixData.from_arrays(rows, cols, vals, shape[0], shape[1], sorted_dedup=True)
+        return Matrix._from_sparse(sp, sr.return_type, device=dev)
+
+    # unmasked sparse x sparse: sparse OUTPUT by the host Gustavson expand-join
+    # (GrB_mxm's output is always sparse)
+    def sparse_full_mxm():
+        from .sparse import sparse_spgemm_full
+
+        asp, bsp = _operand_sps()
+        return Matrix._from_sparse(sparse_spgemm_full(asp, bsp, sr, sr.return_type, device=dev), sr.return_type, device=dev)
+
+    def compute_spgemm_dense():
+        av, as_ = _arrays_of(a)  # densify-guarded
+        bv, bs = _arrays_of(b)
+        av = _cast_values(av, a.dtype, sr.binaryop.type_)
+        bv = _cast_values(bv, b.dtype, sr.binaryop.type2)
+        return _dm.mxm(av, as_, bv, bs, sr, sr.return_type, "auto")
+
+    expr = BaseExpression(
+        method_name, out_cls, compute_spgemm_dense, op=sr, dtype=sr.return_type, shape=shape, args=(a, b),
+        opname=f"{method_name}[{sr.name}]", sparse_compute=sparse_full_mxm,
+    )
+    expr._sparse_masked_mxm = sparse_masked_mxm
+    return expr
 
 
 def kronecker_expr(a, b, op):
@@ -484,8 +786,15 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
     elif isinstance(value, TransposedMatrix):
         value = value.new()
 
-    if hasattr(value, "_struct") and not isinstance(value, Scalar):
+    if hasattr(value, "_device") and not isinstance(value, Scalar):
         _same_device(self, value, "assign")
+
+    # -- sparse-storage assign: host pattern surgery, no densify (a masked
+    # assign into sparse storage takes the dense path, densify-guarded) -----
+    if self._sparse is not None and mask is None:
+        if _sparse_do_assign(self, resolved, value, accum=accum):
+            return
+
     indices = resolved.indices
     region_shape = tuple(1 if ix.kind == "int" else ix.size for ix in indices)
     out_shape = resolved.out_shape  # squeezed
@@ -590,6 +899,107 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
     self._set_arrays(ncv, ncs)
 
 
+def _map_positions(pos, ix):
+    """Map value positions within a region dim to parent coordinates."""
+    if ix.kind == "int":
+        return np.full(len(pos), ix.index, np.int64)
+    if ix.kind == "all":
+        return np.asarray(pos, np.int64)
+    return np.atleast_1d(np.asarray(ix.index, np.int64))[np.asarray(pos, np.int64)]
+
+
+def _region_targets(ix):
+    return np.asarray([ix.index], np.int64) if ix.kind == "int" else _map_positions(np.arange(ix.size), ix)
+
+
+def _sparse_do_assign(self, resolved, value, *, accum):
+    """Assign into sparse storage.  Returns True when handled; False falls
+    back to the (densify-guarded) dense path."""
+    from .matrix import Matrix
+    from .sparse import _SCALAR_FILL_LIMIT, sparse_assign, sparse_delete_region, sparse_vec_assign, sparse_vec_delete_region
+    from .vector import Vector
+
+    indices = resolved.indices
+    dt = self.dtype
+    np_dtype = np.dtype(dt.np_type)
+    sp = self._sparse
+    dev = self._device
+
+    if _is_scalar_like(value) or isinstance(value, Scalar):
+        sc = _as_scalar(value)
+        if sc.is_empty:
+            if self.ndim == 1:
+                self._adopt_sparse(sparse_vec_delete_region(sp, indices[0]))
+            else:
+                self._adopt_sparse(sparse_delete_region(sp, indices))
+            return True
+        cells = 1
+        for ix in indices:
+            cells *= 1 if ix.kind == "int" else ix.size
+        if cells > _SCALAR_FILL_LIMIT:
+            raise _exc.OutOfMemory(
+                f"scalar assign would create {cells} entries "
+                f"(> {_SCALAR_FILL_LIMIT}); iso-valued regions of that size are "
+                "not supported on sparse storage"
+            )
+        val = np.asarray(sc.value, np_dtype)
+        if self.ndim == 1:
+            tgt = _region_targets(indices[0])
+            self._adopt_sparse(sparse_vec_assign(sp, indices[0], tgt, np.full(len(tgt), val, np_dtype), accum, dt, dev))
+            return True
+        tr, tc = _region_targets(indices[0]), _region_targets(indices[1])
+        rr, cc = np.repeat(tr, len(tc)), np.tile(tc, len(tr))
+        self._adopt_sparse(sparse_assign(sp, indices, rr, cc, np.full(len(rr), val, np_dtype), accum, dt, dev))
+        return True
+
+    if isinstance(value, (list, tuple, np.ndarray)):
+        from ..tx import config as _txconfig
+
+        arr = np.asarray(value)
+        if arr.ndim in (1, 2):
+            with _txconfig.set(platform=dev.type):
+                value = (Vector if arr.ndim == 1 else Matrix).from_dense(arr, dtype=dt)
+
+    if self.ndim == 1:
+        if not isinstance(value, Vector):
+            return False
+        ix = indices[0]
+        expected = 1 if ix.kind == "int" else ix.size
+        if value.size != expected:
+            raise _exc.DimensionMismatch(f"shapes not compatible for assign: value {value.shape} into region ({expected},)")
+        vi, vv = value.to_coo()
+        tgt = _map_positions(vi.astype(np.int64), ix)
+        self._adopt_sparse(sparse_vec_assign(sp, ix, tgt, np.asarray(vv), accum, dt, dev))
+        return True
+
+    rix, cix = indices
+    if isinstance(value, Vector):
+        vi, vv = value.to_coo()
+        vi = vi.astype(np.int64)
+        if rix.kind == "int":
+            if value.size != cix.size:
+                raise _exc.DimensionMismatch(f"shapes not compatible for assign: value {value.shape} into region ({cix.size},)")
+            rr, cc = np.full(len(vi), rix.index, np.int64), _map_positions(vi, cix)
+        elif cix.kind == "int":
+            if value.size != rix.size:
+                raise _exc.DimensionMismatch(f"shapes not compatible for assign: value {value.shape} into region ({rix.size},)")
+            rr, cc = _map_positions(vi, rix), np.full(len(vi), cix.index, np.int64)
+        else:
+            return False  # broadcast vector assign: the dense path
+        self._adopt_sparse(sparse_assign(sp, indices, rr, cc, np.asarray(vv), accum, dt, dev))
+        return True
+    if isinstance(value, Matrix):
+        expected = (1 if rix.kind == "int" else rix.size, 1 if cix.kind == "int" else cix.size)
+        if value.shape != expected:
+            raise _exc.DimensionMismatch(f"shapes not compatible for assign: value {value.shape} into region {expected}")
+        vr, vc, vv = value.to_coo()
+        rr = _map_positions(vr.astype(np.int64), rix)
+        cc = _map_positions(vc.astype(np.int64), cix)
+        self._adopt_sparse(sparse_assign(sp, indices, rr, cc, np.asarray(vv), accum, dt, dev))
+        return True
+    return False
+
+
 def do_delete(self, resolved, mask=None):
     """del C[idx]: remove entries in the region."""
     from .base import record_call
@@ -602,6 +1012,14 @@ def do_delete(self, resolved, mask=None):
         return do_assign(self, resolved, empty, mask=mask, accum=None, replace=False, is_submask=False)
     record_call("delete", self)
     indices = resolved.indices
+    if self._sparse is not None:
+        from .sparse import sparse_delete_region, sparse_vec_delete_region
+
+        if self.ndim == 1:
+            self._adopt_sparse(sparse_vec_delete_region(self._sparse, indices[0]))
+        else:
+            self._adopt_sparse(sparse_delete_region(self._sparse, indices))
+        return
     cv, cs = self._values, self._struct
     dev = cs.device
     if self.ndim == 1:

@@ -7,8 +7,10 @@ engine gathers with ``index_select``).
 """
 
 import numpy as np
+import torch
 
 from .. import exceptions as _exc
+from . import dtypes as _dt
 from .base import BaseExpression, Updater, _check_mask
 
 
@@ -39,6 +41,10 @@ def _parse_one(index, dim_size, dim_name):
         return _DimIndex("int", idx, None)
     if isinstance(index, slice):
         start, stop, step = index.indices(dim_size)
+        if step == 1 and start == 0 and stop == dim_size and dim_size > (1 << 26):
+            # full slice of a huge (sparse) dimension: kept symbolic, as
+            # GrB_ALL; an arange would allocate dim_size int64
+            return _DimIndex("all", slice(None), dim_size)
         n_ix = max(0, -(-(stop - start) // step) if step > 0 else -(-(start - stop) // -step))
         if n_ix > (1 << 28):
             raise _exc.OutOfMemory(
@@ -215,6 +221,9 @@ class AmbiguousAssignOrExtract:
         if input_mask is not None and input_mask.parent.shape != parent.shape:
             raise _exc.DimensionMismatch("input_mask shape must match the indexed collection")
 
+        sp_parent = getattr(parent, "_sparse", None)
+        if sp_parent is not None and input_mask is None:
+            return self._extract_delayed_sparse(sp_parent)
         # NOTE: input_mask at the USER surface is translated to an output
         # mask in new()/_update (reference mechanism); the struct-AND path
         # below serves only internal callers of _with_input_mask.
@@ -263,6 +272,67 @@ class AmbiguousAssignOrExtract:
             shape=self.shape,
             args=(parent,),
             opname="extract",
+        )
+
+    def _extract_delayed_sparse(self, sp):
+        """Extraction over sparse storage: host pattern surgery, no densify.
+        The result is sparse past ``tx.config["dense_limit"]`` cells, else
+        dense on the parent's device."""
+        parent = self.parent
+        res = self.resolved_indexes
+        out_shape = self.shape
+        dev = parent._sp_dev
+
+        from .scalar import Scalar
+
+        if self.output_type is Scalar:
+
+            def compute_scalar():
+                if parent.ndim == 1:
+                    j = parent._sparse_find(res.indices[0].index)
+                else:
+                    r, c = res.indices
+                    j = parent._sparse_find(r.index, c.index)
+                val = sp.vals[j] if j >= 0 else np.zeros((), sp.vals.dtype)
+                return _dt.to_tensor(val, sp.dtype, dev), torch.tensor(j >= 0, device=dev)
+
+            return BaseExpression(
+                "extract_element", Scalar, compute_scalar, dtype=parent.dtype, shape=(), args=(parent,),
+                opname="extract_element",
+            )
+
+        def build_sparse():
+            from . import sparse as _sps
+
+            if parent.ndim == 1:
+                return _sps.sparse_vec_extract(sp, res.indices[0])
+            rows, cols = res.indices
+            if rows.kind == "int":
+                return _sps.sparse_extract_row(sp, rows.index, cols)
+            if cols.kind == "int":
+                return _sps.sparse_extract_col(sp, cols.index, rows)
+            return _sps.sparse_extract(sp, rows, cols)
+
+        def compute():
+            return build_sparse().densify(dev)
+
+        from .sparse import _dense_limit
+
+        sparse_compute = None
+        if int(np.prod(out_shape, dtype=object)) > _dense_limit():
+
+            def sparse_compute():
+                from .matrix import Matrix
+                from .sparse import SparseMatrixData
+                from .vector import Vector
+
+                out_sp = build_sparse()
+                cls = Matrix if isinstance(out_sp, SparseMatrixData) else Vector
+                return cls._from_sparse(out_sp, parent.dtype, device=dev)
+
+        return BaseExpression(
+            "extract", self.output_type, compute, dtype=parent.dtype, shape=out_shape, args=(parent,),
+            opname="extract", sparse_compute=sparse_compute,
         )
 
     def new(self, dtype=None, *, mask=None, input_mask=None, name=None, **opts):

@@ -85,15 +85,21 @@ def create_header(type_name, keys, vals, *, lower_border=False, name="", quote=T
 
 def _is_iso(x):
     """All present values equal (the reference's ``x.tx.is_iso``)."""
+    sp = x._sparse
+    if sp is not None:
+        return bool(np.all(sp.vals == sp.vals[0]))
     vals = x._values[x._struct]
     return bool((vals == vals[0]).all()) if vals.numel() else True
 
 
 def get_format(x, is_transposed=False):
-    """Storage format string incl. iso marker."""
+    """Storage format string incl. iso marker: a sparse Matrix is "coo" (the
+    reference's ``Matrix.tx.format``; its ``Vector.tx.format`` always says
+    "densemasked")."""
+    fmt = "coo" if x.ndim == 2 and x._sparse is not None else "densemasked"
     if x.nvals and _is_iso(x):
-        return "densemasked (iso)"
-    return "densemasked"
+        return f"{fmt} (iso)"
+    return fmt
 
 
 def matrix_info(matrix, *, mask=None, expr=None, for_html=False):
@@ -206,10 +212,32 @@ def _body(obj, mask=None):
     nrows, ncols = obj.shape if obj.ndim == 2 else (1, obj.shape[0])
     if 0 in (nrows, ncols):
         return None
+    sparse_fmt = getattr(obj, "_sparse", None) is not None or getattr(getattr(obj, "_matrix", None), "_sparse", None) is not None
     truncated = nrows > MAX_ROWS or ncols > MAX_COLS
+    if sparse_fmt:
+        if truncated or mask is not None:
+            return _coo_table(obj)
+        # small sparse collection: the grid, rendered from a throwaway dense
+        # view (a repr never densifies the object itself)
+        return _grid_lines(_dense_view(obj), mask=None)
     if truncated and obj.nvals * 4 < nrows * ncols and mask is None:
         return _coo_table(obj)
     return _grid_lines(obj, mask=mask)
+
+
+def _dense_view(obj):
+    """Throwaway dense-format copy of a small sparse collection for display."""
+    from .matrix import Matrix
+    from .vector import Vector
+
+    coo = obj.to_coo()
+    flat = coo[0].astype(np.int64)
+    if obj.ndim == 2:
+        flat = flat * obj.shape[1] + coo[1].astype(np.int64)
+    from .sparse import _scatter_dense
+
+    v, s = _scatter_dense(flat, coo[-1], obj.dtype, tuple(obj.shape), "cpu")
+    return (Matrix if obj.ndim == 2 else Vector)._from_arrays(v, s, obj.dtype, name=obj.name)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Matrix: 2-D collection + TransposedMatrix view.
 
-Counterpart of ``graphblas_tpu/core/matrix.py`` with the dense-masked
-storage: values and structure are tensors on the collections' device
-(``tx.config["platform"]``).  A matrix of more than
-``tx.config["dense_limit"]`` cells needs the sparse analyzed-COO format,
-which comes whole with ROADMAP.md's queue 4; building one raises until then.
+Counterpart of ``graphblas_tpu/core/matrix.py``, with its two storage
+formats: dense-masked (values and structure tensors on the collections'
+device, ``tx.config["platform"]``) up to ``tx.config["dense_limit"]`` cells,
+and past it the sparse analyzed COO (``core.sparse.SparseMatrixData``: host
+numpy COO, canonical, with device caches on the matrix's device).  A sparse
+matrix materializes dense tensors on first touch of ``_values``/``_struct``
+(guarded by ``tx.config["densify_limit"]``); the op layer dispatches its
+sparse branches first.
 """
 
 import numpy as np
@@ -19,16 +22,24 @@ from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
 from .scalar import Scalar, _as_scalar, _is_scalar_like
-from .utils import check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
-from .vector import Vector, _apply_dup
+from .utils import canonical_device, check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
+from .vector import Vector, _apply_dup, _sparse_limit
+
+
+def _empty_sparse(nrows, ncols, dtype):
+    from .sparse import SparseMatrixData
+
+    return SparseMatrixData(np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, dtype.np_type), nrows, ncols)
 
 
 class Matrix(InfixMixin, BaseType):
-    """A 2-D collection of ((row, col), value) entries over a dtype domain,
-    in the dense-masked format: a values tensor (absent cells hold 0) and a
-    bool structure tensor."""
+    """A 2-D collection of ((row, col), value) entries over a dtype domain.
 
-    __slots__ = ()
+    Dense-masked (a values tensor, absent cells 0, and a bool structure
+    tensor) up to ``tx.config["dense_limit"]`` cells; sparse analyzed COO
+    (``_sparse``, on the device ``_sp_dev``) past it."""
+
+    __slots__ = ("_sparse", "_sp_dev")
     ndim = 2
     _output_type = None
 
@@ -36,34 +47,127 @@ class Matrix(InfixMixin, BaseType):
         self._dtype = _dt.lookup_dtype(dtype)
         nrows = ensure_int(nrows, "nrows")
         ncols = ensure_int(ncols, "ncols")
-        check_storage(self._dtype, nrows * ncols, "Matrix")
+        check_storage(self._dtype, "Matrix")
         dev = collection_device()
+        self._sparse = None
+        self.name = name
+        if nrows * ncols > _sparse_limit():
+            self._sparse, self._sp_dev = _empty_sparse(nrows, ncols, self._dtype), dev
+            return
         self._values = torch.zeros((nrows, ncols), dtype=self._dtype.carrier, device=dev)
         self._struct = _dm.s_zeros((nrows, ncols), dev)
-        self.name = name
 
     @classmethod
     def _from_arrays(cls, values, struct, dtype, name=None):
         obj = cls.__new__(cls)
         obj._dtype = _dt.lookup_dtype(dtype)
+        obj._sparse = None
         obj._values = values
         obj._struct = struct
         obj.name = name
         return obj
 
+    @classmethod
+    def _from_sparse(cls, sp, dtype, name=None, *, device=None):
+        """Wrap a SparseMatrixData as a sparse-format Matrix on ``device``
+        (default: the collections' device)."""
+        obj = cls.__new__(cls)
+        obj._dtype = _dt.lookup_dtype(dtype)
+        obj._sparse = sp
+        obj._sp_dev = collection_device() if device is None else canonical_device(device)
+        obj.name = name
+        return obj
+
+    def _set_storage(self, fmt):
+        """Convert the storage format in place: "coo"/"sparse" or
+        "densemasked" (densify, guarded by tx.config['densify_limit'])."""
+        if fmt in ("coo", "sparse"):
+            if self._sparse is None:
+                from .sparse import SparseMatrixData
+
+                r, c, v = self.to_coo()
+                self._adopt_sparse(SparseMatrixData.from_arrays(r.astype(np.int64), c.astype(np.int64), v, self.nrows, self.ncols, sorted_dedup=True))
+        elif fmt == "densemasked":
+            if self._sparse is not None:
+                self._values  # noqa: B018 (densify)
+        else:
+            raise ValueError(f"unknown storage format: {fmt!r}")
+
+    def __getattr__(self, name):
+        # sparse-format matrices leave the dense slots unset; the first dense
+        # touch materializes them (guarded by tx.config['densify_limit'])
+        if name in ("_values", "_struct"):
+            sp = BaseType.__getattribute__(self, "_sparse")
+            if sp is not None:
+                v, s = sp.densify(self._sp_dev)
+                self._set_arrays(_dt.cast(v, sp.dtype, self._dtype), s)
+                return v if name == "_values" else s
+        raise AttributeError(name)
+
+    def _set_arrays(self, values, struct):
+        self._sparse = None
+        self._values = values
+        self._struct = struct
+
+    def _adopt_sparse(self, sp):
+        """Switch this Matrix to sparse storage on its device (dropping dense
+        tensors)."""
+        dev = self._device
+        for slot in ("_values", "_struct"):
+            try:
+                delattr(self, slot)
+            except AttributeError:
+                pass
+        self._sparse, self._sp_dev = sp, dev
+
+    @property
+    def _device(self):
+        return self._sp_dev if self._sparse is not None else self._struct.device
+
     # -- introspection -----------------------------------------------------------
 
     @property
     def nrows(self):
-        return self._struct.shape[0]
+        sp = self._sparse
+        return sp.nrows if sp is not None else self._struct.shape[0]
 
     @property
     def ncols(self):
-        return self._struct.shape[1]
+        sp = self._sparse
+        return sp.ncols if sp is not None else self._struct.shape[1]
 
     @property
     def shape(self):
-        return tuple(self._struct.shape)
+        sp = self._sparse
+        return (sp.nrows, sp.ncols) if sp is not None else tuple(self._struct.shape)
+
+    @property
+    def nvals(self):
+        sp = self._sparse
+        return sp.nvals if sp is not None else BaseType.nvals.fget(self)
+
+    def clear(self):
+        if self._sparse is not None:
+            self._adopt_sparse(_empty_sparse(self.nrows, self.ncols, self._sparse.dtype))
+            return
+        BaseType.clear(self)
+
+    def wait(self, how="materialize"):
+        if self._sparse is not None:
+            return self  # host-canonical storage has nothing pending
+        return BaseType.wait(self, how)
+
+    def isequal(self, other, *, check_dtype=False):
+        if self._sparse is not None or getattr(other, "_sparse", None) is not None:
+            other = self._expect_type(other, type(self), within="isequal", argname="other")
+            if check_dtype and self.dtype != other.dtype:
+                return False
+            if self.shape != other.shape:
+                return False
+            r1, c1, v1 = self.to_coo()
+            r2, c2, v2 = other.to_coo()
+            return np.array_equal(r1, r2) and np.array_equal(c1, c2) and np.array_equal(v1, v2)
+        return BaseType.isequal(self, other, check_dtype=check_dtype)
 
     @property
     def T(self):
@@ -81,13 +185,28 @@ class Matrix(InfixMixin, BaseType):
         return format_matrix_html(self)
 
     def __sizeof__(self):
+        sp = self._sparse
+        if sp is not None:
+            return object.__sizeof__(self) + sp.rows.nbytes + sp.cols.nbytes + sp.vals.nbytes
         return object.__sizeof__(self) + self._values.nbytes + self._struct.nbytes
+
+    def _sparse_find(self, r, c):
+        """Index into sparse storage for entry (r, c), or -1 (host binary search)."""
+        sp = self._sparse
+        lo = np.searchsorted(sp.rows, r, "left")
+        hi = np.searchsorted(sp.rows, r, "right")
+        j = lo + np.searchsorted(sp.cols[lo:hi], c, "left")
+        if j < hi and sp.cols[j] == c:
+            return int(j)
+        return -1
 
     def __contains__(self, index):
         resolved = IndexerResolver(self, index)
         if not resolved.is_single_element:
             raise TypeError("`in` requires a single (row, col) index")
         r, c = resolved.indices
+        if self._sparse is not None:
+            return self._sparse_find(r.index, c.index) >= 0
         return bool(self._struct[r.index, c.index])
 
     def __iter__(self):
@@ -128,7 +247,12 @@ class Matrix(InfixMixin, BaseType):
             raise _exc.IndexOutOfBound(f"row index out of range for nrows {nrows}")
         if columns.size and ((columns < 0).any() or (columns >= ncols).any()):
             raise _exc.IndexOutOfBound(f"column index out of range for ncols {ncols}")
-        check_storage(dtype, nrows * ncols, "Matrix")
+        check_storage(dtype, "Matrix")
+        if nrows * ncols > _sparse_limit():
+            from .sparse import SparseMatrixData
+
+            sp = SparseMatrixData.from_arrays(rows, columns, values, nrows, ncols, dup_op)
+            return cls._from_sparse(sp, dtype, name=name)
         flat = rows * ncols + columns
         if flat.size != np.unique(flat).size:
             flat, values = _apply_dup(flat, values, dup_op)
@@ -212,7 +336,15 @@ class Matrix(InfixMixin, BaseType):
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else sc.dtype
         nrows = ensure_int(nrows, "nrows")
         ncols = ensure_int(ncols, "ncols")
-        check_storage(dtype, nrows * ncols, "Matrix")
+        check_storage(dtype, "Matrix")
+        if nrows * ncols > _sparse_limit() * 8:
+            # a fully-iso matrix at huge dimensions needs an iso storage
+            # format; explicit storage would allocate nrows*ncols cells
+            raise _exc.OutOfMemory(
+                f"from_scalar would materialize {nrows * ncols} explicit entries; "
+                "iso-valued storage at this scale is not supported — build the "
+                "needed region sparsely (from_coo) instead"
+            )
         dev = collection_device()
         return cls._from_arrays(
             sc._device_value(dtype, dev).expand(nrows, ncols).clone(),
@@ -227,7 +359,7 @@ class Matrix(InfixMixin, BaseType):
         values, dtype = values_to_numpy_buffer(np.asarray(values), dtype)
         if values.ndim != 2:
             raise ValueError("values must be 2-dimensional for Matrix.from_dense")
-        check_storage(dtype, values.size, "Matrix")
+        check_storage(dtype, "Matrix")
         if missing_value is None:
             struct = np.ones(values.shape, bool)
         else:
@@ -261,7 +393,19 @@ class Matrix(InfixMixin, BaseType):
 
     def to_coo(self, dtype=None, *, rows=True, columns=True, values=True, sort=True):
         """(rows, cols, values) numpy arrays, row-major sorted (one read of
-        the card)."""
+        the card; the sparse format is host-canonical)."""
+        sp = self._sparse
+        if sp is not None:
+            out_v = None
+            if values:
+                out_v = sp.vals.copy()
+                if dtype is not None:
+                    out_v = out_v.astype(_dt.lookup_dtype(dtype).np_type)
+            return (
+                sp.rows.astype(np.uint64) if rows else None,
+                sp.cols.astype(np.uint64) if columns else None,
+                out_v,
+            )
         struct = self._struct.cpu().numpy()
         r, c = np.nonzero(struct)
         out_r = r.astype(np.uint64) if rows else None
@@ -345,16 +489,26 @@ class Matrix(InfixMixin, BaseType):
         """Populate from coo; must be empty unless clear=True."""
         if not clear and self.nvals > 0:
             raise _exc.OutputNotEmpty("Matrix already contains values; use clear=True")
-        new = Matrix.from_coo(rows, columns, values, self._dtype, nrows=nrows or self.nrows, ncols=ncols or self.ncols, dup_op=dup_op)
-        self._set_arrays(new._values, new._struct)
+        from ..tx import config as _txconfig
+
+        with _txconfig.set(platform=self._device.type):
+            new = Matrix.from_coo(rows, columns, values, self._dtype, nrows=nrows or self.nrows, ncols=ncols or self.ncols, dup_op=dup_op)
+        if new._sparse is not None:
+            self._adopt_sparse(new._sparse)
+        else:
+            self._set_arrays(new._values, new._struct)
 
     def dup(self, dtype=None, *, clear=False, mask=None, name=None, **opts):
-        """Duplicate (the tensors are shared: no collection writes into its
-        own)."""
+        """Duplicate (the tensors, and a sparse matrix's host indices, are
+        shared: no collection writes into its own)."""
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         if clear:
             return Matrix(dtype, self.nrows, self.ncols, name=name)
-        check_storage(dtype, 0, "Matrix")
+        check_storage(dtype, "Matrix")
+        if self._sparse is not None and mask is None:
+            sp = self._sparse
+            vals = sp.vals if dtype is self._dtype else sp.vals.astype(dtype.np_type)
+            return Matrix._from_sparse(sp.copy(vals=vals.copy()), dtype, name=name, device=self._sp_dev)
         v = _dt.cast(self._values, self._dtype, dtype)
         s = self._struct
         if mask is not None:
@@ -369,7 +523,11 @@ class Matrix(InfixMixin, BaseType):
         """Grow/shrink in place (into new tensors)."""
         nrows = ensure_int(nrows, "nrows")
         ncols = ensure_int(ncols, "ncols")
-        check_storage(self._dtype, nrows * ncols, "Matrix")
+        if self._sparse is not None:
+            sp = self._sparse
+            keep = (sp.rows < nrows) & (sp.cols < ncols)
+            self._adopt_sparse(type(sp)(sp.rows[keep], sp.cols[keep], sp.vals[keep], nrows, ncols))
+            return
         v, s = self._values, self._struct
         if nrows < self.nrows:
             v, s = v[:nrows], s[:nrows]
@@ -387,6 +545,9 @@ class Matrix(InfixMixin, BaseType):
         """Element or default."""
         resolved = IndexerResolver(self, (row, col))
         r, c = resolved.indices
+        if self._sparse is not None:
+            j = self._sparse_find(r.index, c.index)
+            return self._sparse.vals[j].item() if j >= 0 else default
         if bool(self._struct[r.index, c.index]):
             return _dt.to_numpy(self._values[r.index, c.index], self._dtype).item()
         return default
@@ -394,6 +555,15 @@ class Matrix(InfixMixin, BaseType):
     def diag(self, k=0, dtype=None, *, name=None):
         """Extract diagonal k as a Vector."""
         k = int(k)
+        if self._sparse is not None:
+            from ..tx import config as _txconfig
+
+            sp = self._sparse
+            diag_len = min(self.nrows - max(-k, 0), self.ncols - max(k, 0))
+            sel = (sp.cols - sp.rows) == k
+            dtype_r = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
+            with _txconfig.set(platform=self._sp_dev.type):
+                return Vector.from_coo(sp.rows[sel] - max(-k, 0), sp.vals[sel].astype(dtype_r.np_type), dtype_r, size=diag_len, name=name)
         v, s = _dm.diag_extract(self._values, self._struct, k)
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         return Vector._from_arrays(_dt.cast(v, self._dtype, dtype), s, dtype, name=name)
@@ -620,6 +790,10 @@ class TransposedMatrix:
         return self._matrix._struct.T
 
     @property
+    def _device(self):
+        return self._matrix._device
+
+    @property
     def dtype(self):
         return self._matrix.dtype
 
@@ -650,7 +824,18 @@ class TransposedMatrix:
         def compute():
             return _dm.transpose(m._values, m._struct)
 
-        return BaseExpression("transpose", Matrix, compute, dtype=m.dtype, shape=self.shape, args=(m,), opname="transpose")
+        sparse_compute = None
+        sp = m._sparse
+        if sp is not None:
+
+            def sparse_compute():
+                # the index arrays reordered, not copied per element
+                return Matrix._from_sparse(sp.transposed(), m.dtype, device=m._sp_dev)
+
+        return BaseExpression(
+            "transpose", Matrix, compute, dtype=m.dtype, shape=self.shape, args=(m,), opname="transpose",
+            sparse_compute=sparse_compute,
+        )
 
     # -- zero-copy delegations (the view stays free of compute): exports and
     #    reductions swap roles on the parent instead of materializing a
@@ -689,6 +874,21 @@ class TransposedMatrix:
     def __contains__(self, index):
         r, c = index
         return (c, r) in self._matrix
+
+    def mxv(self, other, op="plus_times"):
+        """A sparse parent runs the other direction of its own SpMV plan (no
+        transposed copy, whose plan would be built anew each call); a dense
+        one materializes the transpose, as the reference does."""
+        if self._matrix._sparse is None:
+            return self.new().mxv(other, op)
+        other = self._matrix._expect_type(other, Vector, within="mxv", argname="other")
+        return _cops.mxm_expr(self, other, op, "mxv")
+
+    def mxm(self, other, op="plus_times"):
+        if self._matrix._sparse is None:
+            return self.new().mxm(other, op)
+        other = self._matrix._expect_type(other, (Matrix, TransposedMatrix), within="mxm", argname="other")
+        return _cops.mxm_expr(self, other, op, "mxm")
 
     def reduce_rowwise(self, op="plus"):
         return self._matrix.reduce_columnwise(op)

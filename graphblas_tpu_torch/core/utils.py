@@ -7,7 +7,7 @@ collections (``tx.config["platform"]``: "cuda", the default, or "cpu"), and
 type.  The reference's routing of complex values to the host
 (``device_asarray``'s TPU branch) is not ported: CUDA computes in complex.
 The UDT helpers wait for the struct-of-arrays collections (ROADMAP.md,
-queue 3b).
+queue 3b); ``check_storage`` raises for a UDT collection, naming that queue.
 """
 
 import numpy as np
@@ -140,28 +140,29 @@ class class_property:
         return self.fget(objtype)
 
 
-def check_storage(dtype, cells, kind):
-    """The dense-masked format holds this collection, or raise naming the
-    queue that brings the format it needs."""
+def check_storage(dtype, kind):
+    """A UDT collection needs the struct-of-arrays format: raise naming the
+    queue that brings it."""
     if dtype._is_udt:
         raise NotImplementedError(
             f"a UDT {kind} needs the struct-of-arrays collections, not ported yet (ROADMAP.md, queue 3b)"
         )
-    from ..tx import config as _txconfig
 
-    limit = _txconfig["dense_limit"]
-    if cells > limit:
-        raise NotImplementedError(
-            f"a {kind} of {cells} cells is past tx.config['dense_limit'] ({limit}) and needs the "
-            "sparse format, not ported yet (ROADMAP.md, queue 4)"
-        )
+
+def canonical_device(device):
+    """``device`` with its index (a CUDA device without one is the current
+    card), so that it equals the device of the tensors made on it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def collection_device():
     """The device of new collections: ``tx.config["platform"]``."""
     from ..tx import config as _txconfig
 
-    return torch.device(_txconfig["platform"])
+    return canonical_device(_txconfig["platform"])
 
 
 def device_asarray(x, dtype, device=None):

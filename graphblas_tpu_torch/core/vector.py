@@ -1,9 +1,10 @@
 """Vector: 1-D collection.
 
-Counterpart of ``graphblas_tpu/core/vector.py`` with the dense-masked
-storage (values and structure tensors on the collections' device).  A
-vector of more than ``tx.config["dense_limit"]`` entries needs the sparse
-format (ROADMAP.md, queue 4); building one raises until then.
+Counterpart of ``graphblas_tpu/core/vector.py``, with its two storage
+formats: dense-masked (values and structure tensors on the collections'
+device) up to ``tx.config["dense_limit"]`` entries, and past it the sparse
+(index, value) host arrays of ``core.sparse.SparseVectorData`` with device
+caches: the scalable format for huge dimensions.
 """
 
 import numpy as np
@@ -18,7 +19,19 @@ from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
 from .scalar import _as_scalar, _is_scalar_like
-from .utils import check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
+from .utils import canonical_device, check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
+
+
+def _sparse_limit():
+    from .sparse import _dense_limit
+
+    return _dense_limit()
+
+
+def _empty_sparse(size, dtype):
+    from .sparse import SparseVectorData
+
+    return SparseVectorData(np.empty(0, np.int64), np.empty(0, dtype.np_type), size)
 
 
 def _apply_dup(rows_or_idx, values, dup_op):
@@ -79,34 +92,127 @@ def _fold_dups(sorted_vals, starts, dup_op):
 
 
 class Vector(InfixMixin, BaseType):
-    """A 1-D collection of (index, value) pairs over a dtype domain, in the
-    dense-masked format."""
+    """A 1-D collection of (index, value) pairs over a dtype domain.
 
-    __slots__ = ()
+    Dense-masked up to ``tx.config["dense_limit"]`` entries; sparse (index,
+    value) host arrays (``_sparse``, on the device ``_sp_dev``) past it."""
+
+    __slots__ = ("_sparse", "_sp_dev")
     ndim = 1
     _output_type = None  # set after class definition
 
     def __init__(self, dtype=_dt.FP64, size=0, *, name=None):
         self._dtype = _dt.lookup_dtype(dtype)
         size = ensure_int(size, "size")
-        check_storage(self._dtype, size, "Vector")
+        check_storage(self._dtype, "Vector")
         dev = collection_device()
+        self._sparse = None
+        self.name = name
+        if size > _sparse_limit():
+            self._sparse, self._sp_dev = _empty_sparse(size, self._dtype), dev
+            return
         self._values = torch.zeros((size,), dtype=self._dtype.carrier, device=dev)
         self._struct = _dm.s_zeros((size,), dev)
-        self.name = name
 
     @classmethod
     def _from_arrays(cls, values, struct, dtype, name=None):
         obj = cls.__new__(cls)
         obj._dtype = _dt.lookup_dtype(dtype)
+        obj._sparse = None
         obj._values = values
         obj._struct = struct
         obj.name = name
         return obj
 
+    @classmethod
+    def _from_sparse(cls, sv, dtype, name=None, *, device=None):
+        """Wrap a SparseVectorData as a sparse-format Vector on ``device``
+        (default: the collections' device)."""
+        obj = cls.__new__(cls)
+        obj._dtype = _dt.lookup_dtype(dtype)
+        obj._sparse = sv
+        obj._sp_dev = collection_device() if device is None else canonical_device(device)
+        obj.name = name
+        return obj
+
+    def _set_storage(self, fmt):
+        """Convert the storage format in place: "coo"/"sparse", or
+        "densemasked"/"auto" (densify, guarded by tx.config['densify_limit'])."""
+        if fmt in ("coo", "sparse"):
+            if self._sparse is None:
+                from .sparse import SparseVectorData
+
+                idx, vals = self.to_coo()
+                self._adopt_sparse(SparseVectorData(idx.astype(np.int64), vals, self.size))
+        elif fmt in ("densemasked", "auto"):
+            if self._sparse is not None:
+                self._values  # noqa: B018 (densify)
+        else:
+            raise ValueError(f"unknown storage format: {fmt!r}")
+
+    def __getattr__(self, name):
+        # sparse-format vectors leave the dense slots unset; the first dense
+        # touch materializes them (guarded by tx.config['densify_limit'])
+        if name in ("_values", "_struct"):
+            sv = BaseType.__getattribute__(self, "_sparse")
+            if sv is not None:
+                v, st = sv.densify(self._sp_dev)
+                self._set_arrays(_dt.cast(v, sv.dtype, self._dtype), st)
+                return v if name == "_values" else st
+        raise AttributeError(name)
+
+    def _set_arrays(self, values, struct):
+        self._sparse = None
+        self._values = values
+        self._struct = struct
+
+    def _adopt_sparse(self, sv):
+        """Switch this Vector to sparse storage on its device (dropping dense
+        tensors)."""
+        dev = self._device
+        for slot in ("_values", "_struct"):
+            try:
+                delattr(self, slot)
+            except AttributeError:
+                pass
+        self._sparse, self._sp_dev = sv, dev
+
+    @property
+    def _device(self):
+        return self._sp_dev if self._sparse is not None else self._struct.device
+
     @property
     def size(self):
-        return self._struct.shape[0]
+        sv = self._sparse
+        return sv.size if sv is not None else self._struct.shape[0]
+
+    @property
+    def nvals(self):
+        sv = self._sparse
+        return sv.nvals if sv is not None else BaseType.nvals.fget(self)
+
+    def clear(self):
+        if self._sparse is not None:
+            self._adopt_sparse(_empty_sparse(self.size, self._sparse.dtype))
+            return
+        BaseType.clear(self)
+
+    def wait(self, how="materialize"):
+        if self._sparse is not None:
+            return self  # host-canonical storage has nothing pending
+        return BaseType.wait(self, how)
+
+    def isequal(self, other, *, check_dtype=False):
+        if self._sparse is not None or getattr(other, "_sparse", None) is not None:
+            other = self._expect_type(other, type(self), within="isequal", argname="other")
+            if check_dtype and self.dtype != other.dtype:
+                return False
+            if self.shape != other.shape:
+                return False
+            i1, v1 = self.to_coo()
+            i2, v2 = other.to_coo()
+            return np.array_equal(i1, i2) and np.array_equal(v1, v2)
+        return BaseType.isequal(self, other, check_dtype=check_dtype)
 
     @property
     def shape(self):
@@ -116,6 +222,9 @@ class Vector(InfixMixin, BaseType):
         return self.nvals
 
     def __sizeof__(self):
+        sv = self._sparse
+        if sv is not None:
+            return object.__sizeof__(self) + sv.idx.nbytes + sv.vals.nbytes
         return object.__sizeof__(self) + self._values.nbytes + self._struct.nbytes
 
     def __repr__(self):
@@ -128,8 +237,18 @@ class Vector(InfixMixin, BaseType):
 
         return format_vector_html(self)
 
+    def _sparse_find(self, i):
+        """Index into sparse storage for entry i, or -1 (host binary search)."""
+        sv = self._sparse
+        j = int(np.searchsorted(sv.idx, i))
+        if j < len(sv.idx) and sv.idx[j] == i:
+            return j
+        return -1
+
     def __contains__(self, index):
         idx = IndexerResolver(self, index).indices[0]
+        if self._sparse is not None:
+            return self._sparse_find(idx.index) >= 0
         return bool(self._struct[idx.index])
 
     def __iter__(self):
@@ -161,9 +280,15 @@ class Vector(InfixMixin, BaseType):
             indices = np.where(neg, indices + size, indices)
             if indices.size and (indices.min() < 0 or indices.max() >= size):
                 raise _exc.IndexOutOfBound(f"index out of range for size {size}")
-        check_storage(dtype, size, "Vector")
+        check_storage(dtype, "Vector")
         if indices.size != np.unique(indices).size:
             indices, values = _apply_dup(indices, values, dup_op)
+        if size > _sparse_limit():
+            from .sparse import SparseVectorData
+
+            order = np.argsort(indices, kind="stable")
+            sv = SparseVectorData(indices[order], values[order].astype(dtype.np_type), size)
+            return cls._from_sparse(sv, dtype, name=name)
         dense_v = np.zeros(size, dtype.np_type)
         dense_s = np.zeros(size, bool)
         dense_v[indices] = values
@@ -187,7 +312,7 @@ class Vector(InfixMixin, BaseType):
         sc = _as_scalar(value, dtype)
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else sc.dtype
         size = ensure_int(size, "size")
-        check_storage(dtype, size, "Vector")
+        check_storage(dtype, "Vector")
         dev = collection_device()
         return cls._from_arrays(
             sc._device_value(dtype, dev).expand(size).clone(), _dm.s_ones((size,), dev), dtype, name=name
@@ -199,7 +324,7 @@ class Vector(InfixMixin, BaseType):
         values, dtype = values_to_numpy_buffer(np.asarray(values), dtype)
         if values.ndim != 1:
             raise ValueError("values must be 1-dimensional for Vector.from_dense")
-        check_storage(dtype, values.size, "Vector")
+        check_storage(dtype, "Vector")
         if missing_value is None:
             struct = np.ones(values.shape, bool)
         else:
@@ -220,7 +345,16 @@ class Vector(InfixMixin, BaseType):
     # -- exporters ---------------------------------------------------------------
 
     def to_coo(self, dtype=None, *, indices=True, values=True, sort=True):
-        """(indices, values) as numpy arrays (one read of the card)."""
+        """(indices, values) as numpy arrays (one read of the card; the sparse
+        format is host-canonical)."""
+        sv = self._sparse
+        if sv is not None:
+            out_vals = None
+            if values:
+                out_vals = sv.vals.copy()
+                if dtype is not None:
+                    out_vals = out_vals.astype(_dt.lookup_dtype(dtype).np_type)
+            return (sv.idx.astype(np.uint64) if indices else None), out_vals
         struct = self._struct.cpu().numpy()
         idx = np.nonzero(struct)[0].astype(np.uint64)
         out_idx = idx if indices else None
@@ -253,18 +387,27 @@ class Vector(InfixMixin, BaseType):
         """Populate from coo; object must be empty unless clear=True."""
         if not clear and self.nvals > 0:
             raise _exc.OutputNotEmpty("Vector already contains values; use clear=True")
-        new = Vector.from_coo(indices, values, self._dtype, size=size or self.size, dup_op=dup_op)
+        from ..tx import config as _txconfig
+
+        with _txconfig.set(platform=self._device.type):
+            new = Vector.from_coo(indices, values, self._dtype, size=size or self.size, dup_op=dup_op)
         if new.size != self.size and size is None:
             raise _exc.DimensionMismatch("built vector size does not match")
-        self._set_arrays(new._values, new._struct)
+        if new._sparse is not None:
+            self._adopt_sparse(new._sparse)
+        else:
+            self._set_arrays(new._values, new._struct)
 
     def dup(self, dtype=None, *, clear=False, mask=None, name=None, **opts):
-        """Duplicate (the tensors are shared: no collection writes into its
-        own)."""
+        """Duplicate (the tensors, and a sparse vector's host indices, are
+        shared: no collection writes into its own)."""
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         if clear:
             return Vector(dtype, self.size, name=name)
-        check_storage(dtype, 0, "Vector")
+        check_storage(dtype, "Vector")
+        if self._sparse is not None and mask is None:
+            sv = self._sparse
+            return Vector._from_sparse(sv.copy(vals=sv.vals.astype(dtype.np_type)), dtype, name=name, device=self._sp_dev)
         v = _dt.cast(self._values, self._dtype, dtype)
         s = self._struct
         if mask is not None:
@@ -278,7 +421,6 @@ class Vector(InfixMixin, BaseType):
     def resize(self, size):
         """Grow/shrink in place (into new tensors)."""
         size = ensure_int(size, "size")
-        check_storage(self._dtype, size, "Vector")
         cur = self.size
         if size == cur:
             return
@@ -291,6 +433,9 @@ class Vector(InfixMixin, BaseType):
     def get(self, index, default=None):
         """Element or default."""
         idx = IndexerResolver(self, index).indices[0]
+        if self._sparse is not None:
+            j = self._sparse_find(idx.index)
+            return self._sparse.vals[j].item() if j >= 0 else default
         if bool(self._struct[idx.index]):
             return _dt.to_numpy(self._values[idx.index], self._dtype).item()
         return default

@@ -1,8 +1,8 @@
 """Graph: a padded-COO graph container of tensors.
 
-Counterpart of ``graphblas_tpu/models/graph.py``.  ``rmat`` draws its edges
-with numpy exactly as the JAX package does, so both packages see identical
-graphs from one seed.
+Counterpart of ``graphblas_tpu/models/graph.py``, convertible from and to
+the DSL's Matrix.  ``rmat`` draws its edges with numpy exactly as the JAX
+package does, so both packages see identical graphs from one seed.
 """
 
 import numpy as np
@@ -41,6 +41,34 @@ class Graph:
             torch.from_numpy(valid).to(device),
             len(src),
         )
+
+    @classmethod
+    def from_matrix(cls, A):
+        """From a Matrix (adjacency; A[i, j] = weight of i->j), on its device."""
+        rows, cols, vals = A.to_coo()
+        return cls.from_arrays(rows.astype(np.int32), cols.astype(np.int32), vals, n=A.nrows, device=A._device)
+
+    def to_matrix(self, dtype=None):
+        """The adjacency Matrix on the graph's device; parallel (duplicate)
+        edges collapse additively, multigraph-style."""
+        from .. import binary
+        from ..core.matrix import Matrix
+        from ..tx import config as _txconfig
+
+        valid = self.valid.cpu().numpy()
+        src = self.src.cpu().numpy()[valid]
+        dst = self.dst.cpu().numpy()[valid]
+        w = self.weights.cpu().numpy()[valid] if self.weights is not None else np.ones(len(src))
+        with _txconfig.set(platform=self.src.device.type):
+            return Matrix.from_coo(src, dst, w, dtype, nrows=self.n, ncols=self.n, dup_op=binary.plus)
+
+    @property
+    def has_weights(self):
+        return self.weights is not None
+
+    def reverse(self):
+        """Graph with all edges flipped."""
+        return Graph(self.n, self.dst, self.src, self.weights, self.valid, self.nedges)
 
     def to(self, device):
         w = self.weights.to(device) if self.weights is not None else None

@@ -27,6 +27,8 @@ config = Config(
         "densify_limit": 1 << 26,
         # sparse mxv/vxm lowering: auto | plan (SpmvPlan engine) | generic
         "mxv_strategy": "auto",
+        # unmasked sparse mxm: intermediate products materialized at most
+        "spgemm_flop_limit": 1 << 28,
     },
     validators={
         "platform": lambda v: v in ("cuda", "cpu"),

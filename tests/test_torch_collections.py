@@ -359,14 +359,13 @@ GOLDENS = _golden_cases()
 @pytest.mark.parametrize("name, source, expected", GOLDENS, ids=[g[0] for g in GOLDENS])
 def test_golden_reprs(ref, name, source, expected):
     """Each golden of tests/test_formatting_goldens.py, built on both
-    packages: the port's repr equals the reference's and the golden.  A
-    collection of more than 2^24 cells needs the sparse format (queue 4)."""
+    packages: the port's repr equals the reference's and the golden (the
+    2^40-entry vector in the sparse format on both)."""
     env = lambda g: {**vars(ns(g)), "np": np}  # noqa: E731
     robj = eval(source, env(ref))  # noqa: S307
     if "2 ** 40" in source:
-        with pytest.raises(NotImplementedError, match="queue 4"):
-            eval(source, env(P))  # noqa: S307
-        return
+        pobj = eval(source, env(P))  # noqa: S307
+        assert pobj._sparse is not None and robj._sparse is not None
     if "BF16" in source and getattr(P.dtypes, "BF16", None) is None:
         pytest.skip("no bfloat16 numpy type here")
     pobj = eval(source, env(P))  # noqa: S307
@@ -493,13 +492,23 @@ def test_value_helpers_name_their_device():
         pdt.to_tensor(np.zeros(2), pdt.FP64)
 
 
-def test_waiting_features_raise_naming_their_queue():
+def test_waiting_features_raise_naming_their_queue(ref):
+    """The features of later queues raise, naming their queue.  The sparse
+    format (queue 4) is ported: the collections past dense_limit that raised
+    before build, and their shape, nvals and format equal the reference's."""
+    past_limit = [
+        lambda g: g.Matrix(g.dtypes.FP64, 1 << 13, 1 << 12),
+        lambda g: g.Matrix.from_coo([0], [0], [1.0], nrows=1 << 13, ncols=1 << 12),
+        lambda g: g.Vector(g.dtypes.INT8, (1 << 24) + 1),
+        lambda g: g.Matrix.from_scalar(1, 1 << 12, (1 << 12) + 1),
+    ]
+    for build in past_limit:
+        p, r = build(P), build(ref)
+        assert (p.shape, p.nvals, p.dtype.name) == (r.shape, r.nvals, r.dtype.name)
+        assert (getattr(p, "_sparse", None) is None) == (getattr(r, "_sparse", None) is None)
+        assert repr(p).splitlines()[:2] == repr(r).splitlines()[:2]
     udt = P.dtypes.register_anonymous(np.dtype([("x", np.int32), ("y", np.float64)]))
     cases = [
-        (lambda: P.Matrix(P.dtypes.FP64, 1 << 13, 1 << 12), "queue 4"),
-        (lambda: P.Matrix.from_coo([0], [0], [1.0], nrows=1 << 13, ncols=1 << 12), "queue 4"),
-        (lambda: P.Vector(P.dtypes.INT8, (1 << 24) + 1), "queue 4"),
-        (lambda: P.Matrix.from_scalar(1, 1 << 12, (1 << 12) + 1), "queue 4"),
         (lambda: P.Matrix(udt, 2, 2), "queue 3b"),
         (lambda: P.Vector(udt, 2), "queue 3b"),
         (lambda: P.Scalar(udt), "queue 3b"),

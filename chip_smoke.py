@@ -21,7 +21,9 @@ level BFS and SSSP of examples 02 and 01, and one statement of each op
 family.  The sparse DSL path: the statements of examples 07 (PageRank), 02
 (level BFS), 01 (SSSP) and 05 (the triangle count) on sparse-format
 collections (the scale-19 graph, 2^38 cells; the triangle workload, 2^32), and
-the generic models.  The roofline tool's run, with the compare probe.  All through the
+the generic models.  The compiled loops: models.dsl's PageRank, level BFS
+(both frontiers), SSSP and connected components at scale 19 as CUDA graph
+replays.  The roofline tool's run, with the compare probe.  All through the
 hand-written CUDA kernels.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -88,11 +90,22 @@ hand-written CUDA kernels.  One line per check:
      1e-4; connected_components = scipy); host times of from_coo and the
      first vxm, ms per DSL PageRank iteration and level BFS against
      models.fast, plan against generic on three statements, the models' ms
+  6c compiled loops. models.dsl's recipes (gb.loop / gb.until) at scale 19,
+     built as bench.py's dsl_metrics builds them, each captured in a CUDA
+     graph: graph = the same runner run eagerly on the card, a second replay
+     = the first; PageRank = models.fast rtol 1e-5, levels and distances =
+     models.fast bit for bit, CC = scipy; capture "graph", the modes the CPU
+     tests hold to the reference in the card's n-space lowering, and the
+     edge layout asked for (= eager, = the n space, the reference's modes);
+     bench.py's dsl_* and cc_* keys, eager against graph ms per step, the
+     edge layout's, launches per step; the kernels torch.profiler sees in a
+     second run of the main path = the launches counted
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
   7. launch counts of each path (every kernel > 0, every plain version 0;
      the typed paths launch G, C, the generic scan and eqjoin; the DSL path
      gb_tropical once an APSP round; the sparse DSL path G, fill, C, the
-     generic scan and eqjoin)
+     generic scan and eqjoin; the compiled loops G, fill, C and the generic
+     scan, counted per graph replay)
   8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
      level-BFS one
 
@@ -105,8 +118,10 @@ the status line {"ok": true, "device": {...}}.  Any failure raises: the exit cod
 """
 
 import argparse
+import cProfile
 import json
 import os
+import pstats
 import statistics
 import subprocess
 import sys
@@ -128,10 +143,10 @@ KERNELS = {
 }
 # the paths whose runs count a kernel's launches (the rest: the SpMV path)
 PATH_OF = {
-    "gather": ("spmv", "sparse_dsl"),
-    "gather_fill": ("spmv", "sparse_dsl"),
-    "segscan_contrib": ("spmv", "sparse_dsl"),
-    "segscan": ("spmv", "sparse_dsl"),
+    "gather": ("spmv", "sparse_dsl", "compiled"),
+    "gather_fill": ("spmv", "sparse_dsl", "compiled"),
+    "segscan_contrib": ("spmv", "sparse_dsl", "compiled"),
+    "segscan": ("spmv", "sparse_dsl", "compiled"),
     "eqjoin": ("spgemm", "sparse_dsl"),
     "tropical_mxm": ("tropical", "dsl"),
     "compare_probe": ("roofline",),
@@ -1280,6 +1295,279 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
     return {"launches": launches, "plain": plain}
 
 
+# the layout each compiled recipe takes on the plan engine where the edge
+# layout is asked for (GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1, the reference's
+# default): the modes the CPU tests hold to the reference
+# (tests/test_torch_compile.py, tests/test_torch_looplayout.py).  On the card
+# the default lowering is the n space: the same modes with layout "n".
+DSL_MODES = {
+    "pagerank": "hoisted/edge",
+    "bfs_level": "carried/n",
+    "bfs_level_dense": "hoisted/edge",
+    "sssp": "hoisted/edge",
+    "connected_components": "hoisted/n",
+}
+
+
+def profiled_launches(prof):
+    """Executions of the port's kernels that a torch.profiler trace saw, by
+    launch counter.  G's routes and its fill are one CUDA function
+    (gather_kernel) and count together; the single-pass scans are told
+    apart by their tile type."""
+    out = {"gather+gather_fill": 0, "segscan_contrib": 0, "segscan_state": 0, "segscan": 0}
+    tiles = {"ContribTile": "segscan_contrib", "StateTile": "segscan_state", "ValueTile": "segscan"}
+    for ev in prof.key_averages():
+        if "gather_kernel<" in ev.key:
+            out["gather+gather_fill"] += ev.count
+        elif "scan_onepass<" in ev.key:
+            out[next(c for t, c in tiles.items() if t in ev.key)] += ev.count
+    return out
+
+
+def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
+    """Phase 6c (compiled loops): the recipes of models.dsl at RMAT scale 19,
+    built as bench.py's dsl_metrics builds them (AT = from_coo(dst, src, 1.0,
+    dup_op=plus), ATw with dup_op=min, connected components on AT pull and
+    push; mxv_strategy "plan"), each a CUDA graph replayed, in the card's
+    default lowering (the n space).  Checks, before any timing: each recipe's
+    graph result = the same runner run eagerly on the card (PageRank rtol
+    1e-6: C's look-back may add floats in another order; the rest bit for
+    bit); PageRank = models.fast.pagerank rtol 1e-5; levels and distances =
+    models.fast bit for bit; CC = scipy's weak components (least vertex
+    labels); capture "graph" for every recipe; mode as DSL_MODES, layout
+    "n"; the edge layout (GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1) for the three
+    recipes the reference lowers to it: mode/layout as DSL_MODES, graph =
+    eager, and = the n space.  Then bench.py's dsl_* and cc_* keys, the
+    eager ms per step beside the graph's, the edge layout's beside the n
+    space's, one PageRank run's device time by kernel (torch.profiler),
+    launches per step, and fastsv (host-driven, eager) = scipy on a
+    symmetrized RMAT scale-14 graph.  Last, the main path's run again under
+    torch.profiler: its counters = the main path's, and the kernels the
+    profiler saw = the launches counted (so the counts a replay adds are
+    measured).  Returns the compiled path's launch and plain-call counts
+    (its graph runs)."""
+    import scipy.sparse as scsp
+    from scipy.sparse import csgraph
+
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Matrix, binary, dtypes, kernels
+    from graphblas_tpu_torch.models import dsl, fast, rmat
+    from graphblas_tpu_torch.ops.scan import STATE_BIG
+
+    t_phase = time.perf_counter()
+    FP32 = dtypes.FP32
+    iters = 50
+    e = len(src)
+    out, info = {}, {}
+    with gb.tx.config.set(mxv_strategy="plan"):
+        t0 = time.perf_counter()
+        AT = Matrix.from_coo(dst, src, np.ones(e, np.float32), FP32, nrows=n, ncols=n, dup_op=binary.plus)
+        ATw = Matrix.from_coo(dst, src, w.astype(np.float32), FP32, nrows=n, ncols=n, dup_op=binary.min)
+        require(AT._sparse is not None and ATw._sparse is not None, "6c: AT and ATw are sparse")
+        info["from_coo s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runners = {
+            "pagerank": (dsl.pagerank_runner(AT, max_iters=iters), None),
+            "bfs_level": (dsl.bfs_level_runner(AT, sources[0]).runner, 0),
+            "bfs_level_dense": (dsl.bfs_level_dense_runner(AT, sources[0]).runner, 0),
+            "sssp": (dsl.sssp_runner(ATw, sources[0]).runner, 0),
+            "connected_components": (dsl.connected_components_runner(AT).runner, 0),
+        }
+        torch.cuda.synchronize()
+        info["build s (plans, warm steps)"] = time.perf_counter() - t0
+        for name, (r, _) in runners.items():
+            want = DSL_MODES[name].split("/")[0] + "/n"
+            require(r.capture == "graph", f"6c {name}: capture {r.capture} ({r.capture_reason})")
+            require(f"{r.mode}/{r.layout}" == want, f"6c {name}: {r.mode}/{r.layout} != {want}")
+
+        def pick(res, k):
+            return res if k is None else res[k]
+
+        # the main path of this phase: every recipe once from its graph
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        got = {name: pick(r(), k) for name, (r, k) in runners.items()}
+        torch.cuda.synchronize()
+        launches, plain = kernels.launch_counts(), kernels.plain_counts()
+        steps = {name: (iters if name == "pagerank" else int(r.last_iters)) for name, (r, _) in runners.items()}
+        # (a) graph = eager on the card, a second replay = the first
+        t0 = time.perf_counter()
+        for name, (r, k) in runners.items():
+            eager = pick(r.eager(), k)
+            again = pick(r(), k)
+            fill = -1 if name.startswith("bfs") else 0.0
+            a, b, c = (np.asarray(x.to_dense(fill_value=fill)) for x in (got[name], eager, again))
+            if name == "pagerank":
+                np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg="6c pagerank: graph != eager")
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"6c {name}: graph != eager")
+            np.testing.assert_array_equal(c, a, err_msg=f"6c {name}: the second replay != the first")
+        # (b) against the hand-written models and scipy
+        pr = np.asarray(got["pagerank"].to_dense(fill_value=0.0))
+        outdeg_t = torch.from_numpy(np.bincount(src, minlength=n)).to(dev)
+        pr_model = fast.pagerank(plan, outdeg_t, n, tol=0.0, max_iters=iters).cpu().numpy()
+        np.testing.assert_allclose(pr, pr_model, rtol=1e-5, atol=0, err_msg="6c pagerank != models.fast")
+        lv_model = fast.bfs_level(plan, sources[0], n).cpu().numpy()
+        for name in ("bfs_level", "bfs_level_dense"):
+            lv = np.asarray(got[name].to_dense(fill_value=-1))
+            np.testing.assert_array_equal(lv, lv_model, err_msg=f"6c {name} != models.fast.bfs_level")
+        d_model = fast.sssp(plan, sources[0], n).cpu().numpy()
+        d = np.asarray(got["sssp"].to_dense(fill_value=np.float32(np.inf)))
+        reach = d_model != STATE_BIG
+        require(np.array_equal(reach, d < float(dsl._BIG)), "6c sssp: reached set != models.fast")
+        require(np.array_equal(d[reach].view(np.int32), d_model[reach].view(np.int32)), "6c sssp != models.fast bit for bit")
+        cc = np.asarray(got["connected_components"].to_dense(fill_value=-1)).astype(np.int64)
+        ncomp, lab = csgraph.connected_components(scsp.csr_matrix((np.ones(e), (src, dst)), shape=(n, n)), directed=True, connection="weak")
+        least = np.full(ncomp, n, np.int64)
+        np.minimum.at(least, lab, np.arange(n))
+        np.testing.assert_array_equal(cc, least[lab], err_msg="6c connected components != scipy")
+        info["check s"] = time.perf_counter() - t0
+        for name in ("gather", "gather_fill", "segscan_contrib", "segscan"):
+            require(launches[name] > 0, f"6c compiled loops: {name} was not launched")
+        require(not any(plain.values()), f"6c compiled loops: plain versions ran: {plain}")
+        say(
+            "6c compiled loops",
+            f"scale {n.bit_length() - 1}: from_coo {info['from_coo s']:.2f} s, runners built (plans, warm "
+            f"steps, no capture yet) {info['build s (plans, warm steps)']:.2f} s; modes {DSL_MODES} with layout n, "
+            f"every recipe capture=graph; graph = eager on the card (pagerank rtol 1e-6, the rest exact) and a second replay = "
+            f"the first; pagerank ({iters} it) = models.fast rtol 1e-5; levels (both recipes) and sssp = models.fast "
+            f"bit for bit from {sources[0]}; CC = scipy ({ncomp} weak components); steps {steps}; launches "
+            f"{launches}, plain calls {plain}; checks {info['check s']:.2f} s",
+        )
+
+        # (c) times in bench.py's definitions (synchronised host time, median)
+        t_model = wall_s(torch, lambda: fast.pagerank(plan, outdeg_t, n, tol=0.0, max_iters=iters)) / iters
+        pr_run = runners["pagerank"][0]
+        t = wall_s(torch, pr_run) / iters
+        out["dsl_pagerank_gteps_per_iter"] = e / t / 1e9
+        out["dsl_pagerank_iter_ms"] = t * 1e3
+        out["dsl_pagerank_mode"] = f"{pr_run.mode}/{pr_run.layout}"
+        out["dsl_vs_model_iter_ratio"] = t / t_model
+        per = {"pagerank": {"graph ms/step": t * 1e3, "eager ms/step": wall_s(torch, pr_run.eager, 1) * 1e3 / iters}}
+        for key, name, mat in (("dsl_bfs", "bfs_level", AT), ("dsl_bfs_dense", "bfs_level_dense", AT), ("dsl_sssp", "sssp", ATw)):
+            build = {"bfs_level": dsl.bfs_level_runner, "bfs_level_dense": dsl.bfs_level_dense_runner, "sssp": dsl.sssp_runner}[name]
+            runs = [build(mat, s).runner for s in sources[:2]] * 2
+            t = wall_s(torch, lambda: [r() for r in runs]) / len(runs)
+            out[f"{key}_gteps"] = e / t / 1e9
+            out[f"{key}_mode"] = f"{runs[0].mode}/{runs[0].layout}"
+            r0, k0 = runners[name]
+            st = int(r0.last_iters)
+            per[name] = {
+                "graph ms/run": t * 1e3, "graph ms/step": wall_s(torch, r0) * 1e3 / st,
+                "eager ms/step": wall_s(torch, r0.eager, 1) * 1e3 / st, "steps": st,
+            }
+        cc_run = runners["connected_components"][0]
+        us, vs = np.concatenate([src, dst]), np.concatenate([dst, src])
+        e_sym = int(np.unique(us.astype(np.int64) * n + vs).size)
+        t = wall_s(torch, lambda: [cc_run() for _ in range(4)]) / 4
+        out["cc_gteps"] = e_sym / t / 1e9
+        out["cc_ms"] = t * 1e3
+        out["cc_iters"] = int(cc_run.last_iters)
+        out["cc_mode"] = f"{cc_run.mode}/{cc_run.layout}"
+        per["connected_components"] = {
+            "graph ms/step": t * 1e3 / out["cc_iters"],
+            "eager ms/step": wall_s(torch, cc_run.eager, 1) * 1e3 / out["cc_iters"], "steps": out["cc_iters"],
+        }
+        # the edge layout of the recipes the reference lowers to it (its
+        # default, GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1), against the card's n space
+        os.environ["GRAPHBLAS_TPU_DSL_EDGE_LAYOUT"] = "1"
+        try:
+            edge = {
+                "pagerank": (dsl.pagerank_runner(AT, max_iters=iters), None),
+                "bfs_level_dense": (dsl.bfs_level_dense_runner(AT, sources[0]).runner, 0),
+                "sssp": (dsl.sssp_runner(ATw, sources[0]).runner, 0),
+            }
+        finally:
+            os.environ.pop("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT")
+        for name, (r, k) in edge.items():
+            require(f"{r.mode}/{r.layout}" == DSL_MODES[name], f"6c {name}: {r.mode}/{r.layout} != {DSL_MODES[name]}")
+            require(r.capture == "graph", f"6c {name} (edge layout): capture {r.capture} ({r.capture_reason})")
+            fill = {"pagerank": 0.0, "bfs_level_dense": -1, "sssp": np.float32(np.inf)}[name]
+            a, b = (np.asarray(pick(x, k).to_dense(fill_value=fill)) for x in (r(), r.eager()))
+            n_space = np.asarray(got[name].to_dense(fill_value=fill))
+            if name == "pagerank":
+                np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg="6c pagerank (edge layout): graph != eager")
+                np.testing.assert_allclose(a, n_space, rtol=1e-5, atol=0, err_msg="6c pagerank: edge layout != n space")
+            else:
+                require(np.array_equal(a.view(np.int32), b.view(np.int32)), f"6c {name} (edge layout): graph != eager")
+                require(np.array_equal(a.view(np.int32), n_space.view(np.int32)), f"6c {name}: edge layout != n space")
+            per[name]["edge-layout graph ms/step"] = wall_s(torch, r) * 1e3 / (iters if name == "pagerank" else int(r.last_iters))
+        # the capture scope's share of an eager step's host time: the own
+        # time of core/capture.py's frames (the TorchFunctionMode's tagging
+        # and watching) over the run's, under cProfile (which slows both)
+        pf = cProfile.Profile()
+        pf.enable()
+        pr_run.eager()
+        torch.cuda.synchronize()
+        pf.disable()
+        st = pstats.Stats(pf)
+        own = sum(v[2] for k, v in st.stats.items() if k[0].endswith(os.path.join("core", "capture.py")))
+        per["pagerank"]["eager step: capture scope's share of host time (cProfile)"] = own / st.total_tt
+        for name, (r, _) in runners.items():
+            # one recipe's run alone: its launches per body step
+            kernels.reset_counts()
+            r()
+            torch.cuda.synchronize()
+            per[name]["launches/step"] = {k: v / steps[name] for k, v in kernels.launch_counts().items() if v}
+        # fastsv: the notebook's host-driven recipe (a Python loop with host
+        # reads a round: no compiled loop, so no graph), on the symmetrization
+        # of an RMAT scale-14 graph (a scale-19 run takes ~9 s of host time)
+        g14 = rmat(14, 16, seed=5, device=dev)
+        ok14 = g14.valid.cpu().numpy()
+        s14, d14 = (a.cpu().numpy()[ok14] for a in (g14.src, g14.dst))
+        n14 = g14.n
+        ATs = Matrix.from_coo(
+            np.concatenate([d14, s14]), np.concatenate([s14, d14]), np.float32(1.0), FP32, nrows=n14, ncols=n14,
+            dup_op=binary.first,
+        )
+        t0 = time.perf_counter()
+        fv = np.asarray(dsl.fastsv(ATs).to_dense(fill_value=-1)).astype(np.int64)
+        torch.cuda.synchronize()
+        per["fastsv (scale 14)"] = {"eager ms/run": (time.perf_counter() - t0) * 1e3}
+        nc14, lab14 = csgraph.connected_components(
+            scsp.csr_matrix((np.ones(len(s14)), (s14, d14)), shape=(n14, n14)), directed=True, connection="weak"
+        )
+        least14 = np.full(nc14, n14, np.int64)
+        np.minimum.at(least14, lab14, np.arange(n14))
+        np.testing.assert_array_equal(fv, least14[lab14], err_msg="6c fastsv != scipy")
+        # last, as the profiler may slow the host after it: the main path's
+        # run again under torch.profiler, which sees each kernel a replay
+        # executes; its counters must equal the main path's, and the
+        # kernels the profiler saw the launches counted
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for r, _ in runners.values():
+                r()
+            torch.cuda.synchronize()
+        again = kernels.launch_counts()
+        require(again == launches, f"6c: a second run's launches {again} != the main path's {launches}")
+        seen = profiled_launches(prof)
+        counted = {
+            "gather+gather_fill": again["gather"] + again["gather_fill"],
+            **{c: again[c] for c in ("segscan_contrib", "segscan_state", "segscan")},
+        }
+        require(seen == counted, f"6c: the kernels the profiler saw {seen} != the launches counted {counted}")
+        # where a PageRank replay's device time goes
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pr_run()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if getattr(ev, "device_time_total", 0) > 0]
+        dev_ms = sum(ev.device_time_total for ev in evs) / 1e3
+        top = sorted(evs, key=lambda ev: -ev.device_time_total)[:8]
+        per["pagerank"]["device ms/step (profiler)"] = dev_ms / iters
+        per["pagerank"]["top kernels ms/step"] = {ev.key[:60]: ev.device_time_total / 1e3 / iters for ev in top}
+        t_model_after = wall_s(torch, lambda: fast.pagerank(plan, outdeg_t, n, tol=0.0, max_iters=iters)) / iters
+    say(
+        "6c compiled loops",
+        f"bench.py keys {json.dumps(out)}; per recipe {json.dumps(per)} (cc_gteps over the {e_sym} edges of the "
+        f"symmetrization, as bench.py); models.fast.pagerank {t_model * 1e3:.4f} ms/iter ({t_model_after * 1e3:.4f} "
+        f"after the profiler); the kernels the profiler saw in a second run of the main path = the launches "
+        f"counted {seen}; on {smi}; phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {"launches": launches, "plain": plain, "dsl": out}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -1593,6 +1881,10 @@ def main():
     sparse = sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref, lv_ref, smi)
     sp_launches, sp_plain = sparse["launches"], sparse["plain"]
 
+    # 6c. compiled loops: models.dsl's recipes as CUDA graph replays at scale 19
+    comp = compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi)
+    cp_launches, cp_plain = comp["launches"], comp["plain"]
+
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()
     kernels.reset_counts()
@@ -1604,15 +1896,15 @@ def main():
     # 7. launch counts of each path
     path_launches = {
         "spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "dsl": dsl_launches, "roofline": roof_launches,
-        "sparse_dsl": sp_launches,
+        "sparse_dsl": sp_launches, "compiled": cp_launches,
     }
     ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
         f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
         f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); sparse DSL path "
-        f"{sp_launches}; roofline tool {roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, "
-        f"{dsl_plain}, {sp_plain}, {roof_plain}",
+        f"{sp_launches}; compiled loops {cp_launches}; roofline tool {roof_launches}; plain calls {plain_calls}, "
+        f"{sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {sp_plain}, {cp_plain}, {roof_plain}",
     )
     for name in KERNELS:
         for path in PATH_OF.get(name, ("spmv",)):
@@ -1622,7 +1914,7 @@ def main():
     for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
     require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
-    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, roof_plain):
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above

@@ -31,11 +31,17 @@ engines run through the hand-written Hopper kernels of ``kernels`` (built
 with nvcc on first use); on CPU tensors they run their plain PyTorch
 versions.  The package imports torch and numpy only.
 
+Past ``tx.config["dense_limit"]`` cells a collection takes the sparse
+format (host COO with device caches; ``A.mxv(x)`` runs the SpMV engine).
+``compile``, ``loop``, ``until``, ``loop_runner`` and ``until_runner``
+(``core.compiler``) run a loop of DSL statements as one CUDA graph on the
+card (eagerly on the CPU), with structure hoisting and the edge layout;
+``models.dsl`` holds the DSL recipes written with them.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue: collections past ``tx.config["dense_limit"]`` (the sparse format,
-queue 4), UDT collections (queue 3b), compiled loops (``compile``,
-``loop``, ``until``; queue 5), ``io``/``viz``/``Matrix.tx``/pickle (queue 7)
-and the mesh layer (``parallel``; queue 8).
+queue: UDT collections (queue 3b), the SpGEMM models (queue 6),
+``io``/``viz``/``Matrix.tx``/pickle (queue 7) and the mesh layer
+(``parallel``; queue 8).
 """
 
 import importlib as _importlib
@@ -81,15 +87,16 @@ _CLASS_HOMES = {
     "Vector": "graphblas_tpu_torch.core.vector",
     "Scalar": "graphblas_tpu_torch.core.scalar",
     "Recorder": "graphblas_tpu_torch.core.recorder",
+    # compiled loops: a loop of DSL statements as one CUDA graph
+    "compile": "graphblas_tpu_torch.core.compiler",
+    "loop": "graphblas_tpu_torch.core.compiler",
+    "until": "graphblas_tpu_torch.core.compiler",
+    "loop_runner": "graphblas_tpu_torch.core.compiler",
+    "until_runner": "graphblas_tpu_torch.core.compiler",
 }
 
 # attributes of the JAX package that wait for a later queue (ROADMAP.md)
 _WAITING = {
-    "compile": 5,
-    "loop": 5,
-    "until": 5,
-    "loop_runner": 5,
-    "until_runner": 5,
     "io": 7,
     "viz": 7,
     "ss": 7,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import exceptions as _exc
+from . import capture as _cap
 from . import dtypes as _dt
 from . import recorder as _recorder
 from .mask import Mask, StructuralMask, ValueMask
@@ -53,10 +54,11 @@ def _engine_opts_ctx(opts):
 
 def _maybe_block(obj):
     """Blocking mode: synchronize the card after a mutating statement
-    (error-timing spec, see graphblas_tpu_torch.init)."""
+    (error-timing spec, see graphblas_tpu_torch.init).  Inside a compiled
+    loop there is nothing to synchronize."""
     import graphblas_tpu_torch as _gb
 
-    if _gb.is_blocking and getattr(obj, "_sparse", None) is None and obj._struct.is_cuda:
+    if _gb.is_blocking and _cap.active() is None and getattr(obj, "_sparse", None) is None and obj._struct.is_cuda:
         torch.cuda.synchronize(obj._struct.device)
 
 
@@ -293,6 +295,13 @@ class BaseType:
         cache = getattr(self, "_nvals_cache", None)
         if cache is not None and cache[0] is s and cache[1] == s._version:
             return cache[2]
+        if _cap.active() is not None:
+            # inside a compiled loop: a constant structure counts on the host;
+            # a traced one cannot be read (TracerError)
+            h = _cap.host_of(s)
+            if h is None:
+                raise _exc.TracerError(".nvals reads a traced structure inside a compiled loop body")
+            return int(h.sum())
         n = int(s.sum())
         self._nvals_cache = (s, s._version, n)
         return n
@@ -304,7 +313,7 @@ class BaseType:
     def wait(self, how="materialize"):
         """Block until pending device computation completes: asynchronous
         CUDA launches are the analogue of GraphBLAS non-blocking mode."""
-        if self._struct.is_cuda:
+        if self._struct.is_cuda and _cap.active() is None:
             torch.cuda.synchronize(self._struct.device)
         return self
 

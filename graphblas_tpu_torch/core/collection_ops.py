@@ -13,9 +13,11 @@ on the SpMV engine (``core.sparse.sparse_mxv``: the plan channel's kernels
 or the generic gather) or, for a sparse vector or a huge output, the host
 join ``sparse_mxv_sv``, ``C(M) << A.mxm(B)`` on the masked SpGEMM
 (``sparse_mxm_masked``: eqjoin), an unmasked ``A.mxm(B)`` on
-``sparse_spgemm_full``, and assign and delete as host pattern surgery.  Not
-ported: SUMMA and the sharded plans under a mesh (``_mesh_context``:
-ROADMAP.md, queue 8) and the edge-layout loop body (queue 5).
+``sparse_spgemm_full``, and assign and delete as host pattern surgery.  In
+an edge-layout loop body (``core/looplayout.py``) n-sized operands are
+lifted to the edge space and index-dependent ops raise ``LayoutUnsupported``.
+Not ported: SUMMA and the sharded plans under a mesh (``_mesh_context``:
+ROADMAP.md, queue 8).
 """
 
 import numpy as np
@@ -99,6 +101,16 @@ def ewise_expr(self, other, op, how, *, left_default=None, right_default=None):
         argname="other",
     )
     _same_device(self, other, f"ewise_{how}")
+    # edge-layout loop body: lift a concrete n-sized operand (a closed-over
+    # static like a degree vector) to the edge layout of the state operand
+    from . import looplayout as _ll
+
+    _lctx = _ll.active()
+    if _lctx is not None and self.ndim == 1 and other.ndim == 1:
+        if _lctx.is_state_sized(self) and _lctx.is_n_sized(other):
+            other = _lctx.lift_vector(other)
+        elif _lctx.is_n_sized(self) and _lctx.is_state_sized(other):
+            self = _lctx.lift_vector(self)
     # mixed-rank broadcast recipes (python-graphblas's _v_add_m/_v_mult_m and
     # _m_add_v/_m_mult_v): a Vector on the left broadcasts v[i] across row
     # i; on the right, v[j] across column j.
@@ -220,6 +232,9 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
         op_resolved, opclass = find_opclass(op)
 
     if opclass in {"IndexUnaryOp", "SelectOp"}:
+        from . import looplayout as _ll
+
+        _ll.reject_index_semantics(self, op, "indexunary apply")
         if opclass == "SelectOp":
             # a SelectOp lifts to its IndexUnaryOp for apply
             op = op._iu if hasattr(op, "_iu") and op._iu is not None else op
@@ -277,6 +292,9 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
         sv = _vec_sparse_of(self)
         sparse_fn = None
         if getattr(op_t, "positional", None) is not None:
+            from . import looplayout as _ll
+
+            _ll.reject_index_semantics(self, op_t, "positional apply")
 
             def compute():
                 v, s = _arrays_of(self)
@@ -413,6 +431,9 @@ def select_expr(self, op, thunk=None):
         )
     out_cls = Matrix if self.ndim == 2 else Vector
     op_t = get_typed_op(op, self.dtype, kind="select")
+    from . import looplayout as _ll
+
+    _ll.reject_index_semantics(self, op_t, "select")
     thunk_s = _as_scalar(thunk if thunk is not None else 0, getattr(op_t.parent, "_thunk_dtype", None))
 
     def compute():
@@ -575,6 +596,14 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
     b_is_vec = b.ndim == 1
     k1 = a.shape[0] if a_is_vec else a.shape[1]
     k2 = b.shape[0]
+    # edge-layout loop body (core/looplayout.py): a state vector of virtual
+    # size n is carried as an e_pad tensor; the SpMV takes it as it is
+    from . import looplayout as _ll
+
+    _lctx = _ll.active()
+    _edge_vec = _lctx is not None and (a_is_vec ^ b_is_vec) and (a if a_is_vec else b).shape[0] == _lctx.e_pad
+    if _edge_vec:
+        k1 = k2 = _lctx.n
     if k1 != k2:
         raise _exc.DimensionMismatch(
             f"Dimensions not compatible for {method_name}: inner dims {k1} != {k2}"
@@ -591,6 +620,9 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
         out_cls, shape = Vector, (a.shape[0],)
     else:
         out_cls, shape = Matrix, (a.shape[0], b.shape[1])
+    if _edge_vec:
+        # the edge-layout SpMV's output stays in the edge space
+        shape = (_lctx.e_pad,)
     _same_device(a, b, method_name)
 
     sparse = _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape)

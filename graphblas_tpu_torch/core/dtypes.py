@@ -333,6 +333,7 @@ def to_tensor(values, dtype, device):
     tensors.  The caller names the device: nothing here picks one."""
     arr = np.asarray(values)
     dtype = lookup_dtype(arr.dtype) if dtype is None else lookup_dtype(dtype)
+    scalar = arr.ndim == 0
     if dtype._is_udt:
         return {f: to_tensor(np.ascontiguousarray(arr[f]), None, device) for f in dtype.np_type.names}
     arr = np.ascontiguousarray(arr.astype(dtype.np_type, copy=False))
@@ -344,6 +345,16 @@ def to_tensor(values, dtype, device):
         t = torch.from_numpy(arr.astype(np.int64 if dtype._bits == 32 else np.int32))
     else:
         t = torch.from_numpy(arr)
+    from . import capture as _cap
+
+    if _cap.active() is not None:
+        if scalar:
+            # a constant scalar inside a compiled loop: a fill on the device,
+            # which a CUDA graph captures (a host-to-device copy it cannot)
+            with _cap.constants():
+                value = t.reshape(()).item()
+            return _cap.fill(value, t.dtype, device)
+        return _cap.upload(t, device)
     return t.to(device)
 
 

@@ -92,6 +92,18 @@ class IndexerResolver:
                 if len(keys) != 1:
                     raise TypeError(f"Index for {type(parent).__name__} cannot be a {len(keys)}-tuple")
                 keys = keys[0]
+            # edge-layout loop body: positions are slot ids, not vertex ids;
+            # only the full slice is layout-agnostic (core/looplayout.py)
+            from . import looplayout as _ll
+
+            _lctx = _ll.active()
+            if (
+                _lctx is not None
+                and parent.shape[0] == _lctx.e_pad
+                and not (isinstance(keys, slice) and keys == slice(None))
+                and keys is not Ellipsis
+            ):
+                raise _ll.LayoutUnsupported("indexed extract/assign in an edge-layout loop")
             self.indices = (_parse_one(keys, parent.shape[0], "size"),)
         else:
             if not isinstance(keys, tuple):
@@ -294,7 +306,7 @@ class AmbiguousAssignOrExtract:
                     r, c = res.indices
                     j = parent._sparse_find(r.index, c.index)
                 val = sp.vals[j] if j >= 0 else np.zeros((), sp.vals.dtype)
-                return _dt.to_tensor(val, sp.dtype, dev), torch.tensor(j >= 0, device=dev)
+                return _dt.to_tensor(val, sp.dtype, dev), torch.full((), bool(j >= 0), dtype=torch.bool, device=dev)
 
             return BaseExpression(
                 "extract_element", Scalar, compute_scalar, dtype=parent.dtype, shape=(), args=(parent,),

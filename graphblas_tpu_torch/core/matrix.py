@@ -262,7 +262,7 @@ class Matrix(InfixMixin, BaseType):
         dense_v[rows, columns] = values
         dense_s[rows, columns] = True
         dev = collection_device()
-        return cls._from_arrays(device_asarray(dense_v, dtype, dev), torch.from_numpy(dense_s).to(dev), dtype, name=name)
+        return cls._from_arrays(device_asarray(dense_v, dtype, dev), _dt.to_tensor(dense_s, _dt.BOOL, dev), dtype, name=name)
 
     @classmethod
     def from_edgelist(cls, edgelist, values=None, dtype=None, *, nrows=None, ncols=None, dup_op=None, name=None):
@@ -366,7 +366,7 @@ class Matrix(InfixMixin, BaseType):
             struct = values != missing_value
         v = np.where(struct, values, np.zeros((), dtype.np_type))
         dev = collection_device()
-        return cls._from_arrays(device_asarray(v, dtype, dev), torch.from_numpy(np.ascontiguousarray(struct)).to(dev), dtype, name=name)
+        return cls._from_arrays(device_asarray(v, dtype, dev), _dt.to_tensor(struct, _dt.BOOL, dev), dtype, name=name)
 
     @classmethod
     def from_dicts(cls, nested_dicts, dtype=None, *, order="rowwise", nrows=None, ncols=None, name=None):

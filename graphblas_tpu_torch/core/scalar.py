@@ -3,7 +3,11 @@
 Counterpart of ``graphblas_tpu/core/scalar.py``.  The value lives on the
 host (a numpy scalar of the type); ``_device_value`` puts it on a device as
 a 0-d carrier tensor for the engine, and a computed value is read back from
-the card (``_set_value_from_device``).  ``is_cscalar`` is kept for API
+the card (``_set_value_from_device``).  Inside a compiled loop
+(``core/capture.py``) a computed value stays a 0-d carrier tensor on the
+device and its presence is structural, as the reference keeps a traced
+value; reading it on the host there raises ``TracerError``.  Outside, a
+device value is read back on first use.  ``is_cscalar`` is kept for API
 parity.  A UDT Scalar waits for the struct-of-arrays collections
 (ROADMAP.md, queue 3b).
 """
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import exceptions as _exc
+from . import capture as _cap
 from . import dtypes as _dt
 from .base import BaseExpression, BaseType
 from .infixmethods import InfixMixin
@@ -91,7 +96,21 @@ class Scalar(InfixMixin, BaseType):
     def value(self):
         if self._empty:
             return None
-        return self._values
+        return self._host_values()
+
+    def _host_values(self):
+        """The value on the host: a device value (a compiled loop's result)
+        is read back once; inside a compiled loop body that read raises."""
+        v = self._values
+        if isinstance(v, torch.Tensor):
+            if _cap.active() is not None:
+                raise _exc.TracerError(
+                    "a Scalar's value is read on the host inside a compiled loop body; "
+                    "it is abstract there (docs/compile.md)"
+                )
+            self._set_value_from_device(v, self._dtype)
+            v = self._values
+        return v
 
     @value.setter
     def value(self, val):
@@ -117,7 +136,11 @@ class Scalar(InfixMixin, BaseType):
         collections' device)."""
         from .utils import device_asarray
 
-        return device_asarray(self._values, self._dtype if dtype is None else dtype, device)
+        dtype = self._dtype if dtype is None else dtype
+        if isinstance(self._values, torch.Tensor):
+            v = _dt.cast(self._values, self._dtype, _dt.lookup_dtype(dtype))
+            return v if device is None or v.device == torch.device(device) else v.to(device)
+        return device_asarray(self._values, dtype, device)
 
     @property
     def is_empty(self):
@@ -144,13 +167,19 @@ class Scalar(InfixMixin, BaseType):
         dtype = self._dtype if dtype is None else _dt.lookup_dtype(dtype)
         sc = Scalar(dtype, is_cscalar=self._is_cscalar if is_cscalar is None else is_cscalar, name=name)
         if not clear and not self._empty:
-            sc.value = np.asarray(self._values).astype(dtype.np_type)[()]
+            if isinstance(self._values, torch.Tensor) and _cap.active() is not None:
+                sc._set_device_value(self._device_value(dtype))
+            else:
+                sc.value = np.asarray(self._host_values()).astype(dtype.np_type)[()]
         return sc
 
     new = dup
 
     def get(self, default=None):
-        return default if self._empty else self._values.item() if hasattr(self._values, "item") else self._values
+        if self._empty:
+            return default
+        v = self._host_values()
+        return v.item() if hasattr(v, "item") else v
 
     def wait(self, how="materialize"):
         return self
@@ -174,10 +203,29 @@ class Scalar(InfixMixin, BaseType):
         Scalar's type."""
         a = _dt.cast(self._device_value(device=other.device), self._dtype, accum.type_)
         b = _dt.cast(other, self._dtype, accum.type2)
+        if _cap.active() is not None:
+            self._set_device_value(_dt.cast(accum.fn(a, b), accum.return_type, self._dtype))
+            return
         self._set_value_from_device(accum.fn(a, b), accum.return_type)
+
+    def _set_device_value(self, t):
+        """Keep a 0-d carrier tensor of this Scalar's type as the value (a
+        compiled loop's abstract value: present, as the reference's)."""
+        self._values = t
+        self._struct = True
+        self._empty = False
 
     def _update_from_expr(self, expr, accum):
         v, s = expr._compute()
+        if _cap.active() is not None:
+            # inside a compiled loop: keep the device value; presence is
+            # structural (an absent reduce already yields its identity)
+            v = _dt.cast(v, expr.dtype, self._dtype)
+            if accum is not None and not self._empty:
+                self._apply_accum(accum, v)
+            else:
+                self._set_device_value(v)
+            return
         present = bool(s)
         if not present:
             if accum is None:
@@ -223,7 +271,7 @@ class Scalar(InfixMixin, BaseType):
             return False
         if self._empty or other._empty:
             return self._empty and other._empty
-        return bool(np.asarray(self._values) == np.asarray(other._values))
+        return bool(np.asarray(self._host_values()) == np.asarray(other._host_values()))
 
     def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
         if not isinstance(other, Scalar):
@@ -234,7 +282,7 @@ class Scalar(InfixMixin, BaseType):
             return False
         if self._empty or other._empty:
             return self._empty and other._empty
-        a, b = float(np.real(self._values)), float(np.real(other._values))
+        a, b = float(np.real(self._host_values())), float(np.real(other._host_values()))
         return abs(a - b) <= max(rel_tol * max(abs(a), abs(b)), abs_tol)
 
     def __eq__(self, other):
@@ -255,22 +303,22 @@ class Scalar(InfixMixin, BaseType):
     def __bool__(self):
         if self._empty:
             return False
-        return bool(self._values)
+        return bool(self._host_values())
 
     def __int__(self):
         if self._empty:
             raise _exc.EmptyObject("Scalar is empty")
-        return int(self._values)
+        return int(self._host_values())
 
     def __float__(self):
         if self._empty:
             raise _exc.EmptyObject("Scalar is empty")
-        return float(self._values)
+        return float(self._host_values())
 
     def __complex__(self):
         if self._empty:
             raise _exc.EmptyObject("Scalar is empty")
-        return complex(self._values)
+        return complex(self._host_values())
 
     __index__ = __int__
 
@@ -422,4 +470,4 @@ def _device():
 
 
 def _present(flag, device):
-    return torch.tensor(bool(flag), device=device)
+    return torch.full((), bool(flag), dtype=torch.bool, device=device)

@@ -29,9 +29,11 @@ import numpy as np
 import torch
 
 from .. import exceptions as _exc
+from . import capture as _cap
 from . import dtypes as _dt
 from ..kernels.eqjoin import USES_AV, USES_BV
 from ..ops import eqjoin as _ej
+from ..ops.densemasked import _host_concrete
 from ..ops.edgewise import _jax_extreme_fix
 from ..ops import fastspmv as _fs
 from ..ops.fastspmv import _complete_permutation
@@ -167,13 +169,14 @@ class SparseMatrixData:
         if ck not in self._dev:
             name, order = key.rsplit("_", 1)
             sel = self.col_order() if order == "c" else slice(None)
-            if name == "vals":
-                self._dev[ck] = _dt.to_tensor(self.vals[sel], self.dtype, device)
-            elif name in ("rows", "cols") and order in "rc":
-                a = (self.rows if name == "rows" else self.cols)[sel]
-                self._dev[ck] = torch.from_numpy(np.ascontiguousarray(a.astype(self._idx_dtype()))).to(device)
-            else:
-                raise KeyError(key)
+            with _cap.constants():
+                if name == "vals":
+                    self._dev[ck] = _dt.to_tensor(self.vals[sel], self.dtype, device)
+                elif name in ("rows", "cols") and order in "rc":
+                    a = (self.rows if name == "rows" else self.cols)[sel]
+                    self._dev[ck] = torch.from_numpy(np.ascontiguousarray(a.astype(self._idx_dtype()))).to(device)
+                else:
+                    raise KeyError(key)
         return self._dev[ck]
 
     def _vals_absmax(self):
@@ -199,16 +202,24 @@ class SparseMatrixData:
     # SpMV plans
     # ------------------------------------------------------------------
 
-    def plan(self, direction, device="cuda"):
+    def plan(self, direction, device="cuda", loop=False):
         """SpmvPlan for 'pull' (dst=rows, src=cols) or 'push' (dst=cols) on
         ``device``, built once (blocking: the port's plan build has no router)
-        and cached."""
+        and cached.
+
+        ``loop=True`` asks for the loop-capable plan (total, with the loop
+        route): compiled DSL loops need it for the edge layout
+        (``core/looplayout.py``).  It serves every n-space dispatch the same
+        way, so it replaces the plain plan in the cache; a CUDA graph
+        captured on the plain plan keeps its tensors (``core/capture.py``)."""
         key = (direction, str(torch.device(device)))
-        if key not in self._plans:
+        cached = self._plans.get(key)
+        if cached is None or (loop and not (cached.total and cached.loop_idx is not None)):
             n = max(self.nrows, self.ncols)
             src, dst = (self.cols, self.rows) if direction == "pull" else (self.rows, self.cols)
             w = _channel_weights(self.vals)
-            self._plans[key] = _fs.build_spmv_plan(src, dst, w, n=n, loop_net=False, total=False, device=device)
+            with _cap.constants():
+                self._plans[key] = _fs.build_spmv_plan(src, dst, w, n=n, loop_net=loop, total=loop, device=device)
         return self._plans[key]
 
     def plan_ready(self, direction, device="cuda"):
@@ -239,7 +250,7 @@ def _scatter_dense(flat, vals, dtype, shape, device):
     dv = torch.zeros(cells, dtype=dtype.carrier, device=device)
     ds = torch.zeros(cells, dtype=torch.bool, device=device)
     if len(flat):
-        at = torch.from_numpy(np.ascontiguousarray(flat, np.int64)).to(device)
+        at = _cap.upload(np.asarray(flat, np.int64), device)
         dv[at] = _dt.to_tensor(vals, dtype, device)
         ds[at] = True
     return dv.reshape(shape), ds.reshape(shape)
@@ -351,6 +362,11 @@ def _segment_reduce(contrib, valid, seg_ids, num_segments, monoid_t, dtype=None)
         return iv.expand(num_segments).clone(), torch.zeros(num_segments, dtype=torch.bool, device=dev)
     ids = seg_ids.long()
     ys = torch.zeros(num_segments, dtype=torch.int32, device=dev).index_add_(0, ids, valid.to(torch.int32)) > 0
+    if _host_concrete(valid, seg_ids):
+        # structure hoisting (core/compiler.py): the output structure stays a
+        # constant of a compiled loop when its inputs are
+        hv, hs = _cap.host_of(valid), _cap.host_of(seg_ids)
+        _cap.with_host(ys, np.bincount(hs.astype(np.int64), weights=hv, minlength=num_segments)[:num_segments] > 0)
     zero = torch.zeros((), dtype=dt.carrier, device=dev)
     if name in _SEGMENT_OPS:
         cd = _compute_carrier(dt)
@@ -403,13 +419,28 @@ def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
     pos = mul.positional
     strategy = _mxv_strategy()
 
+    from . import looplayout as _ll
+
+    probe = _ll.probing()
+    if probe is not None:
+        # compiled-loop warm step: record the dispatch so the compiler can
+        # decide edge-layout eligibility (core/looplayout.py)
+        probe.record(sp, pull, a_first, sr)
+    lctx = _ll.active()
+    if lctx is not None and xv.dim() == 1 and xv.shape[0] == lctx.e_pad:
+        # edge-layout body: the input is loop state in the edge space, one
+        # G launch fewer per SpMV through the loop route
+        return _ll.edge_mxv(lctx, sp, pull, a_first, xv, xs, sr, out_dtype)
+
     plan_mul = _plan_mul_name(mul, a_first, pos)
     channel = None
     if _plan_allowed(sp, strategy, xv):
         channel = _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv, x_type)
     if channel is not None:
         yv, ys = _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type)
-        return yv[:n_out], ys[:n_out]
+        if yv.shape[0] != n_out:
+            yv, ys = yv[:n_out], ys[:n_out]
+        return yv, ys
 
     # generic gather + segment path: exact for every semiring/dtype
     dev = xv.device
@@ -419,6 +450,9 @@ def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
         dst, src, avals = sp.device("cols_c", dev), sp.device("rows_c", dev), sp.device("vals_c", dev)
     srcl = src.long()
     valid = xs[srcl]
+    if _host_concrete(xs, src):
+        # keep the structure gather on the host in compiled loops
+        _cap.with_host(valid, _cap.host_of(xs)[_cap.host_of(src).astype(np.int64)])
     if pos is not None:
         which, delta = pos
         role = _positional_role(which, a_first)
@@ -521,7 +555,13 @@ def _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv, x_type=None
         return np.int32 if add_name in ("plus", "any") else None
     if kind in "iu" and out_np.itemsize == 8:
         x_type = _dt.lookup_dtype(xv.dtype) if x_type is None else x_type
-        xmax = float(_dt.cast(xv, x_type, _dt.FP64).abs().max()) if xv.numel() else 0.0
+        if _cap.active() is not None:
+            hx = _cap.host_of(xv)
+            if hx is None:
+                return None  # cannot range-check abstract values
+            xv = torch.from_numpy(np.ascontiguousarray(hx))
+        with _cap.constants():
+            xmax = float(_dt.cast(xv, x_type, _dt.FP64).abs().max()) if xv.numel() else 0.0
         mmax = sp._vals_absmax()
         if plan_mul == "times":
             bound = mmax * xmax
@@ -553,7 +593,12 @@ def _plan_allowed(sp, strategy, xv):
 def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type):
     out_np = np.dtype(out_dtype.np_type)
     dev = xv.device
-    plan = sp.plan("pull" if pull else "push", dev)
+    from . import looplayout as _ll
+
+    # in a compiled loop's warm step, build the loop-capable (total) plan
+    # once: it serves this n-space dispatch the same way AND the edge layout
+    loop_variant = _ll.probing() is not None or _ll.active() is not None
+    plan = sp.plan("pull" if pull else "push", dev, loop=loop_variant)
     n = plan.n
     ch = _dt.INT32 if channel == np.int32 else _dt.FP32
     # narrow integer outputs: contributions wrap to the output width in
@@ -572,8 +617,14 @@ def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_t
     xs_in = xs
     if xs_in.shape[0] != n:
         xs_in = torch.cat([xs_in, xs_in.new_zeros(n - xs_in.shape[0])])
-    # every x present: the plan knows the structure statically (a host sync)
-    x_full = bool(xs.all())
+    # every x present: the plan knows the structure statically.  Inside a
+    # compiled loop that is decided from a constant structure (structure
+    # hoisting) and never read from the card
+    if _cap.active() is not None:
+        hx = _cap.host_of(xs)
+        x_full = hx is not None and bool(hx.all())
+    else:
+        x_full = bool(xs.all())
     yv, ys = _fs.spmv_masked(plan, x_in, xs_in, add=add_name, mul=plan_mul, x_full=x_full, wrap=wrap)
     if pos is not None:
         _, delta = pos
@@ -609,7 +660,7 @@ def _reduce_groups(contrib, starts, monoid_t, dtype):
         return _dt.to_numpy(contrib[_index_t(ends, contrib.device)], dtype)
     seg = np.zeros(n, np.int64)
     seg[starts[1:]] = 1
-    ids = torch.from_numpy(np.cumsum(seg)).to(contrib.device)
+    ids = _cap.upload(np.cumsum(seg), contrib.device)
     valid = torch.ones(n, dtype=torch.bool, device=contrib.device)
     m = monoid_t if monoid_t.type_ == dtype else _retype_monoid(monoid_t, dtype)
     y, _ = _segment_reduce(contrib, valid, ids, len(starts), m)
@@ -619,7 +670,7 @@ def _reduce_groups(contrib, starts, monoid_t, dtype):
 def _index_t(a, device):
     """Host int64 indices as an int64 tensor (the reference's index type on a
     64-bit platform)."""
-    return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+    return _cap.upload(np.asarray(a, np.int64), device)
 
 
 # ---------------------------------------------------------------------------
@@ -817,13 +868,14 @@ class SparseVectorData:
         device = torch.device(device)
         ck = (key, str(device))
         if ck not in self._dev:
-            if key == "idx":
-                idt = np.int32 if self.size <= _INT32_MAX else np.int64
-                self._dev[ck] = torch.from_numpy(np.ascontiguousarray(self.idx.astype(idt))).to(device)
-            elif key == "vals":
-                self._dev[ck] = _dt.to_tensor(self.vals, self.dtype, device)
-            else:
-                raise KeyError(key)
+            with _cap.constants():
+                if key == "idx":
+                    idt = np.int32 if self.size <= _INT32_MAX else np.int64
+                    self._dev[ck] = torch.from_numpy(np.ascontiguousarray(self.idx.astype(idt))).to(device)
+                elif key == "vals":
+                    self._dev[ck] = _dt.to_tensor(self.vals, self.dtype, device)
+                else:
+                    raise KeyError(key)
         return self._dev[ck]
 
     def densify(self, device, *, limit=None):
@@ -1179,7 +1231,7 @@ class SpgemmBrickPlan:
 
 
 def _to(a, device):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return _cap.upload(a, device)
 
 
 def _build_reduce_net(buckets, n_entries, device):

@@ -108,6 +108,13 @@ class Vector(InfixMixin, BaseType):
         dev = collection_device()
         self._sparse = None
         self.name = name
+        from . import looplayout as _ll
+
+        _llctx = _ll.active()
+        if _llctx is not None and size == _llctx.n:
+            # edge-layout loop body: empty n-sized vectors made inside the
+            # body live in the edge layout (core/looplayout.py)
+            size = _llctx.e_pad
         if size > _sparse_limit():
             self._sparse, self._sp_dev = _empty_sparse(size, self._dtype), dev
             return
@@ -294,7 +301,7 @@ class Vector(InfixMixin, BaseType):
         dense_v[indices] = values
         dense_s[indices] = True
         dev = collection_device()
-        return cls._from_arrays(device_asarray(dense_v, dtype, dev), torch.from_numpy(dense_s).to(dev), dtype, name=name)
+        return cls._from_arrays(device_asarray(dense_v, dtype, dev), _dt.to_tensor(dense_s, _dt.BOOL, dev), dtype, name=name)
 
     @classmethod
     def from_pairs(cls, pairs, dtype=None, *, size=None, dup_op=None, name=None):
@@ -314,6 +321,15 @@ class Vector(InfixMixin, BaseType):
         size = ensure_int(size, "size")
         check_storage(dtype, "Vector")
         dev = collection_device()
+        from . import looplayout as _ll
+
+        ctx = _ll.active()
+        if ctx is not None and size == ctx.n:
+            # edge-layout loop body: an n-sized iso vector made inside the body
+            # is built in the edge layout, present exactly at the state slots
+            return cls._from_arrays(
+                sc._device_value(dtype, dev).expand(ctx.e_pad).clone(), ctx.universe(dev), dtype, name=name
+            )
         return cls._from_arrays(
             sc._device_value(dtype, dev).expand(size).clone(), _dm.s_ones((size,), dev), dtype, name=name
         )
@@ -331,7 +347,7 @@ class Vector(InfixMixin, BaseType):
             struct = values != missing_value
         v = np.where(struct, values, np.zeros((), dtype.np_type))
         dev = collection_device()
-        return cls._from_arrays(device_asarray(v, dtype, dev), torch.from_numpy(np.ascontiguousarray(struct)).to(dev), dtype, name=name)
+        return cls._from_arrays(device_asarray(v, dtype, dev), _dt.to_tensor(struct, _dt.BOOL, dev), dtype, name=name)
 
     @classmethod
     def from_dict(cls, d, dtype=None, *, size=None, name=None):

@@ -65,6 +65,12 @@ class NotImplementedException(GraphblasException):
     """The requested feature is valid GraphBLAS but not implemented yet."""
 
 
+class TracerError(GraphblasException, TypeError):
+    """A compiled loop body (``gb.compile``, ``gb.loop``, ``gb.until``) read a
+    device value on the host: inside the body collection values are abstract,
+    as under the JAX package's trace (``docs/compile.md``)."""
+
+
 class UdfParseError(GraphblasException):
     """A user-defined function could not be evaluated on torch tensors
     (reference analogue: exceptions.py:93-104, numba parse failure)."""

@@ -61,6 +61,15 @@ def plain_counts():
     return {k: v for m in _MODULES for k, v in m.PLAIN_CALLS.items()}
 
 
+def add_launches(delta, times=1):
+    """Add ``times`` x ``delta`` (launches by kernel name) to the counts: a
+    CUDA graph replay launches what its capture recorded, and the capture
+    itself launched nothing (``core/compiler.py``)."""
+    for m in _MODULES:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] += times * delta.get(k, 0)
+
+
 def reset_counts():
     for d in [m.LAUNCHES for m in _MODULES] + [m.PLAIN_CALLS for m in _MODULES]:
         for k in d:

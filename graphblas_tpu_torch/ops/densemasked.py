@@ -31,14 +31,17 @@ the code the card runs:
 - everything else: the generic contraction, k in chunks of 128, each an
   (m, 128, n) broadcast multiply reduced by the reference's halving tree.
 
-Not ported here, each with its queue in ROADMAP.md: the struct-of-arrays
-(UDT) branches (queue 3b) and the trace-time structure hoisting of compiled
-loops (queue 5).
+Inside a compiled loop (``core/capture.py``) the structure combinators
+``s_*``, ``mxm``'s output structure and the assign scatters keep structure
+host-side where their operands are constants, as the reference does under
+a trace (structure hoisting, ``core/compiler.py``).  Not ported here: the
+struct-of-arrays (UDT) branches (ROADMAP.md, queue 3b).
 """
 
 import numpy as np
 import torch
 
+from ..core import capture as _cap
 from ..core import dtypes as _dt
 from .mxm import full_f32_matmul, is_tropical, tropical_mxm
 
@@ -51,38 +54,132 @@ def _zero(t):
 
 
 # ---------------------------------------------------------------------------
-# Structure combinators (plain ops: the port has no outer trace to keep
-# structures host-side for)
+# Structure math that stays on the host inside compiled loops
 # ---------------------------------------------------------------------------
+#
+# Inside a compiled loop's capture scope (core/capture.py) every torch op
+# returns a traced tensor, so a structure would turn traced after one
+# combine and defeat structure hoisting (core/compiler.py).  These
+# combinators detect "in a scope AND all operands concrete" and compute the
+# structure's host value in numpy beside the device result (a constant of
+# the loop); with one concrete all-true or all-false operand they short-cut.
+# Outside a scope they are plain ops.
+
+
+def _host_concrete(*arrays):
+    if _cap.active() is None:
+        return False
+    return all(_cap.host_of(a) is not None for a in arrays)
+
+
+def _concrete_const(x):
+    """(is_concrete, all_true, all_false) for the structure short-cuts."""
+    h = _cap.host_of(x)
+    if h is None:
+        return False, False, False
+    return True, bool(h.all()), bool(not h.any())
+
+
+def _hosted(t, host):
+    return _cap.with_host(t, host)
 
 
 def s_and(a, b):
+    if _host_concrete(a, b):
+        return _hosted(a & b, np.logical_and(_cap.host_of(a), _cap.host_of(b)))
+    # short-cuts keep structure concrete when one side is a known constant
+    # (dense-full loop states: x & True == x, x & False == False); only for
+    # equal shapes, which keeps the broadcast shape
+    if _cap.active() is not None and a.shape == b.shape:
+        for x, y in ((a, b), (b, a)):
+            cx, tx, fx = _concrete_const(x)
+            if cx and tx:
+                return y
+            if cx and fx:
+                return s_zeros(tuple(x.shape), x.device)
     return a & b
 
 
 def s_or(a, b):
+    if _host_concrete(a, b):
+        return _hosted(a | b, np.logical_or(_cap.host_of(a), _cap.host_of(b)))
+    if _cap.active() is not None and a.shape == b.shape:
+        for x, y in ((a, b), (b, a)):
+            cx, tx, fx = _concrete_const(x)
+            if cx and tx:
+                return s_ones(tuple(x.shape), x.device)
+            if cx and fx:
+                return y
     return a | b
 
 
 def s_not(a):
+    if _host_concrete(a):
+        return _hosted(~a, np.logical_not(_cap.host_of(a)))
     return ~a
 
 
 def s_where(c, a, b):
+    if _host_concrete(c, a, b):
+        return _hosted(torch.where(c, a, b), np.where(_cap.host_of(c), _cap.host_of(a), _cap.host_of(b)))
+    if _cap.active() is not None:
+        cc, ct, cf = _concrete_const(c)
+        if cc and ct:
+            return a
+        if cc and cf:
+            return b
+        an, bn = _cap.host_of(a), _cap.host_of(b)
+        if an is not None and bn is not None:
+            # traced condition, both branches concrete and equal: the result
+            # is that constant (merging all-present structures under a value
+            # mask keeps hoisting alive for dense-full states)
+            try:
+                ab, bb = np.broadcast_arrays(an, bn)
+            except ValueError:
+                ab = bb = None
+            if ab is not None and np.array_equal(ab, bb):
+                shape = np.broadcast_shapes(tuple(c.shape), ab.shape)
+                return _hosted(torch.where(c, a, b), np.broadcast_to(ab, shape).copy())
+            # edge-layout invariant (core/looplayout.py): in the context every
+            # traced mask is a subset of the state slots U (is_last); when both
+            # branches hold all of U and the false branch nothing outside it,
+            # where(c, a, b) == U for any c within U
+            if ab is not None:
+                from ..core import looplayout as _ll
+
+                ctx = _ll.active()
+                if ctx is not None and tuple(c.shape) == (ctx.e_pad,):
+                    U = ctx.is_last
+                    try:
+                        aU = np.broadcast_to(an, (ctx.e_pad,))
+                        bU = np.broadcast_to(bn, (ctx.e_pad,))
+                    except ValueError:
+                        aU = None
+                    if aU is not None and aU[U].all() and bU[U].all() and not bU[~U].any():
+                        return ctx.universe(c.device)
     return torch.where(c, a, b)
 
 
 def s_any(a, axis=None):
-    return a.any() if axis is None else a.any(dim=axis)
+    out = a.any() if axis is None else a.any(dim=axis)
+    if _host_concrete(a):
+        return _hosted(out, np.any(_cap.host_of(a), axis=axis))
+    return out
 
 
 def s_zeros(shape, device):
-    """Fresh all-absent structure bitmap."""
-    return torch.zeros(shape, dtype=torch.bool, device=device)
+    """Fresh all-absent structure bitmap (a constant inside compiled loops)."""
+    out = torch.zeros(shape, dtype=torch.bool, device=device)
+    if _cap.active() is not None:
+        return _hosted(out, np.zeros(shape, bool))
+    return out
 
 
 def s_ones(shape, device):
-    return torch.ones(shape, dtype=torch.bool, device=device)
+    out = torch.ones(shape, dtype=torch.bool, device=device)
+    if _cap.active() is not None:
+        return _hosted(out, np.ones(shape, bool))
+    return out
 
 
 def canonical(values, struct):
@@ -416,6 +513,18 @@ def mxm(av, as_, bv, bs, semiring, out_dtype, strategy="auto"):
     _, n = bv.shape
     if av.device != bv.device:
         raise ValueError(f"mxm: operands on {av.device} and {bv.device}")
+    cv, cs = _mxm_paths(av, as_, bv, bs, semiring, out_dtype, strategy, m, n)
+    if _host_concrete(as_, bs):
+        # constant operand structures (structure hoisting): the output
+        # structure, any_k(as_[i,k] & bs[k,j]), is a constant too
+        cs_np = (_cap.host_of(as_).astype(np.float32) @ _cap.host_of(bs).astype(np.float32)) > 0
+        if cs is as_ or cs is bs:
+            cs = cs.clone()
+        return cv, _hosted(cs, cs_np)
+    return cv, cs
+
+
+def _mxm_paths(av, as_, bv, bs, semiring, out_dtype, strategy, m, n):
     if semiring.binaryop.positional is None and strategy in {"auto", "mxu"}:
         fast = _mxm_fast_path(av, as_, bv, bs, semiring, out_dtype)
         if fast is not None:
@@ -501,7 +610,7 @@ def kronecker(av, as_, bv, bs, op, out_dtype):
 
 
 def _index(idx, device):
-    return torch.as_tensor(np.asarray(idx, np.int64), device=device)
+    return _cap.upload(np.asarray(idx, np.int64), device)
 
 
 def extract_matrix(values, struct, rows, cols):
@@ -515,6 +624,30 @@ def extract_vector(values, struct, idx):
     return values.index_select(0, i), struct.index_select(0, i)
 
 
+def _host_region(cs, as_, write):
+    """The host values of (zs, rsel) of a region scatter when C's structure
+    and the region's are constants of a compiled loop, else None: the
+    structure of an assign into a hoisted state stays a constant."""
+    if not _host_concrete(cs, as_):
+        return None
+    zs = _cap.host_of(cs).copy()
+    rsel = np.zeros(zs.shape, bool)
+    write(zs, rsel, _cap.host_of(as_))
+    return zs, rsel
+
+
+def _region_out(zs, rsel, host, contig_rsel=None):
+    """(zs, rsel) with their host values; a contiguous region's selector is
+    a constant even where the structures are traced (as in the reference)."""
+    if host is not None:
+        return _hosted(zs, host[0]), _hosted(rsel, host[1])
+    if contig_rsel is not None and _cap.active() is not None:
+        hr = np.zeros(tuple(rsel.shape), bool)
+        hr[contig_rsel] = True
+        return zs, _hosted(rsel, hr)
+    return zs, rsel
+
+
 def scatter_region_matrix(cv, cs, rows, cols, av, as_):
     """Scatter a region-shaped (av, as_), ``av`` in C's carrier, into a copy
     of C at rows x cols; also returns the region-selector bool array (the
@@ -524,9 +657,15 @@ def scatter_region_matrix(cv, cs, rows, cols, av, as_):
     zv[r, c] = av
     zs = cs.clone()
     zs[r, c] = as_
-    rsel = s_zeros(cs.shape, cs.device)
+    rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
     rsel[r, c] = True
-    return zv, zs, rsel
+
+    def write(hz, hr, ha):
+        ri, ci = np.asarray(rows)[:, None], np.asarray(cols)[None, :]
+        hz[ri, ci] = ha
+        hr[ri, ci] = True
+
+    return (zv, *_region_out(zs, rsel, _host_region(cs, as_, write)))
 
 
 def scatter_region_vector(cv, cs, idx, av, as_):
@@ -535,9 +674,14 @@ def scatter_region_vector(cv, cs, idx, av, as_):
     zv[i] = av
     zs = cs.clone()
     zs[i] = as_
-    rsel = s_zeros(cs.shape, cs.device)
+    rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
     rsel[i] = True
-    return zv, zs, rsel
+
+    def write(hz, hr, ha):
+        hz[np.asarray(idx)] = ha
+        hr[np.asarray(idx)] = True
+
+    return (zv, *_region_out(zs, rsel, _host_region(cs, as_, write)))
 
 
 def scatter_region_vector_contig(cv, cs, av, as_, start=0):
@@ -548,9 +692,14 @@ def scatter_region_vector_contig(cv, cs, av, as_, start=0):
     zv[start : start + size] = av
     zs = cs.clone()
     zs[start : start + size] = as_
-    rsel = s_zeros(cs.shape, cs.device)
+    rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
     rsel[start : start + size] = True
-    return zv, zs, rsel
+
+    def write(hz, hr, ha):
+        hz[start : start + size] = ha
+        hr[start : start + size] = True
+
+    return (zv, *_region_out(zs, rsel, _host_region(cs, as_, write), slice(start, start + size)))
 
 
 def scatter_region_matrix_contig(cv, cs, av, as_, rstart=0, cstart=0):
@@ -561,9 +710,14 @@ def scatter_region_matrix_contig(cv, cs, av, as_, rstart=0, cstart=0):
     zv[region] = av
     zs = cs.clone()
     zs[region] = as_
-    rsel = s_zeros(cs.shape, cs.device)
+    rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
     rsel[region] = True
-    return zv, zs, rsel
+
+    def write(hz, hr, ha):
+        hz[region] = ha
+        hr[region] = True
+
+    return (zv, *_region_out(zs, rsel, _host_region(cs, as_, write), region))
 
 
 def _contig_start(idx, dim):
@@ -616,7 +770,7 @@ def masked_merge(cv, cs, zv, zs, mask_bits, accum, replace, has_mask, region=Non
         # mask applies only within the region; outside-region keeps C
         keep_z = s_and(m, region)
         if replace:
-            out_s = s_where(keep_z, zs, s_where(region, torch.zeros((), dtype=torch.bool, device=cs.device), cs))
+            out_s = s_where(keep_z, zs, s_where(region, s_zeros((), cs.device), cs))
         else:
             out_s = s_where(keep_z, zs, cs)
         return canonical(torch.where(keep_z, zv, cv), out_s)
@@ -656,7 +810,7 @@ def argminmax_axis(values, struct, which, axis, dtype):
         if dtype.np_type == np.uint64:
             big, small = (1 << 63) - 1, -(1 << 63)  # in the ordered carrier
         x = _dt.ordered(values, dtype)
-    fill = torch.tensor(big if which == "min" else small, dtype=x.dtype, device=x.device)
+    fill = torch.full((), big if which == "min" else small, dtype=x.dtype, device=x.device)
     filled = torch.where(struct, x, fill)
     if dtype._is_float:
         # torch's argmin/argmax leave NaN to the reduction; numpy's take the first

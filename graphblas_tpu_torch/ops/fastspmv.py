@@ -351,7 +351,7 @@ def _collect_v2(scanned, plan, ident):
     """Segment totals -> y (n,): the collect route brings each dst segment's
     last slot to position d; destinations with no valid in-edge get ``ident``."""
     collected = apply_perm(scanned, plan.collect_idx)[: plan.n]
-    fill = torch.tensor(ident, dtype=collected.dtype, device=collected.device)
+    fill = torch.full((), ident, dtype=collected.dtype, device=collected.device)
     return torch.where(plan.dst_nonempty, collected, fill)
 
 
@@ -389,7 +389,7 @@ def _dst_segments(indptr_dst, e_pad):
 def _read_ends(scanned, starts, ends, ident):
     """y[d] = the scan at the last slot of dst segment d (``ends`` are one
     past it); an empty segment reads ``ident``."""
-    fill = torch.tensor(ident, dtype=scanned.dtype, device=scanned.device)
+    fill = torch.full((), ident, dtype=scanned.dtype, device=scanned.device)
     padded = torch.cat([fill.reshape(1), scanned])
     return torch.where(starts == ends, fill, padded[ends])
 
@@ -490,7 +490,7 @@ def state_to_start(plan, v_state, fill_value):
     """Route state-layout values to src-seg-start slots; start slots whose
     vertex has no state slot read ``fill_value``."""
     routed = apply_perm(v_state, plan.loop_idx)
-    fill = torch.tensor(fill_value, dtype=routed.dtype, device=routed.device)
+    fill = torch.full((), fill_value, dtype=routed.dtype, device=routed.device)
     return torch.where(plan.start_has_state, routed, fill)
 
 

@@ -512,8 +512,6 @@ def test_waiting_features_raise_naming_their_queue(ref):
         (lambda: P.Matrix(udt, 2, 2), "queue 3b"),
         (lambda: P.Vector(udt, 2), "queue 3b"),
         (lambda: P.Scalar(udt), "queue 3b"),
-        (lambda: P.compile(lambda: None), "queue 5"),
-        (lambda: P.loop(3), "queue 5"),
         (lambda: P.Matrix(P.dtypes.FP64, 2, 2).tx, "queue 7"),
         (lambda: P.Vector(P.dtypes.FP64, 2).ss, "queue 7"),
         (lambda: pickle.dumps(P.Matrix(P.dtypes.FP64, 2, 2)), "queue 7"),

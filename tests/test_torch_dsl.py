@@ -266,17 +266,31 @@ def test_recorder_strings_match_reference(ref):
     assert p == r and p[0]
 
 
-EXAMPLES = ["01_sssp.py", "02_level_bfs.py", "03_parent_bfs.py", "05_triangle_count.py"]
+EXAMPLES = ["01_sssp.py", "02_level_bfs.py", "03_parent_bfs.py", "05_triangle_count.py", "10_compiled_dsl_loops.py"]
+
+
+def _printed_numbers(out):
+    return [(line.split(":")[0], float(line.split(":")[1])) for line in out.strip().splitlines()]
 
 
 @pytest.mark.parametrize("example", EXAMPLES)
-def test_examples_run_on_the_port(example, capsys):
+def test_examples_run_on_the_port(example, capsys, request):
     """The reference's intro recipes, with only the package name changed,
-    run on the port (each asserts its own result and prints OK)."""
+    run on the port (each asserts its own result and prints OK; example 10,
+    the compiled loops, prints its results, held to the reference's run of
+    the same file: counts exactly, the PageRank mass within 1e-6)."""
     src = open(os.path.join(REPO, "examples", example)).read()
-    src = re.sub(r"\bgraphblas_tpu\b", "graphblas_tpu_torch", src)
+    port_src = re.sub(r"\bgraphblas_tpu\b", "graphblas_tpu_torch", src)
+    exec(compile(port_src, example, "exec"), {"__name__": "__main__"})  # noqa: S102
+    out = capsys.readouterr().out
+    if " OK" in out:
+        return
+    request.getfixturevalue("ref")
     exec(compile(src, example, "exec"), {"__name__": "__main__"})  # noqa: S102
-    assert " OK" in capsys.readouterr().out
+    got, want = _printed_numbers(out), _printed_numbers(capsys.readouterr().out)
+    assert [k for k, _ in got] == [k for k, _ in want] and len(got) == 3
+    for (key, a), (_, b) in zip(got, want):
+        assert a == pytest.approx(b, rel=1e-6) if key.startswith("pagerank") else a == b, (key, a, b)
 
 
 @pytest.mark.parametrize("strategy", ["mxu", "generic", "pallas"])

@@ -647,11 +647,12 @@ def test_segment_min_max_follow_jax_on_nan_and_signed_zeros(ref):
 
 
 def test_queue_4_left_outs_name_their_queue():
-    """The mesh branches (queue 8) stay out: _mesh_context() is None."""
+    """The mesh branches (queue 8) stay out: _mesh_context() is None; the
+    edge-layout loop body (queue 5) came with the compiled loops."""
     from graphblas_tpu_torch.core import collection_ops
 
     assert collection_ops._mesh_context() is None
-    assert "queue 8" in collection_ops.__doc__ and "queue 5" in collection_ops.__doc__
+    assert "queue 8" in collection_ops.__doc__ and "core/looplayout.py" in collection_ops.__doc__
 
 
 def test_transposed_view_runs_its_parents_plan():

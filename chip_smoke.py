@@ -23,8 +23,10 @@ family.  The sparse DSL path: the statements of examples 07 (PageRank), 02
 collections (the scale-19 graph, 2^38 cells; the triangle workload, 2^32), and
 the generic models.  The compiled loops: models.dsl's PageRank, level BFS
 (both frontiers), SSSP and connected components at scale 19 as CUDA graph
-replays.  The roofline tool's run, with the compare probe.  All through the
-hand-written CUDA kernels.  One line per check:
+replays.  The dense models (triangle count, k-truss, matching, betweenness,
+Louvain) at n = 16384 and the UDT collections.  The roofline tool's run,
+with the compare probe.  All through the hand-written CUDA kernels, but the
+dense models' products, which are cuBLAS matmuls.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. build: the kernels built from graphblas_tpu_torch/csrc with nvcc
@@ -100,6 +102,17 @@ hand-written CUDA kernels.  One line per check:
      bench.py's dsl_* and cc_* keys, eager against graph ms per step, the
      edge layout's, launches per step; the kernels torch.profiler sees in a
      second run of the main path = the launches counted
+  6m dense models. On rmat(14, 16, seed=5) on the card (n = 16384, the scale
+     the reference's louvain docstring names): triangle_count = scipy's
+     int64 count; k_truss at k = 4 and 12 = a scipy peeling fixpoint, edge for
+     edge, in as many rounds; betweenness_centrality over 256 numpy-seeded
+     sources = a float64 scipy level-synchronous Brandes (rtol 1e-4);
+     louvain = the port's CPU run at scale 11, and at scale 14 its f32
+     modularity = a float64 numpy one; maximal_matching on the scale-19 graph
+     is a maximal matching (numpy) and = its CPU run; the UDT recipes of
+     tests/test_udt.py on the card = the CPU bit for bit; each model's ms
+     beside its least time, torch._int_mm beside the f32 block product, the
+     rounds, and the phase's peak device memory
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
   7. launch counts of each path (every kernel > 0, every plain version 0;
      the typed paths launch G, C, the generic scan and eqjoin; the DSL path
@@ -114,7 +127,8 @@ the status line {"ok": true, "device": {...}}.  Any failure raises: the exit cod
 0 and the status line is not printed.  Without a CUDA device it fails at once.
 
     python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5] [--tc-log2 16] [--spgemm-scale 14] [--mt 2048]
-        [--dsl-n 4096] [--dsl-generic-n 2048]
+        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14] [--bc-sources 256]
+        [--louvain-check-scale 11]
 """
 
 import argparse
@@ -1568,6 +1582,307 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
     return {"launches": launches, "plain": plain, "dsl": out}
 
 
+# float32 FMA rate without tensor cores (132 SMs x 128 lanes x 1.98 GHz, an
+# FMA counted as two): the least time of the dense models' f32 products
+F32_FMA_FLOP_S = 132 * 128 * 1.98e9 * 2
+
+
+def udt_recipes(gb, np):
+    """The statements of tests/test_udt.py at a small size (48 x 48, 30%
+    present, numpy seed 21) on tx.config["platform"]: ewise add/mult and
+    apply with user operators, reduce with a user monoid, extract and assign
+    by fields, mxm/mxv with a user semiring, a masked mxm with a user accum.
+    Returns (to_coo outputs, the devices of the collections)."""
+    from graphblas_tpu_torch import Matrix, Vector, binary, dtypes, monoid, semiring, unary
+
+    try:
+        point = dtypes.register_new("SmokePoint", [("x", np.float64), ("y", np.int64)])
+    except ValueError:
+        point = dtypes.SmokePoint
+    rng = np.random.default_rng(21)
+    n = 48
+
+    def vals(k):
+        out = np.zeros(k, point.np_type)
+        out["x"] = rng.integers(-8, 9, k) / 4.0
+        out["y"] = rng.integers(-50, 50, k)
+        return out
+
+    def pattern():
+        flat = np.flatnonzero(rng.random(n * n) < 0.3)
+        return flat // n, flat % n, vals(len(flat))
+
+    def padd(a, b):
+        return {"x": a["x"] + b["x"], "y": a["y"] + b["y"]}
+
+    add = binary.register_anonymous(padd, "smoke_padd")
+    mon = monoid.register_anonymous(padd, {"x": 0.0, "y": 0}, "smoke_padd_mon")
+    sr = semiring.register_anonymous(mon, add, "smoke_padd_padd")
+    flip = unary.register_anonymous(lambda p: {"x": p["x"] * 2, "y": -p["y"]}, "smoke_flip")
+    A = Matrix.from_coo(*pattern(), point, nrows=n, ncols=n)
+    B = Matrix.from_coo(*pattern(), point, nrows=n, ncols=n)
+    C = Matrix.from_coo(*pattern(), point, nrows=n, ncols=n)
+    v = Vector.from_coo(np.arange(0, n, 3), vals(n // 3), point, size=n)
+    M = Matrix.from_coo(*np.nonzero(rng.random((n, n)) < 0.5), True, dtypes.BOOL, nrows=n, ncols=n)
+    out = [A.ewise_add(B, add).new(), A.ewise_mult(B, add).new(), A.apply(flip).new()]
+    out.append(A.reduce_rowwise(mon).new())
+    out.append(A.reduce_scalar(mon).new())
+    w = v.dup()
+    w[[1, 4]] = (9.5, 7)
+    w[5] = {"x": -1.25, "y": 3}
+    del w[0]
+    out += [w, v[[0, 3, 7]].new(), A[2, :].new()]
+    out += [A.mxm(B, sr).new(), A.mxv(v, sr).new()]
+    C(M.S, accum=add) << A.mxm(B, sr)
+    out.append(C)
+    coo = [np.asarray(x.value) if x.ndim == 0 else x.to_coo() for x in out]
+    return coo, {x._device.type for x in out if x.ndim}
+
+
+def dense_models_phase(torch, np, dev, g19, scale, n_bc, lv_check_scale, smi):
+    """Phase 6m (the dense models): triangle_count, k_truss (k = 4 and 12),
+    betweenness_centrality (n_bc numpy-seeded sources), louvain and
+    maximal_matching through models, on rmat(scale, 16, seed=5) on the card
+    (n = 16384 at scale 14, the n the reference's louvain docstring names),
+    and maximal_matching on bench.py's scale-19 graph.  Checks: the triangle
+    count = scipy's int64 (L @ L.T).multiply(L).sum(); each k-truss edge set
+    = a scipy peeling fixpoint ((A @ A).multiply(A), drop support < k - 2,
+    repeat); betweenness = a float64 scipy level-synchronous Brandes over the
+    same sources, rtol 1e-4, with max_levels = their largest BFS level + 1;
+    louvain's labels at rmat(lv_check_scale, 16, seed=5) = the port's CPU run,
+    and at scale its modularity (the port's f32 ``modularity`` on the card)
+    = a float64 numpy one within 1e-4; the matching is a matching and maximal
+    (numpy) and = the port's CPU run of the same graph exactly; every result
+    on the card; the UDT recipes (``udt_recipes``) on the card = the same
+    statements on the CPU, bit for bit.  Then each model's ms (CUDA events,
+    a warm call) beside its least time (the f32 products at the FMA rate;
+    the matching's bytes), torch._int_mm's int8 block product beside the f32
+    one, the rounds, and the phase's peak device memory.  The products are
+    torch.matmul (cuBLAS), not hand kernels: no kernel launch is counted."""
+    import importlib
+
+    import scipy.sparse as scsp
+
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import models as M
+    from graphblas_tpu_torch.models.graph import edge_index
+    from graphblas_tpu_torch.ops.mxm import full_f32_matmul
+
+    kt_mod, mt_mod, lv_mod = (
+        importlib.import_module(f"graphblas_tpu_torch.models.{m}") for m in ("ktruss", "matching", "louvain")
+    )
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def timed(fn):
+        """fn's result (the check's call, which also warms up) and the ms of
+        a second call (CUDA events)."""
+        res = fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def flop_ms(flop):
+        return flop / F32_FMA_FLOP_S * 1e3
+
+    gm = M.rmat(scale, 16, seed=5)
+    require(gm.src.is_cuda, "6m: rmat defaults to the card")
+    n = gm.n
+    valid = gm.valid.cpu().numpy()
+    hs, hd = (a.cpu().numpy()[valid].astype(np.int64) for a in (gm.src, gm.dst))
+    lo, hi = np.minimum(hs, hd), np.maximum(hs, hd)
+    off = lo != hi
+
+    def ones_csr(r, c):
+        m = scsp.csr_matrix((np.ones(len(r)), (r, c)), shape=(n, n))
+        m.sum_duplicates()
+        m.data[:] = 1.0
+        return m
+
+    L = ones_csr(hi[off], lo[off])
+
+    # triangle_count = scipy
+    t0 = time.perf_counter()
+    tc_ref = int((L @ L.T).multiply(L).sum())
+    t_oracle = {"triangle": time.perf_counter() - t0}
+    tc, tc_ms = timed(lambda: M.triangle_count(gm))
+    require(tc == tc_ref, f"6m triangle_count {tc} != scipy {tc_ref}")
+    npad = -(-n // 1024) * 1024
+    out["triangle_count"] = {"value": tc, "ms": tc_ms, "bound_ms": flop_ms(2.0 * npad**3)}
+    # torch._int_mm (int8 in, int32 out) against the f32 block product
+    es, ed = edge_index(gm)
+    ls = torch.zeros((npad, npad), dtype=torch.int8, device=dev)
+    ls[torch.maximum(es, ed), torch.minimum(es, ed)] = 1
+    ls.diagonal().zero_()
+    lf = ls.to(torch.float32)
+    with full_f32_matmul():
+        blk_f32, f32_ms = timed(lambda: lf[:1024] @ lf.T)
+    try:
+        blk_i32, int_ms = timed(lambda: torch._int_mm(ls[:1024], ls.T))
+        int_mm = {"ms": int_ms, "exact": bool(torch.equal(blk_i32, blk_f32.to(torch.int32)))}
+        require(int_mm["exact"], "6m: torch._int_mm's block differs from the f32 block")
+    except RuntimeError as exc:  # a library call probed for a finding, not the model's path
+        int_mm = {"unavailable": str(exc).splitlines()[0]}
+    out["block product 1024 x n x n"] = {"f32 ms": f32_ms, "torch._int_mm": int_mm, "bound_ms": flop_ms(2.0 * 1024 * npad**2)}
+    del ls, lf, blk_f32
+    torch.cuda.empty_cache()
+
+    # k_truss = a scipy peeling fixpoint
+    A = ones_csr(np.concatenate([hi[off], lo[off]]), np.concatenate([lo[off], hi[off]]))
+
+    def truss_oracle(k):
+        a, rounds = A.copy(), 0
+        while True:
+            rounds += 1
+            keep = a.multiply(a @ a).tocsr()
+            keep.data = (keep.data >= k - 2).astype(np.float64)
+            keep.eliminate_zeros()
+            if keep.nnz == a.nnz:
+                keep.sort_indices()
+                return keep.tocoo(), rounds
+            a = keep
+
+    for kk in (4, 12):
+        t0 = time.perf_counter()
+        ref, ref_rounds = truss_oracle(kk)
+        t_oracle[f"k_truss {kk}"] = time.perf_counter() - t0
+        kt, kt_ms = timed(lambda: M.k_truss(gm, kk))
+        rounds = kt_mod.last_rounds
+        require(kt.src.is_cuda and kt.valid.is_cuda, "6m k_truss: the result is on the card")
+        v = kt.valid.cpu().numpy()
+        got = np.stack([kt.src.cpu().numpy()[v], kt.dst.cpu().numpy()[v]]).astype(np.int64)
+        require(np.array_equal(got, np.stack([ref.row, ref.col])), f"6m k_truss {kk}: edge set != scipy's")
+        require(rounds == ref_rounds, f"6m k_truss {kk}: {rounds} rounds, scipy's peeling {ref_rounds}")
+        out[f"k_truss k={kk}"] = {"edges": int(v.sum()), "rounds": rounds, "ms": kt_ms, "bound_ms": flop_ms(rounds * 2.0 * n**3)}
+
+    # betweenness_centrality = a float64 Brandes over the same sources
+    D = ones_csr(hs[hs != hd], hd[hs != hd])
+    DT = D.T.tocsr()
+    srcs = np.random.default_rng(5).choice(n, n_bc, replace=False)
+    t0 = time.perf_counter()
+    sigma = np.zeros((n_bc, n))
+    sigma[np.arange(n_bc), srcs] = 1.0
+    onehot = sigma.copy()
+    front, fronts = onehot, []
+    while True:
+        nxt = (DT @ front.T).T * (sigma == 0)
+        if not nxt.any():
+            break
+        sigma += nxt
+        front = nxt
+        fronts.append(nxt)
+    depth = len(fronts)
+    safe = np.where(sigma > 0, sigma, 1.0)
+    delta = np.zeros_like(sigma)
+    for fr, fp in zip(reversed(fronts), reversed([onehot, *fronts[:-1]])):
+        t2 = np.where(fr > 0, (1.0 + delta) / safe, 0.0)
+        delta += np.where(fp > 0, (D @ t2.T).T * sigma, 0.0)
+    delta[np.arange(n_bc), srcs] = 0.0
+    bc_ref = delta.sum(axis=0)
+    t_oracle["betweenness"] = time.perf_counter() - t0
+    levels = depth + 1
+    bc, bc_ms = timed(lambda: M.betweenness_centrality(gm, srcs, max_levels=levels))
+    require(bc.is_cuda, "6m betweenness: the result is on the card")
+    np.testing.assert_allclose(bc.cpu().numpy(), bc_ref, rtol=1e-4, err_msg="6m betweenness != scipy Brandes")
+    out["betweenness_centrality"] = {
+        "sources": n_bc, "max_levels": levels, "largest path count": float(sigma.max()),
+        "max rel err": float(np.max(np.abs(bc.cpu().numpy() - bc_ref) / np.maximum(np.abs(bc_ref), 1e-30))),
+        "ms": bc_ms, "bound_ms": flop_ms(levels * 2 * 2.0 * n_bc * n * n),
+    }
+
+    # louvain: the card = the CPU at the check scale; modularity at scale
+    gc = M.rmat(lv_check_scale, 16, seed=5)
+    lab_c = M.louvain(gc)
+    it_c = lv_mod.last_iters
+    require(lab_c.is_cuda, "6m louvain: the result is on the card")
+    require(torch.equal(lab_c.cpu(), M.louvain(gc.to("cpu"))), f"6m louvain: card labels != CPU labels at scale {lv_check_scale}")
+    lab, lv_ms = timed(lambda: M.louvain(gm))
+    iters = lv_mod.last_iters
+    labels = lab.cpu().numpy().astype(np.int64)
+    sym = scsp.coo_matrix((np.ones(2 * len(hs)), (np.concatenate([hs, hd]), np.concatenate([hd, hs]))), shape=(n, n)).tocsr()
+    sym.setdiag(0)
+    sym.eliminate_zeros()
+    kdeg = np.asarray(sym.sum(axis=1)).ravel()
+    two_m = max(kdeg.sum(), 1.0)
+    c = sym.tocoo()
+    inside = c.data[labels[c.row] == labels[c.col]].sum()
+    q64 = inside / two_m - np.sum(np.bincount(labels, weights=kdeg, minlength=n) ** 2) / two_m**2
+    q_single = -np.sum(kdeg**2) / two_m**2
+    adj = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    s_t, d_t = edge_index(gm)
+    w_t = gm.valid.to(torch.float32)
+    adj.index_put_((s_t, d_t), w_t, accumulate=True)
+    adj.index_put_((d_t, s_t), w_t, accumulate=True)
+    adj.fill_diagonal_(0.0)
+    q32 = float(lv_mod.modularity(adj, lab, torch.clamp(adj.sum(), min=1.0)))
+    del adj
+    require(abs(q32 - q64) <= 1e-4, f"6m louvain: modularity on the card {q32} != numpy float64 {q64}")
+    out["louvain"] = {
+        "iterations": iters, "communities": int(len(np.unique(labels))), "Q (numpy float64)": float(q64),
+        "Q (port, f32, card)": q32, "Q of the singleton partition": float(q_single),
+        f"check scale {lv_check_scale}: iterations": it_c,
+        "ms": lv_ms, "bound_ms": flop_ms(iters * 2.0 * n**3),
+    }
+
+    # maximal_matching on bench.py's scale-19 graph
+    mm, mm_ms = timed(lambda: M.maximal_matching(g19, seed=0))
+    rounds = mt_mod.last_rounds
+    require(mm.is_cuda, "6m matching: the result is on the card")
+    mm_h = mm.cpu().numpy()
+    require(np.array_equal(mm_h, M.maximal_matching(g19.to("cpu"), seed=0).numpy()), "6m matching: card != CPU")
+    s19, d19, v19 = (a.cpu().numpy() for a in (g19.src, g19.dst, g19.valid))
+    touched = np.concatenate([s19[mm_h], d19[mm_h]])
+    require(len(touched) == len(np.unique(touched)), "6m matching: a vertex in two matched edges")
+    used = np.zeros(g19.n, bool)
+    used[touched] = True
+    live = v19 & (s19 != d19)
+    require(bool((used[s19[live]] | used[d19[live]]).all()), "6m matching: not maximal")
+    e_pad = len(s19)
+    # where a call's time goes: the host's priorities, and the device's kernels
+    t0 = time.perf_counter()
+    np.random.default_rng(0).permutation(e_pad).astype(np.float32)
+    host_prio_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        M.maximal_matching(g19, seed=0)
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if getattr(ev, "device_time_total", 0) > 0]
+    top = sorted(evs, key=lambda ev: -ev.device_time_total)[:4]
+    out["maximal_matching (scale 19)"] = {
+        "e_pad": e_pad, "matched": int(mm_h.sum()), "rounds": rounds, "ms": mm_ms,
+        # a round reads src and dst (int64), the priorities and the live mask and writes two masks
+        "bound_ms": rounds * e_pad * (8 + 8 + 4 + 1 + 1 + 1) / HBM_BYTES_PER_S * 1e3,
+        "host priorities ms": host_prio_ms,
+        "device ms (profiler)": sum(ev.device_time_total for ev in evs) / 1e3,
+        "top kernels ms": {ev.key[:60]: ev.device_time_total / 1e3 for ev in top},
+    }
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the UDT recipes on the card = on the CPU
+    with gb.tx.config.set(platform=dev.type):
+        card, devs = udt_recipes(gb, np)
+    require(devs == {"cuda"}, f"6m UDT: collections on {devs}")
+    with gb.tx.config.set(platform="cpu"):
+        host, _ = udt_recipes(gb, np)
+    for i, (a, b) in enumerate(zip(card, host)):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            require(x.dtype == y.dtype and x.shape == y.shape, f"6m UDT recipe {i}: {x.dtype}{x.shape} != {y.dtype}{y.shape}")
+            for f in x.dtype.names or (None,):
+                require(np.array_equal(x[f] if f else x, y[f] if f else y), f"6m UDT recipe {i}: field {f} differs")
+    say(
+        "6m dense models",
+        f"{json.dumps(out)}; UDT recipes on the card = the CPU bit for bit ({len(card)} results); "
+        f"host oracles s {json.dumps(t_oracle)}; peak device memory {peak:.2f} GiB; on {smi}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -1578,6 +1893,9 @@ def main():
     ap.add_argument("--mt", type=int, default=2048, help="the tropical matmul's size")
     ap.add_argument("--dsl-n", type=int, default=4096, help="the DSL phase's n (n^2 cells: the dense-masked limit)")
     ap.add_argument("--dsl-generic-n", type=int, default=2048, help="the generic contraction's n in the DSL phase")
+    ap.add_argument("--models-scale", type=int, default=14, help="RMAT scale of the dense models (n = 2^scale)")
+    ap.add_argument("--bc-sources", type=int, default=256, help="betweenness centrality's sources")
+    ap.add_argument("--louvain-check-scale", type=int, default=11, help="RMAT scale of louvain's card-against-CPU check")
     args = ap.parse_args()
 
     import torch
@@ -1884,6 +2202,9 @@ def main():
     # 6c. compiled loops: models.dsl's recipes as CUDA graph replays at scale 19
     comp = compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi)
     cp_launches, cp_plain = comp["launches"], comp["plain"]
+
+    # 6m. the dense models (and the UDT collections) at the reference's scale
+    dense_models_phase(torch, np, dev, g, args.models_scale, args.bc_sources, args.louvain_check_scale, smi)
 
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()

@@ -33,14 +33,18 @@ versions.  The package imports torch and numpy only.
 
 Past ``tx.config["dense_limit"]`` cells a collection takes the sparse
 format (host COO with device caches; ``A.mxv(x)`` runs the SpMV engine).
-``compile``, ``loop``, ``until``, ``loop_runner`` and ``until_runner``
-(``core.compiler``) run a loop of DSL statements as one CUDA graph on the
-card (eagerly on the CPU), with structure hoisting and the edge layout;
-``models.dsl`` holds the DSL recipes written with them.
+A user-defined type (UDT) collection keeps its values as a dict of field
+tensors (struct of arrays) and runs every engine family with user
+operators.  ``compile``, ``loop``, ``until``, ``loop_runner`` and
+``until_runner`` (``core.compiler``) run a loop of DSL statements as one
+CUDA graph on the card (eagerly on the CPU, holding the closed-over
+operands of the first call), with structure hoisting and the edge layout;
+``models.dsl`` holds the DSL recipes written with them.  ``models`` also
+carries the dense n x n models (triangle count, k-truss, maximal matching,
+betweenness centrality, Louvain).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue: UDT collections (queue 3b), the SpGEMM models (queue 6),
-``io``/``viz``/``Matrix.tx``/pickle (queue 7) and the mesh layer
+queue: ``io``/``viz``/``Matrix.tx``/pickle (queue 7) and the mesh layer
 (``parallel``; queue 8).
 """
 
@@ -95,7 +99,8 @@ _CLASS_HOMES = {
     "until_runner": "graphblas_tpu_torch.core.compiler",
 }
 
-# attributes of the JAX package that wait for a later queue (ROADMAP.md)
+# attributes of the JAX package that wait for a later queue (ROADMAP.md;
+# queues 2-6 and 3b are ported)
 _WAITING = {
     "io": 7,
     "viz": 7,

@@ -22,7 +22,7 @@ from . import dtypes as _dt
 from . import recorder as _recorder
 from .mask import Mask, StructuralMask, ValueMask
 from .operator import find_opclass, get_typed_op
-from .utils import check_storage
+from .utils import zero_values
 
 
 def _get_config():
@@ -329,8 +329,12 @@ class BaseType:
         _same_device(self, other, "isequal")
         if not bool(torch.equal(self._struct, other._struct)):
             return False
-        a = self._values
-        b = _dt.cast(other._values, other.dtype, self.dtype)
+        a, b = self._values, other._values
+        if isinstance(a, dict) or isinstance(b, dict):  # UDT: field by field
+            if not (isinstance(a, dict) and isinstance(b, dict)) or set(a) != set(b):
+                return False
+            return all(bool(torch.where(self._struct, a[f] == b[f], True).all()) for f in a)
+        b = _dt.cast(b, other.dtype, self.dtype)
         return bool(torch.where(self._struct, a == b, True).all())
 
     def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
@@ -344,10 +348,19 @@ class BaseType:
         if not bool(torch.equal(self._struct, other._struct)):
             return False
         ft = _dt.default_float()
-        a = _dt.cast(self._values, self.dtype, ft)
-        b = _dt.cast(other._values, other.dtype, ft)
-        ok = torch.abs(a - b) <= torch.clamp(rel_tol * torch.maximum(torch.abs(a), torch.abs(b)), min=abs_tol)
-        return bool(torch.where(self._struct, ok, True).all())
+
+        def close(a, at, b, bt):
+            a, b = _dt.cast(a, at, ft), _dt.cast(b, bt, ft)
+            ok = torch.abs(a - b) <= torch.clamp(rel_tol * torch.maximum(torch.abs(a), torch.abs(b)), min=abs_tol)
+            return bool(torch.where(self._struct, ok, True).all())
+
+        a, b = self._values, other._values
+        if isinstance(a, dict) or isinstance(b, dict):  # UDT: field by field
+            if not (isinstance(a, dict) and isinstance(b, dict)) or set(a) != set(b):
+                return False
+            ta, tb = self.dtype.np_type, other.dtype.np_type
+            return all(close(a[f], _dt.lookup_dtype(ta[f]), b[f], _dt.lookup_dtype(tb[f])) for f in a)
+        return close(a, self.dtype, b, other.dtype)
 
     # -- error machinery ------------------------------------------------------
 
@@ -587,7 +600,6 @@ class BaseExpression(_InfixMixin):
         if dev is None:
             return self.output_type(dtype, *self._shape_args(), name=name)
         shape = tuple(self._shape)
-        check_storage(dtype, self.output_type.__name__)
         from .sparse import _dense_limit
 
         if int(np.prod(shape, dtype=object)) > _dense_limit():
@@ -596,7 +608,7 @@ class BaseExpression(_InfixMixin):
             with _txconfig.set(platform=dev.type):
                 return self.output_type(dtype, *shape, name=name)
         return self.output_type._from_arrays(
-            torch.zeros(shape, dtype=dtype.carrier, device=dev), torch.zeros(shape, dtype=torch.bool, device=dev), dtype, name=name
+            zero_values(shape, dtype, dev), torch.zeros(shape, dtype=torch.bool, device=dev), dtype, name=name
         )
 
     def _shape_args(self):

@@ -31,7 +31,10 @@ operation inside it reads (closed-over operands, plans, device caches:
 ``Scope.kept``), and the compiler holds that list beside the graph: a plan
 replaced in its cache or an operand updated after the capture stays alive,
 and the graph goes on reading the values it was captured with, as the
-reference's trace bakes its constants.
+reference's trace bakes its constants.  An eager body (on the CPU, or one
+the card cannot capture) holds the same values through a ``Pin``: its first
+run records the tensors made outside the scope that each operation reads,
+and later runs read those in their place.
 """
 
 import contextlib
@@ -81,8 +84,9 @@ class Scope:
     """One run of a loop body: ``phase`` is "warm" (the first eager step),
     "capture" (recording a CUDA graph) or "step" (an eager step)."""
 
-    def __init__(self, phase):
+    def __init__(self, phase, pin=None):
         self.phase = phase
+        self.pin = pin
         self.uploads = []
         self.reads = []
         # capture: the tensors made outside the graph that it reads, by id
@@ -93,6 +97,8 @@ class Scope:
         self._mode = None
 
     def __enter__(self):
+        if self.pin is not None:
+            self.pin.begin()
         self._reset = _SCOPE.set(self)
         self._mode = _Mode(self)
         self._mode.__enter__()
@@ -101,6 +107,8 @@ class Scope:
     def __exit__(self, *exc):
         self._mode.__exit__(*exc)
         _SCOPE.reset(self._reset)
+        if self.pin is not None:
+            self.pin.end(exc[0] is None)
         return False
 
     @property
@@ -145,6 +153,90 @@ class Scope:
         if self.phase == "capture":
             raise _exc.TracerError(f"a CUDA graph cannot capture a host read ({what})")
         self.reads.append(what)
+
+
+def _external(t):
+    """A tensor made outside the scope: not traced, not made by an operation
+    in it (a closed-over operand, a plan, a device cache, or a view of one)."""
+    return isinstance(t, torch.Tensor) and not t.__dict__.get("_gb_traced", False)
+
+
+def _externals(args, kwargs):
+    """(where, tensor) for each external tensor among an operation's
+    arguments (one level into tuples and lists)."""
+    found = []
+    for where, a in (*enumerate(args), *kwargs.items()):
+        if isinstance(a, (tuple, list)):
+            found.extend(((where, j), t) for j, t in enumerate(a) if _external(t))
+        elif _external(a):
+            found.append(((where, None), a))
+    return found
+
+
+class Pin:
+    """What an eager body's first run read outside its scope, held for its
+    later runs.
+
+    The first run records, for each torch operation in order, the external
+    tensors among its arguments (closed-over operands, plans, caches).  Each
+    later run reads the recorded tensors in their place, position by
+    position: a closed-over collection updated between two calls (its
+    tensors replaced) leaves the body reading the values of its first call,
+    as a CUDA graph replays the addresses it captured and the reference's
+    trace bakes its constants.  A later run whose operations differ from the
+    first's raises ``TracerError``: the body branched on something that
+    changed between calls.  Operations inside ``constants()`` are not part
+    of the stream (they fill caches once)."""
+
+    def __init__(self):
+        self.ops = None
+        self._rec = None
+        self._pos = 0
+
+    def begin(self):
+        self._pos = 0
+        if self.ops is None:
+            self._rec = []
+
+    def end(self, ok):
+        if self.ops is None:
+            if ok:
+                self.ops = self._rec
+            self._rec = None
+        elif ok and self._pos != len(self.ops):
+            self._diverged(f"{self._pos} operations where the first run made {len(self.ops)}")
+
+    def _diverged(self, what):
+        raise _exc.TracerError(
+            f"a compiled body ran other operations than on its first call ({what}); its "
+            "closed-over operands are constants of the first call, so it must not branch on them"
+        )
+
+    def apply(self, func, args, kwargs):
+        """The arguments an operation runs on: recorded (first run) or with
+        the first run's external tensors in their place."""
+        if self.ops is None:
+            self._rec.append((func, _externals(args, kwargs)))
+            return args, kwargs
+        if self._pos >= len(self.ops) or self.ops[self._pos][0] != func:
+            self._diverged(f"{getattr(func, '__name__', func)} at operation {self._pos}")
+        held = self.ops[self._pos][1]
+        self._pos += 1
+        if not held:
+            return args, kwargs
+        args, kwargs = list(args), dict(kwargs)
+        for (where, j), t in held:
+            box = args if isinstance(where, int) else kwargs
+            cur = box[where] if j is None else box[where][j]
+            if not _external(cur):
+                self._diverged(f"a traced argument where the first run read a constant, in {func}")
+            if j is None:
+                box[where] = t
+            else:
+                seq = list(box[where])
+                seq[j] = t
+                box[where] = type(box[where])(seq) if isinstance(box[where], tuple) else seq
+        return tuple(args), kwargs
 
 
 @contextlib.contextmanager
@@ -300,6 +392,8 @@ class _Mode(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         sc = self.scope
+        if sc.pin is not None and not sc._quiet:
+            args, kwargs = sc.pin.apply(func, args, kwargs)
         if sc.phase == "capture":
             sc.keep(args, kwargs)
             out = self._call(func, args, kwargs)

@@ -640,8 +640,8 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
         av = _cast_values(av, a.dtype, sr.binaryop.type_)
         bv = _cast_values(bv, b.dtype, sr.binaryop.type2)
         if a_is_vec and b_is_vec:
-            cv, cs = _dm.vxm(av, as_, bv[:, None], bs[:, None], sr, sr.return_type, strategy)
-            return cv[0], cs[0]
+            cv, cs = _dm.vxm(av, as_, _dm.tmap(lambda x: x[:, None], bv), bs[:, None], sr, sr.return_type, strategy)
+            return _dm.tmap(lambda x: x[0], cv), cs[0]
         if a_is_vec:
             return _dm.vxm(av, as_, bv, bs, sr, sr.return_type, strategy)
         if b_is_vec:
@@ -838,7 +838,13 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
     cv, cs = self._values, self._struct
     dev = cs.device
     deleting = False
-    if isinstance(value, (list, tuple, np.ndarray)):
+    tmap = _dm.tmap
+    if self.dtype._is_udt and isinstance(value, (tuple, list, dict)):
+        # a UDT element given by its fields
+        sc = Scalar(self.dtype)
+        sc.value = value
+        value = sc
+    elif isinstance(value, (list, tuple, np.ndarray)):
         # dense array assignment: v[[0, 1]] = [31, 32], built on C's device
         from ..tx import config as _txconfig
 
@@ -851,17 +857,17 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
         sc = _as_scalar(value)
         if sc.is_empty:
             deleting = True
-            av = torch.zeros(region_shape, dtype=cv.dtype, device=dev)
+            av = tmap(lambda c: torch.zeros(region_shape, dtype=c.dtype, device=dev), cv)
             as_ = _dm.s_zeros(region_shape, dev)
         else:
-            av = sc._device_value(self.dtype, dev).expand(region_shape)
+            av = tmap(lambda a: a.expand(region_shape), sc._device_value(self.dtype, dev))
             as_ = _dm.s_ones(region_shape, dev)
     elif isinstance(value, Vector):
         if len(out_shape) != 1 or out_shape[0] != value.shape[0]:
             raise _exc.DimensionMismatch(
                 f"shapes not compatible for assign: value {value.shape} into region {out_shape}"
             )
-        av = _dt.cast(value._values, value.dtype, self.dtype).reshape(region_shape)
+        av = tmap(lambda a: a.reshape(region_shape), _dt.cast(value._values, value.dtype, self.dtype))
         as_ = value._struct.reshape(region_shape)
     elif isinstance(value, Matrix):
         if out_shape != value.shape:
@@ -879,15 +885,15 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
         start = _dm._contig_start(idx, self.shape[0])
         if start is not None:
             # slice-shaped region: slice copies instead of an index scatter
-            sv, ss, rsel = _dm.scatter_region_vector_contig(cv, cs, av.reshape(-1), as_.reshape(-1), start=start)
+            sv, ss, rsel = _dm.scatter_region_vector_contig(cv, cs, tmap(lambda a: a.reshape(-1), av), as_.reshape(-1), start=start)
         else:
-            sv, ss, rsel = _dm.scatter_region_vector(cv, cs, idx, av.reshape(-1), as_.reshape(-1))
+            sv, ss, rsel = _dm.scatter_region_vector(cv, cs, idx, tmap(lambda a: a.reshape(-1), av), as_.reshape(-1))
     else:
         rows = np.atleast_1d(indices[0].index)
         cols = np.atleast_1d(indices[1].index)
         rstart = _dm._contig_start(rows, self.shape[0])
         cstart = _dm._contig_start(cols, self.shape[1])
-        av2 = av.reshape(len(rows), len(cols))
+        av2 = tmap(lambda a: a.reshape(len(rows), len(cols)), av)
         as2 = as_.reshape(len(rows), len(cols))
         if rstart is not None and cstart is not None:
             sv, ss, rsel = _dm.scatter_region_matrix_contig(cv, cs, av2, as2, rstart=rstart, cstart=cstart)
@@ -899,7 +905,10 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
         scattered_s = _dm.s_and(rsel, ss)
         both = _dm.s_and(cs, scattered_s)
         acc = accum.fn(_dt.cast(cv, self.dtype, accum.type_), _dt.cast(sv, self.dtype, accum.type2))
-        zv = torch.where(both, _dt.cast(acc, accum.return_type, self.dtype), torch.where(scattered_s, sv, cv))
+        zv = tmap(
+            lambda a, z, c: torch.where(both, a, torch.where(scattered_s, z, c)),
+            _dt.cast(acc, accum.return_type, self.dtype), sv, cv,
+        )
         zs = _dm.s_or(cs, scattered_s)
     else:
         zv, zs = sv, ss
@@ -1062,6 +1071,4 @@ def do_delete(self, resolved, mask=None):
         where = (rows[:, None], cols[None, :])
     cs = cs.clone()
     cs[where] = False
-    cv = cv.clone()
-    cv[where] = 0
-    self._set_arrays(cv, cs)
+    self._set_arrays(_dm.tmap(lambda a: _dm._set_copy(a, where, 0), cv), cs)

@@ -33,7 +33,10 @@ CPU; on the card the n space is (``CompiledLoop._edge_layout_enabled``).
 A graph replays on the addresses it was captured with: the runner keeps
 every tensor the capture read (``core/capture.py``), so a plan replaced in
 its cache or a closed-over operand updated later stays alive, and the graph
-goes on with the values it was captured with.
+goes on with the values it was captured with.  An eager run (the CPU, an
+eager capture decision, ``runner.eager()``) holds the same values: its first
+step records what it read outside its scope, and later steps read that
+(``core.capture.Pin``), as the reference's trace bakes its constants.
 
 Inside a compiled function collection values are abstract: host reads
 (``.nvals`` of a traced structure, ``float(s)``, ``repr``, ``.to_coo()``,
@@ -278,6 +281,7 @@ class CompiledLoop:
         self._values0 = None
         self._edge = None  # (ctx, plan) in edge layout
         self._graphs = {}
+        self._pins = {}  # eager runs: what each step read on its first run
         self._pool = None
         self._static = None
         self._nested = _cap.active() is not None
@@ -539,25 +543,26 @@ class CompiledLoop:
         nested in another compiled function)."""
         leaves = list(leaves) if self._nested else _fresh(leaves)
         if self._kind == "fori":
-            for _ in range(self._n_iters):
-                leaves = self._in_scope(self._steps, leaves, 1)
+            for i in range(self._n_iters):
+                leaves = self._in_scope(i, self._steps, leaves, 1)
             return leaves
         k = self._unroll
         it = 0
-        flag = self._in_scope(self._cond_value, leaves)
+        flag = self._in_scope(it, self._cond_value, leaves)
         while self._read_flag(flag) and (self._max_iters is None or it < self._max_iters):
-            leaves = self._in_scope(self._steps, leaves, k)
+            leaves = self._in_scope(it, self._steps, leaves, k)
             it += k
-            flag = self._in_scope(self._cond_value, leaves)
+            flag = self._in_scope(it, self._cond_value, leaves)
         self.last_iters = it
         return leaves
 
-    def _in_scope(self, fn, *args):
-        """``fn`` as an eager step: in a scope of its own, or in the enclosing
-        function's."""
+    def _in_scope(self, i, fn, *args):
+        """``fn`` as eager step ``i``: in a scope of its own, pinned to what
+        step ``i`` read on its first run (steps may differ from each other,
+        as the steps of one graph do), or in the enclosing function's."""
         if self._nested:
             return fn(*args)
-        with _cap.Scope("step"):
+        with _cap.Scope("step", pin=self._pins.setdefault((fn.__name__, i), _cap.Pin())):
             return fn(*args)
 
     def _read_flag(self, flag):
@@ -704,6 +709,7 @@ class _CompiledFunction:
         self._static_in = None
         self._static_out = None
         self._kept = None
+        self._pin = _cap.Pin()  # eager calls: what the first call read
         self.capture = None
         self.capture_reason = None
         if self._nested:
@@ -731,7 +737,7 @@ class _CompiledFunction:
             return _rebuild_result(self._layout, flat)
         if self.capture == "graph" and self._device is not None and self._device.type == "cuda":
             return self._replay(leaves)
-        with _cap.Scope("step") as scope:
+        with _cap.Scope("step", pin=self._pin) as scope:
             flat = self._run([_cap.traced(t.detach()) for t in leaves])
         if scope.eager_reason and self.capture == "graph":
             self.capture, self.capture_reason = "eager", scope.eager_reason

@@ -335,7 +335,10 @@ def to_tensor(values, dtype, device):
     dtype = lookup_dtype(arr.dtype) if dtype is None else lookup_dtype(dtype)
     scalar = arr.ndim == 0
     if dtype._is_udt:
-        return {f: to_tensor(np.ascontiguousarray(arr[f]), None, device) for f in dtype.np_type.names}
+        # each field copied out of the records (a field view's strides need
+        # not be a multiple of its item size) and kept at the array's shape
+        # (a 0-d field comes back 1-d from the contiguous copy below)
+        return {f: to_tensor(np.array(arr[f]), None, device).reshape(arr.shape) for f in dtype.np_type.names}
     arr = np.ascontiguousarray(arr.astype(dtype.np_type, copy=False))
     if dtype.np_type == np.uint64:
         t = torch.from_numpy(arr.view(np.int64))

@@ -244,28 +244,31 @@ class AmbiguousAssignOrExtract:
             from ..ops import densemasked as _dm
 
             values, struct = parent._values, parent._struct
+            tmap = _dm.tmap
             if input_mask is not None:
                 struct = struct & input_mask._bits()
             if parent.ndim == 1:
                 (ix,) = res.indices
                 if ix.kind == "int":
-                    return values[ix.index][None], struct[ix.index][None]
+                    return tmap(lambda a: a[ix.index][None], values), struct[ix.index][None]
                 return _dm.extract_vector(values, struct, ix.index)
             rows, cols = res.indices
             if rows.kind == "int" and cols.kind == "int":
-                return values[rows.index, cols.index][None], struct[rows.index, cols.index][None]
+                return tmap(lambda a: a[rows.index, cols.index][None], values), struct[rows.index, cols.index][None]
             if rows.kind == "int":
-                return _dm.extract_vector(values[rows.index], struct[rows.index], cols.index)
+                return _dm.extract_vector(tmap(lambda a: a[rows.index], values), struct[rows.index], cols.index)
             if cols.kind == "int":
-                return _dm.extract_vector(values[:, cols.index], struct[:, cols.index], rows.index)
+                return _dm.extract_vector(tmap(lambda a: a[:, cols.index], values), struct[:, cols.index], rows.index)
             return _dm.extract_matrix(values, struct, rows.index, cols.index)
 
         from .scalar import Scalar
 
         if out_cls is Scalar:
             def compute_scalar():
+                from ..ops import densemasked as _dm
+
                 v, s = compute()
-                return v[0], s[0]
+                return _dm.tmap(lambda a: a[0], v), s[0]
 
             return BaseExpression(
                 "extract_element",

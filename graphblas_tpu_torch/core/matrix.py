@@ -7,7 +7,8 @@ and past it the sparse analyzed COO (``core.sparse.SparseMatrixData``: host
 numpy COO, canonical, with device caches on the matrix's device).  A sparse
 matrix materializes dense tensors on first touch of ``_values``/``_struct``
 (guarded by ``tx.config["densify_limit"]``); the op layer dispatches its
-sparse branches first.
+sparse branches first.  A user-defined type (UDT) keeps its dense values as
+a dict of field tensors and its sparse values as a structured numpy array.
 """
 
 import numpy as np
@@ -22,7 +23,16 @@ from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
 from .scalar import Scalar, _as_scalar, _is_scalar_like
-from .utils import canonical_device, check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
+from .utils import (
+    canonical_device,
+    collection_device,
+    device_asarray,
+    ensure_int,
+    udt_fill_dense,
+    udt_struct_from_missing,
+    values_to_numpy_buffer,
+    zero_values,
+)
 from .vector import Vector, _apply_dup, _sparse_limit
 
 
@@ -47,14 +57,13 @@ class Matrix(InfixMixin, BaseType):
         self._dtype = _dt.lookup_dtype(dtype)
         nrows = ensure_int(nrows, "nrows")
         ncols = ensure_int(ncols, "ncols")
-        check_storage(self._dtype, "Matrix")
         dev = collection_device()
         self._sparse = None
         self.name = name
         if nrows * ncols > _sparse_limit():
             self._sparse, self._sp_dev = _empty_sparse(nrows, ncols, self._dtype), dev
             return
-        self._values = torch.zeros((nrows, ncols), dtype=self._dtype.carrier, device=dev)
+        self._values = zero_values((nrows, ncols), self._dtype, dev)
         self._struct = _dm.s_zeros((nrows, ncols), dev)
 
     @classmethod
@@ -188,7 +197,9 @@ class Matrix(InfixMixin, BaseType):
         sp = self._sparse
         if sp is not None:
             return object.__sizeof__(self) + sp.rows.nbytes + sp.cols.nbytes + sp.vals.nbytes
-        return object.__sizeof__(self) + self._values.nbytes + self._struct.nbytes
+        v = self._values
+        vb = sum(a.nbytes for a in v.values()) if isinstance(v, dict) else v.nbytes
+        return object.__sizeof__(self) + vb + self._struct.nbytes
 
     def _sparse_find(self, r, c):
         """Index into sparse storage for entry (r, c), or -1 (host binary search)."""
@@ -247,7 +258,6 @@ class Matrix(InfixMixin, BaseType):
             raise _exc.IndexOutOfBound(f"row index out of range for nrows {nrows}")
         if columns.size and ((columns < 0).any() or (columns >= ncols).any()):
             raise _exc.IndexOutOfBound(f"column index out of range for ncols {ncols}")
-        check_storage(dtype, "Matrix")
         if nrows * ncols > _sparse_limit():
             from .sparse import SparseMatrixData
 
@@ -336,7 +346,6 @@ class Matrix(InfixMixin, BaseType):
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else sc.dtype
         nrows = ensure_int(nrows, "nrows")
         ncols = ensure_int(ncols, "ncols")
-        check_storage(dtype, "Matrix")
         if nrows * ncols > _sparse_limit() * 8:
             # a fully-iso matrix at huge dimensions needs an iso storage
             # format; explicit storage would allocate nrows*ncols cells
@@ -347,7 +356,7 @@ class Matrix(InfixMixin, BaseType):
             )
         dev = collection_device()
         return cls._from_arrays(
-            sc._device_value(dtype, dev).expand(nrows, ncols).clone(),
+            _dm.tmap(lambda a: a.expand(nrows, ncols).clone(), sc._device_value(dtype, dev)),
             _dm.s_ones((nrows, ncols), dev),
             dtype,
             name=name,
@@ -359,12 +368,13 @@ class Matrix(InfixMixin, BaseType):
         values, dtype = values_to_numpy_buffer(np.asarray(values), dtype)
         if values.ndim != 2:
             raise ValueError("values must be 2-dimensional for Matrix.from_dense")
-        check_storage(dtype, "Matrix")
-        if missing_value is None:
-            struct = np.ones(values.shape, bool)
+        if dtype._is_udt:
+            struct = udt_struct_from_missing(values, missing_value, dtype.np_type)
+            v = values.astype(dtype.np_type)
+            v[~struct] = np.zeros((), dtype.np_type)
         else:
-            struct = values != missing_value
-        v = np.where(struct, values, np.zeros((), dtype.np_type))
+            struct = np.ones(values.shape, bool) if missing_value is None else values != missing_value
+            v = np.where(struct, values, np.zeros((), dtype.np_type))
         dev = collection_device()
         return cls._from_arrays(device_asarray(v, dtype, dev), _dt.to_tensor(struct, _dt.BOOL, dev), dtype, name=name)
 
@@ -466,6 +476,12 @@ class Matrix(InfixMixin, BaseType):
         """Dense numpy array."""
         if fill_value is None and self.nvals < self.nrows * self.ncols:
             raise TypeError("fill_value must be given to to_dense when not all entries are present")
+        if self._dtype._is_udt:
+            if dtype is not None and _dt.lookup_dtype(dtype) is not self._dtype:
+                raise TypeError("to_dense cannot cast a UDT to another dtype")
+            return udt_fill_dense(
+                _dt.to_numpy(self._values, self._dtype), self._struct.cpu().numpy(), self._dtype.np_type, fill_value
+            )
         if fill_value is None:
             fill_value = 0
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
@@ -504,7 +520,8 @@ class Matrix(InfixMixin, BaseType):
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         if clear:
             return Matrix(dtype, self.nrows, self.ncols, name=name)
-        check_storage(dtype, "Matrix")
+        if self._dtype._is_udt and dtype != self._dtype:
+            raise TypeError("Cannot cast a UDT Matrix to another dtype in dup")
         if self._sparse is not None and mask is None:
             sp = self._sparse
             vals = sp.vals if dtype is self._dtype else sp.vals.astype(dtype.np_type)
@@ -516,7 +533,7 @@ class Matrix(InfixMixin, BaseType):
 
             mask = _check_mask(mask, self)
             s = s & mask._bits()
-            v = torch.where(s, v, torch.zeros((), dtype=v.dtype, device=v.device))
+            v, s = _dm.canonical(v, s)
         return Matrix._from_arrays(v, s, dtype, name=name)
 
     def resize(self, nrows, ncols):
@@ -529,16 +546,17 @@ class Matrix(InfixMixin, BaseType):
             self._adopt_sparse(type(sp)(sp.rows[keep], sp.cols[keep], sp.vals[keep], nrows, ncols))
             return
         v, s = self._values, self._struct
+        pad = torch.nn.functional.pad
         if nrows < self.nrows:
-            v, s = v[:nrows], s[:nrows]
+            v, s = _dm.tmap(lambda a: a[:nrows], v), s[:nrows]
         elif nrows > self.nrows:
-            v = torch.nn.functional.pad(v, (0, 0, 0, nrows - s.shape[0]))
-            s = torch.nn.functional.pad(s, (0, 0, 0, nrows - s.shape[0]))
+            grow = (0, 0, 0, nrows - s.shape[0])
+            v, s = _dm.tmap(lambda a: pad(a, grow), v), pad(s, grow)
         if ncols < self.ncols:
-            v, s = v[:, :ncols], s[:, :ncols]
+            v, s = _dm.tmap(lambda a: a[:, :ncols], v), s[:, :ncols]
         elif ncols > s.shape[1]:
-            v = torch.nn.functional.pad(v, (0, ncols - s.shape[1]))
-            s = torch.nn.functional.pad(s, (0, ncols - s.shape[1]))
+            grow = (0, ncols - s.shape[1])
+            v, s = _dm.tmap(lambda a: pad(a, grow), v), pad(s, grow)
         self._set_arrays(v, s)
 
     def get(self, row, col, default=None):
@@ -549,7 +567,8 @@ class Matrix(InfixMixin, BaseType):
             j = self._sparse_find(r.index, c.index)
             return self._sparse.vals[j].item() if j >= 0 else default
         if bool(self._struct[r.index, c.index]):
-            return _dt.to_numpy(self._values[r.index, c.index], self._dtype).item()
+            v = _dt.to_numpy(_dm.tmap(lambda a: a[r.index, c.index], self._values), self._dtype)
+            return v[()] if self._dtype._is_udt else v.item()
         return default
 
     def diag(self, k=0, dtype=None, *, name=None):
@@ -753,7 +772,7 @@ class Matrix(InfixMixin, BaseType):
         """View an n-by-1 matrix as a vector."""
         if self.ncols != 1:
             raise _exc.DimensionMismatch("Matrix must have a single column to be cast to a Vector")
-        return Vector._from_arrays(self._values[:, 0], self._struct[:, 0], self._dtype, name=self.name)
+        return Vector._from_arrays(_dm.tmap(lambda a: a[:, 0], self._values), self._struct[:, 0], self._dtype, name=self.name)
 
     @property
     def tx(self):

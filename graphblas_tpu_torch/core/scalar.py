@@ -8,8 +8,8 @@ the card (``_set_value_from_device``).  Inside a compiled loop
 device and its presence is structural, as the reference keeps a traced
 value; reading it on the host there raises ``TracerError``.  Outside, a
 device value is read back on first use.  ``is_cscalar`` is kept for API
-parity.  A UDT Scalar waits for the struct-of-arrays collections
-(ROADMAP.md, queue 3b).
+parity.  A UDT Scalar holds a structured numpy scalar on the host and goes
+to a device as a dict of 0-d field tensors.
 """
 
 import numpy as np
@@ -60,10 +60,6 @@ class Scalar(InfixMixin, BaseType):
 
     def __init__(self, dtype=_dt.FP64, *, is_cscalar=False, name=None):
         self._dtype = _dt.lookup_dtype(dtype)
-        if self._dtype._is_udt:
-            raise NotImplementedError(
-                "UDT (struct-of-arrays) collections are not ported yet (ROADMAP.md, queue 3b)"
-            )
         self._empty = True
         self._values = np.zeros((), self._dtype.np_type)[()]
         self._struct = False
@@ -119,7 +115,13 @@ class Scalar(InfixMixin, BaseType):
             return
         if isinstance(val, Scalar):
             val = val.value
-        self._values = np.asarray(val, self._dtype.np_type)[()]
+        if self._dtype._is_udt:
+            # dict, tuple or np.void field fills
+            from .utils import _udt_scalar
+
+            self._values = _udt_scalar(val, self._dtype.np_type)
+        else:
+            self._values = np.asarray(val, self._dtype.np_type)[()]
         self._struct = True
         self._empty = False
 

@@ -6,8 +6,8 @@ collections (``tx.config["platform"]``: "cuda", the default, or "cpu"), and
 ``device_asarray`` puts host values there as the carrier tensor of their
 type.  The reference's routing of complex values to the host
 (``device_asarray``'s TPU branch) is not ported: CUDA computes in complex.
-The UDT helpers wait for the struct-of-arrays collections (ROADMAP.md,
-queue 3b); ``check_storage`` raises for a UDT collection, naming that queue.
+The UDT helpers build and read the struct-of-arrays form of a
+user-defined type: a dict of field tensors under one structure.
 """
 
 import numpy as np
@@ -140,13 +140,46 @@ class class_property:
         return self.fget(objtype)
 
 
-def check_storage(dtype, kind):
-    """A UDT collection needs the struct-of-arrays format: raise naming the
-    queue that brings it."""
+def _udt_scalar(value, np_type):
+    """Coerce a tuple / dict / structured scalar to a 0-d structured scalar."""
+    if isinstance(value, np.void):
+        return value
+    if isinstance(value, dict):
+        value = tuple(value[f] for f in np_type.names)
+    elif not isinstance(value, (tuple, list)):
+        value = tuple(value for _ in np_type.names)
+    return np.asarray(tuple(value), np_type)[()]
+
+
+def udt_struct_from_missing(values, missing_value, np_type):
+    """Present-mask for a dense structured array: absent where every field
+    equals missing_value (GxB import semantics for UDTs)."""
+    if missing_value is None:
+        return np.ones(values.shape, bool)
+    mv = _udt_scalar(missing_value, np_type)
+    eq = np.logical_and.reduce([values[f] == mv[f] for f in np_type.names])
+    return ~eq
+
+
+def udt_fill_dense(values, struct, np_type, fill_value):
+    """Dense structured array from SoA host values; absent entries get
+    fill_value."""
+    out = np.zeros(struct.shape, np_type)
+    for f in np_type.names:
+        out[f] = np.asarray(values[f])
+    if fill_value is not None:
+        out[~struct] = _udt_scalar(fill_value, np_type)
+    return out
+
+
+def zero_values(shape, dtype, device):
+    """All-zero values of ``dtype`` on ``device``: the carrier tensor, or a
+    dict of field tensors for a UDT."""
+    from . import dtypes as _dt
+
     if dtype._is_udt:
-        raise NotImplementedError(
-            f"a UDT {kind} needs the struct-of-arrays collections, not ported yet (ROADMAP.md, queue 3b)"
-        )
+        return {f: zero_values(shape, _dt.lookup_dtype(dtype.np_type[f]), device) for f in dtype.np_type.names}
+    return torch.zeros(shape, dtype=dtype.carrier, device=device)
 
 
 def canonical_device(device):

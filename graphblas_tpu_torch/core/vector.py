@@ -19,7 +19,16 @@ from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
 from .scalar import _as_scalar, _is_scalar_like
-from .utils import canonical_device, check_storage, collection_device, device_asarray, ensure_int, values_to_numpy_buffer
+from .utils import (
+    canonical_device,
+    collection_device,
+    device_asarray,
+    ensure_int,
+    udt_fill_dense,
+    udt_struct_from_missing,
+    values_to_numpy_buffer,
+    zero_values,
+)
 
 
 def _sparse_limit():
@@ -104,21 +113,22 @@ class Vector(InfixMixin, BaseType):
     def __init__(self, dtype=_dt.FP64, size=0, *, name=None):
         self._dtype = _dt.lookup_dtype(dtype)
         size = ensure_int(size, "size")
-        check_storage(self._dtype, "Vector")
         dev = collection_device()
         self._sparse = None
         self.name = name
+        udt = self._dtype._is_udt
         from . import looplayout as _ll
 
         _llctx = _ll.active()
-        if _llctx is not None and size == _llctx.n:
+        if _llctx is not None and size == _llctx.n and not udt:
             # edge-layout loop body: empty n-sized vectors made inside the
             # body live in the edge layout (core/looplayout.py)
             size = _llctx.e_pad
-        if size > _sparse_limit():
+        if size > _sparse_limit() and not udt:
             self._sparse, self._sp_dev = _empty_sparse(size, self._dtype), dev
             return
-        self._values = torch.zeros((size,), dtype=self._dtype.carrier, device=dev)
+        # a UDT vector keeps the dense struct-of-arrays form at any size
+        self._values = zero_values((size,), self._dtype, dev)
         self._struct = _dm.s_zeros((size,), dev)
 
     @classmethod
@@ -232,7 +242,9 @@ class Vector(InfixMixin, BaseType):
         sv = self._sparse
         if sv is not None:
             return object.__sizeof__(self) + sv.idx.nbytes + sv.vals.nbytes
-        return object.__sizeof__(self) + self._values.nbytes + self._struct.nbytes
+        v = self._values
+        vb = sum(a.nbytes for a in v.values()) if isinstance(v, dict) else v.nbytes
+        return object.__sizeof__(self) + vb + self._struct.nbytes
 
     def __repr__(self):
         from .formatting import format_vector
@@ -287,10 +299,9 @@ class Vector(InfixMixin, BaseType):
             indices = np.where(neg, indices + size, indices)
             if indices.size and (indices.min() < 0 or indices.max() >= size):
                 raise _exc.IndexOutOfBound(f"index out of range for size {size}")
-        check_storage(dtype, "Vector")
         if indices.size != np.unique(indices).size:
             indices, values = _apply_dup(indices, values, dup_op)
-        if size > _sparse_limit():
+        if size > _sparse_limit() and not dtype._is_udt:
             from .sparse import SparseVectorData
 
             order = np.argsort(indices, kind="stable")
@@ -319,19 +330,18 @@ class Vector(InfixMixin, BaseType):
         sc = _as_scalar(value, dtype)
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else sc.dtype
         size = ensure_int(size, "size")
-        check_storage(dtype, "Vector")
         dev = collection_device()
         from . import looplayout as _ll
 
         ctx = _ll.active()
-        if ctx is not None and size == ctx.n:
+        if ctx is not None and size == ctx.n and not dtype._is_udt:
             # edge-layout loop body: an n-sized iso vector made inside the body
             # is built in the edge layout, present exactly at the state slots
             return cls._from_arrays(
                 sc._device_value(dtype, dev).expand(ctx.e_pad).clone(), ctx.universe(dev), dtype, name=name
             )
         return cls._from_arrays(
-            sc._device_value(dtype, dev).expand(size).clone(), _dm.s_ones((size,), dev), dtype, name=name
+            _dm.tmap(lambda a: a.expand(size).clone(), sc._device_value(dtype, dev)), _dm.s_ones((size,), dev), dtype, name=name
         )
 
     @classmethod
@@ -340,12 +350,13 @@ class Vector(InfixMixin, BaseType):
         values, dtype = values_to_numpy_buffer(np.asarray(values), dtype)
         if values.ndim != 1:
             raise ValueError("values must be 1-dimensional for Vector.from_dense")
-        check_storage(dtype, "Vector")
-        if missing_value is None:
-            struct = np.ones(values.shape, bool)
+        if dtype._is_udt:
+            struct = udt_struct_from_missing(values, missing_value, dtype.np_type)
+            v = values.astype(dtype.np_type)
+            v[~struct] = np.zeros((), dtype.np_type)
         else:
-            struct = values != missing_value
-        v = np.where(struct, values, np.zeros((), dtype.np_type))
+            struct = np.ones(values.shape, bool) if missing_value is None else values != missing_value
+            v = np.where(struct, values, np.zeros((), dtype.np_type))
         dev = collection_device()
         return cls._from_arrays(device_asarray(v, dtype, dev), _dt.to_tensor(struct, _dt.BOOL, dev), dtype, name=name)
 
@@ -386,6 +397,12 @@ class Vector(InfixMixin, BaseType):
         """Dense numpy array with absent entries filled."""
         if fill_value is None and self.nvals < self.size:
             raise TypeError("fill_value must be given to to_dense when not all entries are present")
+        if self._dtype._is_udt:
+            if dtype is not None and _dt.lookup_dtype(dtype) is not self._dtype:
+                raise TypeError("to_dense cannot cast a UDT to another dtype")
+            return udt_fill_dense(
+                _dt.to_numpy(self._values, self._dtype), self._struct.cpu().numpy(), self._dtype.np_type, fill_value
+            )
         if fill_value is None:
             fill_value = 0
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
@@ -420,7 +437,8 @@ class Vector(InfixMixin, BaseType):
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         if clear:
             return Vector(dtype, self.size, name=name)
-        check_storage(dtype, "Vector")
+        if self._dtype._is_udt and dtype != self._dtype:
+            raise TypeError("Cannot cast a UDT Vector to another dtype in dup")
         if self._sparse is not None and mask is None:
             sv = self._sparse
             return Vector._from_sparse(sv.copy(vals=sv.vals.astype(dtype.np_type)), dtype, name=name, device=self._sp_dev)
@@ -431,7 +449,7 @@ class Vector(InfixMixin, BaseType):
 
             mask = _check_mask(mask, self)
             s = s & mask._bits()
-            v = torch.where(s, v, torch.zeros((), dtype=v.dtype, device=v.device))
+            v, s = _dm.canonical(v, s)
         return Vector._from_arrays(v, s, dtype, name=name)
 
     def resize(self, size):
@@ -441,10 +459,10 @@ class Vector(InfixMixin, BaseType):
         if size == cur:
             return
         if size < cur:
-            self._set_arrays(self._values[:size], self._struct[:size])
+            self._set_arrays(_dm.tmap(lambda a: a[:size], self._values), self._struct[:size])
         else:
             pad = torch.nn.functional.pad
-            self._set_arrays(pad(self._values, (0, size - cur)), pad(self._struct, (0, size - cur)))
+            self._set_arrays(_dm.tmap(lambda a: pad(a, (0, size - cur)), self._values), pad(self._struct, (0, size - cur)))
 
     def get(self, index, default=None):
         """Element or default."""
@@ -453,7 +471,8 @@ class Vector(InfixMixin, BaseType):
             j = self._sparse_find(idx.index)
             return self._sparse.vals[j].item() if j >= 0 else default
         if bool(self._struct[idx.index]):
-            return _dt.to_numpy(self._values[idx.index], self._dtype).item()
+            v = _dt.to_numpy(_dm.tmap(lambda a: a[idx.index], self._values), self._dtype)
+            return v[()] if self._dtype._is_udt else v.item()
         return default
 
     # -- indexing ----------------------------------------------------------------
@@ -568,7 +587,7 @@ class Vector(InfixMixin, BaseType):
         """Zero-copy view as an n-by-1 matrix."""
         from .matrix import Matrix
 
-        return Matrix._from_arrays(self._values[:, None], self._struct[:, None], self._dtype, name=self.name)
+        return Matrix._from_arrays(_dm.tmap(lambda a: a[:, None], self._values), self._struct[:, None], self._dtype, name=self.name)
 
     @property
     def tx(self):

@@ -16,7 +16,8 @@ class Graph:
 
     n: number of nodes; src, dst: int32 (padded); weights: float32 or None;
     valid: bool marking real edges; nedges: number of real edges.  The
-    builders put the tensors on the card unless given ``device="cpu"``."""
+    builders put the tensors on ``tx.config["platform"]`` (the card unless
+    the caller asks for the CPU); an explicit ``device=`` wins."""
 
     def __init__(self, n, src, dst, weights, valid, nedges):
         self.n = int(n)
@@ -27,7 +28,8 @@ class Graph:
         self.nedges = int(nedges)
 
     @classmethod
-    def from_arrays(cls, src, dst, weights=None, *, n=None, pad_to=None, device="cuda"):
+    def from_arrays(cls, src, dst, weights=None, *, n=None, pad_to=None, device=None):
+        device = _default_device(device)
         src = np.asarray(src, np.int32)
         dst = np.asarray(dst, np.int32)
         if n is None:
@@ -78,7 +80,35 @@ class Graph:
         return f"Graph(n={self.n}, nedges={self.nedges}, padded={self.src.numel()}, device={self.src.device})"
 
 
-def rmat(scale, edge_factor=16, *, a=0.57, b=0.19, c=0.19, seed=0, weighted=False, device="cuda"):
+def edge_index(graph):
+    """(src, dst) as int64 on the graph's device with every padding edge at
+    (0, 0): the index of a dense n x n operand built with ``index_put_``
+    (the diagonal cell (0, 0) is cleared or masked by each model), so no
+    host read selects the valid edges."""
+    zero = torch.zeros((), dtype=torch.int64, device=graph.src.device)
+    return torch.where(graph.valid, graph.src.long(), zero), torch.where(graph.valid, graph.dst.long(), zero)
+
+
+def _padded(src, dst, n):
+    """A Graph of int edge tensors on their device, padded as ``from_arrays``
+    pads (to the next power of two with invalid edges)."""
+    e = int(src.numel())
+    pad_to = max(1, 1 << (e - 1).bit_length()) if e else 1
+    dev = src.device
+    psrc = torch.zeros(pad_to, dtype=torch.int32, device=dev)
+    pdst = torch.zeros(pad_to, dtype=torch.int32, device=dev)
+    psrc[:e] = src
+    pdst[:e] = dst
+    return Graph(n, psrc, pdst, None, torch.arange(pad_to, device=dev) < e, e)
+
+
+def _default_device(device):
+    from ..tx import config as _txconfig
+
+    return _txconfig["platform"] if device is None else device
+
+
+def rmat(scale, edge_factor=16, *, a=0.57, b=0.19, c=0.19, seed=0, weighted=False, device=None):
     """Synthetic RMAT/Graph500-style power-law graph (GAP-style benchmark input)."""
     rng = np.random.default_rng(seed)
     n = 1 << scale

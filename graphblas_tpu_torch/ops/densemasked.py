@@ -34,8 +34,13 @@ the code the card runs:
 Inside a compiled loop (``core/capture.py``) the structure combinators
 ``s_*``, ``mxm``'s output structure and the assign scatters keep structure
 host-side where their operands are constants, as the reference does under
-a trace (structure hoisting, ``core/compiler.py``).  Not ported here: the
-struct-of-arrays (UDT) branches (ROADMAP.md, queue 3b).
+a trace (structure hoisting, ``core/compiler.py``).
+
+A user-defined type (UDT) keeps its values as a dict of field tensors (a
+struct of arrays, each field in its type's carrier): ``tmap`` maps a
+function over the fields, and the reduce, elementwise, matmul (the
+generic contraction), extract/assign, merge and reshape functions take
+either form.
 """
 
 import numpy as np
@@ -51,6 +56,22 @@ _INDEX = torch.int64  # positional iotas ride int64 (the reference's 64-bit cont
 
 def _zero(t):
     return torch.zeros((), dtype=t.dtype, device=t.device)
+
+
+def _is_soa(values):
+    """UDT collections store values as a dict of field tensors (SoA)."""
+    return isinstance(values, dict)
+
+
+def tmap(fn, values, *rest):
+    """Apply fn per field for SoA values, directly otherwise."""
+    if _is_soa(values):
+        return {key: fn(values[key], *(r[key] for r in rest)) for key in values}
+    return fn(values, *rest)
+
+
+def _shape_of(values):
+    return tuple(next(iter(values.values())).shape if _is_soa(values) else values.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +205,7 @@ def s_ones(shape, device):
 
 def canonical(values, struct):
     """Force absent positions to zero (storage invariant)."""
-    return torch.where(struct, values, _zero(values)), struct
+    return tmap(lambda v: torch.where(struct, v, _zero(v)), values), struct
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +220,8 @@ def _pair_reduce(values, struct, fn, axes):
 
     as the reference's log-depth halving tree, step for step: float results
     come out in the reference's order, and user monoids run with no control
-    flow."""
+    flow.  SoA values reduce field by field under one structure; ``fn``
+    takes and returns dicts of fields."""
     ndim = struct.dim()
     axes = tuple(sorted(ax % ndim for ax in axes))
     keep = tuple(i for i in range(ndim) if i not in axes)
@@ -210,10 +232,10 @@ def _pair_reduce(values, struct, fn, axes):
         return x.reshape(tuple(x.shape[: len(keep)]) + (-1,))
 
     s = rearrange(struct)
-    v = rearrange(values)
+    v = tmap(rearrange, values)
     keep_shape = tuple(s.shape[:-1])
     if s.shape[-1] == 0:
-        return torch.zeros(keep_shape, dtype=v.dtype, device=v.device), s_zeros(keep_shape, s.device)
+        return tmap(lambda x: torch.zeros(keep_shape, dtype=x.dtype, device=x.device), v), s_zeros(keep_shape, s.device)
 
     def tail_pad(x, lo, hi, padn):
         part = x[..., lo:hi]
@@ -228,11 +250,11 @@ def _pair_reduce(values, struct, fn, axes):
         pa = s[..., :h]
         pb = tail_pad(s, h, r, padn)
         both = pa & pb
-        va = v[..., :h]
-        vb = tail_pad(v, h, r, padn)
-        v = torch.where(both, fn(va, vb), torch.where(pa, va, vb))
+        va = tmap(lambda x: x[..., :h], v)
+        vb = tmap(lambda x: tail_pad(x, h, r, padn), v)
+        v = tmap(lambda o, a, b: torch.where(both, o, torch.where(pa, a, b)), fn(va, vb), va, vb)
         s = pa | pb
-    return v[..., 0], s[..., 0]
+    return tmap(lambda x: x[..., 0], v), s[..., 0]
 
 
 def _signed_zero_fix(out, filled, which, axis):
@@ -257,6 +279,8 @@ def _monoid_reduce(values, struct, monoid, axis):
     narrow integers in int64: the values agree after the conversion)."""
     name = monoid.parent.name if hasattr(monoid, "parent") else None
     dt = monoid.type_
+    if _is_soa(values):
+        return _pair_reduce(values, struct, monoid.fn if monoid.fn is not None else (lambda a, b: a), (axis,))
     if name in {"plus", "times", "lor", "land", "min", "max"} and not dt._is_complex:
         if name == "plus":
             if dt._is_bool:
@@ -293,7 +317,7 @@ def reduce_axis(values, struct, monoid, axis):
 
 def reduce_all(values, struct, monoid):
     """Full monoid reduce -> (0-d value, 0-d present)."""
-    return _monoid_reduce(values.reshape(-1), struct.reshape(-1), monoid, 0)
+    return _monoid_reduce(tmap(lambda a: a.reshape(-1), values), struct.reshape(-1), monoid, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +390,7 @@ def ewise_mult(av, as_, bv, bs, op):
     ``op.type2``."""
     struct = s_and(as_, bs)
     if op.is_positional:
-        return _positional_ewise(tuple(av.shape), struct, op, av.device)
+        return _positional_ewise(_shape_of(av), struct, op, struct.device)
     out = op.fn(_safe(av, as_, op), _safe(bv, bs, op))
     return canonical(out, struct)
 
@@ -375,12 +399,15 @@ def ewise_add(av, as_, bv, bs, op):
     """GrB_Matrix_eWiseAdd (union; both-present uses op)."""
     struct = s_or(as_, bs)
     if op.is_positional:
-        return _positional_ewise(tuple(av.shape), struct, op, av.device)
+        return _positional_ewise(_shape_of(av), struct, op, struct.device)
     both = s_and(as_, bs)
     out = op.fn(_safe(av, as_, op), _safe(bv, bs, op))
     # non-intersecting entries pass through, cast to the op's output type
     ret = op.return_type
-    out = torch.where(both, out, torch.where(as_, _dt.cast(av, op.type_, ret), _dt.cast(bv, op.type2, ret)))
+    out = tmap(
+        lambda o, a, b: torch.where(both, o, torch.where(as_, a, b)),
+        out, _dt.cast(av, op.type_, ret), _dt.cast(bv, op.type2, ret),
+    )
     return canonical(out, struct)
 
 
@@ -468,10 +495,12 @@ def _mul_values(avk, bvk, ik, kk, jk, mul):
     """The (m, ck, n) product block for a typed multiply op, with positional
     multiplies (firsti/secondj/...) giving indices."""
     pos = mul.positional
+    a = tmap(lambda x: x[:, :, None], avk)
+    b = tmap(lambda x: x[None, :, :], bvk)
     if pos is None:
-        return mul.fn(avk[:, :, None], bvk[None, :, :])
+        return mul.fn(a, b)
     if pos == "indexbinary":
-        return mul.fn(avk[:, :, None], ik, kk, bvk[None, :, :], kk, jk)
+        return mul.fn(a, ik, kk, b, kk, jk)
     which, delta = pos
     # a is indexed (i, k); b is indexed (k, j)
     idx = {"firsti": ik, "firstj": kk, "secondi": kk, "secondj": jk}[which]
@@ -508,11 +537,14 @@ def mxm(av, as_, bv, bs, semiring, out_dtype, strategy="auto"):
     combined with the monoid in order.
 
     ``strategy`` (tx.config "mxm_strategy": auto | mxu | pallas | generic)
-    keeps the reference's names; "pallas" names the tropical kernel."""
-    m, k = av.shape
-    _, n = bv.shape
-    if av.device != bv.device:
-        raise ValueError(f"mxm: operands on {av.device} and {bv.device}")
+    keeps the reference's names; "pallas" names the tropical kernel.
+    UDT operands (dicts of fields) take strategy 3, field by field."""
+    m, k = as_.shape
+    _, n = bs.shape
+    if as_.device != bs.device:
+        raise ValueError(f"mxm: operands on {as_.device} and {bs.device}")
+    if _is_soa(av) or _is_soa(bv):
+        return _mxm_generic(av, as_, bv, bs, semiring, out_dtype)
     cv, cs = _mxm_paths(av, as_, bv, bs, semiring, out_dtype, strategy, m, n)
     if _host_concrete(as_, bs):
         # constant operand structures (structure hoisting): the output
@@ -538,19 +570,23 @@ def _mxm_paths(av, as_, bv, bs, semiring, out_dtype, strategy, m, n):
 
 
 def _mxm_generic(av, as_, bv, bs, semiring, out_dtype):
+    """The generic contraction; UDT values (dicts of fields) go through it
+    field by field, the user operators taking and returning dicts."""
+    from ..core.utils import zero_values
+
     add = semiring.monoid
     mul = semiring.binaryop
-    m, k = av.shape
-    _, n = bv.shape
-    dev = av.device
+    m, k = as_.shape
+    _, n = bs.shape
+    dev = as_.device
     chunk = min(_MXM_CHUNK, max(k, 1))
     pad = (-k) % chunk if k else chunk
     if pad:
-        av = torch.cat([av, torch.zeros((m, pad), dtype=av.dtype, device=dev)], 1)
+        av = tmap(lambda x: torch.cat([x, torch.zeros((m, pad), dtype=x.dtype, device=dev)], 1), av)
         as_ = torch.cat([as_, s_zeros((m, pad), dev)], 1)
-        bv = torch.cat([bv, torch.zeros((pad, n), dtype=bv.dtype, device=dev)], 0)
+        bv = tmap(lambda x: torch.cat([x, torch.zeros((pad, n), dtype=x.dtype, device=dev)], 0), bv)
         bs = torch.cat([bs, s_zeros((pad, n), dev)], 0)
-    nchunks = av.shape[1] // chunk
+    nchunks = as_.shape[1] // chunk
     shape = (m, chunk, n)
     i_grid = j_grid = k_local = None
     if mul.positional is not None:
@@ -559,38 +595,38 @@ def _mxm_generic(av, as_, bv, bs, semiring, out_dtype):
         k_local = torch.arange(chunk, dtype=_INDEX, device=dev)[None, :, None].expand(shape)
     fn = add.fn if add.fn is not None else (lambda a, b: a)
     safe = getattr(mul.parent, "_needs_safe_fill", False)
-    one_a = torch.ones((), dtype=av.dtype, device=dev)
-    one_b = torch.ones((), dtype=bv.dtype, device=dev)
 
-    cv = torch.zeros((m, n), dtype=out_dtype.carrier, device=dev)
+    cv = zero_values((m, n), out_dtype, dev)
     cs = s_zeros((m, n), dev)
     for c in range(nchunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        avk, ask, bvk, bsk = av[:, sl], as_[:, sl], bv[sl], bs[sl]
+        avk, ask = tmap(lambda x: x[:, sl], av), as_[:, sl]
+        bvk, bsk = tmap(lambda x: x[sl], bv), bs[sl]
         pres = ask[:, :, None] & bsk[None, :, :]
         if safe:
-            avk = torch.where(ask, avk, one_a)
-            bvk = torch.where(bsk, bvk, one_b)
+            avk = torch.where(ask, avk, torch.ones((), dtype=avk.dtype, device=dev))
+            bvk = torch.where(bsk, bvk, torch.ones((), dtype=bvk.dtype, device=dev))
         kk = None if k_local is None else k_local + c * chunk
         prod = _mul_values(avk, bvk, i_grid, kk, j_grid, mul)
-        prod = _dt.cast(prod.expand(shape), mul.return_type, out_dtype)
+        prod = _dt.cast(tmap(lambda x: x.expand(shape), prod), mul.return_type, out_dtype)
         bv_red, bs_red = _pair_reduce(prod, pres, fn, (1,))
         both = cs & bs_red
-        cv = torch.where(both, fn(cv, bv_red), torch.where(cs, cv, bv_red))
+        keep_c = cs
+        cv = tmap(lambda mg, a, b: torch.where(both, mg, torch.where(keep_c, a, b)), fn(cv, bv_red), cv, bv_red)
         cs = cs | bs_red
     return canonical(cv, cs)
 
 
 def mxv(av, as_, xv, xs, semiring, out_dtype, strategy="auto"):
     """GrB_mxv: v as a column, so positional multiplies see j = 0."""
-    cv, cs = mxm(av, as_, xv[:, None], xs[:, None], semiring, out_dtype, strategy)
-    return cv[:, 0], cs[:, 0]
+    cv, cs = mxm(av, as_, tmap(lambda x: x[:, None], xv), xs[:, None], semiring, out_dtype, strategy)
+    return tmap(lambda x: x[:, 0], cv), cs[:, 0]
 
 
 def vxm(xv, xs, bv, bs, semiring, out_dtype, strategy="auto"):
     """GrB_vxm: v as a row."""
-    cv, cs = mxm(xv[None, :], xs[None, :], bv, bs, semiring, out_dtype, strategy)
-    return cv[0], cs[0]
+    cv, cs = mxm(tmap(lambda x: x[None, :], xv), xs[None, :], bv, bs, semiring, out_dtype, strategy)
+    return tmap(lambda x: x[0], cv), cs[0]
 
 
 def kronecker(av, as_, bv, bs, op, out_dtype):
@@ -615,13 +651,13 @@ def _index(idx, device):
 
 def extract_matrix(values, struct, rows, cols):
     """GrB_Matrix_extract at host index arrays ``rows`` x ``cols``."""
-    r, c = _index(rows, values.device), _index(cols, values.device)
-    return values.index_select(0, r).index_select(1, c), struct.index_select(0, r).index_select(1, c)
+    r, c = _index(rows, struct.device), _index(cols, struct.device)
+    return tmap(lambda a: a.index_select(0, r).index_select(1, c), values), struct.index_select(0, r).index_select(1, c)
 
 
 def extract_vector(values, struct, idx):
-    i = _index(idx, values.device)
-    return values.index_select(0, i), struct.index_select(0, i)
+    i = _index(idx, struct.device)
+    return tmap(lambda a: a.index_select(0, i), values), struct.index_select(0, i)
 
 
 def _host_region(cs, as_, write):
@@ -648,13 +684,19 @@ def _region_out(zs, rsel, host, contig_rsel=None):
     return zs, rsel
 
 
+def _set_copy(c, key, a):
+    """A copy of ``c`` with ``c[key] = a``."""
+    z = c.clone()
+    z[key] = a
+    return z
+
+
 def scatter_region_matrix(cv, cs, rows, cols, av, as_):
     """Scatter a region-shaped (av, as_), ``av`` in C's carrier, into a copy
     of C at rows x cols; also returns the region-selector bool array (the
     assign/subassign semantics)."""
-    r, c = _index(rows, cv.device)[:, None], _index(cols, cv.device)[None, :]
-    zv = cv.clone()
-    zv[r, c] = av
+    r, c = _index(rows, cs.device)[:, None], _index(cols, cs.device)[None, :]
+    zv = tmap(lambda x, a: _set_copy(x, (r, c), a), cv, av)
     zs = cs.clone()
     zs[r, c] = as_
     rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
@@ -669,9 +711,8 @@ def scatter_region_matrix(cv, cs, rows, cols, av, as_):
 
 
 def scatter_region_vector(cv, cs, idx, av, as_):
-    i = _index(idx, cv.device)
-    zv = cv.clone()
-    zv[i] = av
+    i = _index(idx, cs.device)
+    zv = tmap(lambda x, a: _set_copy(x, i, a), cv, av)
     zs = cs.clone()
     zs[i] = as_
     rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
@@ -688,8 +729,7 @@ def scatter_region_vector_contig(cv, cs, av, as_, start=0):
     """Contiguous-region variant of ``scatter_region_vector`` (slice assigns,
     ``v(mask)[:] = x``): slice copies instead of an index scatter."""
     size = as_.shape[0]
-    zv = cv.clone()
-    zv[start : start + size] = av
+    zv = tmap(lambda x, a: _set_copy(x, slice(start, start + size), a), cv, av)
     zs = cs.clone()
     zs[start : start + size] = as_
     rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
@@ -706,8 +746,7 @@ def scatter_region_matrix_contig(cv, cs, av, as_, rstart=0, cstart=0):
     """Contiguous 2-D region variant of ``scatter_region_matrix``."""
     nr, nc = as_.shape
     region = (slice(rstart, rstart + nr), slice(cstart, cstart + nc))
-    zv = cv.clone()
-    zv[region] = av
+    zv = tmap(lambda x, a: _set_copy(x, region, a), cv, av)
     zs = cs.clone()
     zs[region] = as_
     rsel = torch.zeros(cs.shape, dtype=torch.bool, device=cs.device)
@@ -753,14 +792,19 @@ def masked_merge(cv, cs, zv, zs, mask_bits, accum, replace, has_mask, region=Non
       given, GxB_subassign semantics; everywhere for GrB ops).
     - region: bool tensor limiting where Z applies (assign/subassign); None
       means the whole output.
+
+    UDT values (dicts of fields) go through field by field (a UDT converts
+    only to itself).
     """
-    if cv.device != zv.device:
-        raise ValueError(f"update: the output is on {cv.device} but the result on {zv.device}")
+    if cs.device != zs.device:
+        raise ValueError(f"update: the output is on {cs.device} but the result on {zs.device}")
     zv = _dt.cast(zv, z_type, c_type)
     if accum is not None:
         both = s_and(cs, zs)
         acc = accum.fn(_dt.cast(cv, c_type, accum.type_), _dt.cast(zv, c_type, accum.type2))
-        zv = torch.where(both, _dt.cast(acc, accum.return_type, c_type), torch.where(zs, zv, cv))
+        zv = tmap(
+            lambda a, z, c: torch.where(both, a, torch.where(zs, z, c)), _dt.cast(acc, accum.return_type, c_type), zv, cv
+        )
         zs = s_or(cs, zs)
     if not has_mask:
         # no mask: Z already restricted to region by construction
@@ -773,10 +817,10 @@ def masked_merge(cv, cs, zv, zs, mask_bits, accum, replace, has_mask, region=Non
             out_s = s_where(keep_z, zs, s_where(region, s_zeros((), cs.device), cs))
         else:
             out_s = s_where(keep_z, zs, cs)
-        return canonical(torch.where(keep_z, zv, cv), out_s)
+        return canonical(tmap(lambda z, c: torch.where(keep_z, z, c), zv, cv), out_s)
     if replace:
-        return canonical(torch.where(m, zv, _zero(zv)), s_and(m, zs))
-    return canonical(torch.where(m, zv, cv), s_where(m, zs, cs))
+        return canonical(tmap(lambda z: torch.where(m, z, _zero(z)), zv), s_and(m, zs))
+    return canonical(tmap(lambda z, c: torch.where(m, z, c), zv, cv), s_where(m, zs, cs))
 
 
 def mask_to_bits(mv, ms, complement, structural):
@@ -844,7 +888,7 @@ def firstlast_axis(values, struct, which, axis):
 
 
 def transpose(values, struct):
-    return values.T, struct.T
+    return tmap(lambda a: a.T, values), struct.T
 
 
 def reposition_matrix(values, struct, row_offset, col_offset):
@@ -929,4 +973,4 @@ def prefix_scan(values, struct, monoid, axis):
 
 
 def flatten_matrix(values, struct):
-    return values.reshape(-1), struct.reshape(-1)
+    return tmap(lambda a: a.reshape(-1), values), struct.reshape(-1)

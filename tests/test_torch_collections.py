@@ -495,7 +495,9 @@ def test_value_helpers_name_their_device():
 def test_waiting_features_raise_naming_their_queue(ref):
     """The features of later queues raise, naming their queue.  The sparse
     format (queue 4) is ported: the collections past dense_limit that raised
-    before build, and their shape, nvals and format equal the reference's."""
+    before build, and their shape, nvals and format equal the reference's.
+    So are the UDT collections (queue 3b): an empty and a filled UDT Matrix,
+    Vector and Scalar equal the reference's."""
     past_limit = [
         lambda g: g.Matrix(g.dtypes.FP64, 1 << 13, 1 << 12),
         lambda g: g.Matrix.from_coo([0], [0], [1.0], nrows=1 << 13, ncols=1 << 12),
@@ -507,11 +509,28 @@ def test_waiting_features_raise_naming_their_queue(ref):
         assert (p.shape, p.nvals, p.dtype.name) == (r.shape, r.nvals, r.dtype.name)
         assert (getattr(p, "_sparse", None) is None) == (getattr(r, "_sparse", None) is None)
         assert repr(p).splitlines()[:2] == repr(r).splitlines()[:2]
-    udt = P.dtypes.register_anonymous(np.dtype([("x", np.int32), ("y", np.float64)]))
+    fields = np.dtype([("x", np.int32), ("y", np.float64)])
+    vals = np.array([(1, 2.5), (-3, 0.25)], fields)
+    udt = {g: g.dtypes.register_anonymous(fields) for g in (P, ref)}
+    udt_builds = [
+        lambda g: g.Matrix(udt[g], 2, 2),
+        lambda g: g.Vector(udt[g], 2),
+        lambda g: g.Matrix.from_coo([0, 1], [1, 0], vals, udt[g], nrows=2, ncols=2),
+        lambda g: g.Vector.from_coo([0, 2], vals, udt[g], size=3),
+    ]
+    for build in udt_builds:
+        p, r = build(P), build(ref)
+        assert (p.shape, p.nvals, p.dtype.np_type) == (r.shape, r.nvals, r.dtype.np_type)
+        for a, b in zip(p.to_coo(), r.to_coo()):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        assert repr(p) == repr(r)
+    for value in (None, (4, 1.5)):
+        ps, rs = P.Scalar(udt[P]), ref.Scalar(udt[ref])
+        if value is not None:
+            ps.value = rs.value = value
+        assert (ps.is_empty, ps.nvals, ps.dtype.np_type) == (rs.is_empty, rs.nvals, rs.dtype.np_type)
+        assert ps.value == rs.value
     cases = [
-        (lambda: P.Matrix(udt, 2, 2), "queue 3b"),
-        (lambda: P.Vector(udt, 2), "queue 3b"),
-        (lambda: P.Scalar(udt), "queue 3b"),
         (lambda: P.Matrix(P.dtypes.FP64, 2, 2).tx, "queue 7"),
         (lambda: P.Vector(P.dtypes.FP64, 2).ss, "queue 7"),
         (lambda: pickle.dumps(P.Matrix(P.dtypes.FP64, 2, 2)), "queue 7"),

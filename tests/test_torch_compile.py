@@ -732,6 +732,47 @@ def test_a_capture_keeps_what_it_reads(strategy):
     )
 
 
+@pytest.mark.parametrize("what", ["compile", "loop_runner", "until_runner"])
+def test_closed_over_operands_keep_their_first_calls_values(R, what):
+    """A closed-over operand updated between two calls leaves a compiled
+    function or runner reading it as its first call read it: the reference
+    bakes it at trace time (docs/compile.md) and the card's graph keeps the
+    tensor it captured; on the CPU, where each call runs eagerly, the first
+    call's ``capture.Pin`` holds it.  Both calls equal the reference's
+    (products of exact small integers and halves: bit for bit)."""
+
+    def run(g):
+        k = g.Vector.from_dense(np.linspace(1.0, 2.0, 5).astype(np.float32))
+        M = g.Matrix.from_dense(np.arange(25, dtype=np.float32).reshape(5, 5) % 4)
+        x0 = g.Vector.from_dense(np.arange(5, dtype=np.float32))
+        if what == "compile":
+            call = g.gb.compile(lambda x: x.ewise_mult(k, g.binary.times).new(g.dtm.FP32))
+            args = (x0,)
+        elif what == "loop_runner":
+            call = g.gb.loop_runner(2, lambda x: M.mxv(x, g.semiring.plus_times).new(g.dtm.FP32), x0)
+            args = ()
+        else:
+            call = g.gb.until_runner(
+                lambda x: x.reduce(g.monoid.max).new() < 1000.0,
+                lambda x: M.mxv(x, g.semiring.plus_times).new(g.dtm.FP32),
+                x0,
+                max_iters=6,
+            )
+            args = ()
+        first = dense(call(*args))
+        k << k.apply(g.binary.times, right=3.0)
+        M << M.apply(g.binary.times, right=3.0)
+        second = dense(call(*args))
+        now = dense(x0.ewise_mult(k, g.binary.times).new()) if what == "compile" else dense(M.mxv(x0).new())
+        return first, second, now
+
+    p, r = both(R, run)
+    for a, b in zip(p, r):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(p[0], p[1])  # the first call's operands
+    assert not np.array_equal(p[1], p[2]) or what != "compile"  # the operand did move on
+
+
 # ---------------------------------------------------------------------------
 # the card: CUDA graphs against the same runners run eagerly
 # ---------------------------------------------------------------------------

@@ -266,7 +266,15 @@ def test_recorder_strings_match_reference(ref):
     assert p == r and p[0]
 
 
-EXAMPLES = ["01_sssp.py", "02_level_bfs.py", "03_parent_bfs.py", "05_triangle_count.py", "10_compiled_dsl_loops.py"]
+EXAMPLES = [
+    "01_sssp.py",
+    "02_level_bfs.py",
+    "03_parent_bfs.py",
+    "05_triangle_count.py",
+    "06_compiled_models.py",
+    "09_components_louvain.py",
+    "10_compiled_dsl_loops.py",
+]
 
 
 def _printed_numbers(out):

@@ -127,8 +127,7 @@ the status line {"ok": true, "device": {...}}.  Any failure raises: the exit cod
 0 and the status line is not printed.  Without a CUDA device it fails at once.
 
     python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5] [--tc-log2 16] [--spgemm-scale 14] [--mt 2048]
-        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14] [--bc-sources 256]
-        [--louvain-check-scale 11]
+        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14]
 """
 
 import argparse
@@ -1639,9 +1638,13 @@ def udt_recipes(gb, np):
     return coo, {x._device.type for x in out if x.ndim}
 
 
-def dense_models_phase(torch, np, dev, g19, scale, n_bc, lv_check_scale, smi):
+BC_SOURCES = 256  # betweenness centrality's sources in phase 6m
+LOUVAIN_CHECK_SCALE = 11  # louvain's card-against-CPU check: rmat(11, 16, seed=5)
+
+
+def dense_models_phase(torch, np, dev, g19, scale, smi):
     """Phase 6m (the dense models): triangle_count, k_truss (k = 4 and 12),
-    betweenness_centrality (n_bc numpy-seeded sources), louvain and
+    betweenness_centrality (BC_SOURCES numpy-seeded sources), louvain and
     maximal_matching through models, on rmat(scale, 16, seed=5) on the card
     (n = 16384 at scale 14, the n the reference's louvain docstring names),
     and maximal_matching on bench.py's scale-19 graph.  Checks: the triangle
@@ -1649,7 +1652,7 @@ def dense_models_phase(torch, np, dev, g19, scale, n_bc, lv_check_scale, smi):
     = a scipy peeling fixpoint ((A @ A).multiply(A), drop support < k - 2,
     repeat); betweenness = a float64 scipy level-synchronous Brandes over the
     same sources, rtol 1e-4, with max_levels = their largest BFS level + 1;
-    louvain's labels at rmat(lv_check_scale, 16, seed=5) = the port's CPU run,
+    louvain's labels at rmat(LOUVAIN_CHECK_SCALE, 16, seed=5) = the port's CPU run,
     and at scale its modularity (the port's f32 ``modularity`` on the card)
     = a float64 numpy one within 1e-4; the matching is a matching and maximal
     (numpy) and = the port's CPU run of the same graph exactly; every result
@@ -1666,6 +1669,8 @@ def dense_models_phase(torch, np, dev, g19, scale, n_bc, lv_check_scale, smi):
     import graphblas_tpu_torch as gb
     from graphblas_tpu_torch import models as M
     from graphblas_tpu_torch.models.graph import edge_index
+
+    n_bc, lv_check_scale = BC_SOURCES, LOUVAIN_CHECK_SCALE
     from graphblas_tpu_torch.ops.mxm import full_f32_matmul
 
     kt_mod, mt_mod, lv_mod = (
@@ -1723,12 +1728,9 @@ def dense_models_phase(torch, np, dev, g19, scale, n_bc, lv_check_scale, smi):
     lf = ls.to(torch.float32)
     with full_f32_matmul():
         blk_f32, f32_ms = timed(lambda: lf[:1024] @ lf.T)
-    try:
-        blk_i32, int_ms = timed(lambda: torch._int_mm(ls[:1024], ls.T))
-        int_mm = {"ms": int_ms, "exact": bool(torch.equal(blk_i32, blk_f32.to(torch.int32)))}
-        require(int_mm["exact"], "6m: torch._int_mm's block differs from the f32 block")
-    except RuntimeError as exc:  # a library call probed for a finding, not the model's path
-        int_mm = {"unavailable": str(exc).splitlines()[0]}
+    blk_i32, int_ms = timed(lambda: torch._int_mm(ls[:1024], ls.T))
+    int_mm = {"ms": int_ms, "exact": bool(torch.equal(blk_i32, blk_f32.to(torch.int32)))}
+    require(int_mm["exact"], "6m: torch._int_mm's block differs from the f32 block")
     out["block product 1024 x n x n"] = {"f32 ms": f32_ms, "torch._int_mm": int_mm, "bound_ms": flop_ms(2.0 * 1024 * npad**2)}
     del ls, lf, blk_f32
     torch.cuda.empty_cache()
@@ -1894,8 +1896,6 @@ def main():
     ap.add_argument("--dsl-n", type=int, default=4096, help="the DSL phase's n (n^2 cells: the dense-masked limit)")
     ap.add_argument("--dsl-generic-n", type=int, default=2048, help="the generic contraction's n in the DSL phase")
     ap.add_argument("--models-scale", type=int, default=14, help="RMAT scale of the dense models (n = 2^scale)")
-    ap.add_argument("--bc-sources", type=int, default=256, help="betweenness centrality's sources")
-    ap.add_argument("--louvain-check-scale", type=int, default=11, help="RMAT scale of louvain's card-against-CPU check")
     args = ap.parse_args()
 
     import torch
@@ -2204,7 +2204,7 @@ def main():
     cp_launches, cp_plain = comp["launches"], comp["plain"]
 
     # 6m. the dense models (and the UDT collections) at the reference's scale
-    dense_models_phase(torch, np, dev, g, args.models_scale, args.bc_sources, args.louvain_check_scale, smi)
+    dense_models_phase(torch, np, dev, g, args.models_scale, smi)
 
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()

@@ -99,7 +99,9 @@ def _burble_call(opname, args):
 
 
 class BaseType:
-    __slots__ = "_values", "_struct", "_dtype", "name", "_nvals_cache", "__weakref__"
+    # _values and _struct are stored in _values_ and _struct_ and read through
+    # capture.HeldSlot (below the class)
+    __slots__ = "_values_", "_struct_", "_dtype", "name", "_nvals_cache", "__weakref__"
     _is_scalar = False
 
     # ------------------------------------------------------------------
@@ -443,6 +445,8 @@ def _check_mask(mask, output=None):
             f"mask shape {mask.parent.shape} does not match output shape {output.shape}"
         )
     return mask
+
+_cap.hold_slots(BaseType, "_values", "_struct")
 
 
 class Updater:

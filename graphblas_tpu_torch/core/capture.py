@@ -31,15 +31,22 @@ operation inside it reads (closed-over operands, plans, device caches:
 ``Scope.kept``), and the compiler holds that list beside the graph: a plan
 replaced in its cache or an operand updated after the capture stays alive,
 and the graph goes on reading the values it was captured with, as the
-reference's trace bakes its constants.  An eager body (on the CPU, or one
-the card cannot capture) holds the same values through a ``Pin``: its first
-run records the tensors made outside the scope that each operation reads,
-and later runs read those in their place.
+reference's trace bakes its constants.
+
+A closed-over collection updated after the trace is read as the trace read
+it, on every device and however the body runs (``Held``): the recording run
+(a loop's build, where the reference traces it; a compiled function's first
+call) notes each collection made before it that the body reads, with its
+data slots; every later run (``holding``) puts those slots back on the
+collection for its length.  An update installs new tensors (it never writes
+the old ones), so the held slots are the values of the trace.
 """
 
 import contextlib
 import contextvars
+import functools
 import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -49,6 +56,7 @@ from .. import exceptions as _exc
 
 _SCOPE = contextvars.ContextVar("graphblas_tpu_torch_capture", default=None)
 _CAPTURES = itertools.count(1)
+_RECORDING = 0  # active scopes that record a Held (checked on every collection slot access)
 
 _T = torch.Tensor
 # host reads: every way a tensor's contents reach Python
@@ -84,9 +92,9 @@ class Scope:
     """One run of a loop body: ``phase`` is "warm" (the first eager step),
     "capture" (recording a CUDA graph) or "step" (an eager step)."""
 
-    def __init__(self, phase, pin=None):
+    def __init__(self, phase, held=None):
         self.phase = phase
-        self.pin = pin
+        self.held = held  # recording: the collections made before the scope that it reads
         self.uploads = []
         self.reads = []
         # capture: the tensors made outside the graph that it reads, by id
@@ -97,8 +105,9 @@ class Scope:
         self._mode = None
 
     def __enter__(self):
-        if self.pin is not None:
-            self.pin.begin()
+        global _RECORDING
+        if self.held is not None:
+            _RECORDING += 1
         self._reset = _SCOPE.set(self)
         self._mode = _Mode(self)
         self._mode.__enter__()
@@ -107,8 +116,10 @@ class Scope:
     def __exit__(self, *exc):
         self._mode.__exit__(*exc)
         _SCOPE.reset(self._reset)
-        if self.pin is not None:
-            self.pin.end(exc[0] is None)
+        if self.held is not None:
+            global _RECORDING
+            _RECORDING -= 1
+            self.held.made.clear()
         return False
 
     @property
@@ -155,88 +166,111 @@ class Scope:
         self.reads.append(what)
 
 
-def _external(t):
-    """A tensor made outside the scope: not traced, not made by an operation
-    in it (a closed-over operand, a plan, a device cache, or a view of one)."""
-    return isinstance(t, torch.Tensor) and not t.__dict__.get("_gb_traced", False)
+class HeldSlot:
+    """A collection's data slot (the ``__slots__`` member ``slot``) whose
+    reads and writes a recording scope notes (``Held``)."""
+
+    __slots__ = ("slot",)
+
+    def __init__(self, slot):
+        self.slot = slot
+
+    def __get__(self, obj, cls=None):
+        if obj is None:
+            return self
+        v = self.slot.__get__(obj, cls)
+        if _RECORDING:
+            _note(obj, False)
+        return v
+
+    def __set__(self, obj, v):
+        if _RECORDING:
+            _note(obj, True)
+        self.slot.__set__(obj, v)
+
+    def __delete__(self, obj):
+        if _RECORDING:
+            _note(obj, True)
+        self.slot.__delete__(obj)
 
 
-def _externals(args, kwargs):
-    """(where, tensor) for each external tensor among an operation's
-    arguments (one level into tuples and lists)."""
-    found = []
-    for where, a in (*enumerate(args), *kwargs.items()):
-        if isinstance(a, (tuple, list)):
-            found.extend(((where, j), t) for j, t in enumerate(a) if _external(t))
-        elif _external(a):
-            found.append(((where, None), a))
-    return found
+def hold_slots(cls, *names):
+    """Route ``cls``'s data slots through ``HeldSlot``: slot ``name`` is
+    stored in the ``__slots__`` member ``name + "_"``."""
+    for name in names:
+        setattr(cls, name, HeldSlot(cls.__dict__[name + "_"]))
 
 
-class Pin:
-    """What an eager body's first run read outside its scope, held for its
-    later runs.
+_UNSET = object()
 
-    The first run records, for each torch operation in order, the external
-    tensors among its arguments (closed-over operands, plans, caches).  Each
-    later run reads the recorded tensors in their place, position by
-    position: a closed-over collection updated between two calls (its
-    tensors replaced) leaves the body reading the values of its first call,
-    as a CUDA graph replays the addresses it captured and the reference's
-    trace bakes its constants.  A later run whose operations differ from the
-    first's raises ``TracerError``: the body branched on something that
-    changed between calls.  Operations inside ``constants()`` are not part
-    of the stream (they fill caches once)."""
+
+@functools.lru_cache(maxsize=None)
+def _held_slots(cls):
+    return tuple((n, d.slot) for c in cls.__mro__ for n, d in vars(c).items() if isinstance(d, HeldSlot))
+
+
+def _slots_of(obj):
+    out = {}
+    for name, slot in _held_slots(type(obj)):
+        try:
+            out[name] = slot.__get__(obj)
+        except AttributeError:
+            out[name] = _UNSET
+    return out
+
+
+def _put(obj, data):
+    for name, slot in _held_slots(type(obj)):
+        v = data[name]
+        if v is not _UNSET:
+            slot.__set__(obj, v)
+        else:
+            try:
+                slot.__delete__(obj)
+            except AttributeError:
+                pass
+
+
+def _note(obj, wrote):
+    sc = _SCOPE.get()
+    if sc is not None and sc.held is not None:
+        sc.held.note(obj, wrote)
+
+
+class Held:
+    """The collections made before a compiled body that its recording run
+    read, each with its data slots as they were then."""
 
     def __init__(self):
-        self.ops = None
-        self._rec = None
-        self._pos = 0
+        self.entries = {}  # id -> (collection, its slots at the recording)
+        self.made = {}  # id -> weakref: the collections written in a recording scope
 
-    def begin(self):
-        self._pos = 0
-        if self.ops is None:
-            self._rec = []
+    def note(self, obj, wrote):
+        if wrote:
+            self.made[id(obj)] = weakref.ref(obj)
+        elif id(obj) not in self.entries:
+            r = self.made.get(id(obj))
+            if r is None or r() is not obj:
+                self.entries[id(obj)] = (obj, _slots_of(obj))
 
-    def end(self, ok):
-        if self.ops is None:
-            if ok:
-                self.ops = self._rec
-            self._rec = None
-        elif ok and self._pos != len(self.ops):
-            self._diverged(f"{self._pos} operations where the first run made {len(self.ops)}")
 
-    def _diverged(self, what):
-        raise _exc.TracerError(
-            f"a compiled body ran other operations than on its first call ({what}); its "
-            "closed-over operands are constants of the first call, so it must not branch on them"
-        )
-
-    def apply(self, func, args, kwargs):
-        """The arguments an operation runs on: recorded (first run) or with
-        the first run's external tensors in their place."""
-        if self.ops is None:
-            self._rec.append((func, _externals(args, kwargs)))
-            return args, kwargs
-        if self._pos >= len(self.ops) or self.ops[self._pos][0] != func:
-            self._diverged(f"{getattr(func, '__name__', func)} at operation {self._pos}")
-        held = self.ops[self._pos][1]
-        self._pos += 1
-        if not held:
-            return args, kwargs
-        args, kwargs = list(args), dict(kwargs)
-        for (where, j), t in held:
-            box = args if isinstance(where, int) else kwargs
-            cur = box[where] if j is None else box[where][j]
-            if not _external(cur):
-                self._diverged(f"a traced argument where the first run read a constant, in {func}")
-            if j is None:
-                box[where] = t
-            else:
-                seq = list(box[where])
-                seq[j] = t
-                box[where] = type(box[where])(seq) if isinstance(box[where], tuple) else seq
-        return tuple(args), kwargs
+@contextlib.contextmanager
+def holding(held):
+    """Put the held collections' recorded slots back for the block, and the
+    caller's after it (unless the body wrote the collection)."""
+    if held is None or not held.entries:
+        yield
+        return
+    theirs = [(obj, _slots_of(obj)) for obj, _ in held.entries.values()]
+    for obj, data in held.entries.values():
+        _put(obj, data)
+    try:
+        yield
+    finally:
+        for (obj, data), (_, mine) in zip(theirs, held.entries.values()):
+            now = _slots_of(obj)
+            if all(now[k] is mine[k] for k in now):
+                _put(obj, data)
 
 
 @contextlib.contextmanager
@@ -392,8 +426,6 @@ class _Mode(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         sc = self.scope
-        if sc.pin is not None and not sc._quiet:
-            args, kwargs = sc.pin.apply(func, args, kwargs)
         if sc.phase == "capture":
             sc.keep(args, kwargs)
             out = self._call(func, args, kwargs)

@@ -33,10 +33,10 @@ CPU; on the card the n space is (``CompiledLoop._edge_layout_enabled``).
 A graph replays on the addresses it was captured with: the runner keeps
 every tensor the capture read (``core/capture.py``), so a plan replaced in
 its cache or a closed-over operand updated later stays alive, and the graph
-goes on with the values it was captured with.  An eager run (the CPU, an
-eager capture decision, ``runner.eager()``) holds the same values: its first
-step records what it read outside its scope, and later steps read that
-(``core.capture.Pin``), as the reference's trace bakes its constants.
+goes on with the values it was captured with.  A closed-over collection
+updated after the build (a runner) or the first call (a compiled function),
+where the reference traces, is read as it was then, in every later run,
+captured or eager (``core.capture.Held``).
 
 Inside a compiled function collection values are abstract: host reads
 (``.nvals`` of a traced structure, ``float(s)``, ``repr``, ``.to_coo()``,
@@ -281,10 +281,12 @@ class CompiledLoop:
         self._values0 = None
         self._edge = None  # (ctx, plan) in edge layout
         self._graphs = {}
-        self._pins = {}  # eager runs: what each step read on its first run
         self._pool = None
         self._static = None
         self._nested = _cap.active() is not None
+        # the closed-over collections the build read (a nested loop reads its
+        # enclosing body's)
+        self._held = None if self._nested else _cap.Held()
         self._build()
         _LAST_MODE["loop"] = self.mode
 
@@ -334,7 +336,7 @@ class CompiledLoop:
     def _warm(self, leaves, structs, probe=None):
         """The warm step: one body step (and the condition) on copies of the
         initial state, eagerly.  Returns its scope (uploads, host reads)."""
-        with _cap.Scope("warm") as scope:
+        with _cap.Scope("warm", held=self._held) as scope:
             with probe or contextlib.nullcontext():
                 out = self._step(_fresh(leaves), structs)
             if self._kind == "while":
@@ -505,16 +507,20 @@ class CompiledLoop:
 
     def __call__(self, *state):
         leaves = self._state_leaves(state)
-        if self.capture == "graph" and self._device.type == "cuda":
-            final = self._run_graph(leaves)
-        else:
-            final = self._run_eager(leaves)
+        with _cap.holding(self._held):
+            if self.capture == "graph" and self._device.type == "cuda":
+                final = self._run_graph(leaves)
+            else:
+                final = self._run_eager(leaves)
         return self._outputs(final)
 
     def eager(self, *state):
         """The same runner with every step run eagerly, no CUDA graph: the
         graph's reference on the card."""
-        return self._outputs(self._run_eager(self._state_leaves(state)))
+        leaves = self._state_leaves(state)
+        with _cap.holding(self._held):
+            final = self._run_eager(leaves)
+        return self._outputs(final)
 
     def _outputs(self, final):
         specs = self._specs
@@ -543,26 +549,25 @@ class CompiledLoop:
         nested in another compiled function)."""
         leaves = list(leaves) if self._nested else _fresh(leaves)
         if self._kind == "fori":
-            for i in range(self._n_iters):
-                leaves = self._in_scope(i, self._steps, leaves, 1)
+            for _ in range(self._n_iters):
+                leaves = self._in_scope(self._steps, leaves, 1)
             return leaves
         k = self._unroll
         it = 0
-        flag = self._in_scope(it, self._cond_value, leaves)
+        flag = self._in_scope(self._cond_value, leaves)
         while self._read_flag(flag) and (self._max_iters is None or it < self._max_iters):
-            leaves = self._in_scope(it, self._steps, leaves, k)
+            leaves = self._in_scope(self._steps, leaves, k)
             it += k
-            flag = self._in_scope(it, self._cond_value, leaves)
+            flag = self._in_scope(self._cond_value, leaves)
         self.last_iters = it
         return leaves
 
-    def _in_scope(self, i, fn, *args):
-        """``fn`` as eager step ``i``: in a scope of its own, pinned to what
-        step ``i`` read on its first run (steps may differ from each other,
-        as the steps of one graph do), or in the enclosing function's."""
+    def _in_scope(self, fn, *args):
+        """``fn`` as an eager step: in a scope of its own, or in the enclosing
+        function's."""
         if self._nested:
             return fn(*args)
-        with _cap.Scope("step", pin=self._pins.setdefault((fn.__name__, i), _cap.Pin())):
+        with _cap.Scope("step"):
             return fn(*args)
 
     def _read_flag(self, flag):
@@ -709,14 +714,18 @@ class _CompiledFunction:
         self._static_in = None
         self._static_out = None
         self._kept = None
-        self._pin = _cap.Pin()  # eager calls: what the first call read
+        # the closed-over collections the first run read (the warm step on the
+        # card, the first call on the CPU: where the reference traces)
+        self._held = None if self._nested else _cap.Held()
+        self._recorded = False
         self.capture = None
         self.capture_reason = None
         if self._nested:
             self.capture, self.capture_reason = "eager", "nested in another compiled function"
         elif self._device is not None and self._device.type == "cuda":
-            with _cap.Scope("warm") as scope:
+            with _cap.Scope("warm", held=self._held) as scope:
                 self._run(_fresh(leaves))
+            self._recorded = True
             reason = scope.eager_reason
             self.capture, self.capture_reason = ("eager", reason) if reason else ("graph", None)
         else:
@@ -736,9 +745,11 @@ class _CompiledFunction:
             flat = self._run(leaves)
             return _rebuild_result(self._layout, flat)
         if self.capture == "graph" and self._device is not None and self._device.type == "cuda":
-            return self._replay(leaves)
-        with _cap.Scope("step", pin=self._pin) as scope:
+            with _cap.holding(self._held):
+                return self._replay(leaves)
+        with _cap.holding(self._held), _cap.Scope("step", held=None if self._recorded else self._held) as scope:
             flat = self._run([_cap.traced(t.detach()) for t in leaves])
+        self._recorded = True
         if scope.eager_reason and self.capture == "graph":
             self.capture, self.capture_reason = "eager", scope.eager_reason
         return _rebuild_result(self._layout, [t.detach() for t in flat])

@@ -16,6 +16,7 @@ import torch
 
 from .. import exceptions as _exc
 from ..ops import densemasked as _dm
+from . import capture as _cap
 from . import collection_ops as _cops
 from . import dtypes as _dt
 from .base import BaseExpression, BaseType, Updater
@@ -49,7 +50,7 @@ class Matrix(InfixMixin, BaseType):
     tensor) up to ``tx.config["dense_limit"]`` cells; sparse analyzed COO
     (``_sparse``, on the device ``_sp_dev``) past it."""
 
-    __slots__ = ("_sparse", "_sp_dev")
+    __slots__ = ("_sparse_", "_sp_dev_")  # capture.HeldSlot, below the class
     ndim = 2
     _output_type = None
 
@@ -779,6 +780,9 @@ class Matrix(InfixMixin, BaseType):
         raise NotImplementedError("Matrix.tx / Matrix.ss are not ported yet (ROADMAP.md, queue 7)")
 
     ss = tx
+
+
+_cap.hold_slots(Matrix, "_sparse", "_sp_dev")
 
 
 class TransposedMatrix:

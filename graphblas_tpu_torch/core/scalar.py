@@ -52,7 +52,7 @@ class Scalar(InfixMixin, BaseType):
     # (core/infixmethods.py applies every operation to Scalar EXCEPT
     # __eq__/__ne__ — ours below override the mixin's elementwise forms
     # with value equality, matching that carve-out)
-    __slots__ = "_empty", "_is_cscalar"
+    __slots__ = "_empty_", "_is_cscalar"  # _empty: capture.HeldSlot, below the class
     ndim = 0
     shape = ()
     _is_scalar = True
@@ -423,6 +423,9 @@ class Scalar(InfixMixin, BaseType):
     @property
     def _carg(self):
         return self.name or "scalar"
+
+
+_cap.hold_slots(Scalar, "_empty")
 
 
 def _scalar_apply_closure(sc, op, right, left, thunk):

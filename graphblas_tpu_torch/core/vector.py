@@ -12,6 +12,7 @@ import torch
 
 from .. import exceptions as _exc
 from ..ops import densemasked as _dm
+from . import capture as _cap
 from . import collection_ops as _cops
 from . import dtypes as _dt
 from .base import BaseExpression, BaseType, Updater
@@ -106,7 +107,7 @@ class Vector(InfixMixin, BaseType):
     Dense-masked up to ``tx.config["dense_limit"]`` entries; sparse (index,
     value) host arrays (``_sparse``, on the device ``_sp_dev``) past it."""
 
-    __slots__ = ("_sparse", "_sp_dev")
+    __slots__ = ("_sparse_", "_sp_dev_")  # capture.HeldSlot, below the class
     ndim = 1
     _output_type = None  # set after class definition
 
@@ -602,6 +603,9 @@ class Vector(InfixMixin, BaseType):
         from .matrix import Matrix
 
         return Matrix._from_arrays(v, s, self._dtype)
+
+
+_cap.hold_slots(Vector, "_sparse", "_sp_dev")
 
 
 Vector._output_type = Vector

@@ -732,45 +732,79 @@ def test_a_capture_keeps_what_it_reads(strategy):
     )
 
 
-@pytest.mark.parametrize("what", ["compile", "loop_runner", "until_runner"])
-def test_closed_over_operands_keep_their_first_calls_values(R, what):
-    """A closed-over operand updated between two calls leaves a compiled
-    function or runner reading it as its first call read it: the reference
-    bakes it at trace time (docs/compile.md) and the card's graph keeps the
-    tensor it captured; on the CPU, where each call runs eagerly, the first
-    call's ``capture.Pin`` holds it.  Both calls equal the reference's
-    (products of exact small integers and halves: bit for bit)."""
+CLOSED_OVER = (
+    "compile", "loop_runner", "until_runner", "loop_runner_updated_before_first_call",
+    "until_runner_updated_before_first_call", "until_runner_more_steps", "nested_until_more_steps",
+    "sparse_loop_runner_updated_before_first_call",
+)
 
-    def run(g):
-        k = g.Vector.from_dense(np.linspace(1.0, 2.0, 5).astype(np.float32))
-        M = g.Matrix.from_dense(np.arange(25, dtype=np.float32).reshape(5, 5) % 4)
-        x0 = g.Vector.from_dense(np.arange(5, dtype=np.float32))
-        if what == "compile":
-            call = g.gb.compile(lambda x: x.ewise_mult(k, g.binary.times).new(g.dtm.FP32))
-            args = (x0,)
-        elif what == "loop_runner":
-            call = g.gb.loop_runner(2, lambda x: M.mxv(x, g.semiring.plus_times).new(g.dtm.FP32), x0)
-            args = ()
-        else:
-            call = g.gb.until_runner(
-                lambda x: x.reduce(g.monoid.max).new() < 1000.0,
-                lambda x: M.mxv(x, g.semiring.plus_times).new(g.dtm.FP32),
-                x0,
-                max_iters=6,
-            )
-            args = ()
-        first = dense(call(*args))
+
+def _closed_over_case(g, what):
+    """(runner, the state of each call, update the operands) for one case of
+    ``test_closed_over_operands_keep_their_first_calls_values``: a closed-over
+    Vector ``k`` or Matrix ``M`` of small integers, state of halves."""
+    k = g.Vector.from_dense(np.linspace(1.0, 2.0, 5).astype(np.float32))
+    m = np.arange(25, dtype=np.float32).reshape(5, 5) % 4
+    if what.startswith("sparse"):
+        with g.tx.config.set(dense_limit=0):
+            M = g.Matrix.from_coo(*np.nonzero(m), m[m != 0], g.dtm.FP32, nrows=5, ncols=5)
+    else:
+        M = g.Matrix.from_dense(m)
+    x0 = g.Vector.from_dense(np.arange(5, dtype=np.float32))
+    small = g.Vector.from_dense(np.arange(5, dtype=np.float32) / 64)  # exact: more steps to reach 1000
+
+    def mxv(x):
+        return M.mxv(x, g.semiring.plus_times).new(g.dtm.FP32)
+
+    def below(x):
+        return x.reduce(g.monoid.max).new() < 1000.0
+
+    def update():
         k << k.apply(g.binary.times, right=3.0)
         M << M.apply(g.binary.times, right=3.0)
-        second = dense(call(*args))
-        now = dense(x0.ewise_mult(k, g.binary.times).new()) if what == "compile" else dense(M.mxv(x0).new())
-        return first, second, now
 
-    p, r = both(R, run)
+    if what == "compile":
+        return g.gb.compile(lambda x: x.ewise_mult(k, g.binary.times).new(g.dtm.FP32)), [(x0,), (x0,)], update
+    if what == "nested_until_more_steps":
+        call = g.gb.compile(lambda x: g.gb.until(below, mxv, x, max_iters=20))
+        return call, [(x0,), (small,)], update
+    if "loop_runner" in what:
+        return g.gb.loop_runner(2, mxv, x0), [(), ()], update
+    call = g.gb.until_runner(below, mxv, x0, max_iters=20)
+    return call, [(), (small,) if what.endswith("more_steps") else ()], update
+
+
+@pytest.mark.parametrize("what", CLOSED_OVER)
+def test_closed_over_operands_keep_their_first_calls_values(R, what):
+    """A closed-over operand updated after a compiled function or runner
+    was made leaves it reading the operand as the reference traced it: a
+    runner at build (``loop_runner``/``until_runner`` trace there), a
+    compiled function at its first call.  The port's warm step (a runner's
+    build) or first call records what it read in a ``capture.Pin``; the
+    card's graph replays the same tensors.  The cases update the operands
+    after the first call, between build and first call, and before a call
+    that takes more steps than the first (a runner, and an until nested in a
+    compiled function).  Every call equals the reference's (products of
+    exact small integers and halves: bit for bit), with ``M`` dense and in
+    the sparse format."""
+
+    def run(g):
+        call, states, update = _closed_over_case(g, what)
+        if what.endswith("before_first_call"):
+            update()
+        out = [dense(call(*states[0]))]
+        steps = [getattr(call, "last_iters", None)]
+        if not what.endswith("before_first_call"):
+            update()
+        out.append(dense(call(*states[1])))
+        steps.append(getattr(call, "last_iters", None))
+        return out, steps
+
+    (p, p_steps), (r, _) = both(R, run)
     for a, b in zip(p, r):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(p[0], p[1])  # the first call's operands
-    assert not np.array_equal(p[1], p[2]) or what != "compile"  # the operand did move on
+    if what.endswith("more_steps") and what.startswith("until"):
+        assert p_steps[1] > p_steps[0]  # the second call ran steps the first did not
 
 
 # ---------------------------------------------------------------------------
@@ -920,3 +954,27 @@ def test_cuda_graphs_keep_their_inputs_alive(card):
         k << k.apply(P.binary.times, right=3.0)  # the operand moves on; the graph keeps its capture
         torch.cuda.synchronize()
         np.testing.assert_allclose(_host(step(AT, x), 0.0), eager, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["loop_runner", "until_runner_more_steps"])
+def test_cuda_runner_eager_equals_graph_after_an_operand_update(card, what):
+    """On the card a runner's graph and ``runner.eager()`` both read the
+    closed-over operands as the build's warm step read them: the operands
+    are updated after the capture, and eager() is first called after that."""
+    g = ns(P)
+    with P.tx.config.set(platform="cuda"):
+        call, states, update = _closed_over_case(g, what)
+        first = dense(call(*states[0]))
+        assert call.capture == "graph"
+        update()
+        graph = dense(call(*states[1]))
+        eager = dense(call.eager(*states[1]))
+    with P.tx.config.set(platform="cpu"):
+        call, states, update = _closed_over_case(g, what)
+        cpu = [dense(call(*states[0]))]
+        update()
+        cpu.append(dense(call(*states[1])))
+    np.testing.assert_array_equal(first, cpu[0])
+    np.testing.assert_array_equal(graph, cpu[1])
+    np.testing.assert_array_equal(eager, cpu[1])

@@ -33,14 +33,21 @@ def _pinned():
         yield
 
 
+def _point(pkg):
+    """The point type under the reference test's own name and logic
+    (``tests/test_udt.py``'s ``Point`` fixture), so that whichever file
+    registers it first in a process, the other finds it."""
+    try:
+        return pkg.dtypes.register_new("PointXY", [("x", np.float64), ("y", np.float64)])
+    except ValueError:
+        return pkg.dtypes.PointXY
+
+
 def ns(pkg):
     from importlib import import_module
 
     dtm = import_module(f"{pkg.__name__}.core.dtypes")
-    try:
-        point = pkg.dtypes.register_new("PointXYt", [("x", np.float64), ("y", np.float64)])
-    except ValueError:
-        point = pkg.dtypes.PointXYt
+    point = _point(pkg)
     return SimpleNamespace(
         gb=pkg, Matrix=pkg.Matrix, Vector=pkg.Vector, Scalar=pkg.Scalar, binary=pkg.binary, monoid=pkg.monoid,
         unary=pkg.unary, semiring=pkg.semiring, dtypes=pkg.dtypes, dtm=dtm, Point=point, tx=pkg.tx,
@@ -388,3 +395,34 @@ def test_udt_isclose_and_isequal(R):
 
     p, r = both(R, run)
     assert p == r == [True, False, False, False, False]
+
+
+# the names and record types the reference's own tests register
+# (tests/test_udt.py, tests/test_fixtures.py); this file registers the same
+# records in the reference under the same names, or none
+REFERENCE_NAMED = [
+    ("PointRT", [("x", "<f8"), ("y", "<i8")]),
+    ("PairEW", [("a", "<f8"), ("b", "<f8")]),
+    ("DuoSp", [("p", "<i8"), ("q", "<f4")]),
+    ("PtIC", [("x", "float32"), ("y", "float32")]),
+]
+
+
+def test_registrations_leave_the_reference_tests_their_types(R):
+    """After this file's registrations in both packages, the reference
+    tests' fixtures still get their types: ``register_new("PointXY", ...)``
+    or, when it was registered before, ``dtypes.PointXY`` (the reference
+    refuses a second name for one record dtype, so a different name here
+    made its fixture error whenever the two files shared a process)."""
+    ns(P), ns(R)
+    for name, spec in REFERENCE_NAMED:
+        for g in (P, R):
+            g.dtypes.register_anonymous(spec, name)
+    spec = [("x", np.float64), ("y", np.float64)]
+    try:
+        point = R.dtypes.register_new("PointXY", spec)
+    except ValueError:
+        point = R.dtypes.PointXY
+    assert point.np_type == np.dtype(spec) and point.name == "PointXY"
+    for name, spec in REFERENCE_NAMED:
+        assert R.dtypes.register_anonymous(spec, name).np_type == np.dtype(spec)

@@ -24,7 +24,9 @@ collections (the scale-19 graph, 2^38 cells; the triangle workload, 2^32), and
 the generic models.  The compiled loops: models.dsl's PageRank, level BFS
 (both frontiers), SSSP and connected components at scale 19 as CUDA graph
 replays.  The dense models (triangle count, k-truss, matching, betweenness,
-Louvain) at n = 16384 and the UDT collections.  The roofline tool's run,
+Louvain) at n = 16384 and the UDT collections.  Interop: the scale-19 graph
+through scipy, GBTX and pickle, Matrix Market, and the tx statements on
+4096^2 operands.  The roofline tool's run,
 with the compare probe.  All through the hand-written CUDA kernels, but the
 dense models' products, which are cuBLAS matmuls.  One line per check:
 
@@ -113,12 +115,23 @@ dense models' products, which are cuBLAS matmuls.  One line per check:
      tests/test_udt.py on the card = the CPU bit for bit; each model's ms
      beside its least time, torch._int_mm beside the f32 block product, the
      rounds, and the phase's peak device memory
+  6i interop and tx. The scale-19 graph as a scipy CSR through
+     io.from_scipy_sparse (sparse on the card; to_scipy_sparse gives its
+     arrays back), GBTX (compression "none") and pickle round trips (on the
+     card, isequal), A.mxv(ones, plus_times) on the three bit for bit and =
+     scipy float64 (the interop path: G, fill, C); tx sort, selectk and scan
+     on it against numpy; Matrix Market through a temporary file at RMAT
+     scale 14; the tx statements (scan, sort, selectk, compactify,
+     flatten/reshape, split/concat, diag, export/import_any in every format)
+     on 4096^2 card operands (numpy seed 12, 30% present, INT64 and FP32) =
+     the port's CPU run; host seconds of each load, serialize, deserialize
+     and pickle, card ms of the tx statements
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
   7. launch counts of each path (every kernel > 0, every plain version 0;
      the typed paths launch G, C, the generic scan and eqjoin; the DSL path
      gb_tropical once an APSP round; the sparse DSL path G, fill, C, the
      generic scan and eqjoin; the compiled loops G, fill, C and the generic
-     scan, counted per graph replay)
+     scan, counted per graph replay; the interop path G, fill and C)
   8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
      level-BFS one
 
@@ -127,7 +140,7 @@ the status line {"ok": true, "device": {...}}.  Any failure raises: the exit cod
 0 and the status line is not printed.  Without a CUDA device it fails at once.
 
     python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5] [--tc-log2 16] [--spgemm-scale 14] [--mt 2048]
-        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14]
+        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14] [--tx-n 4096]
 """
 
 import argparse
@@ -156,9 +169,9 @@ KERNELS = {
 }
 # the paths whose runs count a kernel's launches (the rest: the SpMV path)
 PATH_OF = {
-    "gather": ("spmv", "sparse_dsl", "compiled"),
-    "gather_fill": ("spmv", "sparse_dsl", "compiled"),
-    "segscan_contrib": ("spmv", "sparse_dsl", "compiled"),
+    "gather": ("spmv", "sparse_dsl", "compiled", "interop"),
+    "gather_fill": ("spmv", "sparse_dsl", "compiled", "interop"),
+    "segscan_contrib": ("spmv", "sparse_dsl", "compiled", "interop"),
     "segscan": ("spmv", "sparse_dsl", "compiled"),
     "eqjoin": ("spgemm", "sparse_dsl"),
     "tropical_mxm": ("tropical", "dsl"),
@@ -1885,6 +1898,202 @@ def dense_models_phase(torch, np, dev, g19, scale, smi):
     return out
 
 
+TX_FORMATS = ("coo", "coor", "cooc", "csr", "csc", "hypercsr", "hypercsc", "bitmapr", "bitmapc", "fullr", "fullc", "densemasked")
+
+
+def tx_statements(gb, A):
+    """Phase 6i's tx statements on a dense-masked operand A (n x n): the
+    results by name (collections, or tuples and lists of them)."""
+    n = A.nrows
+    flat = A.tx.flatten()
+    out = {
+        "scan plus rows": A.tx.scan("plus"),
+        "scan plus columns": A.tx.scan("plus", "columnwise"),
+        "scan max rows": A.tx.scan("max"),
+        "sort lt": A.tx.sort("lt"),
+        "sort gt columns": A.tx.sort("gt", "columnwise"),
+        "selectk largest 8": A.tx.selectk("largest", 8),
+        "selectk first 8": A.tx.selectk("first", 8),
+        "compactify smallest": A.tx.compactify("smallest", n // 2),
+        "flatten": flat,
+        "reshape": flat.tx.reshape(n // 2, 2 * n),
+        "reshape columns": A.tx.reshape(n // 4, 4 * n, "columnwise"),
+        "split/concat": gb.tx.concat(A.tx.split(n // 4)),
+        "diag": gb.tx.diag(gb.tx.diag(A, 3), -2),
+    }
+    for fmt in TX_FORMATS:
+        blob = A.tx.export(fmt)
+        out[f"export/import_any {fmt}"] = gb.tx.import_any(**dict(blob))
+    return out
+
+
+def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
+    """Phase 6i (interop and tx): bench.py's scale-19 graph as a scipy CSR
+    (duplicates summed) through io.from_scipy_sparse, sparse on the card;
+    to_scipy_sparse gives back its indptr, indices and data; GBTX
+    (compression "none") and pickle round trips are on the card and isequal
+    to it; A.mxv(ones, plus_times) on the three = bit for bit, = scipy
+    float64 within 1e-4 (the "interop" path's launches: G, fill, C); Matrix
+    Market through a temporary file at rmat(14, 16, seed=5); the tx
+    statements (``tx_statements``) on a phase-6d-style tx_n^2 card operand
+    (numpy seed 12, 30% present, INT64 and FP32) = the port's CPU run of the
+    same statements; sort, selectk and scan on the scale-19 sparse matrix
+    against numpy.  Host seconds of each load, serialize, deserialize and
+    pickle; card ms (CUDA events) of the tx statements."""
+    import importlib.util
+    import pickle
+    import tempfile
+
+    import scipy.sparse as scsp
+
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Matrix, Vector, binary, dtypes, kernels, semiring
+    from graphblas_tpu_torch.models import rmat
+
+    t_phase = time.perf_counter()
+    absent = [m for m in ("zstandard", "networkx", "matplotlib") if importlib.util.find_spec(m) is None]
+    say(
+        "6i interop",
+        f"not installed on this machine: {', '.join(absent) or 'none of them'} (of zstandard, networkx, "
+        "matplotlib): GBTX is written with compression='none', and to/from_networkx and viz are not called here "
+        "(the CPU tests hold them against the reference)",
+    )
+    require(gb.tx.config["platform"] == "cuda", "6i: collections default to the card")
+    csr = scsp.csr_matrix((w, (src, dst)), shape=(n, n))
+    csr.sum_duplicates()
+    csr.sort_indices()
+    secs = {}
+
+    def host(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def on_card(M):
+        return M._device.type == "cuda"
+
+    # the drive: load, round trips, mxv, tx statements; launches counted from here
+    kernels.reset_counts()
+    A = host("from_scipy_sparse", lambda: gb.io.from_scipy_sparse(csr, name="A"))
+    require(A._sparse is not None and on_card(A), "6i: from_scipy_sparse is not sparse on the card")
+    back = host("to_scipy_sparse", lambda: gb.io.to_scipy_sparse(A, "csr"))
+    for key in ("indptr", "indices", "data"):
+        require(np.array_equal(getattr(back, key), getattr(csr, key)), f"6i: to_scipy_sparse {key} differs")
+    require(back.data.dtype == csr.data.dtype == np.float32, "6i: to_scipy_sparse dtype")
+    blob = host("serialize none", lambda: A.tx.serialize(compression="none"))
+    B = host("deserialize", lambda: gb.tx.deserialize(blob))
+    pk = host("pickle.dumps", lambda: pickle.dumps(A, protocol=pickle.HIGHEST_PROTOCOL))
+    C = host("pickle.loads", lambda: pickle.loads(pk))
+    for name, M in (("GBTX", B), ("pickle", C)):
+        require(M._sparse is not None and on_card(M), f"6i {name}: not sparse on the card")
+        require(M.isequal(A, check_dtype=True) and M.name == ("A" if name == "pickle" else None), f"6i {name}: round trip differs")
+    ones = Vector.from_scalar(1.0, n, dtypes.FP32)
+    ys = [host(f"mxv {k} (plan build)", lambda M=M: M.mxv(ones, semiring.plus_times).new()) for k, M in (("A", A), ("GBTX", B), ("pickle", C))]
+    for y in ys[1:]:
+        require(torch.equal(y._struct, ys[0]._struct) and same_bits(torch, y._values, ys[0]._values), "6i: mxv differs after a round trip")
+    want = np.asarray(csr.astype(np.float64) @ np.ones(n))
+    yv = ys[0].to_dense(fill_value=0.0)
+    np.testing.assert_allclose(yv, want, rtol=1e-4, atol=0)
+    mxv_err = float(np.max(np.abs(yv - want) / np.maximum(np.abs(want), 1e-30)))
+
+    # tx on the scale-19 sparse matrix (host numpy, as the reference; results on the card)
+    sp_sort = host("tx.sort scale 19", lambda: A.tx.sort("lt"))
+    sp_top = host("tx.selectk scale 19", lambda: A.tx.selectk("largest", 1))
+    sp_max = host("tx.scan max scale 19", lambda: A.tx.scan("max"))
+    sp_plus = host("tx.scan plus scale 19", lambda: A.tx.scan("plus"))
+
+    # tx on the tx_n^2 dense operands, INT64 and FP32
+    prng = np.random.default_rng(12)
+    cells = np.flatnonzero(prng.random(tx_n * tx_n) < 0.3)
+    tx_coo = {
+        "INT64": (cells // tx_n, cells % tx_n, prng.integers(-1000, 1000, len(cells))),
+        "FP32": (cells // tx_n, cells % tx_n, prng.random(len(cells), np.float32)),
+    }
+    dense_ops = {k: Matrix.from_coo(*t, getattr(dtypes, k), nrows=tx_n, ncols=tx_n) for k, t in tx_coo.items()}
+    card = {k: host(f"tx statements {k}", lambda A_=A_: tx_statements(gb, A_)) for k, A_ in dense_ops.items()}
+    torch.cuda.synchronize()
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+
+    # checks of the scale-19 tx results (numpy)
+    r0, c0, v0 = (a.astype(np.int64) if a.dtype == np.uint64 else a for a in A.to_coo())
+    for M in (*sp_sort, sp_top, sp_max, sp_plus):
+        require(M._sparse is not None and on_card(M), "6i: a sparse tx result is not sparse on the card")
+    starts = np.flatnonzero(np.concatenate([[True], r0[1:] != r0[:-1]]))
+    ends = np.concatenate([starts[1:], [len(r0)]]) - 1
+    sv_r, sv_c, sv_v = sp_sort[0].to_coo()
+    _, _, perm = sp_sort[1].to_coo()
+    in_row = np.arange(len(r0)) - np.repeat(starts, ends - starts + 1)
+    require(np.array_equal(sv_r, r0) and np.array_equal(sv_c, in_row), "6i sort: pattern")
+    require(np.array_equal(sv_v, v0[np.searchsorted(r0 * n + c0, r0 * n + perm.astype(np.int64))]), "6i sort: values != A[r, permutation]")
+    require(bool(np.all((np.diff(sv_v) >= 0) | (np.diff(r0) != 0))), "6i sort: a row is not ascending")
+    rowmax = np.maximum.reduceat(v0, starts)
+    tr, _, tv = sp_top.to_coo()
+    require(np.array_equal(tr, r0[starts]) and np.array_equal(tv, rowmax), "6i selectk largest 1 != the row maxima")
+    _, _, mv = sp_max.to_coo()
+    require(np.array_equal(mv[ends], rowmax) and bool(np.all((np.diff(mv) >= 0) | (np.diff(r0) != 0))), "6i scan max")
+    _, _, pv = sp_plus.to_coo()
+    rowsum = np.add.reduceat(v0.astype(np.float64), starts)
+    plus_err = float(np.max(np.abs(pv[ends] - rowsum) / rowsum))
+
+    # the tx statements on the card = the same statements in the port on the CPU
+    t0 = time.perf_counter()
+    with gb.tx.config.set(platform="cpu"):
+        host_res = {k: tx_statements(gb, Matrix.from_coo(*t, getattr(dtypes, k), nrows=tx_n, ncols=tx_n)) for k, t in tx_coo.items()}
+    t_cpu = time.perf_counter() - t0
+
+    def flat(x):
+        return [y for z in x for y in flat(z)] if isinstance(x, (list, tuple)) else [x]
+
+    for k in card:
+        for name, got in card[k].items():
+            for g_, w_ in zip(flat(got), flat(host_res[k][name]), strict=True):
+                require(on_card(g_) and g_._sparse is None, f"6i {k} {name}: not dense-masked on the card")
+                require((g_.dtype, g_.shape) == (w_.dtype, w_.shape), f"6i {k} {name}: dtype or shape")
+                gc, wc = g_.to_coo(), w_.to_coo()
+                require(all(np.array_equal(a, b) for a, b in zip(gc, wc)), f"6i {k} {name}: card != CPU")
+
+    # Matrix Market through a temporary file
+    g14 = rmat(14, 16, seed=5, weighted=True)
+    v14 = g14.valid.cpu().numpy()
+    M14 = Matrix.from_coo(*(a.cpu().numpy()[v14] for a in (g14.src, g14.dst, g14.weights)), dtypes.FP32, nrows=g14.n, ncols=g14.n, dup_op=binary.plus)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rmat14.mtx")
+        host("mmwrite rmat 14", lambda: gb.io.mmwrite(path, M14))
+        mtx_mib = os.path.getsize(path) / 2**20
+        M14b = host("mmread rmat 14", lambda: gb.io.mmread(path))
+    require(M14b._sparse is not None and on_card(M14b), "6i mmread: not sparse on the card")
+    (ar, ac, av), (br, bc, bv) = M14.to_coo(), M14b.to_coo()
+    require(np.array_equal(ar, br) and np.array_equal(ac, bc) and np.array_equal(av, bv.astype(np.float32)), "6i mmread != the matrix written")
+
+    # card ms of the tx statements (a warm call each; CUDA events)
+    A32 = dense_ops["FP32"]
+    ms = {
+        "scan plus rows": cuda_ms(torch, lambda: A32.tx.scan("plus"), 3),
+        "scan plus columns": cuda_ms(torch, lambda: A32.tx.scan("plus", "columnwise"), 3),
+        "sort lt": cuda_ms(torch, lambda: A32.tx.sort("lt"), 3),
+        "selectk largest 8": cuda_ms(torch, lambda: A32.tx.selectk("largest", 8), 3),
+        "compactify smallest": cuda_ms(torch, lambda: A32.tx.compactify("smallest", tx_n // 2), 3),
+        "flatten+reshape": cuda_ms(torch, lambda: A32.tx.flatten().tx.reshape(tx_n // 2, 2 * tx_n), 3),
+        "split+concat": cuda_ms(torch, lambda: gb.tx.concat(A32.tx.split(tx_n // 4)), 3),
+    }
+    say(
+        "6i interop",
+        f"scale 19 as scipy CSR ({A.nvals} entries, duplicates summed): sparse on the card, to_scipy_sparse = its "
+        f"indptr/indices/data; GBTX ({len(blob) / 2**20:.1f} MiB, none) and pickle ({len(pk) / 2**20:.1f} MiB) round "
+        f"trips sparse on the card, isequal; mxv plus_times on the three bit for bit, = scipy float64 (max rel err "
+        f"{mxv_err:.3e} < 1e-4); launches {launches}; tx on the scale-19 matrix: sort = A[r, permutation] ascending, "
+        f"selectk largest 1 and scan max = the row maxima; scan plus's row totals off the float64 sums by up to "
+        f"{plus_err:.3e} relative (the reference's float32 running-sum difference, ported as it is); Matrix Market "
+        f"rmat 14 ({M14.nvals} entries, {mtx_mib:.1f} MiB) read back equal; {sum(len(v) for v in card.values())} tx "
+        f"statements at {tx_n}^2 (INT64, FP32) on the card = the CPU run ({t_cpu:.1f} s); host s "
+        f"{json.dumps(secs)}; card ms (FP32) {json.dumps(ms)}; on {smi}; phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {"launches": launches, "plain": plain, "secs": secs, "ms": ms}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -1896,6 +2105,7 @@ def main():
     ap.add_argument("--dsl-n", type=int, default=4096, help="the DSL phase's n (n^2 cells: the dense-masked limit)")
     ap.add_argument("--dsl-generic-n", type=int, default=2048, help="the generic contraction's n in the DSL phase")
     ap.add_argument("--models-scale", type=int, default=14, help="RMAT scale of the dense models (n = 2^scale)")
+    ap.add_argument("--tx-n", type=int, default=4096, help="the n of phase 6i's dense tx operands (n^2 cells)")
     args = ap.parse_args()
 
     import torch
@@ -2206,6 +2416,10 @@ def main():
     # 6m. the dense models (and the UDT collections) at the reference's scale
     dense_models_phase(torch, np, dev, g, args.models_scale, smi)
 
+    # 6i. interop and tx: io, GBTX, pickle and the tx statements on the card
+    interop = interop_phase(torch, np, dev, src, dst, w, n, args.tx_n, smi)
+    io_launches, io_plain = interop["launches"], interop["plain"]
+
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()
     kernels.reset_counts()
@@ -2217,15 +2431,16 @@ def main():
     # 7. launch counts of each path
     path_launches = {
         "spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "dsl": dsl_launches, "roofline": roof_launches,
-        "sparse_dsl": sp_launches, "compiled": cp_launches,
+        "sparse_dsl": sp_launches, "compiled": cp_launches, "interop": io_launches,
     }
     ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
         f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
         f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); sparse DSL path "
-        f"{sp_launches}; compiled loops {cp_launches}; roofline tool {roof_launches}; plain calls {plain_calls}, "
-        f"{sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {sp_plain}, {cp_plain}, {roof_plain}",
+        f"{sp_launches}; compiled loops {cp_launches}; interop {io_launches}; roofline tool {roof_launches}; plain "
+        f"calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {sp_plain}, {cp_plain}, {io_plain}, "
+        f"{roof_plain}",
     )
     for name in KERNELS:
         for path in PATH_OF.get(name, ("spmv",)):
@@ -2235,7 +2450,7 @@ def main():
     for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
     require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
-    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, roof_plain):
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, io_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above

@@ -43,9 +43,17 @@ operands of the first call), with structure hoisting and the edge layout;
 carries the dense n x n models (triangle count, k-truss, maximal matching,
 betweenness centrality, Louvain).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue: ``io``/``viz``/``Matrix.tx``/pickle (queue 7) and the mesh layer
-(``parallel``; queue 8).
+Interop and the extension namespace: ``io`` (scipy.sparse, networkx,
+Matrix Market, pydata sparse, awkward), ``viz`` (``draw``, ``spy``,
+``datashade``), ``tx`` (aliased ``ss``: ``diag``, ``concat``, ``burble``,
+the ``import_*`` functions, ``deserialize``; ``Matrix.tx``/``Vector.tx``:
+scan, sort, selectk, compactify, split, flatten, reshape, GBTX
+``serialize``, ``export``), and pickle of ``Matrix``, ``Vector`` and
+``Scalar``.  Each constructor among them puts its result on
+``tx.config["platform"]``.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md queue:
+the mesh layer (``parallel``; queue 8).
 """
 
 import importlib as _importlib
@@ -83,7 +91,7 @@ config = _Config(
 )
 
 _NAMESPACES = frozenset(
-    ["dtypes", "unary", "binary", "monoid", "semiring", "indexunary", "indexbinary", "select", "op", "agg", "tx"]
+    ["dtypes", "unary", "binary", "monoid", "semiring", "indexunary", "indexbinary", "select", "op", "agg", "tx", "io", "viz"]
 )
 
 _CLASS_HOMES = {
@@ -100,11 +108,8 @@ _CLASS_HOMES = {
 }
 
 # attributes of the JAX package that wait for a later queue (ROADMAP.md;
-# queues 2-6 and 3b are ported)
+# queues 2-7 and 3b are ported)
 _WAITING = {
-    "io": 7,
-    "viz": 7,
-    "ss": 7,
     "parallel": 8,
 }
 
@@ -157,6 +162,8 @@ def __getattr__(name):
         value = getattr(_importlib.import_module(_CLASS_HOMES[name]), name)
     elif name in _NAMESPACES:
         value = _importlib.import_module(f"graphblas_tpu_torch.{name}")
+    elif name == "ss":  # alias of the tx extension namespace, as in the reference
+        value = _importlib.import_module("graphblas_tpu_torch.tx")
     elif name == "MAX_SIZE":
         value = 2**62  # the largest dimension the index space supports (int64 indices)
     elif name in _WAITING:
@@ -168,4 +175,4 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(globals().keys() | _NAMESPACES | set(_CLASS_HOMES) | set(_WAITING) | {"MAX_SIZE"})
+    return sorted(globals().keys() | _NAMESPACES | set(_CLASS_HOMES) | set(_WAITING) | {"MAX_SIZE", "ss"})

@@ -50,7 +50,9 @@ class Matrix(InfixMixin, BaseType):
     tensor) up to ``tx.config["dense_limit"]`` cells; sparse analyzed COO
     (``_sparse``, on the device ``_sp_dev``) past it."""
 
-    __slots__ = ("_sparse_", "_sp_dev_")  # capture.HeldSlot, below the class
+    # _sparse_, _sp_dev_: capture.HeldSlot data slots, below the class;
+    # _tx_config: the per-object ``A.tx.config`` (not data)
+    __slots__ = ("_sparse_", "_sp_dev_", "_tx_config")
     ndim = 2
     _output_type = None
 
@@ -226,7 +228,11 @@ class Matrix(InfixMixin, BaseType):
         return zip(rows.tolist(), cols.tolist())
 
     def __reduce__(self):
-        raise NotImplementedError("pickling collections is not ported yet (ROADMAP.md, queue 7)")
+        rows, cols, vals = self.to_coo()
+        return (
+            _matrix_from_pickle,
+            (rows, cols, vals, self._dtype, self.nrows, self.ncols, self.name),
+        )
 
     # -- constructors ------------------------------------------------------------
 
@@ -777,7 +783,9 @@ class Matrix(InfixMixin, BaseType):
 
     @property
     def tx(self):
-        raise NotImplementedError("Matrix.tx / Matrix.ss are not ported yet (ROADMAP.md, queue 7)")
+        from ..tx.matrix import MatrixTx
+
+        return MatrixTx(self)
 
     ss = tx
 
@@ -946,6 +954,11 @@ class TransposedMatrix:
 
     def isclose(self, other, **kwargs):
         return self.new().isclose(other, **kwargs)
+
+
+def _matrix_from_pickle(rows, cols, vals, dtype, nrows, ncols, name):
+    """Unpickle onto ``tx.config["platform"]``."""
+    return Matrix.from_coo(rows, cols, vals, dtype, nrows=nrows, ncols=ncols, name=name)
 
 
 Matrix._output_type = Matrix

@@ -187,7 +187,8 @@ class Scalar(InfixMixin, BaseType):
         return self
 
     def __reduce__(self):
-        raise NotImplementedError("pickling collections is not ported yet (ROADMAP.md, queue 7)")
+        value = self.value
+        return (_scalar_from_pickle, (self._dtype, None if value is None else np.asarray(value), self._is_cscalar, self.name))
 
     # -- update sinks (called from BaseType._update) ------------------------------
 
@@ -476,3 +477,10 @@ def _device():
 
 def _present(flag, device):
     return torch.full((), bool(flag), dtype=torch.bool, device=device)
+
+
+def _scalar_from_pickle(dtype, value, is_cscalar, name):
+    sc = Scalar(dtype, is_cscalar=is_cscalar, name=name)
+    if value is not None:
+        sc.value = value[()]
+    return sc

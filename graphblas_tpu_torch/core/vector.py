@@ -107,7 +107,9 @@ class Vector(InfixMixin, BaseType):
     Dense-masked up to ``tx.config["dense_limit"]`` entries; sparse (index,
     value) host arrays (``_sparse``, on the device ``_sp_dev``) past it."""
 
-    __slots__ = ("_sparse_", "_sp_dev_")  # capture.HeldSlot, below the class
+    # _sparse_, _sp_dev_: capture.HeldSlot data slots, below the class;
+    # _tx_config: the per-object ``v.tx.config`` (not data)
+    __slots__ = ("_sparse_", "_sp_dev_", "_tx_config")
     ndim = 1
     _output_type = None  # set after class definition
 
@@ -276,7 +278,8 @@ class Vector(InfixMixin, BaseType):
         return iter(idx.tolist())
 
     def __reduce__(self):
-        raise NotImplementedError("pickling collections is not ported yet (ROADMAP.md, queue 7)")
+        idx, vals = self.to_coo()
+        return (_vector_from_pickle, (idx, vals, self._dtype, self.size, self.name))
 
     # -- constructors ------------------------------------------------------------
 
@@ -592,7 +595,9 @@ class Vector(InfixMixin, BaseType):
 
     @property
     def tx(self):
-        raise NotImplementedError("Vector.tx / Vector.ss are not ported yet (ROADMAP.md, queue 7)")
+        from ..tx.vector import VectorTx
+
+        return VectorTx(self)
 
     ss = tx
 
@@ -606,6 +611,11 @@ class Vector(InfixMixin, BaseType):
 
 
 _cap.hold_slots(Vector, "_sparse", "_sp_dev")
+
+
+def _vector_from_pickle(idx, vals, dtype, size, name):
+    """Unpickle onto ``tx.config["platform"]``."""
+    return Vector.from_coo(idx, vals, dtype, size=size, name=name)
 
 
 Vector._output_type = Vector

@@ -497,7 +497,8 @@ def test_waiting_features_raise_naming_their_queue(ref):
     format (queue 4) is ported: the collections past dense_limit that raised
     before build, and their shape, nvals and format equal the reference's.
     So are the UDT collections (queue 3b): an empty and a filled UDT Matrix,
-    Vector and Scalar equal the reference's."""
+    Vector and Scalar equal the reference's.  And queue 7: ``A.tx``,
+    ``v.ss``, pickle and ``io`` give the reference's results."""
     past_limit = [
         lambda g: g.Matrix(g.dtypes.FP64, 1 << 13, 1 << 12),
         lambda g: g.Matrix.from_coo([0], [0], [1.0], nrows=1 << 13, ncols=1 << 12),
@@ -530,11 +531,16 @@ def test_waiting_features_raise_naming_their_queue(ref):
             ps.value = rs.value = value
         assert (ps.is_empty, ps.nvals, ps.dtype.np_type) == (rs.is_empty, rs.nvals, rs.dtype.np_type)
         assert ps.value == rs.value
+    # queue 7 is ported: the tx/ss namespaces, pickle and io as in the reference
+    ported = [
+        lambda g: g.Matrix(g.dtypes.FP64, 2, 2).tx.format,
+        lambda g: type(g.Vector(g.dtypes.FP64, 2).ss).__name__,
+        lambda g: [a.tolist() for a in pickle.loads(pickle.dumps(g.Matrix.from_coo([0], [1], [2.5], nrows=2, ncols=2))).to_coo()],
+        lambda g: sorted(n for n in dir(g.gb.io) if not n.startswith("_") and callable(getattr(g.gb.io, n))),
+    ]
+    for fn in ported:
+        assert fn(ns(P)) == fn(ns(ref))
     cases = [
-        (lambda: P.Matrix(P.dtypes.FP64, 2, 2).tx, "queue 7"),
-        (lambda: P.Vector(P.dtypes.FP64, 2).ss, "queue 7"),
-        (lambda: pickle.dumps(P.Matrix(P.dtypes.FP64, 2, 2)), "queue 7"),
-        (lambda: P.io, "queue 7"),
         (lambda: P.parallel, "queue 8"),
     ]
     for fn, queue in cases:

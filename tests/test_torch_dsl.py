@@ -2,7 +2,7 @@
 operator calls on collections (``_call_op``), the aggregator recipes,
 extract / assign / delete (with masks, accumulators, subassign and
 input masks), the arithmetic dunders, ``Recorder`` strings, and the
-reference's intro examples (``examples/01``, ``02``, ``03``, ``05``) run
+reference's intro examples (``examples/01``-``07``, ``09``, ``10``) run
 through the port.
 
 Each test builds the same collections in both packages from seeded numpy
@@ -270,8 +270,10 @@ EXAMPLES = [
     "01_sssp.py",
     "02_level_bfs.py",
     "03_parent_bfs.py",
+    "04_pagerank.py",
     "05_triangle_count.py",
     "06_compiled_models.py",
+    "07_sparse_pagerank.py",
     "09_components_louvain.py",
     "10_compiled_dsl_loops.py",
 ]

@@ -89,3 +89,32 @@ def test_import_check_sees_every_form(source, bad):
 def test_import_builds_nothing():
     # the library is built on the first launch on a CUDA tensor only
     _run_fresh("import graphblas_tpu_torch as g; assert g.kernels._build._LIB is None")
+
+
+
+INTEROP = ["io", "io._scipy", "io._matrixmarket", "io._networkx", "io._sparse", "io._awkward", "viz", "tx", "tx.matrix",
+           "tx.vector", "tx._binary"]
+
+
+@pytest.fixture(scope="module")
+def interop_imported():
+    """The interop modules imported together in one fresh interpreter,
+    which holds no JAX module afterwards."""
+    _run_fresh(
+        f"import sys; [__import__('graphblas_tpu_torch.' + m) for m in {INTEROP!r}];"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r});"
+        "assert not bad, bad"
+    )
+
+
+@pytest.mark.parametrize("name", INTEROP)
+def test_interop_modules_are_the_ports_own(name, interop_imported):
+    """The interop and extension modules (queue 7) are among the sources
+    checked above and import without JAX or the JAX package (the GBTX codec
+    ``tx/_binary.py`` is a copy, not an import)."""
+    path = os.path.join(PKG_DIR, *name.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(PKG_DIR, *name.split("."), "__init__.py")
+    assert path in _port_sources()
+    with open(path, encoding="utf-8") as f:
+        assert not forbidden_imports(f.read())

@@ -140,7 +140,7 @@ the status line {"ok": true, "device": {...}}.  Any failure raises: the exit cod
 0 and the status line is not printed.  Without a CUDA device it fails at once.
 
     python3 chip_smoke.py [--scale 19] [--ef 16] [--seed 5] [--tc-log2 16] [--spgemm-scale 14] [--mt 2048]
-        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14] [--tx-n 4096]
+        [--dsl-n 4096] [--dsl-generic-n 2048] [--models-scale 14]
 """
 
 import argparse
@@ -1899,11 +1899,15 @@ def dense_models_phase(torch, np, dev, g19, scale, smi):
 
 
 TX_FORMATS = ("coo", "coor", "cooc", "csr", "csc", "hypercsr", "hypercsc", "bitmapr", "bitmapc", "fullr", "fullc", "densemasked")
+TX_N = 4096  # the n of phase 6i's dense tx operands (n^2 cells, phase 6d's size)
+TX_EXPORT_N = 256  # the top-left block of them that the export/import_any round trips take
 
 
-def tx_statements(gb, A):
-    """Phase 6i's tx statements on a dense-masked operand A (n x n): the
-    results by name (collections, or tuples and lists of them)."""
+def tx_statements(gb, A, E):
+    """Phase 6i's tx statements on a dense-masked operand A (n x n), and the
+    export/import_any round trip in every format on E (a small operand: the
+    formats are host numpy): the results by name (collections, or tuples and
+    lists of them)."""
     n = A.nrows
     flat = A.tx.flatten()
     out = {
@@ -1922,12 +1926,12 @@ def tx_statements(gb, A):
         "diag": gb.tx.diag(gb.tx.diag(A, 3), -2),
     }
     for fmt in TX_FORMATS:
-        blob = A.tx.export(fmt)
+        blob = E.tx.export(fmt)
         out[f"export/import_any {fmt}"] = gb.tx.import_any(**dict(blob))
     return out
 
 
-def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
+def interop_phase(torch, np, dev, src, dst, w, n, smi, tx_n=TX_N):
     """Phase 6i (interop and tx): bench.py's scale-19 graph as a scipy CSR
     (duplicates summed) through io.from_scipy_sparse, sparse on the card;
     to_scipy_sparse gives back its indptr, indices and data; GBTX
@@ -1936,9 +1940,10 @@ def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
     float64 within 1e-4 (the "interop" path's launches: G, fill, C); Matrix
     Market through a temporary file at rmat(14, 16, seed=5); the tx
     statements (``tx_statements``) on a phase-6d-style tx_n^2 card operand
-    (numpy seed 12, 30% present, INT64 and FP32) = the port's CPU run of the
+    (numpy seed 12, 30% present, INT64 and FP32; the export/import_any round
+    trips on its TX_EXPORT_N^2 top-left block) = the port's CPU run of the
     same statements; sort, selectk and scan on the scale-19 sparse matrix
-    against numpy.  Host seconds of each load, serialize, deserialize and
+    against numpy (scan plus = the reference's float32 formula bit for bit).  Host seconds of each load, serialize, deserialize and
     pickle; card ms (CUDA events) of the tx statements."""
     import importlib.util
     import pickle
@@ -2012,8 +2017,20 @@ def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
         "INT64": (cells // tx_n, cells % tx_n, prng.integers(-1000, 1000, len(cells))),
         "FP32": (cells // tx_n, cells % tx_n, prng.random(len(cells), np.float32)),
     }
-    dense_ops = {k: Matrix.from_coo(*t, getattr(dtypes, k), nrows=tx_n, ncols=tx_n) for k, t in tx_coo.items()}
-    card = {k: host(f"tx statements {k}", lambda A_=A_: tx_statements(gb, A_)) for k, A_ in dense_ops.items()}
+    e_n = min(TX_EXPORT_N, tx_n)
+    ex_coo = {k: tuple(a[(r < e_n) & (c < e_n)] for a in (r, c, v)) for k, (r, c, v) in tx_coo.items()}
+
+    def operands():
+        return {
+            k: (
+                Matrix.from_coo(*tx_coo[k], getattr(dtypes, k), nrows=tx_n, ncols=tx_n),
+                Matrix.from_coo(*ex_coo[k], getattr(dtypes, k), nrows=e_n, ncols=e_n),
+            )
+            for k in tx_coo
+        }
+
+    dense_ops = operands()
+    card = {k: host(f"tx statements {k}", lambda ops=ops: tx_statements(gb, *ops)) for k, ops in dense_ops.items()}
     torch.cuda.synchronize()
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
 
@@ -2037,11 +2054,16 @@ def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
     _, _, pv = sp_plus.to_coo()
     rowsum = np.add.reduceat(v0.astype(np.float64), starts)
     plus_err = float(np.max(np.abs(pv[ends] - rowsum) / rowsum))
+    # the reference's formula (one running float32 sum less its value at each row's start), in numpy
+    acc = np.add.accumulate(v0)
+    ref_pv = acc - np.repeat(acc[starts] - v0[starts], ends - starts + 1)
+    ref_err = float(np.max(np.abs(ref_pv[ends] - rowsum) / rowsum))
+    require(np.array_equal(pv, ref_pv) and plus_err <= ref_err, f"6i scan plus: off the reference's formula ({plus_err:.3e} > {ref_err:.3e})")
 
     # the tx statements on the card = the same statements in the port on the CPU
     t0 = time.perf_counter()
     with gb.tx.config.set(platform="cpu"):
-        host_res = {k: tx_statements(gb, Matrix.from_coo(*t, getattr(dtypes, k), nrows=tx_n, ncols=tx_n)) for k, t in tx_coo.items()}
+        host_res = {k: tx_statements(gb, *ops) for k, ops in operands().items()}
     t_cpu = time.perf_counter() - t0
 
     def flat(x):
@@ -2069,7 +2091,7 @@ def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
     require(np.array_equal(ar, br) and np.array_equal(ac, bc) and np.array_equal(av, bv.astype(np.float32)), "6i mmread != the matrix written")
 
     # card ms of the tx statements (a warm call each; CUDA events)
-    A32 = dense_ops["FP32"]
+    A32 = dense_ops["FP32"][0]
     ms = {
         "scan plus rows": cuda_ms(torch, lambda: A32.tx.scan("plus"), 3),
         "scan plus columns": cuda_ms(torch, lambda: A32.tx.scan("plus", "columnwise"), 3),
@@ -2086,9 +2108,10 @@ def interop_phase(torch, np, dev, src, dst, w, n, tx_n, smi):
         f"trips sparse on the card, isequal; mxv plus_times on the three bit for bit, = scipy float64 (max rel err "
         f"{mxv_err:.3e} < 1e-4); launches {launches}; tx on the scale-19 matrix: sort = A[r, permutation] ascending, "
         f"selectk largest 1 and scan max = the row maxima; scan plus's row totals off the float64 sums by up to "
-        f"{plus_err:.3e} relative (the reference's float32 running-sum difference, ported as it is); Matrix Market "
-        f"rmat 14 ({M14.nvals} entries, {mtx_mib:.1f} MiB) read back equal; {sum(len(v) for v in card.values())} tx "
-        f"statements at {tx_n}^2 (INT64, FP32) on the card = the CPU run ({t_cpu:.1f} s); host s "
+        f"{plus_err:.3e} relative, = the reference's float32 running-sum formula bit for bit (ported as it is); "
+        f"Matrix Market rmat 14 ({M14.nvals} entries, {mtx_mib:.1f} MiB) read back equal; "
+        f"{sum(len(v) for v in card.values())} tx statements at {tx_n}^2 (INT64, FP32; export/import_any at "
+        f"{e_n}^2) on the card = the CPU run ({t_cpu:.1f} s); host s "
         f"{json.dumps(secs)}; card ms (FP32) {json.dumps(ms)}; on {smi}; phase {time.perf_counter() - t_phase:.1f} s",
     )
     return {"launches": launches, "plain": plain, "secs": secs, "ms": ms}
@@ -2105,7 +2128,6 @@ def main():
     ap.add_argument("--dsl-n", type=int, default=4096, help="the DSL phase's n (n^2 cells: the dense-masked limit)")
     ap.add_argument("--dsl-generic-n", type=int, default=2048, help="the generic contraction's n in the DSL phase")
     ap.add_argument("--models-scale", type=int, default=14, help="RMAT scale of the dense models (n = 2^scale)")
-    ap.add_argument("--tx-n", type=int, default=4096, help="the n of phase 6i's dense tx operands (n^2 cells)")
     args = ap.parse_args()
 
     import torch
@@ -2417,7 +2439,7 @@ def main():
     dense_models_phase(torch, np, dev, g, args.models_scale, smi)
 
     # 6i. interop and tx: io, GBTX, pickle and the tx statements on the card
-    interop = interop_phase(torch, np, dev, src, dst, w, n, args.tx_n, smi)
+    interop = interop_phase(torch, np, dev, src, dst, w, n, smi)
     io_launches, io_plain = interop["launches"], interop["plain"]
 
     # 6r. the roofline tool's run: its own path, the compare probe's

@@ -268,11 +268,7 @@ def import_any(**blob):
         return _with_struct(m, blob["struct"])
     if fmt not in importers:
         raise ValueError(f"Invalid format for import_any: {fmt}")
-    import inspect
-
-    fn = importers[fmt]
-    allowed = set(inspect.signature(fn).parameters)
-    return fn(**{k: v for k, v in blob.items() if k in allowed or "opts" in allowed})
+    return importers[fmt](**blob)
 
 
 def import_sparse_vector(*, indices, values, size=None, dtype=None, name=None, **opts):

@@ -26,8 +26,10 @@ the generic models.  The compiled loops: models.dsl's PageRank, level BFS
 replays.  The dense models (triangle count, k-truss, matching, betweenness,
 Louvain) at n = 16384 and the UDT collections.  Interop: the scale-19 graph
 through scipy, GBTX and pickle, Matrix Market, and the tx statements on
-4096^2 operands.  The roofline tool's run,
-with the compare probe.  All through the hand-written CUDA kernels, but the
+4096^2 operands.  The mesh layer: a 2 x 4 mesh of 8 shards on the card
+(sharded SpMV, PageRank, BFS and SSSP on the scale-19 graph, the DSL inside
+the Context, SUMMA at 4096^2, the masked SpGEMM in 8 row blocks).  The
+roofline tool's run, with the compare probe.  All through the hand-written CUDA kernels, but the
 dense models' products, which are cuBLAS matmuls.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -48,7 +50,7 @@ dense models' products, which are cuBLAS matmuls.  One line per check:
      four semirings on its largest bucket and on the RMAT plan's (256, 256)
      one, the tropical matmul's four semirings at 2048^3 and a ragged
      (2047, 2045) x (2045, 2049) min_plus, and the compare probe against
-     theirs
+     theirs, at the roofline tool's (2^14, 128) and at 16 times it
   4. graph and plans: host build times, plan sizes on the device
   5. algorithms: kernel path against the plain path on the same card; SpMV,
      masked SpMV and parent BFS without endpoint routes against the same with
@@ -126,12 +128,26 @@ dense models' products, which are cuBLAS matmuls.  One line per check:
      on 4096^2 card operands (numpy seed 12, 30% present, INT64 and FP32) =
      the port's CPU run; host seconds of each load, serialize, deserialize
      and pickle, card ms of the tx statements
+  6p mesh. parallel.Context(devices=[cuda:0] * 8, shape=(2, 4)): the sharded
+     plan of the scale-19 graph (host s, edges a shard, pad_to, MiB); sharded
+     SpMV (plus_times, max_first, min_plus) and masked SpMV (plus_times,
+     min_secondi) = the single-device engine on the same plan (plus rtol
+     1e-5, the rest bit for bit); sharded PageRank (50 it) = models.fast rtol
+     1e-5, level BFS and SSSP = models.fast bit for bit, levels = scipy;
+     examples 07 and 02 on the sparse collection inside the Context = outside;
+     SUMMA at 4096^2 (min_plus bit for bit, each (2048 x 1024) . (1024 x 4096)
+     block one gb_tropical launch; plus_times rtol 1e-5); the masked SpGEMM on
+     the triangle workload in 8 row blocks = single device = scipy; the checks
+     of __graft_entry__.dryrun_multichip; card ms of the sharded against the
+     single-device SpMV and PageRank iteration, the combine, SUMMA min_plus
+     against one gb_tropical 4096^3 launch
   6r. the roofline tool (graphblas_tpu_torch/tools/profile_spgemm_roofline)
   7. launch counts of each path (every kernel > 0, every plain version 0;
      the typed paths launch G, C, the generic scan and eqjoin; the DSL path
      gb_tropical once an APSP round; the sparse DSL path G, fill, C, the
      generic scan and eqjoin; the compiled loops G, fill, C and the generic
-     scan, counted per graph replay; the interop path G, fill and C)
+     scan, counted per graph replay; the interop path G, fill and C; the
+     mesh path G, fill, C, the generic scan, eqjoin and gb_tropical)
   8. times in bench.py's definitions (GTEPS, GF/s, Top/s), parent BFS in the
      level-BFS one
 
@@ -169,12 +185,12 @@ KERNELS = {
 }
 # the paths whose runs count a kernel's launches (the rest: the SpMV path)
 PATH_OF = {
-    "gather": ("spmv", "sparse_dsl", "compiled", "interop"),
-    "gather_fill": ("spmv", "sparse_dsl", "compiled", "interop"),
-    "segscan_contrib": ("spmv", "sparse_dsl", "compiled", "interop"),
-    "segscan": ("spmv", "sparse_dsl", "compiled"),
-    "eqjoin": ("spgemm", "sparse_dsl"),
-    "tropical_mxm": ("tropical", "dsl"),
+    "gather": ("spmv", "sparse_dsl", "compiled", "interop", "mesh"),
+    "gather_fill": ("spmv", "sparse_dsl", "compiled", "interop", "mesh"),
+    "segscan_contrib": ("spmv", "sparse_dsl", "compiled", "interop", "mesh"),
+    "segscan": ("spmv", "sparse_dsl", "compiled", "mesh"),
+    "eqjoin": ("spgemm", "sparse_dsl", "mesh"),
+    "tropical_mxm": ("tropical", "dsl", "mesh"),
     "compare_probe": ("roofline",),
 }
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
@@ -560,6 +576,15 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
     record(
         "compare_probe", f"K={ke.PROBE_K} on (16384, 128)", lambda: ke.compare_probe(pa, pb),
         lambda: ke.compare_probe_plain(pa, pb), (pa, pb), 0, n_ops=3 * ke.PROBE_K * pa.numel(),
+        ops_per_s=F32_LANE_OPS_PER_S,
+    )
+    # 16 times the tool's elements: does the probe reach half its bound once
+    # its fixed launch and tail cost no longer dominate?
+    qa = torch.randint(0, 100, (1 << 18, 128), generator=gen, device=dev).float()
+    qb = torch.randint(0, 40, (1 << 18, 128), generator=gen, device=dev).float()
+    record(
+        "compare_probe", f"K={ke.PROBE_K} on (262144, 128), 16x", lambda: ke.compare_probe(qa, qb),
+        lambda: ke.compare_probe_plain(qa, qb), (qa, qb), 0, n_ops=3 * ke.PROBE_K * qa.numel(),
         ops_per_s=F32_LANE_OPS_PER_S,
     )
     return results
@@ -1318,7 +1343,7 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
         f"times (host s and ms, synchronised, median): {json.dumps({k: round(v, 4) for k, v in times.items()})} on {smi}; "
         f"phase {time.perf_counter() - t_phase:.1f} s",
     )
-    return {"launches": launches, "plain": plain}
+    return {"launches": launches, "plain": plain, "A": A}
 
 
 # the layout each compiled recipe takes on the plan engine where the edge
@@ -2117,6 +2142,262 @@ def interop_phase(torch, np, dev, src, dst, w, n, smi, tx_n=TX_N):
     return {"launches": launches, "plain": plain, "secs": secs, "ms": ms}
 
 
+MESH_SHAPE = (2, 4)  # phase 6p's mesh: 8 shards on one card, the tests' and example 08's
+MESH_N = 4096  # SUMMA's operands in phase 6p (n^2 cells, the dense-masked limit)
+MESH_PR_ITERS = 50
+MESH_DSL_PR_ITERS = 5  # example 07's iterations inside and outside the Context
+
+
+def mesh_dryrun(gb, np, torch, ctx):
+    """The checks of ``__graft_entry__.dryrun_multichip`` on the port's mesh,
+    at the dryrun's sizes (m = 8 pi, k = 8 pj; numpy seed 0 in its order):
+    each against its numpy comparison (rtol 1e-4, as there); check 6 holds
+    the mask/accum/replace statement to the one outside the Context within
+    rel 1e-6 (the f32 partial sums fold in another order)."""
+    from graphblas_tpu_torch import Matrix, Vector, binary, dtypes, parallel, semiring
+    from graphblas_tpu_torch.models import rmat
+
+    mesh = ctx.mesh
+    pi, pj = (mesh.shape[a] for a in mesh.axis_names)
+    m, k = 8 * pi, 8 * pj
+    rng = np.random.default_rng(0)
+    F = dtypes.FP32
+    A = Matrix.from_dense(rng.random((m, k)), missing_value=None, dtype=F)
+    B = Matrix.from_dense(rng.random((k, m)), dtype=F)
+    x = Vector.from_dense(rng.random(k).astype(np.float32))
+    with ctx:
+        parallel.shard_matrix(A)
+        parallel.shard_vector(x)
+    a_np, b_np, x_np = (t._values.cpu().numpy() for t in (A, B, x))
+    with ctx:
+        C = A.mxm(B, semiring.plus_times).new()
+    np.testing.assert_allclose(C._values.cpu().numpy(), a_np @ b_np, rtol=1e-4)
+    cv, _ = parallel.summa_mxm(A, B, semiring.plus_times[F], F, mesh)
+    np.testing.assert_allclose(cv.cpu().numpy(), a_np @ b_np, rtol=1e-4)
+    yv, _ = parallel.summa_mxv(A, x, semiring.min_plus[F], F, mesh)
+    np.testing.assert_allclose(yv.cpu().numpy(), (a_np + x_np[None, :]).min(axis=1), rtol=1e-4)
+    g = rmat(6, 4, seed=1, weighted=True)
+    src, dst, w, valid = (t.cpu().numpy() for t in (g.src, g.dst, g.weights, g.valid))
+    total = max(mesh.size, -(-len(src) // mesh.size) * mesh.size)
+    src, dst, w, valid = (np.pad(a, (0, total - len(src))) for a in (src, dst, w, valid))
+    want = np.zeros(g.n, np.float32)
+    np.add.at(want, dst[valid], w[valid])
+    dev = mesh.device_list()[0]
+    ones = torch.ones(g.n, device=dev)
+    step = parallel.sharded_spmv_step(mesh, g.n)
+    y = step(*(torch.from_numpy(a).to(dev) for a in (src, dst, w, valid)), ones)
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-4)
+    splan = parallel.build_sharded_spmv_plan(src[valid].astype(np.int64), dst[valid].astype(np.int64), w[valid], n=g.n, mesh=mesh)
+    np.testing.assert_allclose(parallel.sharded_spmv(splan, ones).cpu().numpy(), want, rtol=1e-4)
+    r, iters = parallel.sharded_pagerank(splan)
+    require(abs(float(r.sum()) - 1.0) < 1e-3 and iters > 1, "dryrun: sharded pagerank")
+    ns = 96
+    rs, cs = rng.integers(0, ns, 600), rng.integers(0, ns, 600)
+    lo, hi = np.minimum(rs, cs), np.maximum(rs, cs)
+    keep = lo != hi
+    with gb.tx.config.set(dense_limit=0):
+        L = Matrix.from_coo(hi[keep], lo[keep], np.float32(1.0), F, nrows=ns, ncols=ns, dup_op=binary.first)
+        U = L.T.new()
+    single = L.mxm(U, semiring.plus_pair).new(mask=L.S)
+    with ctx:
+        meshed = L.mxm(U, semiring.plus_pair).new(mask=L.S)
+    require(single.isequal(meshed, check_dtype=True), "dryrun: masked SpGEMM inside the Context != outside")
+    Ms = rng.random((m, m)) < 0.5
+    M = Matrix.from_dense(np.where(Ms, rng.random((m, m)).astype(np.float32), 0.0), dtype=F)
+    M._struct = torch.from_numpy(Ms).to(dev)
+    C0 = Matrix.from_dense(rng.random((m, m)), dtype=F)
+    C1 = C0.dup()
+    C0(M.S, accum=binary.plus, replace=True) << A.mxm(B, semiring.plus_times)
+    with ctx:
+        C1(M.S, accum=binary.plus, replace=True) << A.mxm(B, semiring.plus_times)
+    require(C0.isclose(C1, rel_tol=1e-6, check_dtype=True), "dryrun: mask/accum/replace inside the Context != outside")
+    return float(meshed.reduce_scalar("plus").new().value)
+
+
+def mesh_phase(torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_tc, U_tc, tc_ref, sg_tc, A07, smi):
+    """Phase 6p (the mesh layer): a 2 x 4 mesh of 8 shards on one card,
+    ``parallel.Context(devices=[cuda:0] * 8, shape=(2, 4))``, at full size:
+    (a) the sharded plan of the scale-19 graph; (b) sharded SpMV and masked
+    SpMV against the single-device engine on bench.py's plan; (c) the
+    sharded PageRank, level BFS and SSSP against models.fast (and the scipy
+    levels); (d) example 07's and 02's statements on the sparse collection
+    inside and outside the Context; (e) SUMMA at 4096^2; (f) the sharded
+    masked SpGEMM on bench.py's triangle workload in 8 row blocks; the
+    dryrun's checks; (g) the launches of everything run inside the mesh
+    (every kernel reached > 0, no plain version); (h) card times.  Returns
+    the mesh path's launch and plain-call counts."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Vector, binary, dtypes, kernels, parallel, semiring, unary
+    from graphblas_tpu_torch.kernels import tropical as kt
+    from graphblas_tpu_torch.models import fast
+    from graphblas_tpu_torch.ops import densemasked as dm
+    from graphblas_tpu_torch.ops import fastspmv as fs
+    from graphblas_tpu_torch.parallel import _collectives
+    from graphblas_tpu_torch.parallel.spgemm import sharded_masked_mxm_arrays
+
+    t_phase = time.perf_counter()
+    n = g.n
+    FP32 = dtypes.FP32
+    ctx = parallel.Context(devices=[dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]), shape=MESH_SHAPE)
+    mesh = ctx.mesh
+    require(mesh.size == 8 and all(d == dev for d in mesh.device_list()), "the mesh: 8 shards on the card")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    xv = torch.rand(n, generator=gen, device=dev) + 0.5
+    xs = torch.rand(n, generator=gen, device=dev) < 0.3
+    sa = torch.rand(MESH_N, MESH_N, generator=gen, device=dev)
+    sb = torch.rand(MESH_N, MESH_N, generator=gen, device=dev)
+    ss_a = torch.rand(MESH_N, MESH_N, generator=gen, device=dev) < 0.5
+    ss_b = torch.rand(MESH_N, MESH_N, generator=gen, device=dev) < 0.5
+    spmvs = (("plus", "times"), ("max", "first"), ("min", "plus"))
+    masked = (("plus", "times"), ("min", "secondi"))
+    srs = {"plus_times": semiring.plus_times[FP32], "min_plus": semiring.min_plus[FP32]}
+    damping = 0.85
+
+    def pagerank07(iters):
+        # example 07's statements (as phase 6s writes them, ranks in FP32)
+        outd = A07.reduce_rowwise(binary.plus).new(FP32)
+        inv_deg = outd.apply(unary.minv).new()
+        rank = Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+        for _ in range(iters):
+            contrib = rank.ewise_mult(inv_deg, binary.times).new()
+            pulled = contrib.vxm(A07, semiring.plus_first).new()
+            dangling = float(rank.reduce(binary.plus).new().value) - float(
+                contrib.ewise_mult(outd, binary.times).reduce(binary.plus).new().value
+            )
+            rank = pulled.apply(binary.times, right=damping).apply(
+                binary.plus, right=(1.0 - damping) / n + damping * dangling / n
+            ).new(FP32)
+        return rank
+
+    def bfs02(s):
+        # example 02's statements
+        levels = Vector(dtypes.INT64, n)
+        frontier = Vector(dtypes.BOOL, n)
+        frontier[s] = True
+        levels[s] = 0
+        level = 0
+        while frontier.nvals > 0:
+            level += 1
+            frontier(~levels.S, replace=True) << A07.T.mxv(frontier, semiring.any_pair)
+            levels(frontier.S) << frontier.apply(lambda x: 0 * x + level).new(dtypes.INT64)
+        return levels
+
+    # (a)-(f) inside the mesh: the launches counted from here
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    splan = parallel.build_sharded_spmv_plan(src, dst, w, n=n, mesh=mesh)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    per_shard = [int(p.valid_dst_order.sum()) for p in splan.plans]
+    got = {}
+    for add, mul in spmvs:
+        got[f"spmv {add}/{mul}"] = parallel.sharded_spmv(splan, xv, add, mul)
+    for add, mul in masked:
+        got[f"spmv_masked {add}/{mul}"] = parallel.sharded_spmv_masked(splan, xv, xs, add, mul)
+    got["pagerank"], pr_it = parallel.sharded_pagerank(splan, tol=0.0, max_iters=MESH_PR_ITERS, outdeg=torch.from_numpy(outdeg).to(dev))
+    got["bfs"] = parallel.sharded_bfs_level(splan, sources[0])
+    got["sssp"] = parallel.sharded_sssp(splan, sources[0])
+    t0 = time.perf_counter()
+    with ctx:
+        got["pagerank07"] = pagerank07(MESH_DSL_PR_ITERS)
+        got["bfs02"] = bfs02(sources[0])
+    torch.cuda.synchronize()
+    t_dsl = time.perf_counter() - t0
+    tr0 = kernels.launch_counts()["tropical_mxm"]
+    got["summa min_plus"] = parallel.summa_mxm_arrays(sa, ss_a, sb, ss_b, srs["min_plus"], FP32, mesh)
+    torch.cuda.synchronize()
+    summa_trop = kernels.launch_counts()["tropical_mxm"] - tr0
+    got["summa plus_times"] = parallel.summa_mxm_arrays(sa, ss_a, sb, ss_b, srs["plus_times"], FP32, mesh)
+    t0 = time.perf_counter()
+    tc_rows, tc_cols, tc_vals, tc_flops = sharded_masked_mxm_arrays(
+        L_tc, U_tc, L_tc.rows, L_tc.cols, semiring.plus_pair[FP32], FP32, ctx
+    )
+    torch.cuda.synchronize()
+    t_spgemm = time.perf_counter() - t0
+    tri_dry = mesh_dryrun(gb, np, torch, ctx)
+    torch.cuda.synchronize()
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+
+    # the references, outside the mesh and outside the counts
+    for add, mul in spmvs:
+        a, b = got[f"spmv {add}/{mul}"], fs.spmv(plan, xv, add, mul)
+        if add == "plus":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        else:
+            require(same_bits(torch, a, b), f"sharded spmv {add}/{mul} != single device")
+    for add, mul in masked:
+        (av, as_), (bv, bs) = got[f"spmv_masked {add}/{mul}"], fs.spmv_masked(plan, xv, xs, add, mul)
+        require(torch.equal(as_, bs), f"sharded spmv_masked {add}/{mul}: structure != single device")
+        if add == "plus":
+            torch.testing.assert_close(av, bv, rtol=1e-5, atol=0)
+        else:
+            require(torch.equal(av, bv), f"sharded spmv_masked {add}/{mul} != single device")
+    pr_ref = fast.pagerank(plan, outdeg, n, tol=0.0, max_iters=MESH_PR_ITERS)
+    # tol 0 stops early only at a float32 fixpoint (no rank changed)
+    require(1 < pr_it <= MESH_PR_ITERS and bool(torch.isfinite(got["pagerank"]).all()), "sharded pagerank: iterations or non-finite")
+    torch.testing.assert_close(got["pagerank"], pr_ref, rtol=1e-5, atol=0)
+    pr_err = abs_err(got["pagerank"], pr_ref)
+    require(torch.equal(got["bfs"], fast.bfs_level(plan, sources[0], n)), "sharded bfs_level != models.fast")
+    np.testing.assert_array_equal(got["bfs"].cpu().numpy(), lv_ref[0], err_msg="sharded bfs_level != scipy")
+    require(same_bits(torch, got["sssp"], fast.sssp(plan, sources[0], n)), "sharded sssp != models.fast bit for bit")
+    pr_out = pagerank07(MESH_DSL_PR_ITERS)
+    pi, pv = got["pagerank07"].to_coo()
+    qi, qv = pr_out.to_coo()
+    require(np.array_equal(pi, qi), "example 07 inside the Context: pattern != outside")
+    np.testing.assert_allclose(pv, qv, rtol=1e-5, atol=0)
+    require(got["bfs02"].isequal(bfs02(sources[0])), "example 02 inside the Context != outside")
+    require(len(A07._sparse._sharded_plans) == 1, "example 07 inside the Context: no sharded plan was built")
+    for name, sr in srs.items():
+        cv, cs = got[f"summa {name}"]
+        dv, ds = dm.mxm(sa, ss_a, sb, ss_b, sr, FP32)
+        require(torch.equal(cs, ds), f"SUMMA {name}: structure != single device")
+        if name == "plus_times":
+            torch.testing.assert_close(cv, dv, rtol=1e-5, atol=0)
+            summa_pt_err = abs_err(cv, dv)
+        else:
+            require(same_bits(torch, cv, dv), "SUMMA min_plus != single device bit for bit")
+    require(summa_trop == 8, f"SUMMA min_plus: {summa_trop} gb_tropical launches, not one a shard")
+    acc, hit, fl = sg_tc
+    keep = hit.cpu().numpy()
+    require(np.array_equal(tc_rows, L_tc.rows[keep]) and np.array_equal(tc_cols, L_tc.cols[keep]), "sharded SpGEMM: entries != single device")
+    require(np.array_equal(tc_vals.view(np.int32), acc.cpu().numpy()[keep].view(np.int32)), "sharded SpGEMM: values != single device")
+    tri = int(tc_vals.astype(np.float64).sum())
+    require(tri == tc_ref and tc_flops == int(fl), f"sharded SpGEMM: {tri} triangles, scipy {tc_ref}")
+    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin", "tropical_mxm"):
+        require(launches[name] > 0, f"mesh path: {name} was not launched")
+    require(not any(plain.values()), f"mesh path: plain versions ran: {plain}")
+    say(
+        "6p mesh",
+        f"mesh {mesh.shape} on {dev} x8; (a) build_sharded_spmv_plan host {t_build:.2f} s, edges a shard {per_shard}, "
+        f"pad_to {splan.plans[0].e_pad} (x8 = {8 * splan.plans[0].e_pad} slots against the single plan's {plan.e_pad}), "
+        f"{splan.nbytes() / 2**20:.1f} MiB on the card; (b) sharded spmv {[f'{a}/{m}' for a, m in spmvs]} and spmv_masked "
+        f"{[f'{a}/{m}' for a, m in masked]} = single device (plus rtol 1e-5, the rest bit for bit); (c) pagerank "
+        f"({pr_it} of {MESH_PR_ITERS} it) = models.fast ({MESH_PR_ITERS} it) rtol 1e-5 (max_abs_err={pr_err!r}), bfs_level and sssp from {sources[0]} = "
+        f"models.fast bit for bit, levels = scipy; (d) example 07 ({MESH_DSL_PR_ITERS} it, rtol 1e-5) and example 02 inside "
+        f"the Context = outside ({t_dsl:.2f} s inside); (e) SUMMA {MESH_N}^2: min_plus bit for bit on {summa_trop} gb_tropical "
+        f"launches, plus_times rtol 1e-5 (max_abs_err={summa_pt_err!r}); (f) sharded SpGEMM, 8 row blocks: {tri} "
+        f"triangles = single device = scipy ({t_spgemm:.2f} s with the host analyses); dryrun checks passed "
+        f"(tc {tri_dry}); (g) launches {launches}, plain {plain}",
+    )
+
+    # (h) card times (CUDA events, warm)
+    ms = {}
+    ms["sharded spmv plus_times"] = cuda_ms(torch, lambda: parallel.sharded_spmv(splan, xv, "plus", "times"), 20)
+    ms["single spmv plus_times"] = cuda_ms(torch, lambda: fs.spmv(plan, xv, "plus", "times"), 20)
+    parts = [fs.spmv(p, xv, "plus", "times") for p in splan.plans]
+    ms["combine (psum of 8 n-vectors)"] = cuda_ms(torch, lambda: _collectives.psum(parts, dev), 20)
+    od = torch.from_numpy(outdeg).to(dev)
+    # tol -1: exactly 10 iterations, each still reading its change to the host
+    ms["sharded pagerank iteration"] = cuda_ms(torch, lambda: parallel.sharded_pagerank(splan, tol=-1.0, max_iters=10, outdeg=od), 2) / 10
+    ms["models.fast pagerank iteration"] = cuda_ms(torch, lambda: fast.pagerank(plan, outdeg, n, tol=0.0, max_iters=10), 2) / 10
+    ms[f"summa min_plus {MESH_N}^2"] = cuda_ms(torch, lambda: parallel.summa_mxm_arrays(sa, ss_a, sb, ss_b, srs["min_plus"], FP32, mesh), 3)
+    ms[f"gb_tropical {MESH_N}^3 (one launch)"] = cuda_ms(torch, lambda: kt.tropical_mxm(sa, sb, "min", "plus"), 3)
+    say("6p mesh", f"times (CUDA events, ms): {json.dumps({k: round(v, 4) for k, v in ms.items()})} on {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "plain": plain, "ms": ms}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -2442,6 +2723,12 @@ def main():
     interop = interop_phase(torch, np, dev, src, dst, w, n, smi)
     io_launches, io_plain = interop["launches"], interop["plain"]
 
+    # 6p. the mesh layer: 8 shards on the card, every mesh path at full size
+    mesh = mesh_phase(
+        torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_tc, U_tc, tc_ref, sg["a"], sparse["A"], smi
+    )
+    ms_launches, ms_plain = mesh["launches"], mesh["plain"]
+
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()
     kernels.reset_counts()
@@ -2453,16 +2740,16 @@ def main():
     # 7. launch counts of each path
     path_launches = {
         "spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "dsl": dsl_launches, "roofline": roof_launches,
-        "sparse_dsl": sp_launches, "compiled": cp_launches, "interop": io_launches,
+        "sparse_dsl": sp_launches, "compiled": cp_launches, "interop": io_launches, "mesh": ms_launches,
     }
     ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
         f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
         f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); sparse DSL path "
-        f"{sp_launches}; compiled loops {cp_launches}; interop {io_launches}; roofline tool {roof_launches}; plain "
-        f"calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {sp_plain}, {cp_plain}, {io_plain}, "
-        f"{roof_plain}",
+        f"{sp_launches}; compiled loops {cp_launches}; interop {io_launches}; mesh {ms_launches}; roofline tool "
+        f"{roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {sp_plain}, "
+        f"{cp_plain}, {io_plain}, {ms_plain}, {roof_plain}",
     )
     for name in KERNELS:
         for path in PATH_OF.get(name, ("spmv",)):
@@ -2472,7 +2759,7 @@ def main():
     for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
     require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
-    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, io_plain, roof_plain):
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, io_plain, ms_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above

@@ -52,8 +52,12 @@ scan, sort, selectk, compactify, split, flatten, reshape, GBTX
 ``Scalar``.  Each constructor among them puts its result on
 ``tx.config["platform"]``.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md queue:
-the mesh layer (``parallel``; queue 8).
+The mesh layer, ``parallel``: a ``Context`` scopes a mesh of shards on torch
+devices (the cards, or 8 CPU shards on the CPU platform; one card may hold
+several shards), and inside it the sparse ``mxv``/``vxm`` run the sharded
+SpMV engine, ``C(M) << A.mxm(B)`` the masked SpGEMM by mask-row blocks and
+dense products SUMMA; ``parallel.build_sharded_spmv_plan`` and its
+``sharded_*`` loops drive the sharded engine directly.
 """
 
 import importlib as _importlib
@@ -91,7 +95,7 @@ config = _Config(
 )
 
 _NAMESPACES = frozenset(
-    ["dtypes", "unary", "binary", "monoid", "semiring", "indexunary", "indexbinary", "select", "op", "agg", "tx", "io", "viz"]
+    ["dtypes", "unary", "binary", "monoid", "semiring", "indexunary", "indexbinary", "select", "op", "agg", "tx", "io", "viz", "parallel"]
 )
 
 _CLASS_HOMES = {
@@ -105,12 +109,6 @@ _CLASS_HOMES = {
     "until": "graphblas_tpu_torch.core.compiler",
     "loop_runner": "graphblas_tpu_torch.core.compiler",
     "until_runner": "graphblas_tpu_torch.core.compiler",
-}
-
-# attributes of the JAX package that wait for a later queue (ROADMAP.md;
-# queues 2-7 and 3b are ported)
-_WAITING = {
-    "parallel": 8,
 }
 
 is_blocking = False
@@ -148,14 +146,6 @@ def init(backend_name="torch", blocking=None):
     _initialized = True
 
 
-def _waiting(name, queue):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"graphblas_tpu_torch.{name} is not ported yet (ROADMAP.md, queue {queue})")
-
-    fn.__name__ = name
-    return fn
-
-
 def __getattr__(name):
     """Load the collections and the operator namespaces on first access."""
     if name in _CLASS_HOMES:
@@ -166,8 +156,6 @@ def __getattr__(name):
         value = _importlib.import_module("graphblas_tpu_torch.tx")
     elif name == "MAX_SIZE":
         value = 2**62  # the largest dimension the index space supports (int64 indices)
-    elif name in _WAITING:
-        return _waiting(name, _WAITING[name])
     else:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     globals()[name] = value
@@ -175,4 +163,4 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(globals().keys() | _NAMESPACES | set(_CLASS_HOMES) | set(_WAITING) | {"MAX_SIZE", "ss"})
+    return sorted(globals().keys() | _NAMESPACES | set(_CLASS_HOMES) | {"MAX_SIZE", "ss"})

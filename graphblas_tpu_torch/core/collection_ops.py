@@ -16,8 +16,10 @@ join ``sparse_mxv_sv``, ``C(M) << A.mxm(B)`` on the masked SpGEMM
 ``sparse_spgemm_full``, and assign and delete as host pattern surgery.  In
 an edge-layout loop body (``core/looplayout.py``) n-sized operands are
 lifted to the edge space and index-dependent ops raise ``LayoutUnsupported``.
-Not ported: SUMMA and the sharded plans under a mesh (``_mesh_context``:
-ROADMAP.md, queue 8).
+Inside an engaged mesh Context (``_mesh_context``, ``parallel``) the sparse
+``mxv``/``vxm`` take the sharded SpMV engine (a sparse vector densified
+under ``densify_limit``), the masked SpGEMM runs by mask-row blocks, and
+dense ``mxm``/``mxv``/``vxm`` run SUMMA.
 """
 
 import numpy as np
@@ -36,8 +38,16 @@ def _arrays_of(obj):
 
 
 def _mesh_context():
-    """The engaged mesh Context: none, the mesh layer is ROADMAP.md's queue 8."""
-    return None
+    """The engaged parallel.Context, if any (thread-local stack)."""
+    from ..parallel import current_context
+
+    return current_context()
+
+
+def _on(pair, device):
+    """(values, struct) moved to ``device`` (a mesh result lands on the mesh's
+    first device; the expression's output stays on its operands')."""
+    return tuple(t.to(device) for t in pair)
 
 
 def _sparse_of(obj):
@@ -639,6 +649,20 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
         bv, bs = _arrays_of(b)
         av = _cast_values(av, a.dtype, sr.binaryop.type_)
         bv = _cast_values(bv, b.dtype, sr.binaryop.type2)
+        # inside an engaged mesh Context, dense products run SUMMA over the
+        # mesh (UDT operands never do)
+        ctx = _mesh_context()
+        if ctx is not None and not isinstance(av, dict) and not isinstance(bv, dict) and not (a_is_vec and b_is_vec):
+            from ..parallel.summa import summa_mxm_arrays, summa_mxv_arrays
+
+            if not a_is_vec and not b_is_vec:
+                return _on(summa_mxm_arrays(av, as_, bv, bs, sr, sr.return_type, ctx.mesh), as_.device)
+            if b_is_vec:
+                return _on(summa_mxv_arrays(av, as_, bv, bs, sr, sr.return_type, ctx.mesh), as_.device)
+            # vxm: run as mxv of B^T, exact only for a commutative, non-positional multiply
+            mul_parent = sr.binaryop.parent
+            if getattr(mul_parent, "commutes_to", None) is mul_parent and sr.binaryop.positional is None:
+                return _on(summa_mxv_arrays(bv.T, bs.T, av, as_, sr, sr.return_type, ctx.mesh), as_.device)
         if a_is_vec and b_is_vec:
             cv, cs = _dm.vxm(av, as_, _dm.tmap(lambda x: x[:, None], bv), bs[:, None], sr, sr.return_type, strategy)
             return _dm.tmap(lambda x: x[0], cv), cs[0]
@@ -693,10 +717,19 @@ def _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape):
         if _vec_sparse_of(vec) is not None or out_sparse:
             # a sparse vector operand and/or a huge output dimension: the host
             # O(E log nnz(x)) join gives a SPARSE vector, nothing densifies
-            # at any dimension (the mesh's densified route: queue 8)
+            # at any dimension
             def sv_compute():
-                from .sparse import sparse_mxv_sv
+                from .sparse import SparseVectorData, _densify_limit, sparse_mxv, sparse_mxv_sv
 
+                ctx = _mesh_context()
+                if ctx is not None and vec.size <= _densify_limit() and n_out <= _densify_limit():
+                    # engaged mesh Context: densify x and run the device
+                    # (sharded-plan) engine, then re-sparsify the output
+                    xv, xs = _to_sv(vec).densify(dev)
+                    yv, ys = sparse_mxv(msp, pull_dir, a_first, xv, xs, sr, sr.return_type, x_type=vec.dtype)
+                    idx = torch.nonzero(ys).reshape(-1)
+                    sv2 = SparseVectorData(idx.cpu().numpy().astype(np.int64), _dt.to_numpy(yv[idx], sr.return_type), n_out)
+                    return Vector._from_sparse(sv2, sr.return_type, device=dev)
                 sv2 = sparse_mxv_sv(msp, pull_dir, a_first, _to_sv(vec), sr, sr.return_type, device=dev)
                 return Vector._from_sparse(sv2, sr.return_type, device=dev)
 
@@ -738,9 +771,18 @@ def _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape):
             keep = np.asarray(mv).astype(bool)
             mr, mc = mr[keep], mc[keep]
         asp, bsp = _operand_sps()
-        rows, cols, vals, _flops = sparse_mxm_masked(
-            asp, bsp, mr.astype(np.int64), mc.astype(np.int64), sr, sr.return_type, device=dev
-        )
+        ctx = _mesh_context()
+        if ctx is not None and ctx.mesh.size > 1:
+            # engaged mesh: by mask-row blocks, one plan a shard (parallel/spgemm.py)
+            from ..parallel.spgemm import sharded_masked_mxm_arrays
+
+            rows, cols, vals, _flops = sharded_masked_mxm_arrays(
+                asp, bsp, mr.astype(np.int64), mc.astype(np.int64), sr, sr.return_type, ctx
+            )
+        else:
+            rows, cols, vals, _flops = sparse_mxm_masked(
+                asp, bsp, mr.astype(np.int64), mc.astype(np.int64), sr, sr.return_type, device=dev
+            )
         sp = SparseMatrixData.from_arrays(rows, cols, vals, shape[0], shape[1], sorted_dedup=True)
         return Matrix._from_sparse(sp, sr.return_type, device=dev)
 

@@ -98,7 +98,7 @@ def _spgemm_flop_limit():
 class SparseMatrixData:
     """Canonical sorted-dedup'd COO (host numpy) + device and plan caches."""
 
-    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "_dev", "_plans", "_col_order", "_stats")
+    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "_dev", "_plans", "_sharded_plans", "_col_order", "_stats")
 
     def __init__(self, rows, cols, vals, nrows, ncols):
         self.rows = rows  # np.int64, row-major sorted
@@ -108,6 +108,7 @@ class SparseMatrixData:
         self.ncols = int(ncols)
         self._dev = {}
         self._plans = {}
+        self._sharded_plans = {}
         self._col_order = None
         self._stats = {}
 
@@ -224,6 +225,25 @@ class SparseMatrixData:
 
     def plan_ready(self, direction, device="cuda"):
         return (direction, str(torch.device(device))) in self._plans
+
+    def sharded_plan(self, direction, mesh):
+        """The sharded plan of one direction over an engaged mesh
+        (``parallel/fastspmv.py``): edges partition by destination range, one
+        SpmvPlan a shard on its shard's device.  Cached by direction and the
+        mesh's device list, repeats included, apart from ``_plans``: a shard's
+        plan is another graph's."""
+        key = (direction, mesh.key())
+        if key not in self._sharded_plans:
+            from ..parallel.fastspmv import build_sharded_spmv_plan
+
+            n = max(self.nrows, self.ncols)
+            src, dst = (self.cols, self.rows) if direction == "pull" else (self.rows, self.cols)
+            w = None
+            if self.vals is not None and not np.issubdtype(self.vals.dtype, np.bool_):
+                w = self.vals.astype(np.float32)
+            with _cap.constants():
+                self._sharded_plans[key] = build_sharded_spmv_plan(src, dst, w, n=n, mesh=mesh)
+        return self._sharded_plans[key]
 
     # ------------------------------------------------------------------
     # densify (guarded)
@@ -594,12 +614,21 @@ def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_t
     out_np = np.dtype(out_dtype.np_type)
     dev = xv.device
     from . import looplayout as _ll
+    from .collection_ops import _mesh_context
 
-    # in a compiled loop's warm step, build the loop-capable (total) plan
-    # once: it serves this n-space dispatch the same way AND the edge layout
-    loop_variant = _ll.probing() is not None or _ll.active() is not None
-    plan = sp.plan("pull" if pull else "push", dev, loop=loop_variant)
-    n = plan.n
+    # an engaged mesh Context of more than one shard: the float32 channel
+    # runs the sharded engine; integer channels stay on one device
+    ctx = _mesh_context()
+    sharded = ctx is not None and ctx.mesh.size > 1 and channel == np.float32
+    plan = None
+    if sharded:
+        n = max(sp.nrows, sp.ncols)
+    else:
+        # in a compiled loop's warm step, build the loop-capable (total) plan
+        # once: it serves this n-space dispatch the same way AND the edge layout
+        loop_variant = _ll.probing() is not None or _ll.active() is not None
+        plan = sp.plan("pull" if pull else "push", dev, loop=loop_variant)
+        n = plan.n
     ch = _dt.INT32 if channel == np.int32 else _dt.FP32
     # narrow integer outputs: contributions wrap to the output width in
     # Kernel C so min/max compare the wrapped (C-semantics) values
@@ -617,15 +646,21 @@ def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_t
     xs_in = xs
     if xs_in.shape[0] != n:
         xs_in = torch.cat([xs_in, xs_in.new_zeros(n - xs_in.shape[0])])
-    # every x present: the plan knows the structure statically.  Inside a
-    # compiled loop that is decided from a constant structure (structure
-    # hoisting) and never read from the card
-    if _cap.active() is not None:
-        hx = _cap.host_of(xs)
-        x_full = hx is not None and bool(hx.all())
+    if sharded:
+        from ..parallel.fastspmv import sharded_spmv_masked
+
+        splan = sp.sharded_plan("pull" if pull else "push", ctx.mesh)
+        yv, ys = (t.to(dev) for t in sharded_spmv_masked(splan, x_in, xs_in, add=add_name, mul=plan_mul))
     else:
-        x_full = bool(xs.all())
-    yv, ys = _fs.spmv_masked(plan, x_in, xs_in, add=add_name, mul=plan_mul, x_full=x_full, wrap=wrap)
+        # every x present: the plan knows the structure statically.  Inside a
+        # compiled loop that is decided from a constant structure (structure
+        # hoisting) and never read from the card
+        if _cap.active() is not None:
+            hx = _cap.host_of(xs)
+            x_full = hx is not None and bool(hx.all())
+        else:
+            x_full = bool(xs.all())
+        yv, ys = _fs.spmv_masked(plan, x_in, xs_in, add=add_name, mul=plan_mul, x_full=x_full, wrap=wrap)
     if pos is not None:
         _, delta = pos
         if delta:

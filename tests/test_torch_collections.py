@@ -23,6 +23,7 @@ import ast
 import inspect
 import os
 import pickle
+import types
 from types import SimpleNamespace
 
 import numpy as np
@@ -498,7 +499,9 @@ def test_waiting_features_raise_naming_their_queue(ref):
     before build, and their shape, nvals and format equal the reference's.
     So are the UDT collections (queue 3b): an empty and a filled UDT Matrix,
     Vector and Scalar equal the reference's.  And queue 7: ``A.tx``,
-    ``v.ss``, pickle and ``io`` give the reference's results."""
+    ``v.ss``, pickle and ``io`` give the reference's results.  Queue 8, the
+    last, is ported too: ``gb.parallel`` has the reference's public names,
+    and nothing raises naming a queue any more."""
     past_limit = [
         lambda g: g.Matrix(g.dtypes.FP64, 1 << 13, 1 << 12),
         lambda g: g.Matrix.from_coo([0], [0], [1.0], nrows=1 << 13, ncols=1 << 12),
@@ -540,14 +543,11 @@ def test_waiting_features_raise_naming_their_queue(ref):
     ]
     for fn in ported:
         assert fn(ns(P)) == fn(ns(ref))
-    cases = [
-        (lambda: P.parallel, "queue 8"),
-    ]
-    for fn, queue in cases:
-        with pytest.raises(NotImplementedError, match=queue):
-            out = fn()
-            if callable(out):
-                out()
+    # queue 8 is ported: gb.parallel has the reference's public names
+    def public(mod):
+        return sorted(n for n in dir(mod) if not n.startswith("_") and not isinstance(getattr(mod, n), types.ModuleType))
+
+    assert public(P.parallel) == public(ref.parallel)
     # 4096^2 = 2^24 cells is the dense-masked limit, and fits
     assert P.Matrix(P.dtypes.BOOL, 1 << 12, 1 << 12).shape == (4096, 4096)
 

@@ -274,6 +274,7 @@ EXAMPLES = [
     "05_triangle_count.py",
     "06_compiled_models.py",
     "07_sparse_pagerank.py",
+    "08_multichip.py",
     "09_components_louvain.py",
     "10_compiled_dsl_loops.py",
 ]

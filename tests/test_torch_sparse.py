@@ -647,12 +647,17 @@ def test_segment_min_max_follow_jax_on_nan_and_signed_zeros(ref):
 
 
 def test_queue_4_left_outs_name_their_queue():
-    """The mesh branches (queue 8) stay out: _mesh_context() is None; the
-    edge-layout loop body (queue 5) came with the compiled loops."""
+    """Both left-outs came later: the mesh branches with queue 8
+    (_mesh_context() is the engaged parallel.Context, None outside one; the
+    module's docstring names the mesh routes) and the edge-layout loop body
+    with the compiled loops (queue 5)."""
     from graphblas_tpu_torch.core import collection_ops
 
     assert collection_ops._mesh_context() is None
-    assert "queue 8" in collection_ops.__doc__ and "core/looplayout.py" in collection_ops.__doc__
+    with P.parallel.Context() as ctx:
+        assert collection_ops._mesh_context() is ctx
+    assert collection_ops._mesh_context() is None
+    assert "engaged mesh Context" in collection_ops.__doc__ and "core/looplayout.py" in collection_ops.__doc__
 
 
 def test_transposed_view_runs_its_parents_plan():

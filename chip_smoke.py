@@ -29,7 +29,8 @@ through scipy, GBTX and pickle, Matrix Market, and the tx statements on
 4096^2 operands.  The mesh layer: a 2 x 4 mesh of 8 shards on the card
 (sharded SpMV, PageRank, BFS and SSSP on the scale-19 graph, the DSL inside
 the Context, SUMMA at 4096^2, the masked SpGEMM in 8 row blocks).  The
-roofline tool's run, with the compare probe.  All through the hand-written CUDA kernels, but the
+port's bench entry point (graphblas_tpu_torch.bench), cold and warm, and the
+background plan build.  The roofline tool's run, with the compare probe.  All through the hand-written CUDA kernels, but the
 dense models' products, which are cuBLAS matmuls.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
@@ -183,14 +184,15 @@ KERNELS = {
     "tropical_mxm": ("graphblas_tpu_torch/csrc/tropical.cu", "graphblas_tpu/ops/pallas_mxm.py:74"),
     "compare_probe": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/tools/profile_spgemm_roofline.py:161"),
 }
-# the paths whose runs count a kernel's launches (the rest: the SpMV path)
+# the paths whose runs count a kernel's launches
 PATH_OF = {
-    "gather": ("spmv", "sparse_dsl", "compiled", "interop", "mesh"),
-    "gather_fill": ("spmv", "sparse_dsl", "compiled", "interop", "mesh"),
-    "segscan_contrib": ("spmv", "sparse_dsl", "compiled", "interop", "mesh"),
-    "segscan": ("spmv", "sparse_dsl", "compiled", "mesh"),
-    "eqjoin": ("spgemm", "sparse_dsl", "mesh"),
-    "tropical_mxm": ("tropical", "dsl", "mesh"),
+    "gather": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
+    "gather_fill": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
+    "segscan_contrib": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
+    "segscan_state": ("spmv", "bench"),
+    "segscan": ("spmv", "sparse_dsl", "compiled", "mesh", "bench"),
+    "eqjoin": ("spgemm", "sparse_dsl", "mesh", "bench"),
+    "tropical_mxm": ("tropical", "dsl", "mesh", "bench"),
     "compare_probe": ("roofline",),
 }
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
@@ -2398,6 +2400,196 @@ def mesh_phase(torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_
     return {"launches": launches, "plain": plain, "ms": ms}
 
 
+BENCH_KEYS_SHARED = (
+    "pagerank_gteps_per_iter", "bfs_gteps", "sssp_gteps", "pagerank_iter_ms", "bfs_ms", "sssp_ms",
+    "masked_spgemm_gflops", "tropical_mxm_tops",
+)
+BENCH_MODES = ("dsl_pagerank_mode", "dsl_bfs_mode", "dsl_bfs_dense_mode", "dsl_sssp_mode", "cc_mode")
+
+
+def bench_phase(torch, np, dev, scale, ef, seed, src, dst, w, n, lv_ref, dsl_6c, smi):
+    """Phase 6b (the bench entry point): ``graphblas_tpu_torch.bench.main
+    (["--device", "cuda"])`` in this process, (a) cold against a fresh cache
+    under chiprun_out/ (the graph, its plan and the DSL plans built by
+    tools.build_plan), (b) warm against the same cache: no SpmvPlan built
+    (build_spmv_plan counted), one JSON line each, every key of the
+    reference bench's set, every rate finite and > 0, the SpGEMM mask's
+    2,195,327 entries, bfs_levels = the scipy oracle's from the first
+    source, the *_mode strings and cc_iters = phase 6c's; (c) the background
+    plan build: on a fresh sparse collection of the scale-19 graph under
+    "auto", eager A.mxv(x) statements (plus_times and min_plus in turn, a
+    CUDA graph captured between two: a CUDA call from the build's thread
+    would break it) until the plan is ready, then on the plan: the generic
+    results = the plan's (plus_times rtol 1e-5, min_plus bit for bit); the
+    time to the first result with the background build and with
+    GRAPHBLAS_TPU_PLAN_BACKGROUND=0, the statements served on the generic
+    path, the ms of a statement during the build and after it; (d) the
+    warm run's launches: G, fill, C, S, the generic scan, eqjoin and
+    gb_tropical each > 0, no plain version.  Returns the warm run's launch
+    and plain-call counts and its detail."""
+    import contextlib
+    import io
+    import shutil
+
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Matrix, Vector, bench, binary, dtypes, kernels, semiring
+    from graphblas_tpu_torch.ops import fastspmv as fs
+    from graphblas_tpu_torch.tools.build_plan import env_set
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(REPO, "chiprun_out", "bench_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    plan_cache_before = os.environ.get("GRAPHBLAS_TPU_PLAN_CACHE")
+    build = fs.build_spmv_plan
+    builds = []
+
+    def counting(*a, **k):
+        builds.append(1)
+        return build(*a, **k)
+
+    def run_bench():
+        buf = io.StringIO()
+        env = (("GRAPHBLAS_BENCH_CACHE", cache), ("GRAPHBLAS_BENCH_SCALE", str(scale)), ("GRAPHBLAS_BENCH_EF", str(ef)))
+        with contextlib.ExitStack() as stack:
+            for k, v in env:
+                stack.enter_context(env_set(k, v))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            t0 = time.perf_counter()
+            res = bench.main(["--device", "cuda"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        require(len(lines) == 1 and json.loads(lines[0]) == res, f"6b: the bench printed {len(lines)} lines, not its JSON line")
+        return res, secs, lines[0]
+
+    fs.build_spmv_plan = counting
+    try:
+        cold, t_cold, line_cold = run_bench()
+        n_cold = len(builds)
+        builds.clear()
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        warm, t_warm, line_warm = run_bench()
+        torch.cuda.synchronize()
+        launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    finally:
+        fs.build_spmv_plan = build
+        shutil.rmtree(cache, ignore_errors=True)  # ~1 GiB of plans: not brought back
+    require(os.environ.get("GRAPHBLAS_TPU_PLAN_CACHE") == plan_cache_before, "6b: the bench left GRAPHBLAS_TPU_PLAN_CACHE set")
+    # the cold run builds the model plan and the DSL matrices' pull and push
+    # plans (tools.build_plan); the DSL runs load those
+    require(n_cold == 3, f"6b: the cold run built {n_cold} SpmvPlans, not 3")
+    require(not builds, f"6b: the warm run built {len(builds)} SpmvPlans")
+    want_modes = {k: dsl_6c[k] for k in BENCH_MODES}
+    want_modes["dsl_bfs_mode"] = want_modes["dsl_bfs_mode"].split("/")[0]  # the reference's key has no layout
+    for res in (cold, warm):
+        d = res["detail"]
+        require(set(d) == set(bench.KEYS), f"6b: detail keys {sorted(set(d) ^ set(bench.KEYS))} differ")
+        require(d["platform"] == "cuda" and d["device"] == torch.cuda.get_device_name(0), f"6b: platform {d['platform']}, device {d['device']}")
+        for k, v in d.items():
+            if k.endswith(("_gteps", "_gteps_per_iter", "_gflops", "_tops", "_ms", "_ratio")):
+                require(isinstance(v, float) and np.isfinite(v) and v > 0, f"6b: {k} = {v!r}")
+        require(d["masked_spgemm_mask_nnz"] == 2195327, f"6b: masked_spgemm_mask_nnz {d['masked_spgemm_mask_nnz']}")
+        if seed == bench.SEED:
+            require(d["bfs_levels"] == int(lv_ref[0].max()), f"6b: bfs_levels {d['bfs_levels']} != scipy's {int(lv_ref[0].max())}")
+        for k, v in want_modes.items():
+            require(d[k] == v, f"6b: {k} {d[k]} != phase 6c's {v}")
+        require(d["cc_iters"] == dsl_6c["cc_iters"], f"6b: cc_iters {d['cc_iters']} != phase 6c's {dsl_6c['cc_iters']}")
+    for name in ("gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "eqjoin", "tropical_mxm"):
+        require(launches[name] > 0, f"6b: {name} was not launched on the bench path")
+    require(not any(plain.values()), f"6b: plain versions ran on the bench path: {plain}")
+    say(
+        "6b bench",
+        f"(a) cold run {t_cold:.2f} s of host time (3 SpmvPlans built: the model plan and the DSL's pull and "
+        f"push); (b) warm run {t_warm:.2f} s, no SpmvPlan built; keys = the reference's and device, rates finite "
+        f"and > 0, mask {warm['detail']['masked_spgemm_mask_nnz']} entries, bfs_levels {warm['detail']['bfs_levels']} "
+        f"= scipy's, modes and cc_iters = 6c's; (d) launches {launches}, no plain version; on {smi}",
+    )
+    print(f"[6b bench] cold: {line_cold}", flush=True)
+    print(f"[6b bench] warm: {line_warm}", flush=True)
+
+    # (c) the background plan build on a fresh sparse collection
+    FP32 = dtypes.FP32
+    t0 = time.perf_counter()
+    A = Matrix.from_coo(src, dst, w.astype(np.float32), FP32, nrows=n, ncols=n, dup_op=binary.plus)
+    t_from_coo = time.perf_counter() - t0
+    require(A._sparse is not None and A._sparse.nvals >= (1 << 17), "6b (c): A is a sparse collection past auto's 2^17")
+    x = Vector.from_dense(np.random.default_rng(13).random(n).astype(np.float32))
+    srs = (semiring.plus_times, semiring.min_plus)
+    xt = torch.ones(1 << 20, device=dev)
+    served = []  # (semiring index, ms, on the plan, values, structure)
+    captures = 0
+    with env_set("GRAPHBLAS_TPU_PLAN_CACHE", ""), env_set("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1"), gb.tx.config.set(mxv_strategy="auto"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_first = t_ready = None
+        k = 0
+        while len([s for s in served if s[2]]) < 4:
+            require(time.perf_counter() - t0 < 120, "6b (c): the plan was not ready after 120 s")
+            g0 = kernels.launch_counts()["gather"]
+            ts = time.perf_counter()
+            y = A.mxv(x, srs[k % 2]).new()
+            yv, ys = y._values, y._struct
+            torch.cuda.synchronize()
+            te = time.perf_counter()
+            on_plan = kernels.launch_counts()["gather"] > g0
+            t_first = te - t0 if t_first is None else t_first
+            if on_plan and t_ready is None:
+                t_ready = ts - t0
+            served.append((k % 2, (te - ts) * 1e3, on_plan, yv, ys))
+            if not on_plan:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    zt = xt * 2.0 + 1.0
+                graph.replay()
+                captures += 1
+            k += 1
+        torch.cuda.synchronize()
+        n_generic = sum(1 for s in served if not s[2])
+        require(n_generic >= 1 and not served[0][2], "6b (c): the first statement did not answer on the generic path")
+        require(float(zt[0]) == 3.0, "6b (c): a CUDA graph captured during the build is wrong")
+        require(all(s[2] for s in served[n_generic:]), "6b (c): a statement went back to the generic path")
+        plan_res = {s[0]: s for s in served[n_generic:]}
+        rel = 0.0
+        for i, _, _, yv, ys in served[:n_generic]:
+            pv, ps_ = plan_res[i][3], plan_res[i][4]
+            require(torch.equal(ys, ps_), "6b (c): the generic path's structure differs from the plan's")
+            if i == 0:
+                # float32 sums in two orders (index_add_ against C's scan) over
+                # in-degrees of thousands: the plan-against-generic tolerance of
+                # tests/test_torch_sparse.py
+                torch.testing.assert_close(yv, pv, rtol=1e-5, atol=0)
+                rel = max(rel, float(((yv - pv).abs() / pv.abs().clamp_min(1e-30)).max()))
+            else:
+                require(torch.equal(yv.view(torch.int32), pv.view(torch.int32)), "6b (c): min_plus on the generic path != the plan's bit for bit")
+        # the blocking build: another collection of the same pattern, no background
+        B = Matrix._from_sparse(A._sparse.copy(), FP32)
+        with env_set("GRAPHBLAS_TPU_PLAN_BACKGROUND", "0"):
+            g0 = kernels.launch_counts()["gather"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yb = B.mxv(x, srs[0]).new()
+            yb_v = yb._values
+            torch.cuda.synchronize()
+            t_first_blocking = time.perf_counter() - t0
+        require(kernels.launch_counts()["gather"] > g0, "6b (c): GRAPHBLAS_TPU_PLAN_BACKGROUND=0 did not block on the plan")
+        torch.testing.assert_close(yb_v, plan_res[0][3], rtol=1e-6, atol=0)
+    during = [s[1] for s in served[:n_generic]]
+    after = [s[1] for s in served[n_generic:]]
+    say(
+        "6b bench",
+        f"(c) background plan build, scale {n.bit_length() - 1} (from_coo {t_from_coo:.2f} s): first result "
+        f"{t_first * 1e3:.2f} ms with the background build against {t_first_blocking * 1e3:.2f} ms with "
+        f"GRAPHBLAS_TPU_PLAN_BACKGROUND=0; {n_generic} statements on the generic path until the plan was ready at "
+        f"{t_ready:.3f} s, {captures} CUDA graphs captured meanwhile; ms a statement during the build: median "
+        f"{statistics.median(during):.3f} (min {min(during):.3f}, max {max(during):.3f}), after: median "
+        f"{statistics.median(after):.3f} ({after}); generic = plan (plus_times rtol 1e-5, max relative error "
+        f"{rel!r}; min_plus bit for bit); "
+        f"phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {"launches": launches, "plain": plain, "detail": warm["detail"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -2708,8 +2900,13 @@ def main():
     dsl_launches, dsl_plain = dsl["launches"], dsl["plain"]
 
     # 6s. the sparse DSL: examples 07, 02, 01 and 05 on sparse collections at
-    # scale 19, and the generic models
-    sparse = sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref, lv_ref, smi)
+    # scale 19, and the generic models.  6s and 6i time the first eager
+    # statement's blocking plan build and count the plan path's launches from
+    # it on: no background build there (phase 6b times that one)
+    from graphblas_tpu_torch.tools.build_plan import env_set
+
+    with env_set("GRAPHBLAS_TPU_PLAN_BACKGROUND", "0"):
+        sparse = sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref, lv_ref, smi)
     sp_launches, sp_plain = sparse["launches"], sparse["plain"]
 
     # 6c. compiled loops: models.dsl's recipes as CUDA graph replays at scale 19
@@ -2720,7 +2917,8 @@ def main():
     dense_models_phase(torch, np, dev, g, args.models_scale, smi)
 
     # 6i. interop and tx: io, GBTX, pickle and the tx statements on the card
-    interop = interop_phase(torch, np, dev, src, dst, w, n, smi)
+    with env_set("GRAPHBLAS_TPU_PLAN_BACKGROUND", "0"):
+        interop = interop_phase(torch, np, dev, src, dst, w, n, smi)
     io_launches, io_plain = interop["launches"], interop["plain"]
 
     # 6p. the mesh layer: 8 shards on the card, every mesh path at full size
@@ -2728,6 +2926,10 @@ def main():
         torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_tc, U_tc, tc_ref, sg["a"], sparse["A"], smi
     )
     ms_launches, ms_plain = mesh["launches"], mesh["plain"]
+
+    # 6b. the bench entry point, cold and warm, and the background plan build
+    bench = bench_phase(torch, np, dev, args.scale, args.ef, args.seed, src, dst, w, n, lv_ref, comp["dsl"], smi)
+    bn_launches, bn_plain = bench["launches"], bench["plain"]
 
     # 6r. the roofline tool's run: its own path, the compare probe's
     t_phase = time.perf_counter()
@@ -2741,25 +2943,26 @@ def main():
     path_launches = {
         "spmv": launches, "spgemm": sg_launches, "tropical": tr_launches, "dsl": dsl_launches, "roofline": roof_launches,
         "sparse_dsl": sp_launches, "compiled": cp_launches, "interop": io_launches, "mesh": ms_launches,
+        "bench": bn_launches,
     }
     ty_launches, ty_plain = typed["launches"], typed["plain"]
     say(
         "7 counts",
         f"launches: SpMV path {launches}; SpGEMM path {sg_launches}; typed operator paths {ty_launches}; "
         f"tropical path {tr_launches}; DSL path {dsl_launches} (APSP {dsl['rounds']} rounds); sparse DSL path "
-        f"{sp_launches}; compiled loops {cp_launches}; interop {io_launches}; mesh {ms_launches}; roofline tool "
-        f"{roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, {sp_plain}, "
-        f"{cp_plain}, {io_plain}, {ms_plain}, {roof_plain}",
+        f"{sp_launches}; compiled loops {cp_launches}; interop {io_launches}; mesh {ms_launches}; bench {bn_launches}; "
+        f"roofline tool {roof_launches}; plain calls {plain_calls}, {sg_plain}, {ty_plain}, {tr_plain}, {dsl_plain}, "
+        f"{sp_plain}, {cp_plain}, {io_plain}, {ms_plain}, {bn_plain}, {roof_plain}",
     )
     for name in KERNELS:
-        for path in PATH_OF.get(name, ("spmv",)):
+        for path in PATH_OF[name]:
             require(path_launches[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("gather", "segscan"):
         require(sg_launches[name] > 0, f"{name} was not launched on the SpGEMM path (the reduce net)")
     for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
     require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
-    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, io_plain, ms_plain, roof_plain):
+    for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, io_plain, ms_plain, bn_plain, roof_plain):
         require(not any(calls.values()), f"plain versions ran on a path: {calls}")
 
     # 8. times, bench.py's definitions, after the warm-up runs above
@@ -2784,13 +2987,19 @@ def main():
         masked_spgemm_gflops=sg_flops / t_sg / 1e9, masked_spgemm_ms=t_sg * 1e3,
         tropical_mxm_tops=2 * args.mt**3 / t_trop / 1e12, tropical_mxm_ms=t_trop * 1e3,
     )
-    say("8 times", f"{json.dumps(times)} on {smi}; total run {time.perf_counter() - t_start:.1f} s")
+    bench_keys = {k: bench["detail"][k] for k in BENCH_KEYS_SHARED}
+    say(
+        "8 times",
+        f"{json.dumps(times)}; the bench's (6b, warm run, less its dispatch floor of "
+        f"{bench['detail']['dispatch_floor_ms']!r} ms) {json.dumps(bench_keys)} on {smi}; total run "
+        f"{time.perf_counter() - t_start:.1f} s",
+    )
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(path_launches[path][name] for path in PATH_OF.get(name, ("spmv",))), **kres[name],
+            "launches": sum(path_launches[path][name] for path in PATH_OF[name]), **kres[name],
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

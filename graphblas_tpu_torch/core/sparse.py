@@ -12,6 +12,11 @@ signatures; values ride the carriers of ``core.dtypes``.
   from 2^17 entries, or ``tx.config["mxv_strategy"]``), it runs on the plan
   engine (``ops.fastspmv.spmv_masked``: Kernels G, C and the generic scan);
   else the generic gather + ``_segment_reduce``, exact for every semiring.
+  Under "auto" an eager dispatch whose plan is not built yet starts its build
+  in a background thread and runs on the generic path until it lands
+  (``SparseMatrixData.plan_background``).  Plans are cached per direction and
+  device, and on disk by pattern where GRAPHBLAS_TPU_PLAN_CACHE names a
+  directory.
 - ``sparse_spgemm_analyze`` is the host pattern analysis, copied with its
   constants, so every bucket array compares slot for slot with the
   reference; ``sparse_spgemm_execute`` runs a plan on the plan's device:
@@ -24,6 +29,11 @@ signatures; values ride the carriers of ``core.dtypes``.
   across buckets); block-dense 128 x 128 bricks, where the plan has them, as
   batched matmuls (``torch.bmm``, full float32).
 """
+
+import hashlib
+import os
+import threading
+import zipfile
 
 import numpy as np
 import torch
@@ -98,7 +108,9 @@ def _spgemm_flop_limit():
 class SparseMatrixData:
     """Canonical sorted-dedup'd COO (host numpy) + device and plan caches."""
 
-    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "_dev", "_plans", "_sharded_plans", "_col_order", "_stats")
+    __slots__ = (
+        "rows", "cols", "vals", "nrows", "ncols", "_dev", "_plans", "_bg_builds", "_sharded_plans", "_col_order", "_stats"
+    )
 
     def __init__(self, rows, cols, vals, nrows, ncols):
         self.rows = rows  # np.int64, row-major sorted
@@ -108,6 +120,7 @@ class SparseMatrixData:
         self.ncols = int(ncols)
         self._dev = {}
         self._plans = {}
+        self._bg_builds = {}  # direction -> (done event, result box) of a background plan build
         self._sharded_plans = {}
         self._col_order = None
         self._stats = {}
@@ -205,8 +218,10 @@ class SparseMatrixData:
 
     def plan(self, direction, device="cuda", loop=False):
         """SpmvPlan for 'pull' (dst=rows, src=cols) or 'push' (dst=cols) on
-        ``device``, built once (blocking: the port's plan build has no router)
-        and cached.
+        ``device``, built once and cached: in memory by direction and device,
+        and on disk when GRAPHBLAS_TPU_PLAN_CACHE names a directory
+        (``_host_plan``).  A background build of the direction in flight
+        (``plan_background``) is waited for, not repeated.
 
         ``loop=True`` asks for the loop-capable plan (total, with the loop
         route): compiled DSL loops need it for the edge layout
@@ -214,17 +229,95 @@ class SparseMatrixData:
         way, so it replaces the plain plan in the cache; a CUDA graph
         captured on the plain plan keeps its tensors (``core/capture.py``)."""
         key = (direction, str(torch.device(device)))
-        cached = self._plans.get(key)
-        if cached is None or (loop and not (cached.total and cached.loop_idx is not None)):
-            n = max(self.nrows, self.ncols)
-            src, dst = (self.cols, self.rows) if direction == "pull" else (self.rows, self.cols)
-            w = _channel_weights(self.vals)
+        if not _serves(self._plans.get(key), loop):
+            self._take_background(direction, device, wait=True)
+        if not _serves(self._plans.get(key), loop):
             with _cap.constants():
-                self._plans[key] = _fs.build_spmv_plan(src, dst, w, n=n, loop_net=loop, total=loop, device=device)
+                self._plans[key] = self._host_plan(direction, loop).to(device)
         return self._plans[key]
 
     def plan_ready(self, direction, device="cuda"):
+        """Whether the plan of ``direction`` is on ``device``.  A background
+        build found finished is taken in here (its plan moved to ``device``);
+        one that failed raises."""
+        self._take_background(direction, device, wait=False)
         return (direction, str(torch.device(device))) in self._plans
+
+    def plan_background(self, direction, device="cuda"):
+        """Start building the plan of ``direction`` in a daemon thread, unless
+        it is on ``device`` already or a build of it is in flight.
+
+        The eager "auto" dispatch serves the generic path meanwhile
+        (``sparse_mxv``), so a first ``A.mxv(x)`` on a big graph answers at
+        once instead of stalling for the pattern analysis.  The thread does
+        host work only: it builds on the CPU (and writes the cache file), and
+        the dispatching thread moves the plan to its device when it first
+        finds the build done (``plan_ready``, ``plan``).  So the thread makes
+        no CUDA call, which would break a CUDA graph captured meanwhile
+        (torch's default ``capture_error_mode="global"``).  A failed build is
+        kept and raises on the next ``plan_ready`` or ``plan`` of the
+        direction."""
+        if (direction, str(torch.device(device))) in self._plans or direction in self._bg_builds:
+            return
+        done, box = threading.Event(), {}
+
+        def work():
+            try:
+                box["plan"] = self._host_plan(direction, loop=False)
+            except Exception as ex:  # raised in the dispatching thread
+                box["error"] = ex
+            finally:
+                done.set()
+
+        self._bg_builds[direction] = (done, box)
+        threading.Thread(target=work, name=f"graphblas-plan-{direction}", daemon=True).start()
+
+    def _take_background(self, direction, device, wait):
+        """Take in the background build of ``direction`` once it is done
+        (waiting for it when ``wait``): its plan goes to ``device``, and a
+        failure raises."""
+        bg = self._bg_builds.get(direction)
+        if bg is None:
+            return
+        done, box = bg
+        if not (done.wait() if wait else done.is_set()):
+            return
+        del self._bg_builds[direction]
+        if "plan" not in box:
+            raise RuntimeError(f"the background build of the {direction} plan failed") from box.get("error")
+        key = (direction, str(torch.device(device)))
+        if key not in self._plans:
+            with _cap.constants():
+                self._plans[key] = box["plan"].to(device)
+
+    def _host_plan(self, direction, loop):
+        """The plan of ``direction`` on the CPU: loaded from the on-disk cache
+        with this matrix's own weights where GRAPHBLAS_TPU_PLAN_CACHE holds
+        this pattern's file (for a plain request, the plain plan's or else the
+        loop-capable one's, which serves it as in memory), else built (and
+        written there).  A file there that is not a port plan file is rebuilt
+        and overwritten; any other error raises."""
+        src, dst = (self.cols, self.rows) if direction == "pull" else (self.rows, self.cols)
+        w = _channel_weights(self.vals)
+        path = _plan_cache_path(self, direction, loop, w is None)
+        for variant in sorted({loop, True}):
+            found = _plan_cache_path(self, direction, variant, w is None)
+            if found is not None and os.path.exists(found):
+                try:
+                    return _fs.load_spmv_plan(found, w=w, device="cpu")
+                except (ValueError, EOFError, zipfile.BadZipFile):
+                    pass  # not a port plan file: rebuilt and overwritten below
+        plan = _fs.build_spmv_plan(
+            src, dst, w, n=max(self.nrows, self.ncols), loop_net=loop, total=loop, device="cpu"
+        )
+        if path is not None:
+            # written under a private name, then renamed: a reader (another
+            # thread or process) sees the whole file or none
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path[:-4]}.{os.getpid()}.{threading.get_ident()}.tmp.npz"
+            _fs.save_spmv_plan(plan, tmp)
+            os.replace(tmp, path)
+        return plan
 
     def sharded_plan(self, direction, mesh):
         """The sharded plan of one direction over an engaged mesh
@@ -274,6 +367,38 @@ def _scatter_dense(flat, vals, dtype, shape, device):
         dv[at] = _dt.to_tensor(vals, dtype, device)
         ds[at] = True
     return dv.reshape(shape), ds.reshape(shape)
+
+
+def _serves(plan, loop):
+    """Whether a cached plan serves a request for the plain (``loop`` false)
+    or the loop-capable plan."""
+    return plan is not None and (not loop or (plan.total and plan.loop_idx is not None))
+
+
+def _pattern_digest(sp, weightless):
+    """The reference's key of a plan file: blake2b (16 bytes) over int64
+    [nrows, ncols, nvals], the rows, the cols, and b"noW" for a matrix
+    without weights.  The routes are pattern analysis only, so one file
+    serves every matrix of the pattern, each loaded with its own weights."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.int64([sp.nrows, sp.ncols, sp.nvals]).tobytes())
+    h.update(sp.rows.tobytes())
+    h.update(sp.cols.tobytes())
+    if weightless:
+        h.update(b"noW")
+    return h.hexdigest()
+
+
+def _plan_cache_path(sp, direction, loop, weightless):
+    """The plan file of ``sp`` in GRAPHBLAS_TPU_PLAN_CACHE, or None when that
+    names no directory.  The prefix is one the JAX package never reads (its
+    files are ``gbtpu_plan3_*``, another format), so both packages can share
+    a directory."""
+    cache_dir = os.environ.get("GRAPHBLAS_TPU_PLAN_CACHE")
+    if not cache_dir:
+        return None
+    variant = "loopT_" if loop else ""
+    return os.path.join(cache_dir, f"gbtorch_plan1_{variant}{direction}_{_pattern_digest(sp, weightless)}.npz")
 
 
 def _sort_order(major, minor, n_minor):
@@ -457,6 +582,13 @@ def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
     if _plan_allowed(sp, strategy, xv):
         channel = _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv, x_type)
     if channel is not None:
+        direction = "pull" if pull else "push"
+        eager = _cap.active() is None and probe is None and lctx is None
+        setting = os.environ.get("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1")
+        if _serve_generic_while_building(strategy, eager, setting, lambda: sp.plan_ready(direction, xv.device)):
+            sp.plan_background(direction, xv.device)
+            channel = None
+    if channel is not None:
         yv, ys = _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type)
         if yv.shape[0] != n_out:
             yv, ys = yv[:n_out], ys[:n_out]
@@ -608,6 +740,17 @@ def _plan_allowed(sp, strategy, xv):
     if strategy == "auto":
         return xv.is_cuda and sp.nvals >= _PLAN_MIN_NVALS
     return strategy == "plan"
+
+
+def _serve_generic_while_building(strategy, eager, setting, ready):
+    """Whether a dispatch the plan engine would take starts the plan's
+    background build and runs on the generic path meanwhile: under "auto"
+    (strategy "plan" always blocks), for an eager dispatch (a compiled
+    loop's scope or layout probe bakes the path it records into the loop,
+    so it blocks), unless GRAPHBLAS_TPU_PLAN_BACKGROUND (``setting``) is "0",
+    and while the plan is not ready (``ready()``, asked last: it may take in
+    a finished build, which moves the plan to the device)."""
+    return strategy == "auto" and eager and setting != "0" and not ready()
 
 
 def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type):

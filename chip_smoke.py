@@ -31,7 +31,8 @@ through scipy, GBTX and pickle, Matrix Market, and the tx statements on
 the Context, SUMMA at 4096^2, the masked SpGEMM in 8 row blocks).  The
 port's bench entry point (graphblas_tpu_torch.bench), cold and warm, and the
 background plan build.  The roofline tool's run, with the compare probe.  All through the hand-written CUDA kernels, but the
-dense models' products, which are cuBLAS matmuls.  One line per check:
+dense models' products, which are torch._int_mm's int8 counts and cuBLAS
+matmuls.  One line per check:
 
   1. device: the card's name and power limit (nvidia-smi)
   2. build: the kernels built from graphblas_tpu_torch/csrc with nvcc
@@ -50,8 +51,11 @@ dense models' products, which are cuBLAS matmuls.  One line per check:
      ms by the profiler, summed per execute against the summed bounds) and
      four semirings on its largest bucket and on the RMAT plan's (256, 256)
      one, the tropical matmul's four semirings at 2048^3 and a ragged
-     (2047, 2045) x (2045, 2049) min_plus, and the compare probe against
-     theirs, at the roofline tool's (2^14, 128) and at 16 times it
+     (2047, 2045) x (2045, 2049) min_plus, the compare probe against
+     theirs, at the roofline tool's (2^14, 128) and at 16 times it, and the
+     integer matmul gb_imatmul bit for bit on wrapping values: int32 at the
+     tropical's size, int64 at half of it, a ragged int32
+     (1000, 1030) x (1030, 999)
   4. graph and plans: host build times, plan sizes on the device
   5. algorithms: kernel path against the plain path on the same card; SpMV,
      masked SpMV and parent BFS without endpoint routes against the same with
@@ -77,14 +81,16 @@ dense models' products, which are cuBLAS matmuls.  One line per check:
      diagonal): APSP by D(accum=min) << D.mxm(D, min_plus) until it stops
      changing (one gb_tropical launch at 4096^3 a round) against the same
      statements on the plain versions (bit for bit) and scipy float64
-     (rtol 1e-5); example 02's level BFS (any_pair, the f32 overlap matmul)
+     (rtol 1e-5); example 02's level BFS (any_pair, the int8 overlap counts)
      and example 01's SSSP (min_plus mxv, the generic contraction) against
      scipy; one statement of each op family at 4096^2 (mxm plus_times[FP32],
      ewise add/mult/union, apply, select, reduce with plus, min and a user
      monoid, extract, assign, C(~M.S, accum, replace)) against the same
-     statement in the port on the CPU; the generic contraction at 2048^2
-     (INT32 plus_times against numpy mod 2^32, FP32 min_plus against
-     gb_tropical); times (CUDA events) and peak memory
+     statement in the port on the CPU; INT32 plus_times at 2048^2 on
+     gb_imatmul (one launch, counted as the DSL path's) and under
+     mxm_strategy="generic" on the generic contraction, both against numpy
+     mod 2^32; FP32 min_plus on the generic contraction against gb_tropical;
+     times (CUDA events) and peak memory
   6s sparse dsl. Matrix.from_coo at scale 19 (sparse without a config
      change): (a) example 07's PageRank (20 iterations, as written and with
      the teleport term at every vertex) against its plain replay (rtol 1e-5)
@@ -108,15 +114,17 @@ dense models' products, which are cuBLAS matmuls.  One line per check:
      edge layout's, launches per step; the kernels torch.profiler sees in a
      second run of the main path = the launches counted
   6m dense models. On rmat(14, 16, seed=5) on the card (n = 16384, the scale
-     the reference's louvain docstring names): triangle_count = scipy's
-     int64 count; k_truss at k = 4 and 12 = a scipy peeling fixpoint, edge for
-     edge, in as many rounds; betweenness_centrality over 256 numpy-seeded
+     the reference's louvain docstring names): triangle_count (int8 counts,
+     torch._int_mm) = scipy's int64 count = the f32 path's; k_truss at k = 4
+     and 12 = a scipy peeling fixpoint and the f32 path, edge for edge, in as
+     many rounds; betweenness_centrality over 256 numpy-seeded
      sources = a float64 scipy level-synchronous Brandes (rtol 1e-4);
      louvain = the port's CPU run at scale 11, and at scale 14 its f32
      modularity = a float64 numpy one; maximal_matching on the scale-19 graph
      is a maximal matching (numpy) and = its CPU run; the UDT recipes of
      tests/test_udt.py on the card = the CPU bit for bit; each model's ms
-     beside its least time, torch._int_mm beside the f32 block product, the
+     beside its least time (and the triangle count's and the k-truss's
+     beside their f32 paths'), torch._int_mm beside the f32 block product, the
      rounds, and the phase's peak device memory
   6i interop and tx. The scale-19 graph as a scipy CSR through
      io.from_scipy_sparse (sparse on the card; to_scipy_sparse gives its
@@ -183,6 +191,8 @@ KERNELS = {
     "eqjoin": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/ops/pallas_eqjoin.py:126"),
     "tropical_mxm": ("graphblas_tpu_torch/csrc/tropical.cu", "graphblas_tpu/ops/pallas_mxm.py:74"),
     "compare_probe": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/tools/profile_spgemm_roofline.py:161"),
+    # no Pallas kernel: the integer matmul the JAX package leaves to XLA
+    "imatmul": ("graphblas_tpu_torch/csrc/imatmul.cu", "graphblas_tpu/ops/densemasked.py:565"),
 }
 # the paths whose runs count a kernel's launches
 PATH_OF = {
@@ -194,6 +204,7 @@ PATH_OF = {
     "eqjoin": ("spgemm", "sparse_dsl", "mesh", "bench"),
     "tropical_mxm": ("tropical", "dsl", "mesh", "bench"),
     "compare_probe": ("roofline",),
+    "imatmul": ("dsl",),
 }
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
 # memory rate, operations over the rate of their kind
@@ -206,7 +217,10 @@ F32_OPS_PER_S = 67e12  # float32, an FMA counted as two
 # HBM3 at 700 W (117.5 and 62.3 a clock measured; PERF.md section 6)
 F32_LANE_OPS_PER_S = 132 * 128 * 1.98e9
 FMNMX_OPS_PER_S = 132 * 64 * 1.98e9
-INT32_OPS_PER_S = 132 * 64 * 1.98e9  # int32 instructions (the eqjoin key compares)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # int32 instructions (the eqjoin key compares, gb_imatmul's IMADs)
+# integer instructions per (i, j, k) of gb_imatmul: one IMAD for int32; for
+# int64 the low product and sum (IMAD.WIDE.U32) and two cross products
+IMATMUL_OPS = {"int32": 1, "int64": 3}
 
 
 def say(phase, msg):
@@ -307,6 +321,7 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
 
     from graphblas_tpu_torch.kernels import eqjoin as ke
     from graphblas_tpu_torch.kernels import gather as kg
+    from graphblas_tpu_torch.kernels import imatmul as ki
     from graphblas_tpu_torch.kernels import segscan as ks
     from graphblas_tpu_torch.kernels import tropical as kt
     from graphblas_tpu_torch.ops.permute import apply_network_plain, compose_reference_network
@@ -572,6 +587,21 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
         lambda: kt.tropical_mxm(ra, rb, "min", "plus"), lambda: kt.tropical_mxm_plain(ra, rb, "min", "plus"),
         (ra, rb), 0, reps=10, n_ops=2 * ra.shape[0] * ra.shape[1] * rb.shape[1], ops_per_s=tropical_ops_per_s("plus"),
     )
+    # the integer matmul (the DSL path's INT32 plus_times at mt^2) on values
+    # over the whole range, so products and sums wrap; bit for bit.  No
+    # PyTorch call computes it: torch.matmul raises on CUDA integer tensors
+    for dt, (m, k, n) in ((torch.int32, (mt, mt, mt)), (torch.int64, (mt // 2,) * 3), (torch.int32, (1000, 1030, 999))):
+        info = torch.iinfo(dt)
+        ia = torch.randint(info.min, info.max, (m, k), generator=gen, device=dev, dtype=dt)
+        ib = torch.randint(info.min, info.max, (k, n), generator=gen, device=dev, dtype=dt)
+        kind = str(dt).split(".")[-1]
+        tile = ki.tile_for(m, n, torch.cuda.get_device_properties(dev).multi_processor_count, ki.TILES[dt], ki.BLOCKS_PER_SM, ki.WAVE_COST)
+        record(
+            "imatmul", f"{kind} ({m}, {k}) x ({k}, {n}), tile {tile} (library: none, torch.matmul raises on CUDA integer tensors)",
+            lambda: ki.imatmul(ia, ib), lambda: ki.imatmul_plain(ia, ib), (ia, ib), 0, reps=10,
+            n_ops=IMATMUL_OPS[kind] * m * k * n, ops_per_s=INT32_OPS_PER_S,
+        )
+        del ia, ib
     # the compare probe: K compare-adds per element, 3 f32 instructions each
     pa = torch.randint(0, 100, (1 << 14, 128), generator=gen, device=dev).float()
     pb = torch.randint(0, 40, (1 << 14, 128), generator=gen, device=dev).float()
@@ -831,7 +861,7 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
 
     t_phase = time.perf_counter()
     require(gb.tx.config["platform"] == "cuda", "collections default to the card")
-    # why integer values take the generic contraction: torch has no int32 GEMM on CUDA
+    # why integer values need gb_imatmul: torch has no int32 or int64 GEMM on CUDA
     probe = {}
     for dt in (torch.int32, torch.int64, torch.int8):
         x = torch.ones(64, 64, dtype=dt, device=dev)
@@ -1037,9 +1067,10 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
         times[name] = cuda_ms(torch, lambda: stmt(*ops), 5)
         peaks[name] = torch.cuda.max_memory_allocated() - base
 
-    # 4. the APSP statement and its kernel against the bound; the generic
-    # contraction at n_gen^2 (INT32 plus_times against numpy, FP32 min_plus
-    # against the kernel)
+    # 4. the APSP statement and its kernel against the bound; INT32
+    # plus_times at n_gen^2 on gb_imatmul (its launches counted as the DSL
+    # path's) and on the generic contraction, both against numpy; FP32
+    # min_plus on the generic contraction against the kernel
     Dw = D.dup()
     times["APSP round"] = cuda_ms(torch, lambda: Dw(accum=binary.min) << Dw.mxm(Dw, semiring.min_plus), 3)
     from graphblas_tpu_torch.ops import mxm as pmxm
@@ -1051,12 +1082,26 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
     cells = np.flatnonzero(prng.random(m * m) < 0.25)
     gi_coo = (cells // m, cells % m, prng.integers(-(2**31), 2**31, len(cells)).astype(np.int32))
     Ai = Matrix.from_coo(*gi_coo, dtypes.INT32, nrows=m, ncols=m)
+    int_key, gen_key = f"mxm plus_times[INT32] {m}^2 (gb_imatmul)", f"generic plus_times[INT32] {m}^2"
+    kernels.reset_counts()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     Ci = Ai.mxm(Ai, semiring.plus_times).new()
     torch.cuda.synchronize()
-    peaks[f"generic plus_times[INT32] {m}^2"] = torch.cuda.max_memory_allocated() - base
-    times[f"generic plus_times[INT32] {m}^2"] = cuda_ms(torch, lambda: Ai.mxm(Ai, semiring.plus_times).new(), 2)
+    int_launches, int_plain = kernels.launch_counts(), kernels.plain_counts()
+    peaks[int_key] = torch.cuda.max_memory_allocated() - base
+    require(int_launches["imatmul"] == 1, f"INT32 plus_times: {int_launches['imatmul']} gb_imatmul launches, not 1")
+    require(not any(int_plain.values()), f"INT32 plus_times: plain versions ran: {int_plain}")
+    launches = {k: launches[k] + int_launches[k] for k in launches}
+    times[int_key] = cuda_ms(torch, lambda: Ai.mxm(Ai, semiring.plus_times).new(), 5)
+    with gb.tx.config.set(mxm_strategy="generic"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        Cg = Ai.mxm(Ai, semiring.plus_times).new()
+        torch.cuda.synchronize()
+        peaks[gen_key] = torch.cuda.max_memory_allocated() - base
+        times[gen_key] = cuda_ms(torch, lambda: Ai.mxm(Ai, semiring.plus_times).new(), 2)
     ai_np = np.zeros((m, m), np.int64)
     ai_np[gi_coo[0], gi_coo[1]] = gi_coo[2]
     t0 = time.perf_counter()
@@ -1066,10 +1111,14 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
     ll, hl, lh = ((x @ y).astype(np.int64) for x, y in ((lo, lo), (hi, lo), (lo, hi)))
     want_i = (ll + ((hl + lh) << 16)).astype(np.int32)
     t_np = time.perf_counter() - t0
-    ci, cj, cv = Ci.to_coo()
     ov = (ai_np != 0).astype(np.float32) @ (ai_np != 0).astype(np.float32)
-    require(Ci.nvals == int(np.count_nonzero(ov)), "INT32 plus_times: structure")
-    require(np.array_equal(cv, want_i[ci.astype(np.int64), cj.astype(np.int64)]), "INT32 plus_times differs from numpy mod 2^32")
+    for label, Cx in (("gb_imatmul", Ci), ("generic", Cg)):
+        ci, cj, cv = Cx.to_coo()
+        require(Cx.nvals == int(np.count_nonzero(ov)), f"INT32 plus_times ({label}): structure")
+        require(
+            np.array_equal(cv, want_i[ci.astype(np.int64), cj.astype(np.int64)]),
+            f"INT32 plus_times ({label}) differs from numpy mod 2^32",
+        )
     Af = Matrix.from_coo(a_coo[0] % m, a_coo[1] % m, a_coo[2], dtypes.FP32, nrows=m, ncols=m, dup_op=binary.min)
     kern = Af.mxm(Af, semiring.min_plus).new()
     with gb.tx.config.set(mxm_strategy="generic"):
@@ -1085,8 +1134,10 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
         "6d dsl",
         f"{len(statements)} op-family statements at {n}^2 = the port on the CPU (float plus rtol 1e-5, the rest "
         f"exact; CPU {t_cpu:.1f} s, its operands {t_cpu_build:.1f} s); "
-        f"mxm plus_times[FP32] (TF32 off) = numpy float64 rtol 1e-5; INT32 plus_times {m}^2 (generic) = numpy "
-        f"mod 2^32 exactly ({t_np:.1f} s); FP32 min_plus {m}^2 generic = gb_tropical bit for bit",
+        f"mxm plus_times[FP32] (TF32 off) = numpy float64 rtol 1e-5; INT32 plus_times {m}^2 on gb_imatmul (1 "
+        f"launch, no plain version) and on the generic contraction = numpy mod 2^32 exactly ({t_np:.1f} s): "
+        f"{times[int_key]:.4f} ms, {peaks[int_key] / 2**20:.1f} MiB against {times[gen_key]:.4f} ms, "
+        f"{peaks[gen_key] / 2**20:.1f} MiB; FP32 min_plus {m}^2 generic = gb_tropical bit for bit; on {smi}",
     )
     mib = {k: round(v / 2**20, 1) for k, v in peaks.items()}
     say(
@@ -1095,6 +1146,7 @@ def dsl_phase(torch, np, dev, n_dsl, n_gen, smi):
         f"{times['gb_tropical']:.4f} ms against its bound {bound_ms:.4f} ms ({bound_by}); peak MiB above the live "
         f"tensors: {json.dumps(mib)}; on {smi}; phase {time.perf_counter() - t_phase:.1f} s",
     )
+    plain = {k: plain[k] + int_plain[k] for k in plain}
     return {"launches": launches, "plain": plain, "apsp_launches": apsp_launches, "rounds": rounds}
 
 
@@ -1624,6 +1676,51 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
 # float32 FMA rate without tensor cores (132 SMs x 128 lanes x 1.98 GHz, an
 # FMA counted as two): the least time of the dense models' f32 products
 F32_FMA_FLOP_S = 132 * 128 * 1.98e9 * 2
+# int8 tensor-core rate (H100 SXM data sheet, dense): the least time of the
+# models' int8 overlap counts (torch._int_mm)
+INT8_TC_OPS_S = 1979e12
+
+
+def f32_triangle_count(torch, graph):
+    """The triangle count as the port computed it before its integer
+    products: L's blocks in f32 against L^T with TF32 off, the masked sums in
+    int64 (phase 6m's check and yardstick for models.triangle_count)."""
+    from graphblas_tpu_torch.models.graph import edge_index
+    from graphblas_tpu_torch.ops.mxm import full_f32_matmul
+
+    es, ed = edge_index(graph)
+    npad = -(-graph.n // 1024) * 1024
+    lf = torch.zeros((npad, npad), dtype=torch.float32, device=es.device)
+    lf[torch.maximum(es, ed), torch.minimum(es, ed)] = 1.0
+    lf.diagonal().zero_()
+    total = torch.zeros((), dtype=torch.int64, device=es.device)
+    with full_f32_matmul():
+        for i in range(0, npad, 1024):
+            block = lf[i : i + 1024]
+            total += torch.sum((block @ lf.T) * block, dtype=torch.int64)
+    return int(total)
+
+
+def f32_k_truss(torch, graph, k):
+    """The k-truss fixpoint as the port computed it before its integer
+    products: an f32 0/1 adjacency, support (A @ A) * A with TF32 off.
+    Returns the surviving (row, col) pairs in row-major order and the rounds."""
+    from graphblas_tpu_torch.models.graph import edge_index
+    from graphblas_tpu_torch.ops.mxm import full_f32_matmul
+
+    es, ed = edge_index(graph)
+    a = torch.zeros((graph.n, graph.n), dtype=torch.float32, device=es.device)
+    a[es, ed] = 1.0
+    a = torch.maximum(a, a.T)
+    a.fill_diagonal_(0.0)
+    rounds = 0
+    with full_f32_matmul():
+        while True:
+            a2 = torch.where((a @ a) * a >= k - 2, a, 0.0)
+            rounds += 1
+            if not bool((a2 != a).any()):
+                return torch.nonzero(a2, as_tuple=True), rounds
+            a = a2
 
 
 def udt_recipes(gb, np):
@@ -1688,9 +1785,10 @@ def dense_models_phase(torch, np, dev, g19, scale, smi):
     maximal_matching through models, on rmat(scale, 16, seed=5) on the card
     (n = 16384 at scale 14, the n the reference's louvain docstring names),
     and maximal_matching on bench.py's scale-19 graph.  Checks: the triangle
-    count = scipy's int64 (L @ L.T).multiply(L).sum(); each k-truss edge set
-    = a scipy peeling fixpoint ((A @ A).multiply(A), drop support < k - 2,
-    repeat); betweenness = a float64 scipy level-synchronous Brandes over the
+    count = scipy's int64 (L @ L.T).multiply(L).sum() and the f32 path's
+    (``f32_triangle_count``); each k-truss edge set = a scipy peeling fixpoint
+    ((A @ A).multiply(A), drop support < k - 2, repeat) and the f32 path's
+    (``f32_k_truss``), in as many rounds; betweenness = a float64 scipy level-synchronous Brandes over the
     same sources, rtol 1e-4, with max_levels = their largest BFS level + 1;
     louvain's labels at rmat(LOUVAIN_CHECK_SCALE, 16, seed=5) = the port's CPU run,
     and at scale its modularity (the port's f32 ``modularity`` on the card)
@@ -1698,10 +1796,12 @@ def dense_models_phase(torch, np, dev, g19, scale, smi):
     (numpy) and = the port's CPU run of the same graph exactly; every result
     on the card; the UDT recipes (``udt_recipes``) on the card = the same
     statements on the CPU, bit for bit.  Then each model's ms (CUDA events,
-    a warm call) beside its least time (the f32 products at the FMA rate;
-    the matching's bytes), torch._int_mm's int8 block product beside the f32
-    one, the rounds, and the phase's peak device memory.  The products are
-    torch.matmul (cuBLAS), not hand kernels: no kernel launch is counted."""
+    a warm call) beside its least time (the f32 products at the FMA rate, the
+    int8 counts at the int8 tensor-core rate; the matching's bytes), the
+    triangle count's and the k-truss's f32 paths' ms, torch._int_mm's int8
+    block product beside the f32 one, the rounds, and the phase's peak device
+    memory.  The products are torch._int_mm and torch.matmul (cuBLAS), not
+    hand kernels: no kernel launch is counted."""
     import importlib
 
     import scipy.sparse as scsp
@@ -1757,9 +1857,13 @@ def dense_models_phase(torch, np, dev, g19, scale, smi):
     tc_ref = int((L @ L.T).multiply(L).sum())
     t_oracle = {"triangle": time.perf_counter() - t0}
     tc, tc_ms = timed(lambda: M.triangle_count(gm))
-    require(tc == tc_ref, f"6m triangle_count {tc} != scipy {tc_ref}")
+    tc32, tc32_ms = timed(lambda: f32_triangle_count(torch, gm))
+    require(tc == tc32 == tc_ref, f"6m triangle_count {tc}, the f32 path {tc32}, scipy {tc_ref}")
     npad = -(-n // 1024) * 1024
-    out["triangle_count"] = {"value": tc, "ms": tc_ms, "bound_ms": flop_ms(2.0 * npad**3)}
+    out["triangle_count"] = {
+        "value": tc, "ms": tc_ms, "int8 bound_ms": 2.0 * npad**3 / INT8_TC_OPS_S * 1e3,
+        "f32 path ms": tc32_ms, "bound_ms": flop_ms(2.0 * npad**3),
+    }
     # torch._int_mm (int8 in, int32 out) against the f32 block product
     es, ed = edge_index(gm)
     ls = torch.zeros((npad, npad), dtype=torch.int8, device=dev)
@@ -1796,12 +1900,22 @@ def dense_models_phase(torch, np, dev, g19, scale, smi):
         t_oracle[f"k_truss {kk}"] = time.perf_counter() - t0
         kt, kt_ms = timed(lambda: M.k_truss(gm, kk))
         rounds = kt_mod.last_rounds
+        (r32, c32), rounds32 = f32_k_truss(torch, gm, kk)
+        _, kt32_ms = timed(lambda: f32_k_truss(torch, gm, kk))
         require(kt.src.is_cuda and kt.valid.is_cuda, "6m k_truss: the result is on the card")
         v = kt.valid.cpu().numpy()
         got = np.stack([kt.src.cpu().numpy()[v], kt.dst.cpu().numpy()[v]]).astype(np.int64)
         require(np.array_equal(got, np.stack([ref.row, ref.col])), f"6m k_truss {kk}: edge set != scipy's")
+        require(
+            np.array_equal(got, torch.stack([r32, c32]).cpu().numpy()) and rounds32 == rounds,
+            f"6m k_truss {kk}: edge set or rounds != the f32 path's",
+        )
         require(rounds == ref_rounds, f"6m k_truss {kk}: {rounds} rounds, scipy's peeling {ref_rounds}")
-        out[f"k_truss k={kk}"] = {"edges": int(v.sum()), "rounds": rounds, "ms": kt_ms, "bound_ms": flop_ms(rounds * 2.0 * n**3)}
+        out[f"k_truss k={kk}"] = {
+            "edges": int(v.sum()), "rounds": rounds, "ms": kt_ms,
+            "int8 bound_ms": rounds * 2.0 * n**3 / INT8_TC_OPS_S * 1e3, "f32 path ms": kt32_ms,
+            "bound_ms": flop_ms(rounds * 2.0 * n**3),
+        }
 
     # betweenness_centrality = a float64 Brandes over the same sources
     D = ones_csr(hs[hs != hd], hd[hs != hd])

@@ -336,9 +336,9 @@ def to_tensor(values, dtype, device):
     scalar = arr.ndim == 0
     if dtype._is_udt:
         # each field copied out of the records (a field view's strides need
-        # not be a multiple of its item size) and kept at the array's shape
-        # (a 0-d field comes back 1-d from the contiguous copy below)
-        return {f: to_tensor(np.array(arr[f]), None, device).reshape(arr.shape) for f in dtype.np_type.names}
+        # not be a multiple of its item size)
+        return {f: to_tensor(np.array(arr[f]), None, device) for f in dtype.np_type.names}
+    shape = arr.shape
     arr = np.ascontiguousarray(arr.astype(dtype.np_type, copy=False))
     if dtype.np_type == np.uint64:
         t = torch.from_numpy(arr.view(np.int64))
@@ -350,12 +350,14 @@ def to_tensor(values, dtype, device):
         t = torch.from_numpy(arr)
     from . import capture as _cap
 
+    # the input's own shape: np.ascontiguousarray makes a 0-d array 1-d
+    t = t.reshape(shape)
     if _cap.active() is not None:
         if scalar:
             # a constant scalar inside a compiled loop: a fill on the device,
             # which a CUDA graph captures (a host-to-device copy it cannot)
             with _cap.constants():
-                value = t.reshape(()).item()
+                value = t.item()
             return _cap.fill(value, t.dtype, device)
         return _cap.upload(t, device)
     return t.to(device)

@@ -3,7 +3,8 @@
 Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py``,
 ``graphblas_tpu/ops/permute.py``, ``graphblas_tpu/ops/pallas_eqjoin.py``,
 ``graphblas_tpu/ops/pallas_mxm.py`` and the compare probe of
-``graphblas_tpu/tools/profile_spgemm_roofline.py``.
+``graphblas_tpu/tools/profile_spgemm_roofline.py``; and one kernel for a
+product the JAX package leaves to XLA, the integer matmul.
 
 - ``gather``: Kernel G (``csrc/gather.cu``), ``out[p] = x[idx[p]]`` with the
   ``none``, ``fill`` and ``pagerank`` epilogues; a route's index may be the
@@ -14,6 +15,8 @@ Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py``,
 - ``eqjoin``: the masked-SpGEMM inner loop ``eqjoin`` and the compare-rate
   probe ``compare_probe`` (``csrc/eqjoin.cu``).
 - ``tropical``: the tropical matmul ``tropical_mxm`` (``csrc/tropical.cu``).
+- ``imatmul``: the int32/int64 matmul ``imatmul`` (``csrc/imatmul.cu``), for
+  the dense engine's integer plus_times, plus_first and plus_second.
 
 A wrapper takes its plain version for CPU tensors, launches its kernel for
 CUDA tensors, and raises for anything else; it never falls back.  Each
@@ -29,9 +32,9 @@ the card through the plain code as the reference for its kernels.
 import contextlib
 import contextvars
 
-from . import eqjoin, gather, segscan, tropical
+from . import eqjoin, gather, imatmul, segscan, tropical
 
-_MODULES = (gather, segscan, eqjoin, tropical)
+_MODULES = (gather, segscan, eqjoin, tropical, imatmul)
 
 _PLAIN = contextvars.ContextVar("graphblas_tpu_torch_plain", default=False)
 

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "gb_compare_probe": [_P] * 3 + [_I64, _P],
     "gb_compare_probe_k": [],
     "gb_tropical": [_P] * 3 + [_I] * 6 + [_P],
+    "gb_imatmul": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -63,16 +63,17 @@ def tropical_mxm_plain(a, b, add, mul):
     return acc
 
 
-def tile_for(m, n, sms):
+def tile_for(m, n, sms, tiles=TILES, blocks_per_sm=BLOCKS_PER_SM, wave_cost=WAVE_COST):
     """The block tile whose grid takes the fewer waves' worth of time on
     ``sms`` SMs: 128 where its tiles fill whole waves, 64 for a grid of few
-    output tiles or one just past a wave."""
+    output tiles or one just past a wave (``kernels.imatmul`` passes its own
+    forms)."""
 
     def cost(t):
-        tiles = -(-m // t) * -(-n // t)
-        return -(-tiles // (BLOCKS_PER_SM[t] * sms)) * WAVE_COST[t]
+        n_tiles = -(-m // t) * -(-n // t)
+        return -(-n_tiles // (blocks_per_sm[t] * sms)) * wave_cost[t]
 
-    return min(TILES, key=cost)
+    return min(tiles, key=cost)
 
 
 @functools.lru_cache(maxsize=None)

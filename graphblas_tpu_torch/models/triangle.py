@@ -1,16 +1,15 @@
 """Triangle counting: a blocked indicator matmul, tc = sum over the edges
 (i, j) of L of (L @ L^T)[i, j].
 
-Counterpart of ``graphblas_tpu/models/triangle.py``.  The reference runs the
-blocks in int32 on the MXU; torch has no integer GEMM on CUDA, so each block
-is an f32 matmul of 0/1 indicators with TF32 off (``ops.mxm.full_f32_matmul``),
-exact while every count is below 2^24, and the masked block sums in int64.
-The block loop keeps live memory at O(n x 1024) beside L.
+Counterpart of ``graphblas_tpu/models/triangle.py``.  As the reference, each
+block of L's int8 rows goes against ``L^T`` in int32
+(``ops.mxm.indicator_counts``: ``torch._int_mm``), and the masked block sums
+in int64.  The block loop keeps live memory at O(n x 1024) beside L.
 """
 
 import torch
 
-from ..ops.mxm import full_f32_matmul
+from ..ops.mxm import indicator_counts
 from .graph import Graph, edge_index
 
 _BLOCK = 1024
@@ -18,13 +17,11 @@ _BLOCK = 1024
 
 def _tc_blocked(ls, nblocks):
     """ls: (n, n) int8 lower-triangular struct (padded to nblocks*_BLOCK rows)."""
-    lf = ls.to(torch.float32)
     total = torch.zeros((), dtype=torch.int64, device=ls.device)
-    with full_f32_matmul():
-        for i in range(nblocks):
-            block = lf[i * _BLOCK : (i + 1) * _BLOCK]
-            # wedges[b, j] = |N_L(row b) ∩ N_L(j)|, counted only where (row, j) is in L
-            total += torch.sum((block @ lf.T) * block, dtype=torch.int64)
+    for i in range(nblocks):
+        block = ls[i * _BLOCK : (i + 1) * _BLOCK]
+        # wedges[b, j] = |N_L(row b) ∩ N_L(j)|, counted only where (row, j) is in L
+        total += torch.sum(indicator_counts(block, ls.T) * block, dtype=torch.int64)
     return total
 
 

@@ -20,11 +20,15 @@ the code the card runs:
 - plus_times / plus_first / plus_second over floats: one ``torch.matmul``
   in full float32 (``ops.mxm.full_f32_matmul``, the reference's
   ``Precision.HIGHEST``; float64 is a DGEMM);
-- the structure, and plus_pair / boolean reachability: one float32 matmul
-  of 0/1 indicators (exact counts while k < 2^24, which ``dense_limit``
-  guarantees); torch has no integer GEMM on CUDA;
-- integer values: the generic chunked contraction, exact and wrapping as
-  XLA does (the reference multiplies them on the MXU in int32/int64);
+- the structure, and plus_pair / boolean reachability: the overlap counts
+  of 0/1 indicators, the reference's int8 -> int32 matmul
+  (``ops.mxm.indicator_counts``, ``torch._int_mm``);
+- plus_times / plus_first / plus_second over integer types: one integer
+  matmul in the reference's accumulation type, ``promote_types(out,
+  int32)``, wrapping as XLA does, then cast to the output type
+  (``ops.mxm.int_matmul``: the Hopper kernel ``gb_imatmul`` on the card);
+  UINT64, which the reference computes in float64, takes the generic
+  contraction;
 - min_plus / max_plus / min_max / max_min over float32 with CUDA operands
   and at least 128 x 128 outputs: the Hopper kernel ``gb_tropical``
   through ``ops.mxm.tropical_mxm`` (the reference's Pallas kernel on TPU);
@@ -48,7 +52,7 @@ import torch
 
 from ..core import capture as _cap
 from ..core import dtypes as _dt
-from .mxm import full_f32_matmul, is_tropical, tropical_mxm
+from .mxm import full_f32_matmul, indicator_counts, int_matmul, is_tropical, tropical_mxm
 
 _MXM_CHUNK = 128  # k-chunk for the generic semiring matmul (bounds memory to m*n*chunk)
 _INDEX = torch.int64  # positional iotas ride int64 (the reference's 64-bit contract)
@@ -439,24 +443,24 @@ def _mm(x, y):
         return torch.matmul(x, y)
 
 
-def _overlap(as_, bs):
-    """Structural overlap counts, an f32 matmul of 0/1 indicators: exact
-    while k < 2^24 (the reference multiplies int32 indicators)."""
-    if as_.shape[1] >= 1 << 24:
-        raise ValueError(f"mxm: k = {as_.shape[1]} is past the exact range of the f32 structure count")
-    return _mm(as_.to(torch.float32), bs.to(torch.float32))
+def _int_acc(out_dtype):
+    """The reference's accumulation type of an integer product,
+    ``promote_types(out, int32)``: INT32 or INT64; None for UINT64, which
+    it promotes to float64 (a reference fault: ROADMAP section 3)."""
+    acc = np.promote_types(out_dtype.np_type, np.int32)
+    return {np.dtype(np.int32): _dt.INT32, np.dtype(np.int64): _dt.INT64}.get(acc)
 
 
 def _mxm_fast_path(av, as_, bv, bs, semiring, out_dtype):
     """Matmul lowerings for semirings that map onto plus-times algebra.
 
-    plus_times       -> A @ B on float values (absent = 0 annihilates)
+    plus_times       -> A @ B on values (absent = 0 annihilates)
     plus_pair/oneb   -> struct @ struct (overlap counts, any numeric type)
-    plus_first       -> A @ struct ; plus_second -> struct @ B (floats)
+    plus_first       -> A @ struct ; plus_second -> struct @ B
     any/lor/lxor/plus_pair over bool -> overlap > 0 (lxor: odd overlap)
-    Returns None when no matmul form applies, also for integer values: torch
-    has no integer GEMM on CUDA, so they take the generic contraction, which
-    is exact."""
+    Integer values multiply in the reference's accumulation type
+    (``_int_acc``) and are cast to ``out_dtype``.  Returns None when no
+    matmul form applies."""
     add = semiring.monoid.parent.name
     mul = semiring.binaryop.parent.name
     if out_dtype._is_complex:
@@ -466,14 +470,19 @@ def _mxm_fast_path(av, as_, bv, bs, semiring, out_dtype):
     def get_overlap():
         nonlocal overlap
         if overlap is None:
-            overlap = _overlap(as_, bs)
+            overlap = indicator_counts(as_, bs)
         return overlap
 
     if add == "plus" and not out_dtype._is_bool:
         if mul in {"pair", "oneb"}:
-            cv = _dt.cast(get_overlap().to(torch.int64), _dt.INT64, out_dtype)
+            cv = _dt.cast(get_overlap(), _dt.INT32, out_dtype)
         elif not out_dtype._is_float:
-            return None
+            acc = _int_acc(out_dtype)
+            if acc is None or mul not in {"times", "first", "second"}:
+                return None
+            x = _dt.cast(av, semiring.binaryop.type_, acc) if mul != "second" else as_
+            y = _dt.cast(bv, semiring.binaryop.type2, acc) if mul != "first" else bs
+            cv = _dt.cast(int_matmul(x, y, acc.carrier), acc, out_dtype)
         elif mul == "times":
             cv = _mm(_dt.cast(av, semiring.binaryop.type_, out_dtype), _dt.cast(bv, semiring.binaryop.type2, out_dtype))
         elif mul == "first":

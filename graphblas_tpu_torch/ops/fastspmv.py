@@ -25,6 +25,7 @@ Plans are saved in the port's own format (``save_spmv_plan`` /
 import numpy as np
 import torch
 
+from ..exceptions import IndexOutOfBound
 from ..native import counting_sort
 from .permute import apply_perm, compose_reference_network, padded_size
 from .scan import _ident, build_fill_tables, segmented_fill_static, segmented_scan, segmented_scan_contrib
@@ -133,7 +134,7 @@ def build_spmv_plan(
     if n is None:
         n = int(max(src.max(initial=-1), dst.max(initial=-1))) + 1
     elif e and (min(int(src.min()), int(dst.min())) < 0 or max(int(src.max()), int(dst.max())) >= n):
-        raise IndexError(
+        raise IndexOutOfBound(
             f"edge endpoints out of range for n={n}: src in [{int(src.min())}, {int(src.max())}], "
             f"dst in [{int(dst.min())}, {int(dst.max())}]"
         )

@@ -1,18 +1,22 @@
-"""Kernels G, C, S, the generic scan and the tropical matmul alone on the
-card: CUDA-event times, the L2 probe, the f32 instruction rates, ptxas and SASS.
+"""Kernels G, C, S, the generic scan, the tropical and the integer matmul
+alone on the card: CUDA-event times, the L2 probe, the f32 and integer
+instruction rates, ptxas and SASS.
 
 - ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu``, ``csrc/segscan.cu``,
-  ``csrc/eqjoin.cu`` and ``csrc/tropical.cu`` with the build's own flags:
-  registers, stack and spills of every kernel of the four files (the whole
-  listing goes to ``--out``).
-- ``sass``: the tropical kernels' SASS (``cuobjdump -sass`` of the built
-  library, to ``--out``'s directory as ``tropical.sass``): per instance the
-  count of each opcode, and the f32 instructions per (i, j, k) of its
-  unrolled inner loop.
-- ``rate``: the rate of f32 add, min.NaN, max.NaN and min, and of the
-  pairs min_plus and min_max run per (i, j, k), from long independent
-  chains (``tools/rate_probe.cu``, built here), in lane instructions per SM
-  per clock at the card's SM clock that ``nvidia-smi`` reads after the run.
+  ``csrc/eqjoin.cu``, ``csrc/tropical.cu`` and ``csrc/imatmul.cu`` with the
+  build's own flags: registers, stack and spills of every kernel of the five
+  files (the whole listing goes to ``--out``).
+- ``sass``: the tropical and integer matmul kernels' SASS (``cuobjdump
+  -sass`` of the built library, to ``--out``'s directory as
+  ``tropical.sass`` and ``imatmul.sass``): per instance the count of each
+  opcode, and the f32 (integer) instructions per (i, j, k) of its unrolled
+  inner loop.
+- ``rate``: the rate of f32 add, min.NaN, max.NaN and min, of the pairs
+  min_plus and min_max run per (i, j, k), and of the int32 and int64
+  multiply-adds (mad.lo.u32, mad.lo.u64), from long independent chains
+  (``tools/rate_probe.cu``, built here), in lane instructions (mad.lo.u64:
+  PTX instructions) per SM per clock at the card's SM clock that
+  ``nvidia-smi`` reads after the run.
 - ``gather``: Kernel G's route over an int32 index of 2^log2n slots, random
   over len(x), with x of 2^20 (surely resident in the 50 MB L2), 2^21, 2^22,
   2^23 (the main path's) and 2^24 float32 slots: the L2 probe.  Then the
@@ -31,6 +35,9 @@ card: CUDA-event times, the L2 probe, the f32 instruction rates, ptxas and SASS.
   tiles (the wrapper's pick marked) on (2047, 2045) x (2045, 2049) and x
   (2045, 2048) (K and N no multiple of 4: the scalar loads), and at 2048^3,
   1024^3, 512^3 and 256^3.
+- ``imatmul``: int32 in both block tiles (the wrapper's pick marked) at
+  2048^3, 1024^3 and on (1000, 1030) x (1030, 999); int64 at 2048^3 and
+  1024^3.
 - ``l2 window``, last: the route over a permutation of 2^log2n slots once
   more under an L2 access-policy window that marks x persisting (set on the
   stream by libcuda's cuStreamSetAttribute, then cleared and the carve-out
@@ -54,7 +61,7 @@ import subprocess
 
 def ptxas_report(build, out_path):
     """Registers, stack and spills of each kernel of gather.cu, segscan.cu,
-    eqjoin.cu and tropical.cu, as ptxas prints them for the build's flags
+    eqjoin.cu, tropical.cu and imatmul.cu, as ptxas prints them for the build's flags
     (eqjoin.cu's many instances summed up in one line, less any that
     spill)."""
     lines = []
@@ -62,7 +69,7 @@ def ptxas_report(build, out_path):
     nvcc = build.nvcc_path()
     filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
     with open(out_path, "w") as f:
-        for name in ("gather.cu", "segscan.cu", "eqjoin.cu", "tropical.cu"):
+        for name in ("gather.cu", "segscan.cu", "eqjoin.cu", "tropical.cu", "imatmul.cu"):
             src = os.path.join(build.CSRC_DIR, name)
             obj = os.path.join(os.path.dirname(out_path) or ".", f"{name}.ptxas.o")
             proc = subprocess.run(
@@ -98,14 +105,23 @@ def ptxas_report(build, out_path):
     return lines
 
 
+# (i, j, k) of an unrolled stage of each matmul kernel instance, by the
+# mangled name: the tropical 128 x 128 tile (8 k of 64 (i, j) pairs) and 64 x
+# 64 (16 k of 16); gb_imatmul's int32 ("j") 128 x 128 (8 k of 64) and 64 x
+# 64 (16 k of 16), int64 ("y") 64 x 64 (8 k of 16)
+PER_STEP = {
+    "tile128_kernel": 512, "tile64_kernel": 256,
+    "imatmul_kernelIjLi128": 512, "imatmul_kernelIjLi64": 256, "imatmul_kernelIyLi64": 128,
+}
+
+
 def sass_report(build, out_path):
-    """Opcode counts of each tropical kernel instance in the built library's
-    SASS, and the f32 add / FMNMX instructions per (i, j, k) of the inner
-    loop (unrolled: 8 k of 64 (i, j) pairs in the 128 x 128 tile, the counts
-    over 512; 16 k of 16 in the 64 x 64 one, over 256)."""
+    """Opcode counts of each tropical and integer matmul kernel instance in
+    the built library's SASS, and the f32 add / FMNMX (integer IMAD / IADD3)
+    instructions per (i, j, k) of the inner loop (unrolled: ``PER_STEP``)."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", build.library_path()], capture_output=True, text=True, check=True).stdout
-    path = os.path.join(os.path.dirname(out_path) or ".", "tropical.sass")
+    out_dir = os.path.dirname(out_path) or "."
     lines, func, ops = [], None, {}
     chunks = []
     for line in sass.splitlines():
@@ -119,18 +135,20 @@ def sass_report(build, out_path):
             op = m.group(1) + (m.group(2) or "")
             ops[op] = ops.get(op, 0) + 1
             chunks[-1][2].append(line)
-    with open(path, "w") as f:
+    files = {name: open(os.path.join(out_dir, name), "w") for name in ("tropical.sass", "imatmul.sass")}
+    with files["tropical.sass"], files["imatmul.sass"]:
         for func, ops, body in chunks:
-            per_step = 512 if "tile128_kernel" in func else 256 if "tile64_kernel" in func else 0
+            per_step = next((v for k, v in PER_STEP.items() if k in func), 0)
             if not per_step:
                 continue
-            f.write(f"==== {func} ====\n" + "\n".join(body) + "\n")
+            integer = "imatmul_kernel" in func
+            files["imatmul.sass" if integer else "tropical.sass"].write(f"==== {func} ====\n" + "\n".join(body) + "\n")
             top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
-            fadd = sum(v for k, v in ops.items() if k.split(".")[0] == "FADD")
-            fmnmx = sum(v for k, v in ops.items() if k.split(".")[0] == "FMNMX")
+            names = ("IMAD", "IADD3") if integer else ("FADD", "FMNMX")
+            counts = [sum(v for k, v in ops.items() if k.split(".")[0] == name) for name in names]
             lines.append(
-                f"{func[:90]}: FADD {fadd}, FMNMX {fmnmx}, (FADD + FMNMX) / {per_step} = "
-                f"{(fadd + fmnmx) / per_step:.3f}; "
+                f"{func[:90]}: {names[0]} {counts[0]}, {names[1]} {counts[1]}, ({' + '.join(names)}) / {per_step} = "
+                f"{sum(counts) / per_step:.3f}; "
                 f"top opcodes {top}"
             )
     return lines
@@ -153,6 +171,7 @@ def instruction_rates(build, torch, dev, reps):
     rates = {}
     for op, (name, per_step) in enumerate((
         ("f32 add", 1), ("min.NaN", 1), ("max.NaN", 1), ("min", 1), ("add + min.NaN", 2), ("max.NaN + min.NaN", 2),
+        ("mad.lo.u32", 1), ("mad.lo.u64", 1),
     )):
         def run():
             rc = lib.rate_probe(op, out.data_ptr(), blocks, threads, iters, stream)
@@ -233,6 +252,7 @@ def main():
         raise SystemExit("probe_kernels: no CUDA device")
     from graphblas_tpu_torch.kernels import _build
     from graphblas_tpu_torch.kernels import gather as kg
+    from graphblas_tpu_torch.kernels import imatmul as ki
     from graphblas_tpu_torch.kernels import segscan as ks
     from graphblas_tpu_torch.kernels import tropical as kt
     from graphblas_tpu_torch.ops.scan import STATE_BIG, build_fill_tables
@@ -343,6 +363,17 @@ def main():
         for t in kt.TILES:
             label = f"tropical min_plus {tuple(a.shape)} x {tuple(b.shape)}, tile {t}{' (picked)' if t == pick else ''}"
             report(label, ms(lambda: kt.tropical_mxm_in_tile(a, b, "min", "plus", t)))
+    # the integer matmul: int32 in both tiles, int64 (one tile), on wrapping values
+    for dt, sizes in ((torch.int32, (2048, 1024, (1000, 1030, 999))), (torch.int64, (2048, 1024))):
+        info = torch.iinfo(dt)
+        for size in sizes:
+            m, k, n = size if isinstance(size, tuple) else (size,) * 3
+            ia = torch.randint(info.min, info.max, (m, k), generator=gen, device=dev, dtype=dt)
+            ib = torch.randint(info.min, info.max, (k, n), generator=gen, device=dev, dtype=dt)
+            pick = ki.tile_for(m, n, sms, ki.TILES[dt], ki.BLOCKS_PER_SM, ki.WAVE_COST)
+            for t in ki.TILES[dt]:
+                label = f"imatmul {str(dt).split('.')[-1]} ({m}, {k}) x ({k}, {n}), tile {t}{' (picked)' if t == pick else ''}"
+                report(label, ms(lambda: ki.imatmul_in_tile(ia, ib, t)))
     rates, per_clk, clock = instruction_rates(_build, torch, dev, args.reps)
     for k in rates:
         print(f"[rate] {k}: {rates[k] / 1e12:.3f} x 10^12 lane instructions/s, {per_clk[k]:.1f} per SM per clock "

@@ -165,6 +165,6 @@ def test_spmv_masked_on_cpu_calls_only_plain_versions(graph):
     # per call on a v2 plan: place, perm, 2 collects; the fill; one contrib and one count scan
     assert plain == {
         "gather": 4, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
-        "eqjoin": 0, "compare_probe": 0, "tropical_mxm": 0,
+        "eqjoin": 0, "compare_probe": 0, "tropical_mxm": 0, "imatmul": 0,
     }, plain
     assert sum(kernels.launch_counts().values()) == 0

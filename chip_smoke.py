@@ -204,7 +204,7 @@ PATH_OF = {
     "eqjoin": ("spgemm", "sparse_dsl", "mesh", "bench"),
     "tropical_mxm": ("tropical", "dsl", "mesh", "bench"),
     "compare_probe": ("roofline",),
-    "imatmul": ("dsl",),
+    "imatmul": ("dsl", "mesh"),
 }
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
 # memory rate, operations over the rate of their kind
@@ -2262,6 +2262,9 @@ MESH_SHAPE = (2, 4)  # phase 6p's mesh: 8 shards on one card, the tests' and exa
 MESH_N = 4096  # SUMMA's operands in phase 6p (n^2 cells, the dense-masked limit)
 MESH_PR_ITERS = 50
 MESH_DSL_PR_ITERS = 5  # example 07's iterations inside and outside the Context
+MESH_RES_DENSITY = 0.7  # phase 6p (i): the FP64 operands' structure (seed 61)
+MESH_LOOP_ITERS = 10  # phase 6p (i): the compiled DSL PageRank's iterations inside and outside the Context
+MESH_INT_N = 2048  # phase 6p (i): SUMMA's INT32 plus_times operands (gb_imatmul a shard)
 
 
 def mesh_dryrun(gb, np, torch, ctx):
@@ -2289,9 +2292,9 @@ def mesh_dryrun(gb, np, torch, ctx):
         C = A.mxm(B, semiring.plus_times).new()
     np.testing.assert_allclose(C._values.cpu().numpy(), a_np @ b_np, rtol=1e-4)
     cv, _ = parallel.summa_mxm(A, B, semiring.plus_times[F], F, mesh)
-    np.testing.assert_allclose(cv.cpu().numpy(), a_np @ b_np, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(cv), a_np @ b_np, rtol=1e-4)
     yv, _ = parallel.summa_mxv(A, x, semiring.min_plus[F], F, mesh)
-    np.testing.assert_allclose(yv.cpu().numpy(), (a_np + x_np[None, :]).min(axis=1), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(yv), (a_np + x_np[None, :]).min(axis=1), rtol=1e-4)
     g = rmat(6, 4, seed=1, weighted=True)
     src, dst, w, valid = (t.cpu().numpy() for t in (g.src, g.dst, g.weights, g.valid))
     total = max(mesh.size, -(-len(src) // mesh.size) * mesh.size)
@@ -2348,7 +2351,7 @@ def mesh_phase(torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_
     from graphblas_tpu_torch.models import fast
     from graphblas_tpu_torch.ops import densemasked as dm
     from graphblas_tpu_torch.ops import fastspmv as fs
-    from graphblas_tpu_torch.parallel import _collectives
+    from graphblas_tpu_torch.parallel import _collectives, blocks
     from graphblas_tpu_torch.parallel.spgemm import sharded_masked_mxm_arrays
 
     t_phase = time.perf_counter()
@@ -2466,7 +2469,8 @@ def mesh_phase(torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_
     require(got["bfs02"].isequal(bfs02(sources[0])), "example 02 inside the Context != outside")
     require(len(A07._sparse._sharded_plans) == 1, "example 07 inside the Context: no sharded plan was built")
     for name, sr in srs.items():
-        cv, cs = got[f"summa {name}"]
+        cv, cs = (blocks.whole(t) for t in got[f"summa {name}"])
+        require(got[f"summa {name}"][0].spec == ("i",), f"SUMMA {name}: the product is not placed P(i,)")
         dv, ds = dm.mxm(sa, ss_a, sb, ss_b, sr, FP32)
         require(torch.equal(cs, ds), f"SUMMA {name}: structure != single device")
         if name == "plus_times":
@@ -2511,7 +2515,193 @@ def mesh_phase(torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_
     ms[f"summa min_plus {MESH_N}^2"] = cuda_ms(torch, lambda: parallel.summa_mxm_arrays(sa, ss_a, sb, ss_b, srs["min_plus"], FP32, mesh), 3)
     ms[f"gb_tropical {MESH_N}^3 (one launch)"] = cuda_ms(torch, lambda: kt.tropical_mxm(sa, sb, "min", "plus"), 3)
     say("6p mesh", f"times (CUDA events, ms): {json.dumps({k: round(v, 4) for k, v in ms.items()})} on {smi}; phase {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "plain": plain, "ms": ms}
+
+    # (i) the resident shards: placed collections stay on their shards
+    res = resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi)
+    launches = {k: launches.get(k, 0) + res["launches"].get(k, 0) for k in set(launches) | set(res["launches"])}
+    plain = {k: plain.get(k, 0) + res["plain"].get(k, 0) for k in set(plain) | set(res["plain"])}
+    return {"launches": launches, "plain": plain, "ms": ms, "resident": res}
+
+
+def resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi):
+    """Phase 6p (i): placed collections keep their blocks on the shards
+    (``parallel.blocks``).  On the phase's 2 x 4 mesh of 8 shards on the
+    card, at MESH_N^2 FP64 (structure density MESH_RES_DENSITY, seed 61):
+    each family on placed operands against the same statement on unplaced
+    ones on one device (bit for bit; FP64 plus reductions rtol 1e-12), its
+    output placed with the reference's spec, no gather inside the statement,
+    both timed by CUDA events; SUMMA min_plus (FP32, gb_tropical a shard)
+    and INT32 plus_times (gb_imatmul a shard) leaving P(i,) products that a
+    following ewise_add reads block by block; a compiled DSL PageRank of
+    MESH_LOOP_ITERS iterations inside the Context on a dense graph (SUMMA)
+    and on the scale-19 sparse collection (the sharded SpMV), its capture
+    decision and step ms against the loop outside.  Returns the launches
+    and plain calls of everything run placed."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch import Matrix, Vector, binary, dtypes, kernels, monoid, parallel, select, semiring, unary
+    from graphblas_tpu_torch.core.base import stored
+    from graphblas_tpu_torch.models import dsl, rmat
+    from graphblas_tpu_torch.ops import densemasked as dm
+    from graphblas_tpu_torch.parallel import blocks
+    from graphblas_tpu_torch.parallel.mesh import placement
+
+    t_phase = time.perf_counter()
+    N, F64, F32, I32 = MESH_N, dtypes.FP64, dtypes.FP32, dtypes.INT32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+
+    def dense(shape, density=MESH_RES_DENSITY):
+        v = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+        st = torch.rand(shape, generator=gen, device=dev) < density
+        return (Matrix if len(shape) == 2 else Vector)._from_arrays(torch.where(st, v, 0.0), st, F64)
+
+    single = {"A": dense((N, N)), "B": dense((N, N)), "M": dense((N, N), 0.5), "C": dense((N, N)), "u": dense((N,)), "w": dense((N,))}
+    placed = {}
+    with ctx:
+        for k, x in single.items():
+            placed[k] = (parallel.shard_matrix if x.ndim == 2 else parallel.shard_vector)(x.dup())
+
+    def merge(A, B, M, C, u, w):
+        D = C.dup()
+        D(M.V, accum=binary.plus, replace=True) << A.ewise_add(B, binary.max)
+        return D
+
+    ij, i_, j_ = ("i", "j"), ("i",), ("j",)
+    statements = [  # name, statement, the reference's spec (None: a host scalar), rtol (None: bit for bit)
+        ("ewise_add(plus)", lambda A, B, M, C, u, w: A.ewise_add(B, binary.plus).new(), ij, None),
+        ("ewise_mult(times)", lambda A, B, M, C, u, w: A.ewise_mult(B, binary.times).new(), ij, None),
+        ("ewise_union(minus, 1.5, -2.0)", lambda A, B, M, C, u, w: A.ewise_union(B, binary.minus, 1.5, -2.0).new(), ij, None),
+        ("apply(ainv)", lambda A, B, M, C, u, w: A.apply(unary.ainv).new(), ij, None),
+        ("select(valuegt, 0.5)", lambda A, B, M, C, u, w: A.select(select.valuegt, 0.5).new(), ij, None),
+        ("C(M.V, accum=plus, replace) << A.ewise_add(B, max)", merge, ij, None),
+        ("reduce_rowwise(plus)", lambda A, B, M, C, u, w: A.reduce_rowwise("plus").new(), i_, 1e-12),
+        ("reduce_columnwise(max)", lambda A, B, M, C, u, w: A.reduce_columnwise("max").new(), j_, None),
+        ("reduce_scalar(plus)", lambda A, B, M, C, u, w: A.reduce_scalar("plus").new(), None, 1e-12),
+        ("Vector ewise_add(plus)", lambda A, B, M, C, u, w: u.ewise_add(w, binary.plus).new(), j_, None),
+        ("Vector reduce(plus)", lambda A, B, M, C, u, w: u.reduce("plus").new(), None, 1e-12),
+        ("Vector reduce(min)", lambda A, B, M, C, u, w: u.reduce(monoid.min).new(), None, None),
+    ]
+    args_p = [placed[k] for k in "ABMCuw"]
+    args_1 = [single[k] for k in "ABMCuw"]
+
+    def agree(name, got, want, rtol):
+        if got.ndim == 0:
+            a, b = np.asarray(got.value), np.asarray(want.value)
+            ok = np.array_equal(a, b) if rtol is None else bool(np.allclose(a, b, rtol=rtol, atol=0))
+            require(ok, f"6p (i) {name}: placed {a!r} != one device {b!r}")
+            return 0.0 if rtol is None else float(abs(a - b))
+        gv, gs = (blocks.whole(t) for t in stored(got))
+        wv, ws = want._values, want._struct
+        require(torch.equal(gs, ws), f"6p (i) {name}: structure != one device")
+        if rtol is None:
+            require(same_bits(torch, gv, wv), f"6p (i) {name}: values != one device bit for bit")
+            return 0.0
+        torch.testing.assert_close(gv, wv, rtol=rtol, atol=0)
+        return abs_err(gv, wv)
+
+    rows = {}
+    for name, fn, spec, rtol in statements:
+        g0 = blocks.gathers
+        with ctx:
+            got = fn(*args_p)
+        torch.cuda.synchronize()
+        require(blocks.gathers == g0, f"6p (i) {name}: {blocks.gathers - g0} gathers inside the statement")
+        if spec is None:
+            require(got.ndim == 0, f"6p (i) {name}: not a scalar")
+        else:
+            pl = placement(got)
+            require(pl is not None and pl[1] == spec and pl[0] is ctx.mesh, f"6p (i) {name}: placed as {pl}, the reference's spec is {spec}")
+        err = agree(name, got, fn(*args_1), rtol)
+
+        def run_placed(fn=fn):
+            with ctx:
+                fn(*args_p)
+
+        t_p = cuda_ms(torch, run_placed, 5)
+        t_1 = cuda_ms(torch, lambda fn=fn: fn(*args_1), 5)
+        rows[name] = {"spec": spec, "placed_ms": t_p, "single_ms": t_1, "ratio": t_p / t_1, "max_abs_err": err}
+    # SUMMA's products stay placed, and the next statement reads their blocks
+    SA, SB = (Matrix._from_arrays(v, st, F32) for v, st in ((sa, ss_a), (sb, ss_b)))
+    ia = (torch.rand(MESH_INT_N, MESH_INT_N, generator=gen, device=dev) * 100).to(torch.int32)
+    ib = (torch.rand(MESH_INT_N, MESH_INT_N, generator=gen, device=dev) * 100).to(torch.int32)
+    ist = torch.rand(MESH_INT_N, MESH_INT_N, generator=gen, device=dev) < MESH_RES_DENSITY
+    IA, IB = (Matrix._from_arrays(torch.where(ist, v, 0), ist, I32) for v in (ia, ib))
+    with ctx:
+        SA_p, SB_p, IA_p, IB_p = (parallel.shard_matrix(x.dup()) for x in (SA, SB, IA, IB))
+    kernels.reset_counts()
+    g0 = blocks.gathers
+    with ctx:
+        P_min = SA_p.mxm(SB_p, semiring.min_plus).new()
+        P_min2 = P_min.ewise_add(P_min, binary.plus).new()
+        P_int = IA_p.mxm(IB_p, semiring.plus_times).new()
+        P_int2 = P_int.ewise_add(P_int, binary.plus).new()
+    torch.cuda.synchronize()
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    summa_trop, summa_int = launches["tropical_mxm"], launches["imatmul"]
+    require(blocks.gathers == g0, "6p (i) SUMMA: a gather inside the products or the statements after them")
+    for x, what in ((P_min, "min_plus"), (P_min2, "min_plus + ewise_add"), (P_int, "INT32 plus_times"), (P_int2, "INT32 + ewise_add")):
+        require(placement(x)[1] == ("i",), f"6p (i) SUMMA {what}: placed as {placement(x)}, not P(i,)")
+    require(summa_trop == 8 and summa_int == 8, f"6p (i) SUMMA: {summa_trop} gb_tropical and {summa_int} gb_imatmul launches, not one a shard")
+    for x, (a, b, st_a, st_b, sr, T) in ((P_min, (sa, sb, ss_a, ss_b, semiring.min_plus[F32], F32)), (P_int, (torch.where(ist, ia, 0), torch.where(ist, ib, 0), ist, ist, semiring.plus_times[I32], I32))):
+        dv, ds = dm.mxm(a, st_a, b, st_b, sr, T)
+        gv, gs = (blocks.whole(t) for t in stored(x))
+        require(torch.equal(gs, ds) and same_bits(torch, gv, dv), f"6p (i) SUMMA {sr.name}: != one device bit for bit")
+
+    # compiled DSL PageRank inside the Context: dense (SUMMA) and sparse (sharded SpMV)
+    g12 = rmat(12, 16, seed=61, device=dev)
+    keep = g12.valid.cpu().numpy()
+    AT_d = Matrix.from_coo(g12.dst.cpu().numpy()[keep], g12.src.cpu().numpy()[keep], 1.0, F32, nrows=g12.n, ncols=g12.n, dup_op=binary.first)
+    require(AT_d._sparse is None, "6p (i) the dense graph is not in the dense format")
+    AT_s = A07.T.new()
+    loops = {}
+    for tag, AT, cfg in (("dense, SUMMA", AT_d, {}), ("scale-19 sparse, sharded SpMV", AT_s, {"mxv_strategy": "plan"})):
+        with gb.tx.config.set(**cfg):
+            outside = dsl.pagerank_runner(AT, max_iters=MESH_LOOP_ITERS)
+            want = outside()
+            with ctx:
+                ATp = AT
+                if AT._sparse is None:
+                    ATp = parallel.shard_matrix(AT.dup())
+                kernels.reset_counts()
+                inside = dsl.pagerank_runner(ATp, max_iters=MESH_LOOP_ITERS)
+                g0, r0 = blocks.gathers, blocks.reshards
+                got = inside()
+                torch.cuda.synchronize()
+                run_counts = {"gathers": blocks.gathers - g0, "reshards": blocks.reshards - r0}
+                loop_launches = kernels.launch_counts()
+                loop_plain = kernels.plain_counts()
+                t_in = cuda_ms(torch, inside, 3) / MESH_LOOP_ITERS
+            t_out = cuda_ms(torch, outside, 3) / MESH_LOOP_ITERS
+        require(run_counts["gathers"] == 0, f"6p (i) compiled PageRank ({tag}): {run_counts['gathers']} gathers in a run")
+        gv = got._values
+        torch.testing.assert_close(gv, want._values, rtol=1e-5, atol=0)
+        launches = {k: launches.get(k, 0) + loop_launches.get(k, 0) for k in set(launches) | set(loop_launches)}
+        plain = {k: plain.get(k, 0) + loop_plain.get(k, 0) for k in set(plain) | set(loop_plain)}
+        loops[tag] = {
+            "mode": inside.mode, "capture": inside.capture, "capture_reason": inside.capture_reason,
+            "placed": placement(got)[1] if placement(got) else None, "run_counts": run_counts,
+            "step_ms_inside": t_in, "step_ms_outside": t_out, "ratio": t_in / t_out,
+            "max_abs_err": abs_err(gv, want._values), "launches": {k: v for k, v in loop_launches.items() if v},
+        }
+    for tag, loop in loops.items():
+        require(loop["capture"] == "graph", f"6p (i) compiled PageRank ({tag}) on 8 shards of one card: capture {loop}")
+    require(loops["dense, SUMMA"]["placed"] == ("i",), "6p (i) compiled PageRank: the rank vector is not P(i,)")
+    for name in ("gather", "gather_fill", "segscan_contrib"):
+        require(loops["scale-19 sparse, sharded SpMV"]["launches"].get(name, 0) > 0, f"6p (i) compiled sparse PageRank: {name} was not launched")
+    require(not any(plain.values()), f"6p (i): plain versions ran: {plain}")
+    say(
+        "6p mesh",
+        f"(i) resident shards on {smi}, {N}^2 FP64 seed 61: "
+        + "; ".join(
+            f"{k}: {r['spec']} placed {r['placed_ms']:.4f} ms, one device {r['single_ms']:.4f} ms, ratio {r['ratio']:.2f}, "
+            f"max_abs_err={r['max_abs_err']!r}"
+            for k, r in rows.items()
+        )
+        + f"; SUMMA min_plus {N}^2 FP32 and INT32 plus_times {MESH_INT_N}^2 left P(i,) products ({summa_trop} gb_tropical, "
+        f"{summa_int} gb_imatmul launches) and ewise_add read them block by block, bit for bit with one device, no gather; "
+        f"compiled DSL PageRank, {MESH_LOOP_ITERS} it: {json.dumps(loops)}; launches {launches}; phase {time.perf_counter() - t_phase:.1f} s",
+    )
+    return {"launches": launches, "plain": plain, "rows": rows, "loops": loops}
 
 
 BENCH_KEYS_SHARED = (

@@ -20,6 +20,8 @@ from .. import exceptions as _exc
 from . import capture as _cap
 from . import dtypes as _dt
 from . import recorder as _recorder
+from ..ops import densemasked as _dm
+from ..parallel import blocks as _blocks
 from .mask import Mask, StructuralMask, ValueMask
 from .operator import find_opclass, get_typed_op
 from .utils import zero_values
@@ -58,8 +60,16 @@ def _maybe_block(obj):
     loop there is nothing to synchronize."""
     import graphblas_tpu_torch as _gb
 
-    if _gb.is_blocking and _cap.active() is None and getattr(obj, "_sparse", None) is None and obj._struct.is_cuda:
-        torch.cuda.synchronize(obj._struct.device)
+    if _gb.is_blocking and _cap.active() is None and getattr(obj, "_sparse", None) is None:
+        _synchronize(obj)
+
+
+def _synchronize(obj):
+    """Wait for the card(s) that hold a dense collection's tensors."""
+    lay = layout_of(obj)
+    for dev in lay.distinct_devices() if lay is not None else [obj._device]:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def record_call(opname, *args):
@@ -233,14 +243,29 @@ class BaseType:
 
         with _engine_opts_ctx(opts):
             zv, zs = expr._compute()
-        from ..ops import densemasked as _dm
-
-        mask_bits = mask._bits() if mask is not None else None
         if mask is not None and mask.parent.shape != self.shape:
             raise _exc.DimensionMismatch("mask shape does not match output shape")
+        # placed operands: the merge runs block by block in the layout of C,
+        # the mask and the result (C is read only with a mask or an accum)
+        reads_c = mask is not None or accum is not None
+        lay = _blocks.merge_layouts(
+            [
+                layout_of(self) if reads_c else None,
+                layout_of(mask.parent) if mask is not None else None,
+                zs.layout if _blocks.is_blocks(zs) else None,
+            ],
+            self.shape,
+        )
+        if lay is not None:
+            self._set_arrays(*_merge_blocks(self, mask, accum, replace, zv, zs, expr.dtype, lay, reads_c))
+            _maybe_block(self)
+            return
+        mask_bits = mask._bits() if mask is not None else None
+        # a placed C that the merge does not read is not gathered
+        cv, cs = (zv, zs) if not reads_c and layout_of(self) is not None else (self._values, self._struct)
         cv, cs = _dm.masked_merge(
-            self._values,
-            self._struct,
+            cv,
+            cs,
             zv,
             zs,
             mask_bits,
@@ -262,8 +287,7 @@ class BaseType:
         return self._dtype
 
     def _set_arrays(self, values, struct):
-        self._values = values
-        self._struct = struct
+        store(self, values, struct)
 
     def _as_expression(self):
         """Wrap a plain collection as an identity expression."""
@@ -292,8 +316,24 @@ class BaseType:
         The count is one read of the card; it is cached, keyed on the struct
         tensor and its version counter: every mutation funnels through
         ``_update``/``_set_arrays`` and installs a NEW struct tensor, and the
-        version catches an in-place write all the same."""
-        s = self._struct
+        version catches an in-place write all the same.  A placed collection
+        counts its blocks (one read; the cache keyed on its structure's
+        blocks)."""
+        s = stored(self)[1]
+        if _blocks.is_blocks(s):
+            cache = getattr(self, "_nvals_cache", None)
+            vers = tuple(t._version for t in s.tensors())
+            if cache is not None and cache[0] is s and cache[1] == vers:
+                return cache[2]
+            if _cap.active() is not None:
+                # inside a compiled loop: constant blocks count on the host
+                h = _blocks.whole_host(s, _cap.host_of)
+                if h is None:
+                    raise _exc.TracerError(".nvals reads a traced structure inside a compiled loop body")
+                return int(h.sum())
+            n = _blocks.count_present(s)
+            self._nvals_cache = (s, vers, n)
+            return n
         cache = getattr(self, "_nvals_cache", None)
         if cache is not None and cache[0] is s and cache[1] == s._version:
             return cache[2]
@@ -309,14 +349,18 @@ class BaseType:
         return n
 
     def clear(self):
-        """Remove all stored values."""
+        """Remove all stored values (a placed collection keeps its layout)."""
+        v, s = stored(self)
+        if _blocks.is_blocks(s):
+            self._set_arrays(v.map(torch.zeros_like), s.map(torch.zeros_like))
+            return
         self._set_arrays(torch.zeros_like(self._values), torch.zeros_like(self._struct))
 
     def wait(self, how="materialize"):
         """Block until pending device computation completes: asynchronous
         CUDA launches are the analogue of GraphBLAS non-blocking mode."""
-        if self._struct.is_cuda and _cap.active() is None:
-            torch.cuda.synchronize(self._struct.device)
+        if _cap.active() is None:
+            _synchronize(self)
         return self
 
     # -- comparison helpers ------------------------------------------------
@@ -412,6 +456,23 @@ class BaseType:
     # infix operators are attached by infixmethods
 
 
+def _merge_blocks(c, mask, accum, replace, zv, zs, z_type, lay, reads_c):
+    """``ops.densemasked.masked_merge`` block by block in ``lay``: C, the
+    mask's parent and Z cut into it where they sit elsewhere (counted in
+    ``blocks.reshards``)."""
+    zv, zs = _blocks.relayout(zv, lay), _blocks.relayout(zs, lay)
+    cv, cs = (_blocks.relayout(t, lay) for t in stored(c)) if reads_c else (zv, zs)
+    mv, ms = (_blocks.relayout(t, lay) for t in stored(mask.parent)) if mask is not None else (None, None)
+
+    def block(cv, cs, zv, zs, mv, ms):
+        bits = _dm.mask_to_bits(mv, ms, mask.complement, mask.structure) if mask is not None else None
+        return _dm.masked_merge(
+            cv, cs, zv, zs, bits, accum, bool(replace), bits is not None, c_type=c.dtype, z_type=z_type
+        )
+
+    return _blocks.blockwise(block, lay, cv, cs, zv, zs, mv, ms)
+
+
 def _retyped(sp, dtype):
     """Sparse storage with its values in ``dtype`` (a new container when they
     convert, as numpy converts)."""
@@ -446,7 +507,70 @@ def _check_mask(mask, output=None):
         )
     return mask
 
-_cap.hold_slots(BaseType, "_values", "_struct")
+class _Storage(_cap.HeldSlot):
+    """A collection's ``_values`` / ``_struct``: a capture.HeldSlot whose read
+    gathers the whole tensor when a placed collection holds blocks there
+    (``parallel.blocks``; counted into ``blocks.gathers``).  Writing a whole
+    tensor to one slot of a placed collection drops the placement: the other
+    slot is gathered too.  The block routes read the slots as they are
+    (``stored``) and write both at once (``store``)."""
+
+    __slots__ = ("other",)
+
+    def __get__(self, obj, cls=None):
+        v = _cap.HeldSlot.__get__(self, obj, cls)
+        if obj is not None and _blocks.is_blocks(v):
+            return v.gather()
+        return v
+
+    def __set__(self, obj, v):
+        if not _blocks.is_blocks(v):
+            try:
+                o = self.other.slot.__get__(obj)
+            except AttributeError:
+                o = None
+            if _blocks.is_blocks(o):
+                _cap.HeldSlot.__set__(self.other, obj, o.gather())
+        _cap.HeldSlot.__set__(self, obj, v)
+
+
+def _storage_slots(cls):
+    v, s = _Storage(cls.__dict__["_values_"]), _Storage(cls.__dict__["_struct_"])
+    v.other, s.other = s, v
+    cls._values, cls._struct = v, s
+
+
+_storage_slots(BaseType)
+
+
+def stored(obj):
+    """(values, struct) as ``obj`` holds them: tensors, or the ``Blocks`` of a
+    placed collection (no gather).  A transposed view gives transposed ones."""
+    from .matrix import TransposedMatrix
+
+    if isinstance(obj, TransposedMatrix):
+        v, s = stored(obj._matrix)
+        if _blocks.is_blocks(s):
+            return v.transpose(), s.transpose()
+        return _dm.tmap(lambda t: t.T, v), s.T
+    if getattr(obj, "_sparse", None) is not None:
+        return obj._values, obj._struct  # a sparse-format collection densifies (guarded)
+    return (_cap.HeldSlot.__get__(BaseType._values, obj), _cap.HeldSlot.__get__(BaseType._struct, obj))
+
+
+def store(obj, values, struct):
+    """Install (values, struct) in ``obj``'s data slots as they are (both
+    tensors or both Blocks)."""
+    _cap.HeldSlot.__set__(BaseType._values, obj, values)
+    _cap.HeldSlot.__set__(BaseType._struct, obj, struct)
+
+
+def layout_of(obj):
+    """The ``blocks.Layout`` of a placed dense collection, else None."""
+    if getattr(obj, "_sparse", None) is not None:
+        return None
+    s = stored(obj)[1]
+    return s.layout if _blocks.is_blocks(s) else None
 
 
 class Updater:
@@ -589,7 +713,17 @@ class BaseExpression(_InfixMixin):
             out.name = name
             return out
         out = self._empty_output(out_dtype, name)
-        out._update(self, mask=_check_mask(mask, out) if mask is not None else None, opts=opts)
+        mask = _check_mask(mask, out) if mask is not None else None
+        if mask is not None:
+            # a masked result reads its empty output: make it where the
+            # result and the mask sit, so that no block is cut for it
+            lay = _blocks.merge_layouts(
+                [layout_of(a) for a in (*self.args, mask.parent) if getattr(a, "shape", None) == out.shape], out.shape
+            )
+            if lay is not None:
+                v, s = stored(out)
+                out._set_arrays(*(_blocks.cut(t, lay) for t in (v, s)))
+        out._update(self, mask=mask, opts=opts)
         return out
 
     dup = new

@@ -28,7 +28,8 @@ import torch
 from .. import exceptions as _exc
 from ..ops import densemasked as _dm
 from . import dtypes as _dt
-from .base import BaseExpression, _same_device
+from ..parallel import blocks as _blocks
+from .base import BaseExpression, _same_device, layout_of, stored
 from .operator import find_opclass, get_typed_op
 from .scalar import Scalar, _as_scalar, _is_scalar_like
 
@@ -37,17 +38,33 @@ def _arrays_of(obj):
     return obj._values, obj._struct
 
 
+def _in_layout(obj, lay):
+    """(values, struct) of ``obj`` in layout ``lay`` (cut when elsewhere)."""
+    return tuple(_blocks.relayout(t, lay) for t in stored(obj))
+
+
+def _route(shape, objs, fn, *, offsets=False):
+    """The compute closure of an elementwise family: ``fn(v0, s0, v1, s1,
+    ...)`` on the operands' whole tensors, or, where any operand is placed
+    (``parallel.blocks``), block by block in the result's layout (the
+    reference's XLA propagation: ``blocks.merge_layouts``), the blocks'
+    global offsets given as ``offset=`` when ``offsets``."""
+
+    def compute():
+        lay = _blocks.merge_layouts([layout_of(o) for o in objs], shape)
+        if lay is None:
+            args = [t for o in objs for t in _arrays_of(o)]
+            return fn(*args, offset=None) if offsets else fn(*args)
+        return _blocks.blockwise(fn, lay, *[t for o in objs for t in _in_layout(o, lay)], offsets=offsets)
+
+    return compute
+
+
 def _mesh_context():
     """The engaged parallel.Context, if any (thread-local stack)."""
     from ..parallel import current_context
 
     return current_context()
-
-
-def _on(pair, device):
-    """(values, struct) moved to ``device`` (a mesh result lands on the mesh's
-    first device; the expression's output stays on its operands')."""
-    return tuple(t.to(device) for t in pair)
 
 
 def _sparse_of(obj):
@@ -167,18 +184,28 @@ def ewise_expr(self, other, op, how, *, left_default=None, right_default=None):
         ld = _as_scalar(left_default)
         rd = _as_scalar(right_default)
 
-        def compute():
-            av, as_, bv, bs = _operands()
+        def engine(av, as_, bv, bs, op_t, offset=None):
             return _dm.ewise_union(
-                av, as_, bv, bs, op_t, ld._device_value(op_t.type_, av.device), rd._device_value(op_t.type2, av.device)
+                av, as_, bv, bs, op_t, ld._device_value(op_t.type_, as_.device), rd._device_value(op_t.type2, as_.device),
+                offset=offset,
             )
 
     else:
         engine = _dm.ewise_mult if how == "mult" else _dm.ewise_add
 
+    if vec_left or vec_right:
+
         def compute():
-            av, as_, bv, bs = _operands()
-            return engine(av, as_, bv, bs, op_t)
+            return engine(*_operands(), op_t)
+
+    else:
+
+        def block(av, as_, bv, bs, offset=None):
+            av = _cast_values(av, self.dtype, op_t.type_)
+            bv = _cast_values(bv, other.dtype, op_t.type2)
+            return engine(av, as_, bv, bs, op_t, offset=offset)
+
+        compute = _route(out_shape, (self, other), block, offsets=True)
 
     # sparse-sparse ewise: host merge-join + device combine, no densify
     # (keeps 2^60-scale dimensions representable)
@@ -259,10 +286,11 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
         op_t = get_typed_op(op, self.dtype, kind="indexunary")
         thunk_s = _as_scalar(thunk if thunk is not None else 0, getattr(op_t.parent, "_thunk_dtype", None))
 
-        def compute():
-            v, s = _arrays_of(self)
+        def block(v, s, offset=None):
             v = _cast_values(v, self.dtype, op_t.type_)
-            return _dm.apply_indexunary(v, s, op_t, thunk_s._device_value(device=v.device))
+            return _dm.apply_indexunary(v, s, op_t, thunk_s._device_value(device=s.device), offset)
+
+        compute = _route(self.shape, (self,), block, offsets=True)
 
         sparse_fn = None
         sp, transposed = _sparse_of(self)
@@ -306,9 +334,10 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
 
             _ll.reject_index_semantics(self, op_t, "positional apply")
 
-            def compute():
-                v, s = _arrays_of(self)
-                return _dm.apply_positional_unary(v, s, op_t, 0)
+            def block(v, s, offset=None):
+                return _dm.apply_positional_unary(v, s, op_t, offset)
+
+            compute = _route(self.shape, (self,), block, offsets=True)
 
             if (_sp_nonudt(sp) and not transposed) or sv is not None:
 
@@ -324,10 +353,10 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
 
         else:
 
-            def compute():
-                v, s = _arrays_of(self)
-                v = _cast_values(v, self.dtype, op_t.type_)
-                return _dm.apply_unary(v, s, op_t)
+            def block(v, s):
+                return _dm.apply_unary(_cast_values(v, self.dtype, op_t.type_), s, op_t)
+
+            compute = _route(self.shape, (self,), block)
 
             if (_sp_nonudt(sp) and not transposed) or sv is not None:
 
@@ -350,11 +379,12 @@ def apply_expr(self, op, right=None, *, left=None, thunk=None):
     else:
         op_t = get_typed_op(op, bound.dtype, self.dtype, is_left_scalar=True, kind="binary")
 
-    def compute():
-        v, s = _arrays_of(self)
+    def block(v, s):
         v = _cast_values(v, self.dtype, op_t.type_ if right is not None else op_t.type2)
-        b = bound._device_value(op_t.type2 if right is not None else op_t.type_, v.device)
+        b = bound._device_value(op_t.type2 if right is not None else op_t.type_, s.device)
         return _dm.apply_bound(v, s, op_t, b, "right" if right is not None else "left")
+
+    compute = _route(self.shape, (self,), block)
 
     sparse_fn = None
     sp, transposed = _sparse_of(self)
@@ -424,10 +454,18 @@ def select_expr(self, op, thunk=None):
             )
         out_cls_m = Matrix if self.ndim == 2 else Vector
 
+        def block(v, s, mv, ms):
+            keep = s & _dm.mask_to_bits(mv, ms, mask_obj.complement, mask_obj.structure)
+            return _dm.canonical(v, keep)
+
+        route = _route(self.shape, (self, mask_obj.parent), block)
+
         def compute_mask():
-            v, s = _arrays_of(self)
-            keep = s & mask_obj._bits()
-            return torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device)), keep
+            if layout_of(self) is None and layout_of(mask_obj.parent) is None:
+                v, s = _arrays_of(self)
+                keep = s & mask_obj._bits()
+                return torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device)), keep
+            return route()
 
         return BaseExpression(
             "select",
@@ -446,9 +484,10 @@ def select_expr(self, op, thunk=None):
     _ll.reject_index_semantics(self, op_t, "select")
     thunk_s = _as_scalar(thunk if thunk is not None else 0, getattr(op_t.parent, "_thunk_dtype", None))
 
-    def compute():
-        v, s = _arrays_of(self)
-        return _dm.select_op(v, s, op_t, thunk_s._device_value(device=v.device))
+    def block(v, s, offset=None):
+        return _dm.select_op(v, s, op_t, thunk_s._device_value(device=s.device), offset)
+
+    compute = _route(self.shape, (self,), block, offsets=True)
 
     sparse_fn = None
     sp, transposed = _sparse_of(self)
@@ -527,10 +566,16 @@ def reduce_axis_expr(self, monoid, axis, method_name):
 
     else:
 
+        def block(v, s):
+            return _dm.reduce_axis(_cast_values(v, self.dtype, monoid_t.type_), s, monoid_t, axis)
+
         def compute():
-            v, s = _arrays_of(self)
-            v = _cast_values(v, self.dtype, monoid_t.type_)
-            return _dm.reduce_axis(v, s, monoid_t, axis)
+            lay = layout_of(self)
+            if lay is not None:
+                # each block reduces along its own axis; the partials fold
+                # across the reduced mesh axis in shard order
+                return _blocks.reduce_axis(*stored(self), monoid_t, axis, block)
+            return block(*_arrays_of(self))
 
     return BaseExpression(
         method_name, Vector, compute, op=monoid_t, dtype=monoid_t.return_type, shape=(out_size,), args=(self,), opname=f"{method_name}[{monoid_t.name}]"
@@ -557,6 +602,11 @@ def reduce_scalar_expr(self, monoid, allow_empty, method_name="reduce_scalar"):
             from .sparse import sparse_reduce_scalar
 
             val, present = sparse_reduce_scalar(sp, monoid_t, self._device)
+        elif layout_of(self) is not None:
+            # each block's reduce, folded in shard order on the mesh's first device
+            val, present = _blocks.reduce_all(
+                *stored(self), monoid_t, lambda v, s: _dm.reduce_all(_cast_values(v, self.dtype, monoid_t.type_), s, monoid_t)
+            )
         else:
             v, s = _arrays_of(self)
             v = _cast_values(v, self.dtype, monoid_t.type_)
@@ -645,24 +695,29 @@ def mxm_expr(a, b, semiring_op, method_name="mxm"):
         # read at compute time so per-call descriptor opts (applied as a
         # config context by BaseType._update) take effect
         strategy = _txconfig.get("mxm_strategy", "auto")
+        # inside an engaged mesh Context, dense products run SUMMA over the
+        # mesh (UDT operands never do), reading placed operands' blocks where
+        # they sit; the product stays placed, Blocks P(i,)
+        ctx = _mesh_context()
+        if ctx is not None and not a.dtype._is_udt and not b.dtype._is_udt and not (a_is_vec and b_is_vec):
+            from ..parallel import summa as _summa
+
+            mul_parent = sr.binaryop.parent
+            vxm_ok = getattr(mul_parent, "commutes_to", None) is mul_parent and sr.binaryop.positional is None
+            if not a_is_vec or vxm_ok:
+                (av, as_), (bv, bs) = stored(a), stored(b)
+                av = _summa._cast(av, a.dtype, sr.binaryop.type_)
+                bv = _summa._cast(bv, b.dtype, sr.binaryop.type2)
+                if not a_is_vec and not b_is_vec:
+                    return _summa.summa_mxm_arrays(av, as_, bv, bs, sr, sr.return_type, ctx.mesh)
+                if b_is_vec:
+                    return _summa.summa_mxv_arrays(av, as_, bv, bs, sr, sr.return_type, ctx.mesh)
+                # vxm: run as mxv of B^T, exact only for a commutative, non-positional multiply
+                return _summa.summa_mxv_arrays(bv.T, bs.T, av, as_, sr, sr.return_type, ctx.mesh)
         av, as_ = _arrays_of(a)
         bv, bs = _arrays_of(b)
         av = _cast_values(av, a.dtype, sr.binaryop.type_)
         bv = _cast_values(bv, b.dtype, sr.binaryop.type2)
-        # inside an engaged mesh Context, dense products run SUMMA over the
-        # mesh (UDT operands never do)
-        ctx = _mesh_context()
-        if ctx is not None and not isinstance(av, dict) and not isinstance(bv, dict) and not (a_is_vec and b_is_vec):
-            from ..parallel.summa import summa_mxm_arrays, summa_mxv_arrays
-
-            if not a_is_vec and not b_is_vec:
-                return _on(summa_mxm_arrays(av, as_, bv, bs, sr, sr.return_type, ctx.mesh), as_.device)
-            if b_is_vec:
-                return _on(summa_mxv_arrays(av, as_, bv, bs, sr, sr.return_type, ctx.mesh), as_.device)
-            # vxm: run as mxv of B^T, exact only for a commutative, non-positional multiply
-            mul_parent = sr.binaryop.parent
-            if getattr(mul_parent, "commutes_to", None) is mul_parent and sr.binaryop.positional is None:
-                return _on(summa_mxv_arrays(bv.T, bs.T, av, as_, sr, sr.return_type, ctx.mesh), as_.device)
         if a_is_vec and b_is_vec:
             cv, cs = _dm.vxm(av, as_, _dm.tmap(lambda x: x[:, None], bv), bs[:, None], sr, sr.return_type, strategy)
             return _dm.tmap(lambda x: x[0], cv), cs[0]

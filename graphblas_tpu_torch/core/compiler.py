@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import exceptions as _exc
+from ..parallel import blocks as _b
 from . import capture as _cap
 
 
@@ -82,7 +83,10 @@ def _flatten_one(obj):
                 "sparse-format collections cannot be loop state (their pattern is a "
                 "constant of the loop); pass them as closed-over operands instead"
             )
-        return [obj._values, obj._struct], _Spec("dense", type(obj), obj.dtype, obj.name)
+        from .base import stored
+
+        # a placed collection's state rides its blocks (parallel.blocks)
+        return list(stored(obj)), _Spec("dense", type(obj), obj.dtype, obj.name)
     raise TypeError(f"Unsupported state object for compiled loop: {type(obj)}")
 
 
@@ -160,28 +164,81 @@ def _check_body_out(out, specs, where):
     return tuple(out)
 
 
+def _lmap(fn, leaf):
+    """``fn`` on a state leaf: a tensor, or each block of a placed one."""
+    return leaf.map(fn) if _b.is_blocks(leaf) else fn(leaf)
+
+
+def _tensors(leaves):
+    """The tensors of state leaves (a placed leaf's blocks)."""
+    out = []
+    for leaf in leaves:
+        out.extend(leaf.tensors() if _b.is_blocks(leaf) else (leaf,))
+    return out
+
+
+def _leaf_layout(leaf):
+    return leaf.layout if _b.is_blocks(leaf) else None
+
+
+def _like(leaf, layout):
+    """``leaf`` in ``layout`` (None: a whole tensor)."""
+    if layout is not None:
+        return _b.relayout(leaf, layout)
+    return leaf.gather() if _b.is_blocks(leaf) else leaf
+
+
+def _host_value(x):
+    """The host value of a structure leaf (a placed one's assembled), or None."""
+    return _b.whole_host(x, _cap.host_of) if _b.is_blocks(x) else _cap.host_of(x)
+
+
+def _with_host(x):
+    """A constant copy of a structure leaf, its host value attached."""
+    return _lmap(lambda t: _cap.with_host(t.clone(), t.cpu().numpy()), x)
+
+
+def _whole_np(x):
+    """A state leaf's whole array as numpy (a placed one's blocks assembled)."""
+    return (_b.whole(x) if _b.is_blocks(x) else x).cpu().numpy()
+
+
+def _mesh_devices_reason(leaves):
+    """Why a step over the engaged mesh (or placed state) cannot be one CUDA
+    graph: its shards sit on more than one device.  None otherwise."""
+    from ..parallel import current_context
+
+    ctx = current_context()
+    devs = set(ctx.mesh.device_list()) if ctx is not None else set()
+    for leaf in leaves:
+        if _b.is_blocks(leaf):
+            devs.update(leaf.layout.devices)
+    if len(devs) > 1:
+        return f"the mesh's shards sit on {len(devs)} devices; a CUDA graph records one device's work"
+    return None
+
+
 def _cast_like(out, specs, ref_leaves, with_struct):
     """The body's output collections as state leaves: the values converted
-    to the carried types (loop state keeps its shapes and types), and the
-    structures when they ride the state."""
+    to the carried types (loop state keeps its shapes, types and layouts),
+    and the structures when they ride the state."""
     from . import dtypes as _dt
 
     leaves = []
     for obj, spec in zip(out, specs):
         lv, _ = _flatten_one(obj)
-        v = _dt.cast(lv[0], obj.dtype, spec.dtype)
-        leaves.append(v)
+        leaves.append(_lmap(lambda t: _dt.cast(t, obj.dtype, spec.dtype), lv[0]))
         if spec.kind != "scalar" and with_struct:
             leaves.append(lv[1])
     for a, r in zip(leaves, ref_leaves):
         if tuple(a.shape) != tuple(r.shape):
             raise _exc.DimensionMismatch(f"loop body changed a state shape: {tuple(a.shape)} != {tuple(r.shape)}")
-    return leaves
+    return [_like(a, _leaf_layout(r)) for a, r in zip(leaves, ref_leaves)]
 
 
 def _fresh(leaves):
     """Traced copies of state leaves (the caller's tensors stay untouched)."""
-    return [_cap.traced(t.clone()) for t in leaves]
+    return [_lmap(lambda t: _cap.traced(t.clone()), leaf) for leaf in leaves]
 
 
 def _graph_steps(n):
@@ -193,6 +250,7 @@ def _copy_back(dst, src):
     """dst[i] <- src[i] inside a capture; an output that shares storage with
     any state buffer is copied out first (a body may return its input or
     swap two states)."""
+    dst, src = _tensors(dst), _tensors([_like(s, _leaf_layout(d)) for d, s in zip(dst, src)])
     ptrs = {d.untyped_storage().data_ptr() for d in dst}
     src = [s.clone() if s.untyped_storage().data_ptr() in ptrs else s for s in src]
     for d, s in zip(dst, src):
@@ -276,6 +334,7 @@ class CompiledLoop:
         self.last_iters = None  # while loops: body steps of the last run
         self.steps_per_replay = self._unroll if kind == "while" else _graph_steps(n_iters or 0)
         self._device = next((l.device for l in leaves if l.dim() > 0), leaves[0].device if leaves else None)
+        self._out_layouts = None  # the warm step's output layouts (state that mesh routes place)
         self._structs = None  # hoisted: the constant structures, n space
         self._run_structs = None  # hoisted: the structures the body sees (edge space in edge layout)
         self._values0 = None
@@ -303,13 +362,15 @@ class CompiledLoop:
         st = _rebuild_state(specs, list(leaves), structs=structs)
         with self._layout_ctx():
             out = _check_body_out(self._body(*st), specs, "loop body")
+        if self._out_layouts is None:
+            self._out_layouts = [[_leaf_layout(leaf) for leaf in _flatten_one(o)[0]] for o in out]
         if structs is not None:
             _, out_structs = _split_values_structs(out)
             for s_in, s_out in zip(structs, out_structs):
                 if s_in is None:
                     continue
-                h_out = _cap.host_of(s_out)
-                if h_out is None or not np.array_equal(_cap.host_of(s_in), h_out):
+                h_out = _host_value(s_out)
+                if h_out is None or _leaf_layout(s_in) != _leaf_layout(s_out) or not np.array_equal(_host_value(s_in), h_out):
                     raise _StructureDiverged
         return _cast_like(out, specs, leaves, with_struct=structs is None)
 
@@ -346,6 +407,35 @@ class CompiledLoop:
     # -- build ------------------------------------------------------------------
 
     def _build(self):
+        """Build on the initial state; where the warm step's outputs sit in
+        other layouts than the state (a mesh route places its product), the
+        state takes theirs and the build runs again, so that the loop keeps
+        its state where the routes leave it."""
+        for _ in range(2):
+            self._out_layouts = None
+            self._build_once()
+            if not self._place_state(self._out_layouts):
+                return
+
+    def _place_state(self, layouts):
+        """Put the initial state in ``layouts`` (per collection, its leaves');
+        True when anything moved."""
+        if not layouts or self._nested:
+            return False
+        moved, leaves, pos = False, list(self._leaves0), 0
+        for spec, lays in zip(self._specs, layouts):
+            for lay in lays if spec.kind != "scalar" else ():
+                if _leaf_layout(leaves[pos]) != lay:
+                    leaves[pos] = _like(leaves[pos], lay)
+                    moved = True
+                pos += 1
+            pos += 1 if spec.kind == "scalar" else 0
+        if moved:
+            self._leaves0 = leaves
+            self._held = _cap.Held()
+        return moved
+
+    def _build_once(self):
         from . import looplayout as _ll
 
         if self._nested:
@@ -357,7 +447,7 @@ class CompiledLoop:
             return
         # -- attempt 1: values-only state; structures constants of the loop ---
         values0, structs0 = _split_values_structs(_rebuild_state(self._specs, self._leaves0))
-        consts = [None if s is None else _cap.with_host(s.clone(), s.cpu().numpy()) for s in structs0]
+        consts = [None if s is None else _with_host(s) for s in structs0]
         probe = _ll._ProbeScope() if self._edge_layout_enabled() else None
         try:
             scope = self._warm(values0, consts, probe)
@@ -379,7 +469,7 @@ class CompiledLoop:
         self._decide_capture(self._warm(self._leaves0, None))
 
     def _decide_capture(self, scope):
-        reason = scope.eager_reason
+        reason = _mesh_devices_reason(self._leaves0) or scope.eager_reason
         self.capture = "eager" if reason else "graph"
         self.capture_reason = reason
 
@@ -398,6 +488,10 @@ class CompiledLoop:
             return False
         if flag not in (None, "1"):
             return False
+        from ..parallel import current_context
+
+        if current_context() is not None:
+            return False  # the mesh routes run in the n space
         from .sparse import _mxv_strategy
 
         # the "generic" strategy keeps exercising the generic lowering; the
@@ -489,21 +583,21 @@ class CompiledLoop:
         else:
             leaves = self._leaves0
         if not self._hoisted:
-            return list(leaves)
+            return [_like(leaf, _leaf_layout(l0)) for leaf, l0 in zip(leaves, self._leaves0)]
         if not state:
             return list(self._values0)
         values, structs = _split_values_structs(_rebuild_state(specs, leaves))
         for s_new, s_cap in zip(structs, self._structs):
             if s_cap is None:
                 continue
-            if not np.array_equal(s_new.cpu().numpy(), _cap.host_of(s_cap)):
+            if not np.array_equal(_whole_np(s_new), _host_value(s_cap)):
                 raise ValueError(
                     "compiled loop was specialized to a fixed structure; "
                     "input structure differs - rebuild with loop_runner"
                 )
         if self.layout == "edge":
             values = self._edge_lift_values(values)
-        return values
+        return [_like(v, _leaf_layout(v0)) for v, v0 in zip(values, self._values0)]
 
     def __call__(self, *state):
         leaves = self._state_leaves(state)
@@ -606,7 +700,7 @@ class CompiledLoop:
         # what the replays read at its captured addresses: the tensors made
         # outside the graph (plans, caches, closed-over operands) and the
         # step's outputs (a body may return a closed-over collection)
-        kept = [*scope.kept.values(), *out]
+        kept = [*scope.kept.values(), *_tensors(out)]
         self._graphs[k] = (graph, delta, flag, kept)
         return self._graphs[k]
 
@@ -686,7 +780,7 @@ def compile(fn=None):
         if kwargs:
             static_parts = static_parts + tuple(sorted(kwargs.items(), key=lambda kv: kv[0]))
         leaves, specs = _flatten_state([args[i] for i in traced_idx])
-        shapes = tuple((tuple(l.shape), str(l.dtype)) for l in leaves)
+        shapes = tuple((tuple(l.shape), str(l.dtype), getattr(l, "spec", None)) for l in leaves)
         key = (traced_idx, static_parts, shapes)
         entry = cache.get(key)
         if entry is None:
@@ -726,7 +820,7 @@ class _CompiledFunction:
             with _cap.Scope("warm", held=self._held) as scope:
                 self._run(_fresh(leaves))
             self._recorded = True
-            reason = scope.eager_reason
+            reason = _mesh_devices_reason(leaves) or scope.eager_reason
             self.capture, self.capture_reason = ("eager", reason) if reason else ("graph", None)
         else:
             self.capture = "graph"  # decided with the first call's step on the CPU
@@ -748,7 +842,7 @@ class _CompiledFunction:
             with _cap.holding(self._held):
                 return self._replay(leaves)
         with _cap.holding(self._held), _cap.Scope("step", held=None if self._recorded else self._held) as scope:
-            flat = self._run([_cap.traced(t.detach()) for t in leaves])
+            flat = self._run([_lmap(lambda t: _cap.traced(t.detach()), leaf) for leaf in leaves])
         self._recorded = True
         if scope.eager_reason and self.capture == "graph":
             self.capture, self.capture_reason = "eager", scope.eager_reason
@@ -756,7 +850,7 @@ class _CompiledFunction:
 
     def _replay(self, leaves):
         if self._graph is None:
-            self._static_in = [_cap.traced(t.clone()) for t in leaves]
+            self._static_in = _fresh(leaves)
             graph = torch.cuda.CUDAGraph()
             from .. import kernels
 

@@ -19,7 +19,7 @@ from ..ops import densemasked as _dm
 from . import capture as _cap
 from . import collection_ops as _cops
 from . import dtypes as _dt
-from .base import BaseExpression, BaseType, Updater
+from .base import BaseExpression, BaseType, Updater, layout_of, store, stored
 from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
@@ -118,8 +118,7 @@ class Matrix(InfixMixin, BaseType):
 
     def _set_arrays(self, values, struct):
         self._sparse = None
-        self._values = values
-        self._struct = struct
+        store(self, values, struct)
 
     def _adopt_sparse(self, sp):
         """Switch this Matrix to sparse storage on its device (dropping dense
@@ -134,24 +133,24 @@ class Matrix(InfixMixin, BaseType):
 
     @property
     def _device(self):
-        return self._sp_dev if self._sparse is not None else self._struct.device
+        return self._sp_dev if self._sparse is not None else self._struct_.device
 
     # -- introspection -----------------------------------------------------------
 
     @property
     def nrows(self):
         sp = self._sparse
-        return sp.nrows if sp is not None else self._struct.shape[0]
+        return sp.nrows if sp is not None else self._struct_.shape[0]
 
     @property
     def ncols(self):
         sp = self._sparse
-        return sp.ncols if sp is not None else self._struct.shape[1]
+        return sp.ncols if sp is not None else self._struct_.shape[1]
 
     @property
     def shape(self):
         sp = self._sparse
-        return (sp.nrows, sp.ncols) if sp is not None else tuple(self._struct.shape)
+        return (sp.nrows, sp.ncols) if sp is not None else tuple(self._struct_.shape)
 
     @property
     def nvals(self):
@@ -533,6 +532,10 @@ class Matrix(InfixMixin, BaseType):
             sp = self._sparse
             vals = sp.vals if dtype is self._dtype else sp.vals.astype(dtype.np_type)
             return Matrix._from_sparse(sp.copy(vals=vals.copy()), dtype, name=name, device=self._sp_dev)
+        if mask is None and layout_of(self) is not None:
+            # a placed matrix: its blocks, converted block by block
+            v, s = stored(self)
+            return Matrix._from_arrays(v.map(lambda t: _dt.cast(t, self._dtype, dtype)), s, dtype, name=name)
         v = _dt.cast(self._values, self._dtype, dtype)
         s = self._struct
         if mask is not None:
@@ -853,6 +856,9 @@ class TransposedMatrix:
         m = self._matrix
 
         def compute():
+            if layout_of(m) is not None:
+                # a placed matrix: its blocks transposed, spec reversed
+                return stored(self)
             return _dm.transpose(m._values, m._struct)
 
         sparse_compute = None

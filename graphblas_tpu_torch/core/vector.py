@@ -15,7 +15,7 @@ from ..ops import densemasked as _dm
 from . import capture as _cap
 from . import collection_ops as _cops
 from . import dtypes as _dt
-from .base import BaseExpression, BaseType, Updater
+from .base import BaseExpression, BaseType, Updater, layout_of, store, stored
 from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
@@ -183,8 +183,7 @@ class Vector(InfixMixin, BaseType):
 
     def _set_arrays(self, values, struct):
         self._sparse = None
-        self._values = values
-        self._struct = struct
+        store(self, values, struct)
 
     def _adopt_sparse(self, sv):
         """Switch this Vector to sparse storage on its device (dropping dense
@@ -199,12 +198,12 @@ class Vector(InfixMixin, BaseType):
 
     @property
     def _device(self):
-        return self._sp_dev if self._sparse is not None else self._struct.device
+        return self._sp_dev if self._sparse is not None else self._struct_.device
 
     @property
     def size(self):
         sv = self._sparse
-        return sv.size if sv is not None else self._struct.shape[0]
+        return sv.size if sv is not None else self._struct_.shape[0]
 
     @property
     def nvals(self):
@@ -446,6 +445,10 @@ class Vector(InfixMixin, BaseType):
         if self._sparse is not None and mask is None:
             sv = self._sparse
             return Vector._from_sparse(sv.copy(vals=sv.vals.astype(dtype.np_type)), dtype, name=name, device=self._sp_dev)
+        if mask is None and layout_of(self) is not None:
+            # a placed vector: its blocks, converted block by block
+            v, s = stored(self)
+            return Vector._from_arrays(v.map(lambda t: _dt.cast(t, self._dtype, dtype)), s, dtype, name=name)
         v = _dt.cast(self._values, self._dtype, dtype)
         s = self._struct
         if mask is not None:

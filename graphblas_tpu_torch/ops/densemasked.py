@@ -354,56 +354,61 @@ def apply_bound(values, struct, op, bound, side):
     return canonical(out, struct)
 
 
-def apply_positional_unary(values, struct, op, offset):
+def apply_positional_unary(values, struct, op, offset=None):
+    """Positional unary apply; ``offset``: the block's global index of its
+    first entry per axis (a placed collection's block), else 0."""
     pos = op.positional
     which, delta = pos if not isinstance(pos, str) else (pos, 0)
-    shape = tuple(values.shape)
-    i, j = _index_grids(shape, values.device)
+    shape = _shape_of(values)
+    i, j = _index_grids(shape, struct.device, offset)
     idx = i if len(shape) == 1 or which == "i" else j
-    out = _dt.cast(idx + delta + offset, _dt.INT64, op.return_type)
+    out = _dt.cast(idx + delta, _dt.INT64, op.return_type)
     return canonical(out.expand(shape), struct)
 
 
-def _index_grids(shape, device):
-    """Row and column index grids (int64) as broadcast views."""
+def _index_grids(shape, device, offset=None):
+    """Row and column index grids (int64) as broadcast views, starting at
+    ``offset`` (per axis, a placed collection's block; an int: on every
+    axis) or 0."""
+    off = (offset or 0,) * len(shape) if offset is None or isinstance(offset, int) else tuple(offset)
     if len(shape) == 1:
-        i = torch.arange(shape[0], dtype=_INDEX, device=device)
+        i = torch.arange(off[0], off[0] + shape[0], dtype=_INDEX, device=device)
         return i, torch.zeros_like(i)
-    i = torch.arange(shape[0], dtype=_INDEX, device=device)[:, None].expand(shape)
-    j = torch.arange(shape[1], dtype=_INDEX, device=device)[None, :].expand(shape)
+    i = torch.arange(off[0], off[0] + shape[0], dtype=_INDEX, device=device)[:, None].expand(shape)
+    j = torch.arange(off[1], off[1] + shape[1], dtype=_INDEX, device=device)[None, :].expand(shape)
     return i, j
 
 
-def apply_indexunary(values, struct, op, thunk):
+def apply_indexunary(values, struct, op, thunk, offset=None):
     """GrB_Matrix_apply_IndexOp."""
-    i, j = _index_grids(tuple(values.shape), values.device)
+    i, j = _index_grids(tuple(values.shape), values.device, offset)
     out = op.fn(_safe(values, struct, op), i, j, thunk)
     return canonical(out.expand(values.shape), struct)
 
 
-def select_op(values, struct, op, thunk):
+def select_op(values, struct, op, thunk, offset=None):
     """GrB_Matrix_select_*: ``values`` in the collection's own type, given
     to the op as they are (as the reference does)."""
-    i, j = _index_grids(tuple(values.shape), values.device)
+    i, j = _index_grids(_shape_of(values), struct.device, offset)
     keep = op.fn(values, i, j, thunk)
     return canonical(values, struct & keep)
 
 
-def ewise_mult(av, as_, bv, bs, op):
+def ewise_mult(av, as_, bv, bs, op, offset=None):
     """GrB_Matrix_eWiseMult (intersection); ``av`` in ``op.type_``, ``bv`` in
-    ``op.type2``."""
+    ``op.type2``.  ``offset``: a block's global position (positional ops)."""
     struct = s_and(as_, bs)
     if op.is_positional:
-        return _positional_ewise(_shape_of(av), struct, op, struct.device)
+        return _positional_ewise(_shape_of(av), struct, op, struct.device, offset)
     out = op.fn(_safe(av, as_, op), _safe(bv, bs, op))
     return canonical(out, struct)
 
 
-def ewise_add(av, as_, bv, bs, op):
+def ewise_add(av, as_, bv, bs, op, offset=None):
     """GrB_Matrix_eWiseAdd (union; both-present uses op)."""
     struct = s_or(as_, bs)
     if op.is_positional:
-        return _positional_ewise(_shape_of(av), struct, op, struct.device)
+        return _positional_ewise(_shape_of(av), struct, op, struct.device, offset)
     both = s_and(as_, bs)
     out = op.fn(_safe(av, as_, op), _safe(bv, bs, op))
     # non-intersecting entries pass through, cast to the op's output type
@@ -415,20 +420,20 @@ def ewise_add(av, as_, bv, bs, op):
     return canonical(out, struct)
 
 
-def ewise_union(av, as_, bv, bs, op, left_default, right_default):
+def ewise_union(av, as_, bv, bs, op, left_default, right_default, offset=None):
     """GxB_Matrix_eWiseUnion (union; the absent side takes its default, a
     0-d tensor in the op's input type)."""
     struct = s_or(as_, bs)
     if op.is_positional:
-        return _positional_ewise(tuple(av.shape), struct, op, av.device)
+        return _positional_ewise(tuple(av.shape), struct, op, av.device, offset)
     a_filled = torch.where(as_, av, left_default)
     b_filled = torch.where(bs, bv, right_default)
     return canonical(op.fn(a_filled, b_filled), struct)
 
 
-def _positional_ewise(shape, struct, op, device):
+def _positional_ewise(shape, struct, op, device, offset=None):
     which, delta = op.positional
-    i, j = _index_grids(shape, device)
+    i, j = _index_grids(shape, device, offset)
     idx = {"firsti": i, "firstj": j, "secondi": i, "secondj": j}[which]
     return canonical(_dt.cast(idx + delta, _dt.INT64, op.return_type).expand(shape), struct)
 

@@ -5,9 +5,13 @@ mesh of shards on torch devices (``parallel.mesh.Mesh``, the counterpart of
 ``jax.sharding.Mesh``): inside an engaged Context the DSL's sparse
 ``mxv``/``vxm`` run the sharded SpMV engine (``fastspmv``), ``C(M) <<
 A.mxm(B)`` on sparse operands the masked SpGEMM by mask-row blocks
-(``spgemm``), and dense ``mxm``/``mxv``/``vxm`` SUMMA (``summa``).  The mesh
-lives in one process; one device may hold several shards, so eight shards on
-one card run the same program as eight cards would.
+(``spgemm``), and dense ``mxm``/``mxv``/``vxm`` SUMMA (``summa``).  ``shard_matrix``,
+``shard_vector`` and ``replicate`` keep a dense collection's blocks on the
+shards' devices (``blocks``), and the ewise, apply, select, merge and reduce
+families run on placed operands block by block, their outputs placed with
+the reference's specs.  The mesh lives in one process; one device may hold
+several shards, so eight shards on one card run the same program as eight
+cards would.
 
 Which devices a Context takes when it is given none: on
 ``tx.config["platform"] == "cuda"`` (the default) the cards
@@ -106,18 +110,22 @@ def _engaged(context):
 
 
 def _place(x, mesh, spec):
-    """Move a collection's storage to the mesh's first device and record the
-    placement.  The mesh paths split operands across the shards themselves;
-    every other op family runs on that device as on one device."""
-    dev = mesh.device_list()[0]
+    """Cut a collection's storage into blocks over the mesh under ``spec``
+    (``parallel.blocks``): each shard's block on its device, the blocks in
+    the collection's data slots.  Raises ValueError where a dimension is not
+    divisible by its mesh axis, as the reference's ``device_put`` does.  A
+    sparse-format collection moves to the mesh's first device and its
+    placement is noted; its paths split it themselves."""
     if getattr(x, "_sparse", None) is not None:
-        x._sp_dev = dev
-    else:
-        from ..ops.densemasked import tmap
+        x._sp_dev = mesh.device_list()[0]
+        _record(x, mesh, spec)
+        return x
+    from ..core.base import store, stored
+    from . import blocks as _b
 
-        x._values = tmap(lambda t: t.to(dev), x._values)
-        x._struct = x._struct.to(dev)
-    _record(x, mesh, spec)
+    v, s = stored(x)
+    lay = _b.Layout(mesh, spec, tuple(s.shape))
+    store(x, *(t if _b.is_blocks(t) and t.layout == lay else _b.cut(_b.whole(t) if _b.is_blocks(t) else t, lay) for t in (v, s)))
     return x
 
 
@@ -125,8 +133,10 @@ def shard_matrix(A, context=None, *, spec=None):
     """Shard a dense-format Matrix as 2-D blocks over the mesh (in place).
 
     The reference's user-level block decomposition hooks are
-    ``Matrix.ss.split`` / ``gb.ss.concat``; here the split is a placement
-    record: SUMMA cuts the blocks when it runs."""
+    ``Matrix.ss.split`` / ``gb.ss.concat``; here the blocks sit on the
+    shards' devices (``parallel.blocks``, spec ``('i', 'j')`` or ``spec=``),
+    and the ewise, apply, select, merge and reduce families and SUMMA run
+    them block by block."""
     ctx = _engaged(context)
     if getattr(A, "_sparse", None) is not None:
         # never densify a sparse operand onto the mesh; sparse collections

@@ -118,7 +118,10 @@ def sharded_spmv_masked(splan, x, xs, add="plus", mul="times"):
     structure combines by ``pmax``, absent outputs read 0.  ``mul='secondi'``
     (parent BFS) works: the positional channel is per-shard static data."""
     x = _as_f32(splan, x)
-    xs = torch.as_tensor(xs, device=x.device).to(torch.bool)
+    # a device tensor is taken as it is: as_tensor would count as an upload
+    # inside a compiled loop and keep its step off a CUDA graph
+    xs = xs if isinstance(xs, torch.Tensor) else torch.as_tensor(np.asarray(xs), device=x.device)
+    xs = xs.to(device=x.device, dtype=torch.bool)
     vals, structs = [], []
     for p in splan.plans:
         yv, ys = _f.spmv_masked(p, x.to(p.device), xs.to(p.device), add=add, mul=mul)

@@ -86,38 +86,31 @@ def squarest(n):
 
 
 # ---------------------------------------------------------------------------
-# placement records: which mesh and spec a collection was put on
+# placement: which mesh and spec a collection was put on
 # ---------------------------------------------------------------------------
 
-_PLACED = {}  # id(collection) -> (weakref to it, mesh, spec, anchor)
-
-
-def _anchor(x):
-    """What the record is valid for: the collection's current storage (its
-    sparse data, or weak references to its value and structure tensors)."""
-    sp = getattr(x, "_sparse", None)
-    if sp is not None:
-        return sp
-    vals = x._values
-    return tuple(weakref.ref(t) for t in (vals if isinstance(vals, torch.Tensor) else None, x._struct) if t is not None)
+_PLACED = {}  # id(sparse collection) -> (weakref to it, mesh, spec, its sparse data)
 
 
 def record(x, mesh, spec):
+    """Note the placement of a sparse-format collection (a dense one keeps
+    its ``parallel.blocks.Blocks`` in its data slots instead)."""
     key = id(x)
-    _PLACED[key] = (weakref.ref(x, lambda _r, key=key: _PLACED.pop(key, None)), mesh, tuple(spec), _anchor(x))
-
-
-def _same_anchor(a, b):
-    if isinstance(a, tuple) and isinstance(b, tuple):
-        return len(a) == len(b) and all(p() is not None and p() is q() for p, q in zip(a, b))
-    return a is b
+    _PLACED[key] = (weakref.ref(x, lambda _r, key=key: _PLACED.pop(key, None)), mesh, tuple(spec), x._sparse)
 
 
 def placement(x):
-    """(mesh, spec) of the last ``shard_matrix``/``shard_vector``/``replicate``
-    of ``x``, while ``x`` still holds the storage that was placed; else None
-    (a later statement gave it new storage)."""
+    """(mesh, spec) of a placed collection: the layout of the blocks its data
+    slots hold, or a sparse collection's last ``shard_vector`` /
+    ``replicate`` while it holds the sparse data that was placed; else None
+    (a later statement gave it whole tensors or new storage)."""
+    from ..core.base import layout_of
+
+    sp = getattr(x, "_sparse", None)
+    if sp is None:
+        lay = layout_of(x)
+        return None if lay is None else (lay.mesh, lay.spec)
     rec = _PLACED.get(id(x))
-    if rec is None or rec[0]() is not x or not _same_anchor(rec[3], _anchor(x)):
+    if rec is None or rec[0]() is not x or rec[3] is not sp:
         return None
     return rec[1], rec[2]

@@ -5,17 +5,22 @@ cut into blocks over a 2-D mesh: A as P(i, j), B (or x) as P(j, None).  Shard
 (i, j) computes its local block product with the single-device engine
 (``ops.densemasked.mxm`` / ``mxv``: a tropical block of at least 128 x 128
 outputs on a card reaches ``gb_tropical``), and the partials of row block i
-combine over j with the semiring's add monoid on the mesh's first device: a
+combine over j with the semiring's add monoid on each device of row i: a
 plus monoid zeroes absent partials and sums them in shard order (``psum``),
-any other monoid gathers them and folds left to right.  Shapes not divisible
-by the mesh are padded with absent entries and the result is cut back.
+any other monoid gathers them and folds left to right.  The operands are
+read where their blocks sit (``parallel.blocks``), and the product stays
+placed: Blocks P(i,), row block i on each of that row's devices, as the
+reference's ``out_specs=P(i, None)``.  Shapes not divisible by the mesh are
+padded with absent entries and the result, cut back, is replicated.
 """
 
+import numpy as np
 import torch
 
 from ..core import dtypes as _dt
 from ..ops import densemasked as _dm
 from . import _collectives as _c
+from . import blocks as _b
 
 
 def _pad_dim(v, s, axis, mult):
@@ -35,20 +40,15 @@ def _pad_dim(v, s, axis, mult):
     )
 
 
-def _grid(mesh, axis_names):
-    """The mesh's devices as a (pi, pj) grid in the order of ``axis_names``."""
-    ai, aj = axis_names
-    order = [mesh.axis_names.index(ai), mesh.axis_names.index(aj)]
-    return mesh.devices.transpose(order)
-
-
-def _blocks(dev, *ts):
-    """A shard's operand blocks, contiguous on its device."""
-    return [t.to(dev).contiguous() for t in ts]
+def _whole(x):
+    """A whole tensor of ``x`` (a placed operand's blocks assembled; counted
+    into ``blocks.gathers``)."""
+    return x.gather() if _b.is_blocks(x) else x
 
 
 def _combine_partials(parts, add, out_dtype, device):
-    """Partials [(values, struct)] of one row block, combined over j."""
+    """Partials [(values, struct)] of one row block, combined over j on
+    ``device``."""
     if add.parent.name == "plus":
         # absent partials are canonical 0: the plain sum is the monoid combine
         cv = _c.psum([torch.where(s, v, torch.zeros((), dtype=v.dtype, device=v.device)) for v, s in parts], device)
@@ -64,71 +64,92 @@ def _combine_partials(parts, add, out_dtype, device):
     return torch.where(s, v, torch.zeros((), dtype=v.dtype, device=v.device)), s
 
 
+def _summa(local, AV, AS, BV, BS, semiring_typed, out_dtype, mesh, axis_names, ncols):
+    """Shard (i, j) multiplies A's block (i, j) by B's row block j with
+    ``local``; the partials of row block i combine over j on each of that
+    row's devices.  The operands are read where they sit: A in layout
+    (ai, aj) and B in (aj,) cost nothing, any other layout is cut into
+    them (``blocks.reshards``).  Returns (values, struct) as Blocks (ai,)
+    (``ncols`` None: a vector).  A shape that does not divide by the mesh
+    is padded with absent entries on the mesh's first device and the
+    product, cut back, is replicated (spec ()), as the reference's."""
+    ai, aj = axis_names
+    pi, pj = mesh.shape[ai], mesh.shape[aj]
+    m, k = AS.shape
+    tail = () if ncols is None else (ncols,)
+    if m % pi or k % pj:
+        av, as_ = _pad_dim(*_pad_dim(_whole(AV), _whole(AS), 0, pi), 1, pj)
+        bv, bs = _pad_dim(_whole(BV), _whole(BS), 0, pj)
+        a_lay = _b.Layout(mesh, (ai, aj), as_.shape)
+        b_lay = _b.Layout(mesh, (aj,), bs.shape)
+        cv, cs = _summa(local, _b.cut(av, a_lay), _b.cut(as_, a_lay), _b.cut(bv, b_lay), _b.cut(bs, b_lay), semiring_typed, out_dtype, mesh, axis_names, ncols)
+        rep = _b.Layout(mesh, (), (m,) + tail)
+        return _b.cut(_b.whole(cv)[:m], rep), _b.cut(_b.whole(cs)[:m], rep)
+    a_lay = _b.Layout(mesh, (ai, aj), (m, k))
+    b_lay = _b.Layout(mesh, (aj,), (k,) + tail)
+    av, as_ = _b.relayout(AV, a_lay), _b.relayout(AS, a_lay)
+    bv, bs = _b.relayout(BV, b_lay), _b.relayout(BS, b_lay)
+    out = _b.Layout(mesh, (ai,), (m,) + tail)
+    ia, ja = mesh.axis_names.index(ai), mesh.axis_names.index(aj)
+    coords = np.indices(mesh.devices.shape).reshape(mesh.devices.ndim, -1).T
+    b_group = {(b_lay.keys[g][0], b_lay.devices[g]): g for g in range(len(b_lay.groups))}
+    partials = {}  # row block -> [(values, struct)] in j order
+    for kk in sorted(range(mesh.size), key=lambda kk: (coords[kk][ia], coords[kk][ja])):
+        i, j = int(coords[kk][ia]), int(coords[kk][ja])
+        ga = a_lay.group_of[kk]
+        gb = b_group[(j, a_lay.devices[ga])]
+        partials.setdefault(i, []).append(local(av.parts[ga], as_.parts[ga], bv.parts[gb], bs.parts[gb], semiring_typed, out_dtype))
+    vs, ss = [], []
+    for g in range(len(out.groups)):
+        v, s = _combine_partials(partials[out.keys[g][0]], semiring_typed.monoid, out_dtype, out.devices[g])
+        vs.append(v)
+        ss.append(s)
+    return _b.Blocks(out, vs), _b.Blocks(out, ss)
+
+
+def _cast(x, frm, to):
+    return x.map(lambda t: _dt.cast(t, frm, to)) if _b.is_blocks(x) else _dt.cast(x, frm, to)
+
+
 def summa_mxm(A, B, semiring_typed, out_dtype, mesh, *, axis_names=("i", "j")):
     """Sharded semiring mxm of two dense-format Matrix objects (see
     summa_mxm_arrays); their values are converted to the multiply's input
     types first."""
-    av = _dt.cast(A._values, A.dtype, semiring_typed.binaryop.type_)
-    bv = _dt.cast(B._values, B.dtype, semiring_typed.binaryop.type2)
-    return summa_mxm_arrays(av, A._struct, bv, B._struct, semiring_typed, out_dtype, mesh, axis_names=axis_names)
+    from ..core.base import stored
+
+    (av, as_), (bv, bs) = stored(A), stored(B)
+    av = _cast(av, A.dtype, semiring_typed.binaryop.type_)
+    bv = _cast(bv, B.dtype, semiring_typed.binaryop.type2)
+    return summa_mxm_arrays(av, as_, bv, bs, semiring_typed, out_dtype, mesh, axis_names=axis_names)
 
 
 def summa_mxm_arrays(AV, AS, BV, BS, semiring_typed, out_dtype, mesh, *, axis_names=("i", "j")):
-    """Sharded semiring mxm over dense-masked arrays, the values in the
-    multiply's input types (``ops.densemasked.mxm``'s contract).
+    """Sharded semiring mxm over dense-masked arrays (tensors, or the Blocks
+    of placed operands), the values in the multiply's input types
+    (``ops.densemasked.mxm``'s contract).
 
-    Shard (i, j) computes its (m/pi, k/pj) x (k/pj, n) block product on its
-    device, then the partials combine over j with the add monoid.  Returns
-    (values, struct) on the mesh's first device."""
-    grid = _grid(mesh, axis_names)
-    pi, pj = grid.shape
-    m = AV.shape[0]
-    av, as_ = _pad_dim(*_pad_dim(AV, AS, 0, pi), 1, pj)
-    bv, bs = _pad_dim(BV, BS, 0, pj)
-    mloc, kloc = av.shape[0] // pi, av.shape[1] // pj
-    out_dev = grid[0, 0]
-    rows = []
-    for i in range(pi):
-        parts = []
-        for j in range(pj):
-            dev = grid[i, j]
-            r, c = slice(i * mloc, (i + 1) * mloc), slice(j * kloc, (j + 1) * kloc)
-            parts.append(_dm.mxm(*_blocks(dev, av[r, c], as_[r, c], bv[c], bs[c]), semiring_typed, out_dtype))
-        rows.append(_combine_partials(parts, semiring_typed.monoid, out_dtype, out_dev))
-    cv = torch.cat([v for v, _ in rows])[:m]
-    cs = torch.cat([s for _, s in rows])[:m]
-    return cv, cs
+    A is read as P(i, j) and B as P(j, None); shard (i, j) computes its
+    (m/pi, k/pj) x (k/pj, n) block product on its device, then the partials
+    combine over j with the add monoid.  Returns (values, struct) as Blocks
+    P(i,): row block i on each of that row's devices."""
+    return _summa(_dm.mxm, AV, AS, BV, BS, semiring_typed, out_dtype, mesh, axis_names, BS.shape[1])
 
 
 def summa_mxv(A, x, semiring_typed, out_dtype, mesh, *, axis_names=("i", "j")):
     """Sharded semiring mxv (see summa_mxv_arrays)."""
-    av = _dt.cast(A._values, A.dtype, semiring_typed.binaryop.type_)
-    xv = _dt.cast(x._values, x.dtype, semiring_typed.binaryop.type2)
-    return summa_mxv_arrays(av, A._struct, xv, x._struct, semiring_typed, out_dtype, mesh, axis_names=axis_names)
+    from ..core.base import stored
+
+    (av, as_), (xv, xs) = stored(A), stored(x)
+    av = _cast(av, A.dtype, semiring_typed.binaryop.type_)
+    xv = _cast(xv, x.dtype, semiring_typed.binaryop.type2)
+    return summa_mxv_arrays(av, as_, xv, xs, semiring_typed, out_dtype, mesh, axis_names=axis_names)
 
 
 def summa_mxv_arrays(AV, AS, XV, XS, semiring_typed, out_dtype, mesh, *, axis_names=("i", "j")):
-    """Sharded semiring mxv: A P(i, j), x cut over j; the result on the
-    mesh's first device.  Non-divisible shapes are padded with absent
-    entries and cut back."""
-    grid = _grid(mesh, axis_names)
-    pi, pj = grid.shape
-    m = AV.shape[0]
-    av, as_ = _pad_dim(*_pad_dim(AV, AS, 0, pi), 1, pj)
-    xv, xs = _pad_dim(XV, XS, 0, pj)
-    mloc, kloc = av.shape[0] // pi, av.shape[1] // pj
-    out_dev = grid[0, 0]
-    rows = []
-    for i in range(pi):
-        parts = []
-        for j in range(pj):
-            dev = grid[i, j]
-            r, c = slice(i * mloc, (i + 1) * mloc), slice(j * kloc, (j + 1) * kloc)
-            parts.append(_dm.mxv(*_blocks(dev, av[r, c], as_[r, c], xv[c], xs[c]), semiring_typed, out_dtype))
-        rows.append(_combine_partials(parts, semiring_typed.monoid, out_dtype, out_dev))
-    yv = torch.cat([v for v, _ in rows])[:m]
-    ys = torch.cat([s for _, s in rows])[:m]
-    return yv, ys
+    """Sharded semiring mxv: A read as P(i, j), x as P(j); the result Blocks
+    P(i,).  Non-divisible shapes are padded with absent entries and cut
+    back (a replicated result)."""
+    return _summa(_dm.mxv, AV, AS, XV, XS, semiring_typed, out_dtype, mesh, axis_names, None)
 
 
 def sharded_spmv_step(mesh, n, *, axis_names=("i", "j")):

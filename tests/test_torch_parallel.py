@@ -30,6 +30,7 @@ import graphblas_tpu_torch as P
 from graphblas_tpu_torch import kernels
 from graphblas_tpu_torch import parallel as PP
 from graphblas_tpu_torch.core.operator import get_typed_op as p_typed
+from graphblas_tpu_torch.parallel import blocks as pblocks
 from graphblas_tpu_torch.parallel import mesh as pmesh_mod
 from graphblas_tpu_torch.parallel import spgemm as p_spgemm
 
@@ -69,6 +70,8 @@ def pinned():
 
 
 def _np(a):
+    if pblocks.is_blocks(a):  # a placed result (SUMMA's product): its whole array
+        a = pblocks.whole(a)
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
@@ -207,8 +210,15 @@ def test_shard_annotations_roundtrip(ref, jmesh, pmesh):
     assert pA.isequal(P.Matrix.from_dense(a, dtype=P.dtypes.FP64))
     assert pmesh_mod.placement(pA) == (pmesh, ("i", "j"))
     assert pmesh_mod.placement(px) == (pmesh, ())
-    px << px.apply(P.unary.ainv)  # new storage: the record no longer holds
-    assert pmesh_mod.placement(px) is None
+    # a statement on the replicated vector stays replicated, as the
+    # reference's P(); whole tensors written over it drop the placement, as
+    # the reference's result on one device
+    for x in (px, rx):
+        x << x.apply(type(x).__module__.startswith("graphblas_tpu_torch") and P.unary.ainv or ref.unary.ainv)
+    assert pmesh_mod.placement(px) == (pmesh, ()) and tuple(rx._values.sharding.spec) == ()
+    px << P.Vector.from_dense(v)
+    rx << ref.Vector.from_dense(v)
+    assert pmesh_mod.placement(px) is None and not hasattr(rx._values.sharding, "spec")
     with pytest.raises(ValueError, match="No mesh Context"):
         PP.shard_vector(px)
 
@@ -718,10 +728,11 @@ def test_summa_masked_complement_mask_through_dsl(ref, jmesh, pmesh):
     assert_same(pm, rm, rtol=1e-12)
 
 
-def _family_case(ref, jmesh, pmesh, arrays, statements):
+def _family_case(ref, jmesh, pmesh, arrays, statements, sums=()):
     """``statements(pkg, mats)`` on plain operands and on placed ones inside
-    the Context: equal (bit for bit), on the mesh's first device, and = the
-    reference's."""
+    the Context: equal (bit for bit; the outputs at ``sums``, FP64 plus
+    reductions, within rtol 1e-12, the reference's own tolerance), placed
+    over all 8 shards with the reference's spec, and = the reference's."""
     from test_torch_collections import assert_same
 
     def run(pkg, mesh):
@@ -731,10 +742,15 @@ def _family_case(ref, jmesh, pmesh, arrays, statements):
         return plain, placed
 
     (p0, p1), (r0, r1) = _both(ref, jmesh, pmesh, run)
-    for a, b, c in zip(p0, p1, r1):
+    for t, (a, b, c) in enumerate(zip(p0, p1, r1)):
         if hasattr(a, "isequal"):
-            assert a.isequal(b, check_dtype=True)
-            assert b._device == pmesh.device_list()[0]
+            if t in sums:
+                assert a.isclose(b, rel_tol=1e-12, check_dtype=True)
+            else:
+                assert a.isequal(b, check_dtype=True)
+            mesh, spec = pmesh_mod.placement(b)
+            assert mesh is pmesh and spec == tuple(c._values.sharding.spec)
+            assert len(c._values.sharding.device_set) == mesh.size == 8
             assert_same(b, c, rtol=1e-12)
         else:
             np.testing.assert_allclose(float(b), float(a), rtol=1e-12)
@@ -781,6 +797,7 @@ def test_sharded_reduce_rowwise_colwise_scalar(ref, jmesh, pmesh):
             m[0].reduce_columnwise("max").new(),
             m[0].reduce_scalar("plus").new().value,
         ],
+        sums=(0,),
     )
 
 
@@ -968,7 +985,9 @@ def test_cuda_summa_reaches_gb_tropical():
     kernels.reset_counts()
     for sr, exact in (("min_plus", True), ("plus_times", False)):
         t = p_typed(getattr(P.semiring, sr), P.dtypes.FP32, kind="semiring")
-        (cv, cs), (dv, ds) = PP.summa_mxm_arrays(a, s, b, s, t, P.dtypes.FP32, mesh), dm.mxm(a, s, b, s, t, P.dtypes.FP32)
+        placed, (dv, ds) = PP.summa_mxm_arrays(a, s, b, s, t, P.dtypes.FP32, mesh), dm.mxm(a, s, b, s, t, P.dtypes.FP32)
+        assert placed[0].spec == ("i",)  # the product stays on its shards, P(i,)
+        cv, cs = (pblocks.whole(x) for x in placed)
         assert torch.equal(cs, ds)
         if exact:
             assert torch.equal(cv, dv)

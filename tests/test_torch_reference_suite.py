@@ -48,7 +48,7 @@ def _entries(reason, file, *tests):
     return {f"{file}::{t}" if t else file: reason for t in tests}
 
 
-_JAX_DEVICES = "jax.devices() fixture; the mesh's ewise/apply/select/reduce are queue 3"
+_JAX_DEVICES = "its mesh fixture hands jax.devices() to the port's Context, which takes torch devices"
 _PALLAS = "imports the JAX package's Pallas modules, which the port has as CUDA kernels (csrc/)"
 _NUMPY_FN = "calls a typed op's .fn on numpy values; the port's ops take tensors"
 _CUDA_DEFAULT = "relies on the device default, which is the card in the port"

@@ -1,0 +1,6 @@
+"""``device.idle_pct`` of the eager cell, which moves ``trial_ms.eager`` (the eager cell's
+trial times carry their own bound: the host sets them)."""
+
+from gbbench import registry
+
+read = registry.metric("device.idle_pct").read

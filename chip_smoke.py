@@ -2601,11 +2601,12 @@ def resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi):
 
     rows = {}
     for name, fn, spec, rtol in statements:
-        g0 = blocks.gathers
+        g0 = blocks.counts()["gathers"]
         with ctx:
             got = fn(*args_p)
         torch.cuda.synchronize()
-        require(blocks.gathers == g0, f"6p (i) {name}: {blocks.gathers - g0} gathers inside the statement")
+        moved = blocks.counts()["gathers"] - g0
+        require(moved == 0, f"6p (i) {name}: {moved} gathers inside the statement")
         if spec is None:
             require(got.ndim == 0, f"6p (i) {name}: not a scalar")
         else:
@@ -2629,7 +2630,7 @@ def resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi):
     with ctx:
         SA_p, SB_p, IA_p, IB_p = (parallel.shard_matrix(x.dup()) for x in (SA, SB, IA, IB))
     kernels.reset_counts()
-    g0 = blocks.gathers
+    g0 = blocks.counts()["gathers"]
     with ctx:
         P_min = SA_p.mxm(SB_p, semiring.min_plus).new()
         P_min2 = P_min.ewise_add(P_min, binary.plus).new()
@@ -2638,7 +2639,7 @@ def resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi):
     torch.cuda.synchronize()
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
     summa_trop, summa_int = launches["tropical_mxm"], launches["imatmul"]
-    require(blocks.gathers == g0, "6p (i) SUMMA: a gather inside the products or the statements after them")
+    require(blocks.counts()["gathers"] == g0, "6p (i) SUMMA: a gather inside the products or the statements after them")
     for x, what in ((P_min, "min_plus"), (P_min2, "min_plus + ewise_add"), (P_int, "INT32 plus_times"), (P_int2, "INT32 + ewise_add")):
         require(placement(x)[1] == ("i",), f"6p (i) SUMMA {what}: placed as {placement(x)}, not P(i,)")
     require(summa_trop == 8 and summa_int == 8, f"6p (i) SUMMA: {summa_trop} gb_tropical and {summa_int} gb_imatmul launches, not one a shard")
@@ -2664,10 +2665,10 @@ def resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi):
                     ATp = parallel.shard_matrix(AT.dup())
                 kernels.reset_counts()
                 inside = dsl.pagerank_runner(ATp, max_iters=MESH_LOOP_ITERS)
-                g0, r0 = blocks.gathers, blocks.reshards
+                before = blocks.counts()
                 got = inside()
                 torch.cuda.synchronize()
-                run_counts = {"gathers": blocks.gathers - g0, "reshards": blocks.reshards - r0}
+                run_counts = {k: v - before[k] for k, v in blocks.counts().items()}
                 loop_launches = kernels.launch_counts()
                 loop_plain = kernels.plain_counts()
                 t_in = cuda_ms(torch, inside, 3) / MESH_LOOP_ITERS

@@ -10,8 +10,13 @@ sparse sinks come first: ``C(M) << A.mxm(B)`` over sparse operands into an
 empty target adopts the masked SpGEMM's sparse result, and a sparse producer
 into an unmasked, unaccumulated target is adopted wholesale; everything else
 merges densely (a sparse target densifies, guarded by
-``tx.config["densify_limit"]``).
+``tx.config["densify_limit"]``).  A statement (``.new()``, ``<<``,
+``update``) is one call of the span ``collections.stmt``
+(``core.telemetry``).
 """
+
+import functools
+import threading
 
 import numpy as np
 import torch
@@ -20,6 +25,7 @@ from .. import exceptions as _exc
 from . import capture as _cap
 from . import dtypes as _dt
 from . import recorder as _recorder
+from . import telemetry as _telemetry
 from ..ops import densemasked as _dm
 from ..parallel import blocks as _blocks
 from .mask import Mask, StructuralMask, ValueMask
@@ -108,6 +114,32 @@ def _burble_call(opname, args):
     print(f"[burble] {opname}({', '.join(describe(a) for a in args)})")
 
 
+class _Statements(threading.local):
+    open = False  # this thread is inside a statement
+
+
+_statements = _Statements()
+
+
+def statement(fn):
+    """A DSL statement's entry (``.new()``, ``<<``, ``update``): the outermost
+    call on a thread is one call of the span ``collections.stmt``; a
+    statement run inside another (an aggregator's steps) is part of it."""
+    timed_fn = _telemetry.timed("collections.stmt")(fn)
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if _statements.open:
+            return fn(*args, **kwargs)
+        _statements.open = True
+        try:
+            return timed_fn(*args, **kwargs)
+        finally:
+            _statements.open = False
+
+    return run
+
+
 class BaseType:
     # _values and _struct are stored in _values_ and _struct_ and read through
     # capture.HeldSlot (below the class)
@@ -148,10 +180,12 @@ class BaseType:
             accum = get_typed_op(accum, self.dtype, kind="binary")
         return Updater(self, mask=mask, accum=accum, replace=replace, input_mask=input_mask, opts=opts)
 
+    @statement
     def __lshift__(self, expr):
         self._update(expr)
         return self  # allow chaining in scripts; discarded in statements
 
+    @statement
     def update(self, expr, **opts):
         """``C << expr`` is sugar for this."""
         self._update(expr, opts=opts)
@@ -331,7 +365,8 @@ class BaseType:
                 if h is None:
                     raise _exc.TracerError(".nvals reads a traced structure inside a compiled loop body")
                 return int(h.sum())
-            n = _blocks.count_present(s)
+            with _telemetry.host_read("nvals"):
+                n = _blocks.count_present(s)
             self._nvals_cache = (s, vers, n)
             return n
         cache = getattr(self, "_nvals_cache", None)
@@ -344,7 +379,8 @@ class BaseType:
             if h is None:
                 raise _exc.TracerError(".nvals reads a traced structure inside a compiled loop body")
             return int(h.sum())
-        n = int(s.sum())
+        with _telemetry.host_read("nvals"):
+            n = int(s.sum())
         self._nvals_cache = (s, s._version, n)
         return n
 
@@ -459,7 +495,7 @@ class BaseType:
 def _merge_blocks(c, mask, accum, replace, zv, zs, z_type, lay, reads_c):
     """``ops.densemasked.masked_merge`` block by block in ``lay``: C, the
     mask's parent and Z cut into it where they sit elsewhere (counted in
-    ``blocks.reshards``)."""
+    the counter ``parallel.reshards``)."""
     zv, zs = _blocks.relayout(zv, lay), _blocks.relayout(zs, lay)
     cv, cs = (_blocks.relayout(t, lay) for t in stored(c)) if reads_c else (zv, zs)
     mv, ms = (_blocks.relayout(t, lay) for t in stored(mask.parent)) if mask is not None else (None, None)
@@ -510,9 +546,9 @@ def _check_mask(mask, output=None):
 class _Storage(_cap.HeldSlot):
     """A collection's ``_values`` / ``_struct``: a capture.HeldSlot whose read
     gathers the whole tensor when a placed collection holds blocks there
-    (``parallel.blocks``; counted into ``blocks.gathers``).  Writing a whole
-    tensor to one slot of a placed collection drops the placement: the other
-    slot is gathered too.  The block routes read the slots as they are
+    (``parallel.blocks``; counted into the counter ``parallel.gathers``).
+    Writing a whole tensor to one slot of a placed collection drops the
+    placement: the other slot is gathered too.  The block routes read the slots as they are
     (``stored``) and write both at once (``store``)."""
 
     __slots__ = ("other",)
@@ -590,6 +626,7 @@ class Updater:
     def __lshift__(self, expr):
         self.update(expr)
 
+    @statement
     def update(self, expr):
         self.parent._update(
             expr,
@@ -696,6 +733,7 @@ class BaseExpression(_InfixMixin):
 
     # -- materialization -----------------------------------------------------
 
+    @statement
     def new(self, dtype=None, *, mask=None, name=None, **opts):
         """Compute the expression into a new collection (with output-mask
         fusion)."""

@@ -53,6 +53,7 @@ import torch
 from .. import exceptions as _exc
 from ..parallel import blocks as _b
 from . import capture as _cap
+from . import telemetry as _telemetry
 
 
 class _Spec:
@@ -263,6 +264,13 @@ def _count_launches(delta, times):
     kernels.add_launches(delta, times)
 
 
+def _read_stop_flag(flag):
+    """A replay's stop flag on the host: one read of the card (the span
+    ``compiler.flag_read``, counted into ``host_reads``)."""
+    with _telemetry.host_read("flag_read", "compiler.flag_read"):
+        return bool(flag)
+
+
 # ---------------------------------------------------------------------------
 # gb.loop / gb.until
 # ---------------------------------------------------------------------------
@@ -346,7 +354,8 @@ class CompiledLoop:
         # the closed-over collections the build read (a nested loop reads its
         # enclosing body's)
         self._held = None if self._nested else _cap.Held()
-        self._build()
+        with _telemetry.span("compiler.capture"):
+            self._build()
         _LAST_MODE["loop"] = self.mode
 
     # -- one body step ----------------------------------------------------------
@@ -587,18 +596,22 @@ class CompiledLoop:
         if not state:
             return list(self._values0)
         values, structs = _split_values_structs(_rebuild_state(specs, leaves))
-        for s_new, s_cap in zip(structs, self._structs):
-            if s_cap is None:
-                continue
-            if not np.array_equal(_whole_np(s_new), _host_value(s_cap)):
-                raise ValueError(
-                    "compiled loop was specialized to a fixed structure; "
-                    "input structure differs - rebuild with loop_runner"
-                )
+        with _telemetry.span("compiler.structure_check"):
+            for s_new, s_cap in zip(structs, self._structs):
+                if s_cap is None:
+                    continue
+                with _telemetry.host_read("structure_check"):
+                    s_host = _whole_np(s_new)
+                if not np.array_equal(s_host, _host_value(s_cap)):
+                    raise ValueError(
+                        "compiled loop was specialized to a fixed structure; "
+                        "input structure differs - rebuild with loop_runner"
+                    )
         if self.layout == "edge":
             values = self._edge_lift_values(values)
         return [_like(v, _leaf_layout(v0)) for v, v0 in zip(values, self._values0)]
 
+    @_telemetry.timed("compiler.run")
     def __call__(self, *state):
         leaves = self._state_leaves(state)
         with _cap.holding(self._held):
@@ -678,12 +691,17 @@ class CompiledLoop:
 
     def _graph(self, k):
         """The CUDA graph of ``k`` body steps (and the condition, for while
-        loops) on the static state buffers; recorded on first use."""
-        from .. import kernels
-
+        loops) on the static state buffers; recorded on first use (the span
+        ``compiler.capture``)."""
         g = self._graphs.get(k)
         if g is not None:
             return g
+        with _telemetry.span("compiler.capture"):
+            return self._record(k)
+
+    def _record(self, k):
+        from .. import kernels
+
         graph = torch.cuda.CUDAGraph()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -717,21 +735,25 @@ class CompiledLoop:
                 self._replay(k)
             if k and n % k:
                 self._replay(n % k)
+            _telemetry.count("compiler.iterations", n)
             return [t.clone() for t in self._static]
         k = self._unroll
         it = 0
         with _cap.Scope("step"):
             flag = self._cond_value(list(self._static))
-        while bool(flag) and (self._max_iters is None or it < self._max_iters):
+        while _read_stop_flag(flag) and (self._max_iters is None or it < self._max_iters):
             flag = self._replay(k)
             it += k
         self.last_iters = it
+        _telemetry.count("compiler.iterations", it)
         return [t.clone() for t in self._static]
 
     def _replay(self, k):
         graph, delta, flag, _ = self._graph(k)
-        graph.replay()
-        _count_launches(delta, 1)
+        with _telemetry.span("compiler.replay"):
+            graph.replay()
+            _count_launches(delta, 1)
+        _telemetry.count("compiler.replays")
         return flag
 
 
@@ -817,7 +839,7 @@ class _CompiledFunction:
         if self._nested:
             self.capture, self.capture_reason = "eager", "nested in another compiled function"
         elif self._device is not None and self._device.type == "cuda":
-            with _cap.Scope("warm", held=self._held) as scope:
+            with _telemetry.span("compiler.capture"), _cap.Scope("warm", held=self._held) as scope:
                 self._run(_fresh(leaves))
             self._recorded = True
             reason = _mesh_devices_reason(leaves) or scope.eager_reason
@@ -850,26 +872,32 @@ class _CompiledFunction:
 
     def _replay(self, leaves):
         if self._graph is None:
-            self._static_in = _fresh(leaves)
-            graph = torch.cuda.CUDAGraph()
-            from .. import kernels
-
-            before = kernels.launch_counts()
-            with torch.cuda.graph(graph):
-                with _cap.Scope("capture") as scope:
-                    self._static_out = self._run(self._static_in)
-            after = kernels.launch_counts()
-            self._delta = {name: after[name] - before.get(name, 0) for name in after}
-            _count_launches(self._delta, -1)
-            # the tensors made outside the graph that it reads (see CompiledLoop._graph)
-            self._kept = list(scope.kept.values())
-            self._graph = graph
+            with _telemetry.span("compiler.capture"):
+                self._record(leaves)
         else:
             for d, s in zip(self._static_in, leaves):
                 d.copy_(s)
-        self._graph.replay()
-        _count_launches(self._delta, 1)
+        with _telemetry.span("compiler.replay"):
+            self._graph.replay()
+            _count_launches(self._delta, 1)
+        _telemetry.count("compiler.replays")
         return _rebuild_result(self._layout, [t.clone() for t in self._static_out])
+
+    def _record(self, leaves):
+        from .. import kernels
+
+        self._static_in = _fresh(leaves)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_counts()
+        with torch.cuda.graph(graph):
+            with _cap.Scope("capture") as scope:
+                self._static_out = self._run(self._static_in)
+        after = kernels.launch_counts()
+        self._delta = {name: after[name] - before.get(name, 0) for name in after}
+        _count_launches(self._delta, -1)
+        # the tensors made outside the graph that it reads (see CompiledLoop._graph)
+        self._kept = list(scope.kept.values())
+        self._graph = graph
 
 
 def _hashable(x):

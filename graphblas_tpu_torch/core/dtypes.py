@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import exceptions as _exc
+from . import telemetry as _telemetry
 
 _registry = {}  # many-spellings -> DataType
 
@@ -365,13 +366,20 @@ def to_tensor(values, dtype, device):
 
 def to_numpy(t, dtype):
     """A carrier tensor of ``dtype`` -> numpy of the reference's dtype, bit
-    for bit (a dict of field tensors for a UDT)."""
+    for bit (a dict of field tensors for a UDT).  One host read
+    (``core.telemetry.host_read``)."""
+    with _telemetry.host_read("to_numpy"):
+        return host_array(t, dtype)
+
+
+def host_array(t, dtype):
+    """``to_numpy`` without its count: for a caller that counts the read."""
     dtype = lookup_dtype(dtype)
     if dtype._is_udt:
         first = next(iter(t.values()))
         out = np.empty(first.shape, dtype.np_type)
         for f in dtype.np_type.names:
-            out[f] = to_numpy(t[f], lookup_dtype(dtype.np_type[f]))
+            out[f] = host_array(t[f], lookup_dtype(dtype.np_type[f]))
         return out
     t = t.detach().cpu()
     if dtype.carrier == torch.bfloat16:

@@ -11,7 +11,7 @@ import torch
 
 from .. import exceptions as _exc
 from . import dtypes as _dt
-from .base import BaseExpression, Updater, _check_mask
+from .base import BaseExpression, Updater, _check_mask, statement
 
 
 class _DimIndex:
@@ -385,6 +385,7 @@ class AmbiguousAssignOrExtract:
 
     # -- assign path -------------------------------------------------------------
 
+    @statement
     def update(self, value):
         """``C[idx] << value``."""
         if self._updater is not None:
@@ -484,6 +485,7 @@ class _SubAssigner:
     def __lshift__(self, value):
         self.update(value)
 
+    @statement
     def update(self, value):
         self.parent._assign(
             self.resolved,

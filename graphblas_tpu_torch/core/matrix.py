@@ -19,6 +19,7 @@ from ..ops import densemasked as _dm
 from . import capture as _cap
 from . import collection_ops as _cops
 from . import dtypes as _dt
+from . import telemetry as _telemetry
 from .base import BaseExpression, BaseType, Updater, layout_of, store, stored
 from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
@@ -236,6 +237,7 @@ class Matrix(InfixMixin, BaseType):
     # -- constructors ------------------------------------------------------------
 
     @classmethod
+    @_telemetry.timed("collections.from_coo")
     def from_coo(cls, rows, columns, values=1.0, dtype=None, *, nrows=None, ncols=None, dup_op=None, name=None):
         """Create from (rows, cols, values) on the collections' device."""
         rows = np.asarray(rows, np.int64).reshape(-1)
@@ -478,6 +480,7 @@ class Matrix(InfixMixin, BaseType):
         indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.uint64)
         return unique_cols.astype(np.uint64), indptr, r, v
 
+    @_telemetry.timed("collections.to_dense")
     def to_dense(self, fill_value=None, dtype=None, **opts):
         """Dense numpy array."""
         if fill_value is None and self.nvals < self.nrows * self.ncols:
@@ -492,7 +495,8 @@ class Matrix(InfixMixin, BaseType):
             fill_value = 0
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         v = _dt.to_numpy(self._values, self._dtype).astype(dtype.np_type)
-        s = self._struct.cpu().numpy()
+        with _telemetry.host_read("to_dense"):
+            s = self._struct.cpu().numpy()
         return np.where(s, v, np.asarray(fill_value, dtype.np_type))
 
     def to_dicts(self, order="rowwise"):

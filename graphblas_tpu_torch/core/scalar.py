@@ -18,6 +18,7 @@ import torch
 from .. import exceptions as _exc
 from . import capture as _cap
 from . import dtypes as _dt
+from . import telemetry as _telemetry
 from .base import BaseExpression, BaseType
 from .infixmethods import InfixMixin
 from .operator import get_typed_op
@@ -127,8 +128,10 @@ class Scalar(InfixMixin, BaseType):
 
     def _set_value_from_device(self, device_val, dtype):
         """Read a 0-d carrier tensor of ``dtype`` back (from the card),
-        converted to this Scalar's type as numpy converts."""
-        self._values = np.asarray(_dt.to_numpy(device_val, dtype), self._dtype.np_type)[()]
+        converted to this Scalar's type as numpy converts (one host read,
+        ``core.telemetry.host_read``)."""
+        with _telemetry.host_read("scalar_value"):
+            self._values = np.asarray(_dt.host_array(device_val, dtype), self._dtype.np_type)[()]
         self._struct = True
         self._empty = False
 

@@ -41,6 +41,7 @@ import torch
 from .. import exceptions as _exc
 from . import capture as _cap
 from . import dtypes as _dt
+from . import telemetry as _telemetry
 from ..kernels.eqjoin import USES_AV, USES_BV
 from ..ops import eqjoin as _ej
 from ..ops.densemasked import _host_concrete
@@ -165,7 +166,8 @@ class SparseMatrixData:
     def col_order(self):
         """Permutation to column-major order (lazily computed and cached)."""
         if self._col_order is None:
-            self._col_order = _sort_order(self.cols, self.rows, self.nrows)
+            with _telemetry.span("sparse.col_order"):
+                self._col_order = _sort_order(self.cols, self.rows, self.nrows)
         return self._col_order
 
     # ------------------------------------------------------------------
@@ -183,14 +185,16 @@ class SparseMatrixData:
         if ck not in self._dev:
             name, order = key.rsplit("_", 1)
             sel = self.col_order() if order == "c" else slice(None)
-            with _cap.constants():
+            with _cap.constants(), _telemetry.span("sparse.upload"):
                 if name == "vals":
-                    self._dev[ck] = _dt.to_tensor(self.vals[sel], self.dtype, device)
+                    t = _dt.to_tensor(self.vals[sel], self.dtype, device)
                 elif name in ("rows", "cols") and order in "rc":
                     a = (self.rows if name == "rows" else self.cols)[sel]
-                    self._dev[ck] = torch.from_numpy(np.ascontiguousarray(a.astype(self._idx_dtype()))).to(device)
+                    t = torch.from_numpy(np.ascontiguousarray(a.astype(self._idx_dtype()))).to(device)
                 else:
                     raise KeyError(key)
+            _count_upload(device, t)
+            self._dev[ck] = t
         return self._dev[ck]
 
     def _vals_absmax(self):
@@ -227,13 +231,16 @@ class SparseMatrixData:
         route): compiled DSL loops need it for the edge layout
         (``core/looplayout.py``).  It serves every n-space dispatch the same
         way, so it replaces the plain plan in the cache; a CUDA graph
-        captured on the plain plan keeps its tensors (``core/capture.py``)."""
+        captured on the plain plan keeps its tensors (``core/capture.py``).
+        A build is the span ``sparse.plan_build`` (counted in
+        ``sparse.plan_builds``)."""
         key = (direction, str(torch.device(device)))
         if not _serves(self._plans.get(key), loop):
             self._take_background(direction, device, wait=True)
         if not _serves(self._plans.get(key), loop):
-            with _cap.constants():
-                self._plans[key] = self._host_plan(direction, loop).to(device)
+            with _cap.constants(), _telemetry.span("sparse.plan_build"):
+                self._plans[key] = _plan_to(self._host_plan(direction, loop), device)
+            _telemetry.count("sparse.plan_builds")
         return self._plans[key]
 
     def plan_ready(self, direction, device="cuda"):
@@ -263,7 +270,9 @@ class SparseMatrixData:
 
         def work():
             try:
-                box["plan"] = self._host_plan(direction, loop=False)
+                with _telemetry.span("sparse.plan_build"):
+                    box["plan"] = self._host_plan(direction, loop=False)
+                _telemetry.count("sparse.plan_builds")
             except Exception as ex:  # raised in the dispatching thread
                 box["error"] = ex
             finally:
@@ -288,7 +297,7 @@ class SparseMatrixData:
         key = (direction, str(torch.device(device)))
         if key not in self._plans:
             with _cap.constants():
-                self._plans[key] = box["plan"].to(device)
+                self._plans[key] = _plan_to(box["plan"], device)
 
     def _host_plan(self, direction, loop):
         """The plan of ``direction`` on the CPU: loaded from the on-disk cache
@@ -354,6 +363,21 @@ class SparseMatrixData:
                 "ops (mxv/vxm/reduce/apply/select/transpose/extract) or raise the limit"
             )
         return _scatter_dense(self.rows * self.ncols + self.cols, self.vals, self.dtype, (self.nrows, self.ncols), device)
+
+
+def _count_upload(device, *tensors):
+    """Count the bytes of ``tensors`` that went from the host to ``device``
+    (``sparse.upload_bytes``; nothing where ``device`` is the CPU)."""
+    if torch.device(device).type != "cpu":
+        _telemetry.count("sparse.upload_bytes", sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _plan_to(plan, device):
+    """A host-built SpmvPlan moved to ``device`` (the span ``sparse.upload``)."""
+    with _telemetry.span("sparse.upload"):
+        moved = plan.to(device)
+    _count_upload(device, *moved.arrays().values())
+    return moved
 
 
 def _scatter_dense(flat, vals, dtype, shape, device):
@@ -545,6 +569,7 @@ def _segment_reduce(contrib, valid, seg_ids, num_segments, monoid_t, dtype=None)
 # ---------------------------------------------------------------------------
 
 
+@_telemetry.timed("ops.sparse_mxv")
 def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
     """Semiring y = A (.) x over one direction of a sparse matrix, on the
     device of ``xv``.

@@ -15,6 +15,7 @@ from ..ops import densemasked as _dm
 from . import capture as _cap
 from . import collection_ops as _cops
 from . import dtypes as _dt
+from . import telemetry as _telemetry
 from .base import BaseExpression, BaseType, Updater, layout_of, store, stored
 from .expr import AmbiguousAssignOrExtract, IndexerResolver
 from .infixmethods import InfixMixin
@@ -283,6 +284,7 @@ class Vector(InfixMixin, BaseType):
     # -- constructors ------------------------------------------------------------
 
     @classmethod
+    @_telemetry.timed("collections.from_coo")
     def from_coo(cls, indices, values=1.0, dtype=None, *, size=None, dup_op=None, name=None):
         """Create from (indices, values) on the collections' device."""
         indices = np.asarray(indices, np.int64).reshape(-1)
@@ -396,6 +398,7 @@ class Vector(InfixMixin, BaseType):
             out_vals = vals
         return out_idx, out_vals
 
+    @_telemetry.timed("collections.to_dense")
     def to_dense(self, fill_value=None, dtype=None, **opts):
         """Dense numpy array with absent entries filled."""
         if fill_value is None and self.nvals < self.size:
@@ -410,7 +413,8 @@ class Vector(InfixMixin, BaseType):
             fill_value = 0
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
         v = _dt.to_numpy(self._values, self._dtype).astype(dtype.np_type)
-        s = self._struct.cpu().numpy()
+        with _telemetry.host_read("to_dense"):
+            s = self._struct.cpu().numpy()
         return np.where(s, v, np.asarray(fill_value, dtype.np_type))
 
     def to_dict(self):

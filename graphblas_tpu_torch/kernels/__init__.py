@@ -20,9 +20,11 @@ product the JAX package leaves to XLA, the integer matmul.
 
 A wrapper takes its plain version for CPU tensors, launches its kernel for
 CUDA tensors, and raises for anything else; it never falls back.  Each
-wrapper counts its launches and each plain version its calls, so a run can
-show which path it took.  Nothing here imports a compiler or builds a kernel
-at import time: the library is built on the first launch (``_build``).
+wrapper counts its launches and each plain version its calls (counters of
+``core.telemetry``), so a run can show which path it took; a wrapper's
+launch is the span ``kernels.<wrapper>``.  Nothing here imports a compiler
+or builds a kernel at import time: the library is built on the first launch
+(``_build``).
 
 ``plain_versions()`` is the one way to run the plain versions on CUDA
 tensors: the ops layer consults it, so a whole algorithm can be replayed on
@@ -32,9 +34,10 @@ the card through the plain code as the reference for its kernels.
 import contextlib
 import contextvars
 
+from ..core import telemetry as _telemetry
 from . import eqjoin, gather, imatmul, segscan, tropical
 
-_MODULES = (gather, segscan, eqjoin, tropical, imatmul)
+_NAMES = tuple(k for m in (gather, segscan, eqjoin, tropical, imatmul) for k in m.KERNELS)
 
 _PLAIN = contextvars.ContextVar("graphblas_tpu_torch_plain", default=False)
 
@@ -55,25 +58,25 @@ def plain_requested():
 
 
 def launch_counts():
-    """Kernel launches since the last reset, by kernel name."""
-    return {k: v for m in _MODULES for k, v in m.LAUNCHES.items()}
+    """Kernel launches since the last reset, by kernel name (the counters
+    ``kernels.launches.<name>`` of ``core.telemetry``)."""
+    return {k: _telemetry.counter("kernels.launches." + k) for k in _NAMES}
 
 
 def plain_counts():
-    """Plain-version calls since the last reset, by kernel name."""
-    return {k: v for m in _MODULES for k, v in m.PLAIN_CALLS.items()}
+    """Plain-version calls since the last reset, by kernel name (the
+    counters ``kernels.plain.<name>``)."""
+    return {k: _telemetry.counter("kernels.plain." + k) for k in _NAMES}
 
 
 def add_launches(delta, times=1):
     """Add ``times`` x ``delta`` (launches by kernel name) to the counts: a
     CUDA graph replay launches what its capture recorded, and the capture
     itself launched nothing (``core/compiler.py``)."""
-    for m in _MODULES:
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] += times * delta.get(k, 0)
+    for k in _NAMES:
+        if delta.get(k):
+            _telemetry.count("kernels.launches." + k, times * delta[k])
 
 
 def reset_counts():
-    for d in [m.LAUNCHES for m in _MODULES] + [m.PLAIN_CALLS for m in _MODULES]:
-        for k in d:
-            d[k] = 0
+    _telemetry.reset("kernels.launches.", "kernels.plain.")

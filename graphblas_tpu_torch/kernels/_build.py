@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import threading
 
+from ..core import telemetry as _telemetry
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -121,15 +123,18 @@ def _compile(so_path):
 
 
 def library():
-    """The loaded kernel library, built from the sources on first use."""
+    """The loaded kernel library, built from the sources on first use (the
+    span ``kernels.build`` holds the build and the load; ``kernels.builds``
+    counts the builds)."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    with _LOCK:
+    with _LOCK, _telemetry.span("kernels.build"):
         if _LIB is None:
             so_path = library_path()
             if not os.path.exists(so_path):
                 _compile(so_path)
+                _telemetry.count("kernels.builds")
             lib = ctypes.CDLL(so_path)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ..core import telemetry as _telemetry
 from . import _build
 
 ADDS = ("plus", "min", "max", "any", "lor", "land", "times")  # gb_eqjoin's codes
@@ -32,8 +33,7 @@ PROBE_K = 64
 PLAIN_ELEMENTS = 1 << 26  # the largest broadcast of the plain eqjoin
 RESIDENT_THREADS = 132 * 2048  # an H100's resident threads: 132 SMs x 2048
 LANE_KEYS = (1, 2, 4, 8)  # A keys a lane holds in the lanes layout (the kernel's instances)
-LAUNCHES = {"eqjoin": 0, "compare_probe": 0}
-PLAIN_CALLS = {"eqjoin": 0, "compare_probe": 0}
+KERNELS = ("eqjoin", "compare_probe")  # launch counts by kernel name
 
 
 def _check(akT, avT, bkT, bvT, add, mul):
@@ -88,7 +88,7 @@ def _combine(add, acc):
 def eqjoin_plain(akT, avT, bkT, bvT, add, mul):
     """Plain PyTorch version of the eqjoin kernel (any device)."""
     _check(akT, avT, bkT, bvT, add, mul)
-    PLAIN_CALLS["eqjoin"] += 1
+    _telemetry.count("kernels.plain.eqjoin")
     (Wa, T), Wb = akT.shape, bkT.shape[0]
     dev = akT.device
     vals = torch.empty(T, dtype=torch.float32, device=dev)
@@ -170,30 +170,31 @@ def eqjoin(akT, avT, bkT, bvT, add, mul):
 def eqjoin_in_layout(akT, avT, bkT, bvT, add, mul, lanes):
     """The kernel in the layout ``lanes`` (one of ``layouts(Wa)``), on CUDA
     tensors: ``eqjoin``'s launch, and a way to time or test every layout."""
-    _check(akT, avT, bkT, bvT, add, mul)
-    if akT.device.type != "cuda":
-        raise RuntimeError(f"eqjoin: no kernel for device {akT.device}")
-    (Wa, T), Wb = akT.shape, bkT.shape[0]
-    if Wa % 4 or Wb < 1:
-        raise ValueError(f"eqjoin: the kernel takes Wa a multiple of 4 and Wb >= 1, got ({Wa}, {Wb})")
-    if lanes not in layouts(Wa):
-        raise ValueError(f"eqjoin: {lanes} lanes a task is not a layout of Wa = {Wa}: {layouts(Wa)}")
-    av = avT if mul in USES_AV else None
-    bv = bvT if mul in USES_BV else None
-    if not all(t.is_contiguous() for t in (akT, bkT, av, bv) if t is not None):
-        raise ValueError("eqjoin: inputs must be contiguous")
-    lib = _build.library()
-    vals = torch.empty(T, dtype=torch.float32, device=akT.device)
-    nm = torch.empty(T, dtype=torch.int32, device=akT.device)
-    with torch.cuda.device(akT.device):
-        rc = lib.gb_eqjoin(
-            akT.data_ptr(), None if av is None else av.data_ptr(), bkT.data_ptr(),
-            None if bv is None else bv.data_ptr(), vals.data_ptr(), nm.data_ptr(), Wa, Wb, T,
-            ADDS.index(add), MULS.index(mul), lanes, _build.stream_of(akT),
-        )
-    _build.check(rc, "eqjoin")
-    LAUNCHES["eqjoin"] += 1
-    return vals, nm
+    with _telemetry.span("kernels.eqjoin"):
+        _check(akT, avT, bkT, bvT, add, mul)
+        if akT.device.type != "cuda":
+            raise RuntimeError(f"eqjoin: no kernel for device {akT.device}")
+        (Wa, T), Wb = akT.shape, bkT.shape[0]
+        if Wa % 4 or Wb < 1:
+            raise ValueError(f"eqjoin: the kernel takes Wa a multiple of 4 and Wb >= 1, got ({Wa}, {Wb})")
+        if lanes not in layouts(Wa):
+            raise ValueError(f"eqjoin: {lanes} lanes a task is not a layout of Wa = {Wa}: {layouts(Wa)}")
+        av = avT if mul in USES_AV else None
+        bv = bvT if mul in USES_BV else None
+        if not all(t.is_contiguous() for t in (akT, bkT, av, bv) if t is not None):
+            raise ValueError("eqjoin: inputs must be contiguous")
+        lib = _build.library()
+        vals = torch.empty(T, dtype=torch.float32, device=akT.device)
+        nm = torch.empty(T, dtype=torch.int32, device=akT.device)
+        with torch.cuda.device(akT.device):
+            rc = lib.gb_eqjoin(
+                akT.data_ptr(), None if av is None else av.data_ptr(), bkT.data_ptr(),
+                None if bv is None else bv.data_ptr(), vals.data_ptr(), nm.data_ptr(), Wa, Wb, T,
+                ADDS.index(add), MULS.index(mul), lanes, _build.stream_of(akT),
+            )
+        _build.check(rc, "eqjoin")
+        _telemetry.count("kernels.launches.eqjoin")
+        return vals, nm
 
 
 def _check_probe(a, b):
@@ -204,7 +205,7 @@ def _check_probe(a, b):
 def compare_probe_plain(a, b):
     """Plain PyTorch version of the probe (any device): ``PROBE_K`` passes."""
     _check_probe(a, b)
-    PLAIN_CALLS["compare_probe"] += 1
+    _telemetry.count("kernels.plain.compare_probe")
     acc = torch.zeros_like(a)
     for i in range(PROBE_K):
         acc = acc + (a == b + float(i)).to(torch.float32)
@@ -216,17 +217,18 @@ def compare_probe(a, b):
     tensors take the plain version; CUDA tensors launch the kernel."""
     if a.device.type == "cpu":
         return compare_probe_plain(a, b)
-    _check_probe(a, b)
-    if a.device.type != "cuda":
-        raise RuntimeError(f"compare_probe: no kernel for device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("compare_probe: inputs must be contiguous")
-    lib = _build.library()
-    if lib.gb_compare_probe_k() != PROBE_K:
-        raise RuntimeError("compare_probe: the kernel's K differs from PROBE_K")
-    out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        rc = lib.gb_compare_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), _build.stream_of(a))
-    _build.check(rc, "compare_probe")
-    LAUNCHES["compare_probe"] += 1
-    return out
+    with _telemetry.span("kernels.compare_probe"):
+        _check_probe(a, b)
+        if a.device.type != "cuda":
+            raise RuntimeError(f"compare_probe: no kernel for device {a.device}")
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("compare_probe: inputs must be contiguous")
+        lib = _build.library()
+        if lib.gb_compare_probe_k() != PROBE_K:
+            raise RuntimeError("compare_probe: the kernel's K differs from PROBE_K")
+        out = torch.empty_like(a)
+        with torch.cuda.device(a.device):
+            rc = lib.gb_compare_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), _build.stream_of(a))
+        _build.check(rc, "compare_probe")
+        _telemetry.count("kernels.launches.compare_probe")
+        return out

@@ -24,12 +24,12 @@ Views at any alignment run in the same launch.
 
 import torch
 
+from ..core import telemetry as _telemetry
 from . import _build
 
 EPILOGUES = ("none", "fill", "pagerank")
 DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
-LAUNCHES = {"gather": 0, "gather_fill": 0}
-PLAIN_CALLS = {"gather": 0, "gather_fill": 0}
+KERNELS = ("gather", "gather_fill")  # launch counts by kernel name
 
 
 def _role(epilogue):
@@ -61,7 +61,7 @@ def _check(x, idx, epilogue, aux, scalar):
 def gather_plain(x, idx, epilogue="none", aux=None, scalar=None):
     """Plain PyTorch version of Kernel G (any device)."""
     _check(x, idx, epilogue, aux, scalar)
-    PLAIN_CALLS[_role(epilogue)] += 1
+    _telemetry.count("kernels.plain." + _role(epilogue))
     i = idx.long()
     if epilogue == "fill":
         return torch.where(idx >= 0, x[i.clamp(min=0)], torch.zeros((), dtype=x.dtype, device=x.device))
@@ -78,24 +78,25 @@ def gather(x, idx, epilogue="none", aux=None, scalar=None):
     ``[0, len(x))`` except, for ``fill``, where negative means "no source"."""
     if x.device.type == "cpu":
         return gather_plain(x, idx, epilogue, aux, scalar)
-    _check(x, idx, epilogue, aux, scalar)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"gather: no kernel for device {x.device}")
-    if not (x.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("gather: x and idx must be contiguous")
-    lib = _build.library()
-    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    n = idx.numel()
-    if epilogue == "pagerank" and not aux.is_contiguous():
-        raise ValueError("gather: aux must be contiguous")
-    with torch.cuda.device(x.device):
-        stream = _build.stream_of(x)
-        if epilogue == "pagerank":
-            rc = lib.gb_gather_pagerank(
-                x.data_ptr(), idx.data_ptr(), aux.data_ptr(), scalar.data_ptr(), out.data_ptr(), n, stream
-            )
-        else:
-            rc = lib.gb_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, x.element_size(), stream)
-    _build.check(rc, "gather")
-    LAUNCHES[_role(epilogue)] += 1
-    return out
+    with _telemetry.span("kernels.gather"):
+        _check(x, idx, epilogue, aux, scalar)
+        if x.device.type != "cuda":
+            raise RuntimeError(f"gather: no kernel for device {x.device}")
+        if not (x.is_contiguous() and idx.is_contiguous()):
+            raise ValueError("gather: x and idx must be contiguous")
+        lib = _build.library()
+        out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+        n = idx.numel()
+        if epilogue == "pagerank" and not aux.is_contiguous():
+            raise ValueError("gather: aux must be contiguous")
+        with torch.cuda.device(x.device):
+            stream = _build.stream_of(x)
+            if epilogue == "pagerank":
+                rc = lib.gb_gather_pagerank(
+                    x.data_ptr(), idx.data_ptr(), aux.data_ptr(), scalar.data_ptr(), out.data_ptr(), n, stream
+                )
+            else:
+                rc = lib.gb_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, x.element_size(), stream)
+        _build.check(rc, "gather")
+        _telemetry.count("kernels.launches." + _role(epilogue))
+        return out

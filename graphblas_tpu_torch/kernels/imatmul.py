@@ -12,6 +12,7 @@ import functools
 
 import torch
 
+from ..core import telemetry as _telemetry
 from . import _build
 from .tropical import tile_for
 
@@ -25,8 +26,7 @@ PLAIN_ELEMENTS = 1 << 26  # the largest (M, k-chunk, N) broadcast of the plain v
 TILES = {torch.int32: (128, 64), torch.int64: (64,)}
 BLOCKS_PER_SM = {128: 2, 64: 4}
 WAVE_COST = {128: 1.95, 64: 1.0}
-LAUNCHES = {"imatmul": 0}
-PLAIN_CALLS = {"imatmul": 0}
+KERNELS = ("imatmul",)  # launch counts by kernel name
 
 
 def _check(a, b):
@@ -44,7 +44,7 @@ def imatmul_plain(a, b):
     mod 2^32 first, so no int64 sum overflows); int64 products and sums
     wrap in int64."""
     _check(a, b)
-    PLAIN_CALLS["imatmul"] += 1
+    _telemetry.count("kernels.plain.imatmul")
     (m, k), n = a.shape, b.shape[1]
     narrow = a.dtype == torch.int32
     a64, b64 = a.to(torch.int64), b.to(torch.int64)
@@ -85,22 +85,23 @@ def imatmul(a, b):
 def imatmul_in_tile(a, b, tile):
     """The kernel in block tile ``tile``, whatever ``tile_for`` would pick
     (the tests and tools run every form)."""
-    _check(a, b)
-    if a.device.type != "cuda":
-        raise RuntimeError(f"imatmul: no kernel for device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("imatmul: operands must be contiguous")
-    if tile not in TILES[a.dtype]:
-        raise ValueError(f"imatmul: tile {tile} not in {TILES[a.dtype]} for {a.dtype}")
-    (m, k), n = a.shape, b.shape[1]
-    if max(m, n, k) >= 2**31 or -(-m // tile) > 65535:
-        raise ValueError(f"imatmul: shape ({m}, {k}) x ({k}, {n}) is past the kernel's grid")
-    lib = _build.library()
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = lib.gb_imatmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.element_size(), tile, _build.stream_of(a)
-        )
-    _build.check(rc, "imatmul")
-    LAUNCHES["imatmul"] += 1
-    return out
+    with _telemetry.span("kernels.imatmul"):
+        _check(a, b)
+        if a.device.type != "cuda":
+            raise RuntimeError(f"imatmul: no kernel for device {a.device}")
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("imatmul: operands must be contiguous")
+        if tile not in TILES[a.dtype]:
+            raise ValueError(f"imatmul: tile {tile} not in {TILES[a.dtype]} for {a.dtype}")
+        (m, k), n = a.shape, b.shape[1]
+        if max(m, n, k) >= 2**31 or -(-m // tile) > 65535:
+            raise ValueError(f"imatmul: shape ({m}, {k}) x ({k}, {n}) is past the kernel's grid")
+        lib = _build.library()
+        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        with torch.cuda.device(a.device):
+            rc = lib.gb_imatmul(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.element_size(), tile, _build.stream_of(a)
+            )
+        _build.check(rc, "imatmul")
+        _telemetry.count("kernels.launches.imatmul")
+        return out

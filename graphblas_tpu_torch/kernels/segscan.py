@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import telemetry as _telemetry
 from . import _build
 
 # The loop algorithms' "unreached" distance, as
@@ -35,8 +36,7 @@ MULS = ("times", "plus", "second", "first")
 # the generic scan's ops and dtypes, in the order of gb_segscan's codes
 SCAN_OPS = ("add", "min", "max", "fill")
 SCAN_DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
-LAUNCHES = {"segscan_contrib": 0, "segscan_state": 0, "segscan": 0}
-PLAIN_CALLS = {"segscan_contrib": 0, "segscan_state": 0, "segscan": 0}
+KERNELS = ("segscan_contrib", "segscan_state", "segscan")  # launch counts by kernel name
 
 
 def _ident(op, dtype):
@@ -157,7 +157,7 @@ def _check_contrib(xe, w, valid, flags, op, mul, wrap):
 def segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap=None):
     """Plain PyTorch version of Kernel C (any device)."""
     _check_contrib(xe, w, valid, flags, op, mul, wrap)
-    PLAIN_CALLS["segscan_contrib"] += 1
+    _telemetry.count("kernels.plain.segscan_contrib")
     io = xe.dtype
     cd = _compute_dtype(io)
     c = xe.to(cd)
@@ -199,27 +199,28 @@ def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
     version; CUDA tensors launch Kernel C (int8 rides it as int32)."""
     if xe.device.type == "cpu":
         return segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap)
-    _check_contrib(xe, w, valid, flags, op, mul, wrap)
-    _require_cuda("segscan_contrib", xe, w, valid, flags)
-    io = xe.dtype
-    cd = _compute_dtype(io)
-    x = xe.to(cd)
-    wc = w.to(cd) if w is not None else None
-    lib = _build.library()
-    n = x.numel()
-    out = torch.empty(n, dtype=cd, device=x.device)
-    tile_state = _tile_state(n, lib.gb_segscan_tile(), x.device)
-    bits, signed = wrap if wrap is not None else (0, False)
-    with torch.cuda.device(x.device):
-        rc = lib.gb_segscan_contrib(
-            x.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            tile_state.data_ptr(), n,
-            int(cd == torch.int32), OPS.index(op), MULS.index(mul), int(bits), int(bool(signed)),
-            float(_ident(op, io)), _build.stream_of(x),
-        )
-    _build.check(rc, "segscan_contrib")
-    LAUNCHES["segscan_contrib"] += 1
-    return out.to(io)
+    with _telemetry.span("kernels.segscan_contrib"):
+        _check_contrib(xe, w, valid, flags, op, mul, wrap)
+        _require_cuda("segscan_contrib", xe, w, valid, flags)
+        io = xe.dtype
+        cd = _compute_dtype(io)
+        x = xe.to(cd)
+        wc = w.to(cd) if w is not None else None
+        lib = _build.library()
+        n = x.numel()
+        out = torch.empty(n, dtype=cd, device=x.device)
+        tile_state = _tile_state(n, lib.gb_segscan_tile(), x.device)
+        bits, signed = wrap if wrap is not None else (0, False)
+        with torch.cuda.device(x.device):
+            rc = lib.gb_segscan_contrib(
+                x.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                tile_state.data_ptr(), n,
+                int(cd == torch.int32), OPS.index(op), MULS.index(mul), int(bits), int(bool(signed)),
+                float(_ident(op, io)), _build.stream_of(x),
+            )
+        _build.check(rc, "segscan_contrib")
+        _telemetry.count("kernels.launches.segscan_contrib")
+        return out.to(io)
 
 
 def _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce):
@@ -243,7 +244,7 @@ def segscan_state_plain(mode, xe, w, valid, flags, is_last, state, depth, fr_red
     frontier or changed f32); with ``fr_reduce`` the second output is one
     int32 flag, 1 if any slot changed."""
     _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce)
-    PLAIN_CALLS["segscan_state"] += 1
+    _telemetry.count("kernels.plain.segscan_state")
     op = "max" if mode == "bfs" else "min"
     x = xe if w is None else xe + w
     contrib = torch.where(valid, x, torch.tensor(_ident(op, torch.float32), device=x.device))
@@ -265,28 +266,29 @@ def segscan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=Fa
     plain version; CUDA tensors launch Kernel S.  ``depth`` is a host int."""
     if xe.device.type == "cpu":
         return segscan_state_plain(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce)
-    _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce)
-    _require_cuda("segscan_state", xe, w, valid, flags, is_last, state)
-    lib = _build.library()
-    n = xe.numel()
-    dev = xe.device
-    out_state = torch.empty_like(state)
-    if fr_reduce:
-        out_fr = None
-        any_changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    else:
-        out_fr = torch.empty(n, dtype=torch.float32, device=dev)
-        any_changed = None
-    tile_state = _tile_state(n, lib.gb_segscan_state_tile(), dev)
-    with torch.cuda.device(dev):
-        rc = lib.gb_segscan_state(
-            0 if mode == "bfs" else 1, xe.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
-            is_last.data_ptr(), state.data_ptr(), int(depth), out_state.data_ptr(), _ptr(out_fr),
-            _ptr(any_changed), tile_state.data_ptr(), n, _build.stream_of(xe),
-        )
-    _build.check(rc, "segscan_state")
-    LAUNCHES["segscan_state"] += 1
-    return out_state, (any_changed if fr_reduce else out_fr)
+    with _telemetry.span("kernels.segscan_state"):
+        _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce)
+        _require_cuda("segscan_state", xe, w, valid, flags, is_last, state)
+        lib = _build.library()
+        n = xe.numel()
+        dev = xe.device
+        out_state = torch.empty_like(state)
+        if fr_reduce:
+            out_fr = None
+            any_changed = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            out_fr = torch.empty(n, dtype=torch.float32, device=dev)
+            any_changed = None
+        tile_state = _tile_state(n, lib.gb_segscan_state_tile(), dev)
+        with torch.cuda.device(dev):
+            rc = lib.gb_segscan_state(
+                0 if mode == "bfs" else 1, xe.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
+                is_last.data_ptr(), state.data_ptr(), int(depth), out_state.data_ptr(), _ptr(out_fr),
+                _ptr(any_changed), tile_state.data_ptr(), n, _build.stream_of(xe),
+            )
+        _build.check(rc, "segscan_state")
+        _telemetry.count("kernels.launches.segscan_state")
+        return out_state, (any_changed if fr_reduce else out_fr)
 
 
 def _check_scan(values, flags, op):
@@ -307,7 +309,7 @@ def _check_scan(values, flags, op):
 def segscan_plain(values, flags, op):
     """Plain PyTorch version of the generic scan (any device)."""
     _check_scan(values, flags, op)
-    PLAIN_CALLS["segscan"] += 1
+    _telemetry.count("kernels.plain.segscan")
     io = values.dtype
     return _scan_plain(op, values.to(_compute_dtype(io)), flags).to(io)
 
@@ -318,17 +320,18 @@ def segscan(values, flags, op):
     plain version; CUDA tensors launch the kernel."""
     if values.device.type == "cpu":
         return segscan_plain(values, flags, op)
-    _check_scan(values, flags, op)
-    _require_cuda("segscan", values, flags)
-    lib = _build.library()
-    n = values.numel()
-    out = torch.empty(n, dtype=values.dtype, device=values.device)
-    tile_state = _tile_state(n, lib.gb_segscan_tile(), values.device)
-    with torch.cuda.device(values.device):
-        rc = lib.gb_segscan(
-            values.data_ptr(), flags.data_ptr(), out.data_ptr(), tile_state.data_ptr(), n,
-            SCAN_DTYPES.index(values.dtype), SCAN_OPS.index(op), _build.stream_of(values),
-        )
-    _build.check(rc, "segscan")
-    LAUNCHES["segscan"] += 1
-    return out
+    with _telemetry.span("kernels.segscan"):
+        _check_scan(values, flags, op)
+        _require_cuda("segscan", values, flags)
+        lib = _build.library()
+        n = values.numel()
+        out = torch.empty(n, dtype=values.dtype, device=values.device)
+        tile_state = _tile_state(n, lib.gb_segscan_tile(), values.device)
+        with torch.cuda.device(values.device):
+            rc = lib.gb_segscan(
+                values.data_ptr(), flags.data_ptr(), out.data_ptr(), tile_state.data_ptr(), n,
+                SCAN_DTYPES.index(values.dtype), SCAN_OPS.index(op), _build.stream_of(values),
+            )
+        _build.check(rc, "segscan")
+        _telemetry.count("kernels.launches.segscan")
+        return out

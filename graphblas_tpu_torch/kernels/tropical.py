@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from ..core import telemetry as _telemetry
 from . import _build
 
 ADDS = ("min", "max")  # gb_tropical's codes
@@ -26,8 +27,7 @@ PLAIN_ELEMENTS = 1 << 26  # the largest (M, k-chunk, N) broadcast of the plain v
 TILES = (128, 64)
 BLOCKS_PER_SM = {128: 2, 64: 4}
 WAVE_COST = {128: 1.24, 64: 1.0}
-LAUNCHES = {"tropical_mxm": 0}
-PLAIN_CALLS = {"tropical_mxm": 0}
+KERNELS = ("tropical_mxm",)  # launch counts by kernel name
 
 
 def fill_value(add):
@@ -49,7 +49,7 @@ def _check(a, b, add, mul):
 def tropical_mxm_plain(a, b, add, mul):
     """Plain PyTorch version (any device): k-chunked broadcasts."""
     _check(a, b, add, mul)
-    PLAIN_CALLS["tropical_mxm"] += 1
+    _telemetry.count("kernels.plain.tropical_mxm")
     (m, k), n = a.shape, b.shape[1]
     red = torch.amin if add == "min" else torch.amax
     acc_fn = torch.minimum if add == "min" else torch.maximum
@@ -98,23 +98,24 @@ def tropical_mxm(a, b, add, mul):
 def tropical_mxm_in_tile(a, b, add, mul, tile):
     """The kernel in block tile ``tile`` (128 or 64), whatever ``tile_for``
     would pick (the tests and tools run both)."""
-    _check(a, b, add, mul)
-    if a.device.type != "cuda":
-        raise RuntimeError(f"tropical_mxm: no kernel for device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("tropical_mxm: operands must be contiguous")
-    if tile not in TILES:
-        raise ValueError(f"tropical_mxm: tile {tile} not in {TILES}")
-    (m, k), n = a.shape, b.shape[1]
-    if max(m, n, k) >= 2**31 or -(-m // tile) > 65535:
-        raise ValueError(f"tropical_mxm: shape ({m}, {k}) x ({k}, {n}) is past the kernel's grid")
-    lib = _build.library()
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = lib.gb_tropical(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ADDS.index(add), MULS.index(mul), tile,
-            _build.stream_of(a),
-        )
-    _build.check(rc, "tropical_mxm")
-    LAUNCHES["tropical_mxm"] += 1
-    return out
+    with _telemetry.span("kernels.tropical_mxm"):
+        _check(a, b, add, mul)
+        if a.device.type != "cuda":
+            raise RuntimeError(f"tropical_mxm: no kernel for device {a.device}")
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("tropical_mxm: operands must be contiguous")
+        if tile not in TILES:
+            raise ValueError(f"tropical_mxm: tile {tile} not in {TILES}")
+        (m, k), n = a.shape, b.shape[1]
+        if max(m, n, k) >= 2**31 or -(-m // tile) > 65535:
+            raise ValueError(f"tropical_mxm: shape ({m}, {k}) x ({k}, {n}) is past the kernel's grid")
+        lib = _build.library()
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        with torch.cuda.device(a.device):
+            rc = lib.gb_tropical(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ADDS.index(add), MULS.index(mul), tile,
+                _build.stream_of(a),
+            )
+        _build.check(rc, "tropical_mxm")
+        _telemetry.count("kernels.launches.tropical_mxm")
+        return out

@@ -45,12 +45,18 @@ struct of arrays, each field in its type's carrier): ``tmap`` maps a
 function over the fields, and the reduce, elementwise, matmul (the
 generic contraction), extract/assign, merge and reshape functions take
 either form.
+
+The entries through which the collections hand a statement to this engine
+(the reduces, applies, selects, element-wise and matmul families and
+``masked_merge``, the write of every dense statement) are the spans
+``ops.<function>`` of ``core.telemetry``.
 """
 
 import numpy as np
 import torch
 
 from ..core import capture as _cap
+from ..core import telemetry as _telemetry
 from ..core import dtypes as _dt
 from .mxm import full_f32_matmul, indicator_counts, int_matmul, is_tropical, tropical_mxm
 
@@ -313,12 +319,14 @@ def _monoid_reduce(values, struct, monoid, axis):
     return _pair_reduce(values, struct, monoid.fn if monoid.fn is not None else (lambda a, b: a), (axis,))
 
 
+@_telemetry.timed("ops.reduce_axis")
 def reduce_axis(values, struct, monoid, axis):
     """Rowwise (axis=1) / columnwise (axis=0) monoid reduce -> vector."""
     v, s = _monoid_reduce(values, struct, monoid, axis)
     return canonical(v, s)
 
 
+@_telemetry.timed("ops.reduce_all")
 def reduce_all(values, struct, monoid):
     """Full monoid reduce -> (0-d value, 0-d present)."""
     return _monoid_reduce(tmap(lambda a: a.reshape(-1), values), struct.reshape(-1), monoid, 0)
@@ -338,11 +346,13 @@ def _safe(values, struct, op):
     return values
 
 
+@_telemetry.timed("ops.apply_unary")
 def apply_unary(values, struct, op):
     """GrB_Matrix_apply; ``values`` in ``op.type_``."""
     return canonical(op.fn(_safe(values, struct, op)), struct)
 
 
+@_telemetry.timed("ops.apply_bound")
 def apply_bound(values, struct, op, bound, side):
     """Apply a binary op with one argument bound to a 0-d tensor: ``values``
     in the op's type on the free side, ``bound`` on the other
@@ -354,6 +364,7 @@ def apply_bound(values, struct, op, bound, side):
     return canonical(out, struct)
 
 
+@_telemetry.timed("ops.apply_positional_unary")
 def apply_positional_unary(values, struct, op, offset=None):
     """Positional unary apply; ``offset``: the block's global index of its
     first entry per axis (a placed collection's block), else 0."""
@@ -379,6 +390,7 @@ def _index_grids(shape, device, offset=None):
     return i, j
 
 
+@_telemetry.timed("ops.apply_indexunary")
 def apply_indexunary(values, struct, op, thunk, offset=None):
     """GrB_Matrix_apply_IndexOp."""
     i, j = _index_grids(tuple(values.shape), values.device, offset)
@@ -386,6 +398,7 @@ def apply_indexunary(values, struct, op, thunk, offset=None):
     return canonical(out.expand(values.shape), struct)
 
 
+@_telemetry.timed("ops.select_op")
 def select_op(values, struct, op, thunk, offset=None):
     """GrB_Matrix_select_*: ``values`` in the collection's own type, given
     to the op as they are (as the reference does)."""
@@ -394,6 +407,7 @@ def select_op(values, struct, op, thunk, offset=None):
     return canonical(values, struct & keep)
 
 
+@_telemetry.timed("ops.ewise_mult")
 def ewise_mult(av, as_, bv, bs, op, offset=None):
     """GrB_Matrix_eWiseMult (intersection); ``av`` in ``op.type_``, ``bv`` in
     ``op.type2``.  ``offset``: a block's global position (positional ops)."""
@@ -404,6 +418,7 @@ def ewise_mult(av, as_, bv, bs, op, offset=None):
     return canonical(out, struct)
 
 
+@_telemetry.timed("ops.ewise_add")
 def ewise_add(av, as_, bv, bs, op, offset=None):
     """GrB_Matrix_eWiseAdd (union; both-present uses op)."""
     struct = s_or(as_, bs)
@@ -420,6 +435,7 @@ def ewise_add(av, as_, bv, bs, op, offset=None):
     return canonical(out, struct)
 
 
+@_telemetry.timed("ops.ewise_union")
 def ewise_union(av, as_, bv, bs, op, left_default, right_default, offset=None):
     """GxB_Matrix_eWiseUnion (union; the absent side takes its default, a
     0-d tensor in the op's input type)."""
@@ -540,6 +556,7 @@ def _tropical_allowed(semiring, out_dtype, m, n, strategy, av, bv):
     return True
 
 
+@_telemetry.timed("ops.mxm")
 def mxm(av, as_, bv, bs, semiring, out_dtype, strategy="auto"):
     """GrB_mxm over any semiring.  ``av`` in the multiply's first input type,
     ``bv`` in its second; the result in ``out_dtype``.
@@ -631,12 +648,14 @@ def _mxm_generic(av, as_, bv, bs, semiring, out_dtype):
     return canonical(cv, cs)
 
 
+@_telemetry.timed("ops.mxv")
 def mxv(av, as_, xv, xs, semiring, out_dtype, strategy="auto"):
     """GrB_mxv: v as a column, so positional multiplies see j = 0."""
     cv, cs = mxm(av, as_, tmap(lambda x: x[:, None], xv), xs[:, None], semiring, out_dtype, strategy)
     return tmap(lambda x: x[:, 0], cv), cs[:, 0]
 
 
+@_telemetry.timed("ops.vxm")
 def vxm(xv, xs, bv, bs, semiring, out_dtype, strategy="auto"):
     """GrB_vxm: v as a row."""
     cv, cs = mxm(tmap(lambda x: x[None, :], xv), xs[None, :], bv, bs, semiring, out_dtype, strategy)
@@ -793,6 +812,7 @@ def _contig_start(idx, dim):
 # ---------------------------------------------------------------------------
 
 
+@_telemetry.timed("ops.masked_merge")
 def masked_merge(cv, cs, zv, zs, mask_bits, accum, replace, has_mask, region=None, *, c_type, z_type):
     """Combine computed result Z (values in ``z_type``) into C (``c_type``)
     under mask/accum/replace semantics; the result in ``c_type``.

@@ -18,7 +18,8 @@ there and return new ``Blocks``; every other read of ``_values`` /
 ``_struct`` gathers the whole tensor on the mesh's first device and counts
 into ``gathers``.  A route that needs an operand in another layout (an
 unplaced operand, the common case) cuts it and counts into ``reshards``.
-Both counters are public and module level, as the kernels' launch counts.
+Both are counters of ``core.telemetry`` (``parallel.gathers``,
+``parallel.reshards``), read by ``counts()``.
 
 UDT values (dicts of field tensors) are blocked field by field.
 """
@@ -26,18 +27,19 @@ UDT values (dicts of field tensors) are blocked field by field.
 import numpy as np
 import torch
 
-# whole-tensor reads of a placed collection, and operands cut into another layout
-gathers = 0
-reshards = 0
+from ..core import telemetry as _telemetry
+
+# whole-tensor reads of a placed collection, and operands cut into another
+# layout: the counters parallel.gathers and parallel.reshards
+_COUNTERS = {"gathers": "parallel.gathers", "reshards": "parallel.reshards"}
 
 
 def reset_counts():
-    global gathers, reshards
-    gathers = reshards = 0
+    _telemetry.reset(*_COUNTERS.values())
 
 
 def counts():
-    return {"gathers": gathers, "reshards": reshards}
+    return {k: _telemetry.counter(name) for k, name in _COUNTERS.items()}
 
 
 def tmap(fn, x, *rest):
@@ -168,8 +170,7 @@ class Blocks:
 
     def gather(self):
         """The whole array on the mesh's first device (counts into ``gathers``)."""
-        global gathers
-        gathers += 1
+        _telemetry.count("parallel.gathers")
         return whole(self)
 
     def __array__(self, dtype=None, copy=None):
@@ -275,13 +276,12 @@ def relayout(x, layout):
     there already, else cut (counts into ``reshards``).  A target block that
     one of x's blocks covers is sliced from it (on the target's device where
     one sits there); else x is assembled first."""
-    global reshards
     if is_blocks(x):
         if x.layout == layout:
             return x
         if not _same_mesh(x.layout.mesh, layout.mesh):
             raise ValueError("operands placed on different meshes")
-        reshards += 1
+        _telemetry.count("parallel.reshards")
         src = x.layout
         parts = []
         for g in range(len(layout.groups)):
@@ -298,7 +298,7 @@ def relayout(x, layout):
             rel = tuple(slice(t0 - s0, t1 - s0) for (s0, _), (t0, t1) in zip(src.bounds(best), tb))
             parts.append(tmap(lambda t: t[rel].to(dev).contiguous(), x.parts[best]))
         return Blocks(layout, parts)
-    reshards += 1
+    _telemetry.count("parallel.reshards")
     return cut(x, layout)
 
 

@@ -42,7 +42,7 @@ def _pad_dim(v, s, axis, mult):
 
 def _whole(x):
     """A whole tensor of ``x`` (a placed operand's blocks assembled; counted
-    into ``blocks.gathers``)."""
+    into the counter ``parallel.gathers``)."""
     return x.gather() if _b.is_blocks(x) else x
 
 
@@ -69,7 +69,7 @@ def _summa(local, AV, AS, BV, BS, semiring_typed, out_dtype, mesh, axis_names, n
     ``local``; the partials of row block i combine over j on each of that
     row's devices.  The operands are read where they sit: A in layout
     (ai, aj) and B in (aj,) cost nothing, any other layout is cut into
-    them (``blocks.reshards``).  Returns (values, struct) as Blocks (ai,)
+    them (the counter ``parallel.reshards``).  Returns (values, struct) as Blocks (ai,)
     (``ncols`` None: a vector).  A shape that does not divide by the mesh
     is padded with absent entries on the mesh's first device and the
     product, cut back, is replicated (spec ()), as the reference's."""

@@ -13,7 +13,7 @@ the JAX package on its 8 virtual CPU devices (a 2 x 4 mesh, axes ``i``,
   the places of NaN included), and FP64 plus reductions within rtol 1e-12, the reference's
   own tolerance (``tests/test_parallel.py``): each block sums its part, the
   partials add in shard order;
-- ``parallel.blocks.gathers``, which does not move inside the statements: a
+- ``parallel.blocks.counts()["gathers"]``, which does not move inside the statements: a
   placed operand is never assembled on one device.
 
 The CUDA cases (``-m cuda``; they skip here) hold the same families and the

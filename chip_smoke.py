@@ -39,7 +39,9 @@ matmuls.  One line per check:
   3. kernels: G (routes, fill, a network with T and row-select stages, a
      route on unaligned views, the L2 probe: a route with x of 2^20 slots), C
      (add, min, max; with flags at 1/16 and with none, the longest
-     look-back), S (BFS, SSSP with fr_reduce, with per-slot changed flags,
+     look-back), C with x's gather fused (add, min, max over x of e_pad / 16
+     slots, and at e_pad 2^26 over x of 2^21, the benchmark cells' size;
+     bit for bit against C on x[idx] too), S (BFS, SSSP with fr_reduce, with per-slot changed flags,
      and without flags) and the generic scan (f32 fill, add, min, max;
      int32, int16 and int8 add, a uint8 fill, f32 add on a view one slot
      into its buffer) against their plain PyTorch versions at e_pad, with
@@ -186,6 +188,10 @@ KERNELS = {
     "gather": ("graphblas_tpu_torch/csrc/gather.cu", "graphblas_tpu/ops/permute.py:399,461,496"),
     "gather_fill": ("graphblas_tpu_torch/csrc/gather.cu", "graphblas_tpu/ops/pallas_scan.py:387"),
     "segscan_contrib": ("graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:418"),
+    # C with x's gather fused: the SpMV's expand (place route, fill, perm route) and C
+    "segscan_contrib_gather": (
+        "graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:418,387; graphblas_tpu/ops/permute.py:399",
+    ),
     "segscan_state": ("graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:219"),
     "segscan": ("graphblas_tpu_torch/csrc/segscan.cu", "graphblas_tpu/ops/pallas_scan.py:291"),
     "eqjoin": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/ops/pallas_eqjoin.py:126"),
@@ -197,8 +203,9 @@ KERNELS = {
 # the paths whose runs count a kernel's launches
 PATH_OF = {
     "gather": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
-    "gather_fill": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
-    "segscan_contrib": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
+    "gather_fill": ("spmv", "bench"),
+    "segscan_contrib": ("spmv", "mesh", "bench"),
+    "segscan_contrib_gather": ("spmv", "sparse_dsl", "compiled", "interop", "mesh", "bench"),
     "segscan_state": ("spmv", "bench"),
     "segscan": ("spmv", "sparse_dsl", "compiled", "mesh", "bench"),
     "eqjoin": ("spgemm", "sparse_dsl", "mesh", "bench"),
@@ -438,6 +445,30 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
                 lambda: ks.segscan_contrib_plain(x, w, valid, fl, op, mul),
                 (x, w if mul != "first" else None, valid, fl), 2, rtol=1e-6 if op == "add" else None,
             )
+    # C with x's gather fused: over the main path's n (e_pad / 16), then at
+    # the benchmark cells' size (e_pad 2^26, n 2^21); against its plain
+    # version, and bit for bit against C on x[idx] (its oracle on the card)
+    for ep, nx in ((e_pad, max(e_pad >> 4, 1)), (1 << 26, 1 << 21)):
+        if ep == e_pad:
+            wg, vg, fg = w, valid, flags
+        else:
+            wg, vg, fg = rand(ep) * 9 + 1, rand(ep) < 0.9, rand(ep) < 1 / 16
+        xg = rand(nx)
+        idx = torch.randint(0, nx, (ep,), generator=gen, device=dev, dtype=torch.int32)
+        size = f"{ep.bit_length() - 1}"
+        for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
+            wv = None if mul == "first" else wg
+            got = ks.segscan_contrib_gather(xg, idx, wv, vg, fg, op, mul)
+            want = ks.segscan_contrib(xg[idx.long()], wv, vg, fg, op, mul)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"segscan_contrib_gather {op}/{mul} at 2^{size}: differs from C on x[idx]")
+            record(
+                "segscan_contrib_gather", f"{op}/{mul} at 2^{size} slots, x of 2^{nx.bit_length() - 1} (= C on x[idx] bit for bit)",
+                lambda: ks.segscan_contrib_gather(xg, idx, wv, vg, fg, op, mul),
+                lambda: ks.segscan_contrib_gather_plain(xg, idx, wv, vg, fg, op, mul),
+                (xg, idx, wv, vg, fg), 2, rtol=1e-6 if op == "add" else None,
+            )
+        del xg, idx, wg, vg, fg, got, want
     frontier = (rand(e_pad) < 0.05).float()
     levels = torch.where(rand(e_pad) < 0.7, -1, torch.randint(0, 4, (e_pad,), generator=gen, device=dev)).to(torch.int32)
     record(
@@ -1316,7 +1347,7 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
     C, tc = got["triangles"]
     require(C._sparse is not None and tc == tc_ref, f"DSL triangles {tc}, scipy {tc_ref}")
     # launches on (a)-(d)
-    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
+    for name in ("gather", "segscan_contrib_gather", "segscan", "eqjoin"):
         require(launches[name] > 0, f"sparse DSL path: {name} was not launched")
     require(not any(plain.values()), f"sparse DSL path: plain versions ran: {plain}")
     say(
@@ -1419,8 +1450,12 @@ def profiled_launches(prof):
     launch counter.  G's routes and its fill are one CUDA function
     (gather_kernel) and count together; the single-pass scans are told
     apart by their tile type."""
-    out = {"gather+gather_fill": 0, "segscan_contrib": 0, "segscan_state": 0, "segscan": 0}
-    tiles = {"ContribTile": "segscan_contrib", "StateTile": "segscan_state", "ValueTile": "segscan"}
+    out = {"gather+gather_fill": 0, "segscan_contrib": 0, "segscan_state": 0, "segscan": 0, "segscan_contrib_gather": 0}
+    # GatherContribTile before ContribTile, whose name it holds
+    tiles = {
+        "GatherContribTile": "segscan_contrib_gather", "ContribTile": "segscan_contrib",
+        "StateTile": "segscan_state", "ValueTile": "segscan",
+    }
     for ev in prof.key_averages():
         if "gather_kernel<" in ev.key:
             out["gather+gather_fill"] += ev.count
@@ -1527,7 +1562,7 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
         np.minimum.at(least, lab, np.arange(n))
         np.testing.assert_array_equal(cc, least[lab], err_msg="6c connected components != scipy")
         info["check s"] = time.perf_counter() - t0
-        for name in ("gather", "gather_fill", "segscan_contrib", "segscan"):
+        for name in ("gather", "segscan_contrib_gather", "segscan"):
             require(launches[name] > 0, f"6c compiled loops: {name} was not launched")
         require(not any(plain.values()), f"6c compiled loops: plain versions ran: {plain}")
         say(
@@ -1650,7 +1685,7 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
         seen = profiled_launches(prof)
         counted = {
             "gather+gather_fill": again["gather"] + again["gather_fill"],
-            **{c: again[c] for c in ("segscan_contrib", "segscan_state", "segscan")},
+            **{c: again[c] for c in ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather")},
         }
         require(seen == counted, f"6c: the kernels the profiler saw {seen} != the launches counted {counted}")
         # where a PageRank replay's device time goes
@@ -2485,7 +2520,7 @@ def mesh_phase(torch, np, dev, g, plan, src, dst, w, outdeg, sources, lv_ref, L_
     require(np.array_equal(tc_vals.view(np.int32), acc.cpu().numpy()[keep].view(np.int32)), "sharded SpGEMM: values != single device")
     tri = int(tc_vals.astype(np.float64).sum())
     require(tri == tc_ref and tc_flops == int(fl), f"sharded SpGEMM: {tri} triangles, scipy {tc_ref}")
-    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin", "tropical_mxm"):
+    for name in ("gather", "segscan_contrib_gather", "segscan_contrib", "segscan", "eqjoin", "tropical_mxm"):
         require(launches[name] > 0, f"mesh path: {name} was not launched")
     require(not any(plain.values()), f"mesh path: plain versions ran: {plain}")
     say(
@@ -2687,7 +2722,7 @@ def resident_shards(torch, np, dev, ctx, sa, ss_a, sb, ss_b, A07, smi):
     for tag, loop in loops.items():
         require(loop["capture"] == "graph", f"6p (i) compiled PageRank ({tag}) on 8 shards of one card: capture {loop}")
     require(loops["dense, SUMMA"]["placed"] == ("i",), "6p (i) compiled PageRank: the rank vector is not P(i,)")
-    for name in ("gather", "gather_fill", "segscan_contrib"):
+    for name in ("gather", "segscan_contrib_gather"):
         require(loops["scale-19 sparse, sharded SpMV"]["launches"].get(name, 0) > 0, f"6p (i) compiled sparse PageRank: {name} was not launched")
     require(not any(plain.values()), f"6p (i): plain versions ran: {plain}")
     say(
@@ -2800,7 +2835,7 @@ def bench_phase(torch, np, dev, scale, ef, seed, src, dst, w, n, lv_ref, dsl_6c,
         for k, v in want_modes.items():
             require(d[k] == v, f"6b: {k} {d[k]} != phase 6c's {v}")
         require(d["cc_iters"] == dsl_6c["cc_iters"], f"6b: cc_iters {d['cc_iters']} != phase 6c's {dsl_6c['cc_iters']}")
-    for name in ("gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "eqjoin", "tropical_mxm"):
+    for name in ("gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather", "eqjoin", "tropical_mxm"):
         require(launches[name] > 0, f"6b: {name} was not launched on the bench path")
     require(not any(plain.values()), f"6b: plain versions ran on the bench path: {plain}")
     say(
@@ -3264,7 +3299,7 @@ def main():
             require(path_launches[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("gather", "segscan"):
         require(sg_launches[name] > 0, f"{name} was not launched on the SpGEMM path (the reduce net)")
-    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
+    for name in ("gather", "segscan_contrib_gather", "segscan_contrib", "segscan", "eqjoin"):
         require(ty_launches[name] > 0, f"{name} was not launched on the typed operator paths")
     require(dsl_launches["tropical_mxm"] == dsl["apsp_launches"] == dsl["rounds"], "DSL path: gb_tropical launches != APSP rounds")
     for calls in (plain_calls, sg_plain, ty_plain, tr_plain, dsl_plain, sp_plain, cp_plain, io_plain, ms_plain, bn_plain, roof_plain):

@@ -1,11 +1,12 @@
 """Edge-layout ("loop layout") lowering of compiled DSL loops.
 
-Counterpart of ``graphblas_tpu/core/looplayout.py``.  An n-space SpMV on the
-plan engine is place route -> fill -> perm route -> Kernel C -> collect
-route: three G routes and a fill.  An iterative loop needs one route fewer
-when its state lives in the edge space at dst-segment-last slots (the loop
-layout of ``models/fast.py``): loop route -> fill -> perm route -> C.  This
-module lets ``gb.loop`` / ``gb.until`` (``core/compiler.py``) run a
+Counterpart of ``graphblas_tpu/core/looplayout.py``.  The reference's
+n-space SpMV is place route -> fill -> perm route -> contrib scan -> collect
+route; an iterative loop needs one route fewer when its state lives in the
+edge space at dst-segment-last slots (the loop layout of ``models/fast.py``):
+loop route -> fill -> perm route -> C.  The port's n-space SpMV is two
+launches, C with x's gather fused and the collect (``ops/fastspmv.py``); the
+n space is the card's default lowering.  This module lets ``gb.loop`` / ``gb.until`` (``core/compiler.py``) run a
 user-written DSL body in that layout:
 
 - every state Vector of size n is carried as an e_pad tensor whose vertex v

@@ -47,34 +47,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;        // slots a thread keeps in flight
 constexpr int kBlocksPerSm = 32;  // 4 waves of 8 resident 256-thread blocks
-
-__device__ __forceinline__ uint64_t evict_last_policy() {
-  uint64_t pol;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
-  return pol;
-}
-
-// x[j] through the read-only path, marked evict-last in L2.
-__device__ __forceinline__ uint32_t ld_keep(const uint32_t* p, uint64_t pol) {
-  uint32_t v;
-  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(pol));
-  return v;
-}
-__device__ __forceinline__ uint16_t ld_keep(const uint16_t* p, uint64_t pol) {
-  uint16_t v;
-  asm("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
-  return v;
-}
-__device__ __forceinline__ uint8_t ld_keep(const uint8_t* p, uint64_t pol) {
-  uint16_t v;
-  asm("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
-  return (uint8_t)v;
-}
 
 // The epilogues, per slot: y = x[j] (or 0 for j < 0), a = aux[p].  bind()
 // runs once per thread and reads what the epilogue keeps in device memory.

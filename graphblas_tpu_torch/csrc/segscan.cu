@@ -6,6 +6,10 @@
 //   per edge a semiring multiply (times, plus, second, first, or x alone when
 //   w is absent), an optional wrap to 8 or 16 bits, the monoid identity at
 //   invalid slots, then a segmented add/min/max inclusive scan.
+// Kernel C with a fused gather (segscan_contrib_gather): Kernel C whose value
+//   channel is x[idx[p]], read from the n-long x inside the tile, in place
+//   of an e_pad-long xe that routes built beforehand.  The SpMV engine
+//   passes the plan's src_dst_order as idx.  Everything else is C's.
 // Kernel S (segscan_state) replaces
 //   graphblas_tpu/ops/pallas_scan.py:segmented_scan_state (_state_kernel):
 //   kernel C's scan (BFS: max of x; SSSP: min of x + w) fused with the
@@ -24,7 +28,10 @@
 // the valid/flag bytes in, and the result out (14 B a slot for C); the state
 // kernel adds the is_last byte and the state word in, and a second word out
 // (19 B a slot for SSSP with its changed flags); the generic scan reads only
-// the values and the flag bytes.  There is no arithmetic to speak of.
+// the values and the flag bytes.  There is no arithmetic to speak of.  The
+// fused gather streams the index in xe's place (C's 14 B a slot) and reads
+// x's 4 B a vertex at the least: (14 e_pad + 4 n) B; its random reads of x
+// move 32-byte sectors, from L2 where x fits there.
 //
 // The TPU kernels carry the running (value, flag) pair from tile to tile
 // through a sequential grid with an SMEM carry.  Hopper blocks run in no
@@ -45,6 +52,23 @@
 // the longest look-back, 0.077-0.081 ms.  A variant that read full tiles by
 // 16-byte loads into registers in place of the bulk copies took 0.077-0.084
 // ms with flags.
+//
+// Kernel C with a fused gather: C's tile, 2048 slots of 256 threads, its
+// ring and its order of combination, so its output equals C's on
+// x[idx] bit for bit, float sums included.  The ring streams the int32
+// index in place of xe (still 14 B a slot); each thread then reads its
+// kItems values x[idx] from the n-long x in the manner of Kernel G: all its
+// loads issued before any is used, through the read-only path under an
+// L2::evict_last policy, so that an x smaller than L2 stays resident while
+// the streams pass; a slot whose valid byte is 0 reads nothing (its
+// contribution is the identity).  The gather's latency is hidden by the
+// other resident blocks of the SM, not by software pipelining: holding the
+// next tile's values across the scan's barriers would take 8 more
+// registers a thread, and the ring already has the next tile's streams in
+// flight while this one scans.  4 blocks an SM (64 registers a thread), not
+// C's 5: capped at 48 registers the tile spilled 8-12 bytes a thread and
+// took 0.724-0.751 ms at 2^26 slots over x of 2^21 (random idx), against
+// 0.675-0.683 ms at 4 blocks without spills (NVIDIA H100 80GB HBM3, 700 W).
 //
 // The generic scan's tile: values (f32, int32, int16, int8 or uint8) and
 // flag bytes by bulk copy, 9 B a slot in f32 or int32, 3 B in int8; narrow
@@ -553,6 +577,84 @@ struct ContribTile {
   }
 };
 
+// Kernel C's tile with a fused gather: idx, w, valid and flags of kTile
+// slots staged as ContribTile stages x; x[idx] read from global memory.
+template <typename T>
+struct GatherContribTile {
+  struct Stage {
+    int32_t idx[kTile];
+    T w[kTile];
+    uint8_t valid[kTile];
+    uint8_t flags[kTile];
+  };
+  using Epi = NoEpi;
+  static constexpr int kBlock = kThreads, kSlots = kTile;
+  static constexpr int kMinBlocks = 4;  // 64 registers a thread: no spills
+  ContribLoad<T> ld;   // ld.x: the gather's source, indexed by idx
+  const int32_t* idx;  // idx[p] in [0, len(x)) wherever valid[p]
+  int bulk_ok;         // idx, w, valid and flags 16-byte aligned
+
+  __device__ __forceinline__ bool staged(int64_t t, int64_t n) const {
+    return bulk_ok && (t + 1) * kTile <= n;
+  }
+  __device__ __forceinline__ void issue(Stage& sg, uint64_t* bar, int64_t t, int64_t n) const {
+    if (!staged(t, n)) return;
+    const int64_t base = t * kTile;
+    const uint32_t words = kTile * 4;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(bar, (ld.w != nullptr ? 2 * words : words) + 2 * kTile);
+    bulk_load(sg.idx, idx + base, words, bar);
+    if (ld.w != nullptr) bulk_load(sg.w, ld.w + base, words, bar);
+    bulk_load(sg.valid, ld.valid + base, kTile, bar);
+    bulk_load(sg.flags, ld.flags + base, kTile, bar);
+  }
+  __device__ __forceinline__ T source(int32_t j, uint64_t pol) const {
+    return from_bits<T>(ld_keep(reinterpret_cast<const uint32_t*>(ld.x) + j, pol));
+  }
+  __device__ __forceinline__ void items(const Stage& sg, int64_t t, int i0, int64_t n,
+                                        T (&v)[kItems], int (&f)[kItems], Epi&, T ident) const {
+    const uint64_t pol = evict_last_policy();
+    const int64_t base = t * kTile;
+    if (staged(t, n)) {
+      int32_t js[kItems];
+      uint8_t vs[kItems];
+      ld_items(js, sg.idx + i0);
+      ld_items(vs, sg.valid + i0);
+      T xs[kItems];
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) xs[k] = vs[k] ? source(js[k], pol) : (T)0;
+      T ws[kItems];
+      uint8_t fs[kItems];
+      if (ld.w != nullptr) ld_items(ws, sg.w + i0);
+      ld_items(fs, sg.flags + i0);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        v[k] = ld.contrib(xs[k], ld.w != nullptr ? ws[k] : (T)0, vs[k]);
+        f[k] = fs[k] != 0;
+      }
+      return;
+    }
+    int ok[kItems];
+    T xs[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t g = base + i0 + k;
+      ok[k] = g < n ? ld.valid[g] : 0;
+      xs[k] = ok[k] ? source(idx[g], pol) : (T)0;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t g = base + i0 + k;
+      v[k] = ident;
+      f[k] = 0;
+      if (g < n) {
+        v[k] = ld.contrib(xs[k], ld.w != nullptr ? ld.w[g] : (T)0, ok[k]);
+        f[k] = ld.flags[g] != 0;
+      }
+    }
+  }
+};
+
 // The generic scan's tile: values (widened to the compute type T) and flags
 // of kTile slots, by bulk copy when the tile is full and both arrays are
 // 16-byte aligned, else by plain loads.
@@ -855,15 +957,8 @@ int run_onepass(const Tile& tl, const Store& st, int64_t n, void* tile_state, cu
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int contrib_typed(const void* x, const void* w, const void* valid, const void* flags, void* out,
-                  void* tile_state, int64_t n, int op, int mul, int wrap_bits, int wrap_signed,
-                  double invalid, cudaStream_t s) {
-  const ContribLoad<T> ld{(const T*)x, (const T*)w, (const uint8_t*)valid,
-                          (const uint8_t*)flags, mul, wrap_bits, wrap_signed, (T)invalid};
-  const int bulk_ok = aligned16(x) && (w == nullptr || aligned16(w)) && aligned16(valid) &&
-                      aligned16(flags);
-  const ContribTile<T> tl{ld, bulk_ok};
+template <typename T, class Tile>
+int contrib_ops(const Tile& tl, void* out, void* tile_state, int64_t n, int op, cudaStream_t s) {
   const ValueStore<T, T> st{(T*)out};
   switch (op) {
     case kAdd: return run_onepass<T, kAdd>(tl, st, n, tile_state, s);
@@ -871,6 +966,20 @@ int contrib_typed(const void* x, const void* w, const void* valid, const void* f
     case kMax: return run_onepass<T, kMax>(tl, st, n, tile_state, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// idx == nullptr: Kernel C over xe = x; else the fused gather, xe = x[idx].
+template <typename T>
+int contrib_typed(const void* x, const void* idx, const void* w, const void* valid,
+                  const void* flags, void* out, void* tile_state, int64_t n, int op, int mul,
+                  int wrap_bits, int wrap_signed, double invalid, cudaStream_t s) {
+  const ContribLoad<T> ld{(const T*)x, (const T*)w, (const uint8_t*)valid,
+                          (const uint8_t*)flags, mul, wrap_bits, wrap_signed, (T)invalid};
+  const int bulk_ok = (w == nullptr || aligned16(w)) && aligned16(valid) && aligned16(flags);
+  if (idx == nullptr)
+    return contrib_ops<T>(ContribTile<T>{ld, bulk_ok && aligned16(x)}, out, tile_state, n, op, s);
+  return contrib_ops<T>(GatherContribTile<T>{ld, (const int32_t*)idx, bulk_ok && aligned16(idx)},
+                        out, tile_state, n, op, s);
 }
 
 template <typename In, typename T>
@@ -904,9 +1013,25 @@ extern "C" int gb_segscan_contrib(const void* x, const void* w, const void* vali
                                   double invalid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_int)
-    return contrib_typed<int32_t>(x, w, valid, flags, out, tile_state, n, op, mul, wrap_bits,
-                                  wrap_signed, invalid, s);
-  return contrib_typed<float>(x, w, valid, flags, out, tile_state, n, op, mul, wrap_bits,
+    return contrib_typed<int32_t>(x, nullptr, w, valid, flags, out, tile_state, n, op, mul,
+                                  wrap_bits, wrap_signed, invalid, s);
+  return contrib_typed<float>(x, nullptr, w, valid, flags, out, tile_state, n, op, mul, wrap_bits,
+                              wrap_signed, invalid, s);
+}
+
+// Kernel C over xe[p] = x[idx[p]], p < n: x holds the gather's source (any
+// length; idx[p] must index it wherever valid[p] is set), idx, w, valid,
+// flags and out have n slots.  The other arguments as gb_segscan_contrib's.
+extern "C" int gb_segscan_contrib_gather(const void* x, const void* idx, const void* w,
+                                         const void* valid, const void* flags, void* out,
+                                         void* tile_state, int64_t n, int is_int, int op, int mul,
+                                         int wrap_bits, int wrap_signed, double invalid,
+                                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_int)
+    return contrib_typed<int32_t>(x, idx, w, valid, flags, out, tile_state, n, op, mul,
+                                  wrap_bits, wrap_signed, invalid, s);
+  return contrib_typed<float>(x, idx, w, valid, flags, out, tile_state, n, op, mul, wrap_bits,
                               wrap_signed, invalid, s);
 }
 

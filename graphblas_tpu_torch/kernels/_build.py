@@ -40,6 +40,7 @@ _SIGNATURES = {
     "gb_gather": [_P, _P, _P, _I64, _I, _P],
     "gb_gather_pagerank": [_P, _P, _P, _P, _P, _I64, _P],
     "gb_segscan_contrib": [_P] * 6 + [_I64, _I, _I, _I, _I, _I, ctypes.c_double, _P],
+    "gb_segscan_contrib_gather": [_P] * 7 + [_I64, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     "gb_segscan_state": [_I] + [_P] * 6 + [_I] + [_P] * 4 + [_I64, _P],
     "gb_segscan": [_P] * 4 + [_I64, _I, _I, _P],
     "gb_segscan_tile": [],

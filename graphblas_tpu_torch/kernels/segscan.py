@@ -4,6 +4,10 @@
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_contrib``: per-edge
   semiring multiply, optional integer wrap, identity at invalid slots, then a
   segmented add/min/max inclusive scan.
+- ``segscan_contrib_gather`` is Kernel C whose value channel is ``x[idx]``,
+  read from the n-long x inside the tile: the SpMV engine's expand (x to
+  every edge slot, ``idx`` the plan's ``src_dst_order``) fused into C.  Its
+  output equals ``segscan_contrib(x[idx], ...)`` bit for bit.
 - ``segscan_state`` (Kernel S) replaces
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
   x) or SSSP (min of x + w) scan fused with the per-round state update.
@@ -36,7 +40,7 @@ MULS = ("times", "plus", "second", "first")
 # the generic scan's ops and dtypes, in the order of gb_segscan's codes
 SCAN_OPS = ("add", "min", "max", "fill")
 SCAN_DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
-KERNELS = ("segscan_contrib", "segscan_state", "segscan")  # launch counts by kernel name
+KERNELS = ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather")  # launch counts by kernel name
 
 
 def _ident(op, dtype):
@@ -138,8 +142,16 @@ def _check_common(xe, w, valid, flags):
     _same_device(xe, w, valid, flags)
 
 
-def _check_contrib(xe, w, valid, flags, op, mul, wrap):
-    _check_common(xe, w, valid, flags)
+def _check_contrib(xe, w, valid, flags, op, mul, wrap, idx=None):
+    """C's inputs; with ``idx``, the fused gather's: x (any length, xe's
+    types) and an int32 ``idx`` that w, valid and flags are as long as."""
+    if idx is not None:
+        if xe.dim() != 1:
+            raise ValueError("segscan_contrib_gather: x must be 1-D")
+        if idx.dtype != torch.int32:
+            raise TypeError(f"segscan_contrib_gather: idx must be int32, got {idx.dtype}")
+        _same_device(xe, idx)
+    _check_common(xe if idx is None else idx, w, valid, flags)
     if op not in OPS:
         raise ValueError(f"segscan_contrib: op {op!r} not in {OPS}")
     if mul not in MULS:
@@ -158,6 +170,18 @@ def segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap=None):
     """Plain PyTorch version of Kernel C (any device)."""
     _check_contrib(xe, w, valid, flags, op, mul, wrap)
     _telemetry.count("kernels.plain.segscan_contrib")
+    return _contrib_plain(xe, w, valid, flags, op, mul, wrap)
+
+
+def segscan_contrib_gather_plain(x, idx, w, valid, flags, op, mul, wrap=None):
+    """Plain PyTorch version of the fused gather (any device):
+    ``segscan_contrib_plain(x[idx], ...)``."""
+    _check_contrib(x, w, valid, flags, op, mul, wrap, idx)
+    _telemetry.count("kernels.plain.segscan_contrib_gather")
+    return _contrib_plain(x[idx.long()], w, valid, flags, op, mul, wrap)
+
+
+def _contrib_plain(xe, w, valid, flags, op, mul, wrap):
     io = xe.dtype
     cd = _compute_dtype(io)
     c = xe.to(cd)
@@ -194,6 +218,39 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _launch_contrib(name, x, idx, w, valid, flags, op, mul, wrap):
+    """Kernel C (``idx`` None) or the fused gather: x and w widened to the
+    compute type (x over its own entries), one launch, the IO type out."""
+    _require_cuda(name, x, idx, w, valid, flags)
+    io = x.dtype
+    cd = _compute_dtype(io)
+    xc = x.to(cd)
+    wc = w.to(cd) if w is not None else None
+    lib = _build.library()
+    n = valid.numel()
+    out = torch.empty(n, dtype=cd, device=x.device)
+    tile_state = _tile_state(n, lib.gb_segscan_tile(), x.device)
+    bits, signed = wrap if wrap is not None else (0, False)
+    codes = (
+        n, int(cd == torch.int32), OPS.index(op), MULS.index(mul), int(bits), int(bool(signed)),
+        float(_ident(op, io)), _build.stream_of(x),
+    )
+    with torch.cuda.device(x.device):
+        if idx is None:
+            rc = lib.gb_segscan_contrib(
+                xc.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                tile_state.data_ptr(), *codes,
+            )
+        else:
+            rc = lib.gb_segscan_contrib_gather(
+                xc.data_ptr(), idx.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                tile_state.data_ptr(), *codes,
+            )
+    _build.check(rc, name)
+    _telemetry.count("kernels.launches." + name)
+    return out.to(io)
+
+
 def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
     """Fused multiply + mask + segmented scan.  CPU tensors take the plain
     version; CUDA tensors launch Kernel C (int8 rides it as int32)."""
@@ -201,26 +258,21 @@ def segscan_contrib(xe, w, valid, flags, op, mul, wrap=None):
         return segscan_contrib_plain(xe, w, valid, flags, op, mul, wrap)
     with _telemetry.span("kernels.segscan_contrib"):
         _check_contrib(xe, w, valid, flags, op, mul, wrap)
-        _require_cuda("segscan_contrib", xe, w, valid, flags)
-        io = xe.dtype
-        cd = _compute_dtype(io)
-        x = xe.to(cd)
-        wc = w.to(cd) if w is not None else None
-        lib = _build.library()
-        n = x.numel()
-        out = torch.empty(n, dtype=cd, device=x.device)
-        tile_state = _tile_state(n, lib.gb_segscan_tile(), x.device)
-        bits, signed = wrap if wrap is not None else (0, False)
-        with torch.cuda.device(x.device):
-            rc = lib.gb_segscan_contrib(
-                x.data_ptr(), _ptr(wc), valid.data_ptr(), flags.data_ptr(), out.data_ptr(),
-                tile_state.data_ptr(), n,
-                int(cd == torch.int32), OPS.index(op), MULS.index(mul), int(bits), int(bool(signed)),
-                float(_ident(op, io)), _build.stream_of(x),
-            )
-        _build.check(rc, "segscan_contrib")
-        _telemetry.count("kernels.launches.segscan_contrib")
-        return out.to(io)
+        return _launch_contrib("segscan_contrib", xe, None, w, valid, flags, op, mul, wrap)
+
+
+def segscan_contrib_gather(x, idx, w, valid, flags, op, mul, wrap=None):
+    """``segscan_contrib(x[idx], w, valid, flags, op, mul, wrap)`` in one
+    launch, the gather fused into C's tiles.  ``idx`` (int32) must lie in
+    ``[0, len(x))`` wherever ``valid`` is set: the caller guarantees it (the
+    SpMV plans do, as built and as read from a file), since the kernel reads
+    ``x[idx]`` unchecked to keep the launch free of a host read.  CPU tensors
+    take the plain version, which raises on any index outside x."""
+    if x.device.type == "cpu":
+        return segscan_contrib_gather_plain(x, idx, w, valid, flags, op, mul, wrap)
+    with _telemetry.span("kernels.segscan_contrib_gather"):
+        _check_contrib(x, w, valid, flags, op, mul, wrap, idx)
+        return _launch_contrib("segscan_contrib_gather", x, idx, w, valid, flags, op, mul, wrap)
 
 
 def _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce):

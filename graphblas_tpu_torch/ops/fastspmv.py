@@ -1,5 +1,6 @@
 """Analyzed-COO SpMV: a graph is analyzed once into an ``SpmvPlan``, then
-every SpMV is expand -> route -> multiply + segmented reduce.
+every SpMV is one contrib scan over the edges in dst order, x read by index
+into its tiles, and one collect of the segment totals.
 
 Counterpart of ``graphblas_tpu/ops/fastspmv.py``.  The slot layout is the
 reference's, slot for slot: ``e_pad`` from ``padded_size``, the same stable
@@ -8,18 +9,29 @@ routes (place, perm, collect, loop) are the int32 index arrays the reference
 computes before it builds its networks, applied by one gather each
 (``ops.permute.apply_perm``).
 
-A plan built with ``endpoints=True`` (v2) expands x through the place route
-and the static fill, and collects through the collect route; without
-endpoints, x is scattered at the src-segment starts and filled by the generic
-scan, and y is read at the dst-segment ends.  Pipeline of one loop-layout
-step (``spmv_state``, v2 plans):
+Pipeline of ``spmv`` and ``spmv_masked`` (value channel):
+
+    x (n) --contrib scan, xe[p] = x[src_dst_order[p]] read inside its tiles-->
+      totals at dst-seg-last slots --collect route (n slots)--> y (n)
+
+``src_dst_order[p]`` is the source vertex of dst-order slot p, pad slots
+included, so the scan's value channel is exactly what the reference's
+expand (place route, fill, perm route) builds in the edge space; the
+kernel (``segmented_scan_contrib_gather``) reads it from x directly.  x's
+structure, when x is not full, is one gather through the same index
+(``_expand_dst``).  Without endpoint routes, y is read at the dst-segment
+ends.  A JAX-package plan file may lack ``src_dst_order``;
+``plan_from_reference`` derives it as ``src_sorted[perm_idx]``.
+
+The routes stay in the plan for the loop layout, one step of which
+(``spmv_state``, v2 plans) is
 
     x at src-seg-start slots --fill--> x[src] per edge (src order)
       --perm route--> dst order --contrib scan--> totals at dst-seg-last slots
 
-Plans are saved in the port's own format (``save_spmv_plan`` /
-``load_spmv_plan``: the composed index arrays, not networks);
-``plan_from_reference`` reads the JAX package's plan files.
+and for ``models/fast.py``.  Plans are saved in the port's own format
+(``save_spmv_plan`` / ``load_spmv_plan``: the composed index arrays, not
+networks); ``plan_from_reference`` reads the JAX package's plan files.
 """
 
 import numpy as np
@@ -28,7 +40,14 @@ import torch
 from ..exceptions import IndexOutOfBound
 from ..native import counting_sort
 from .permute import apply_perm, compose_reference_network, padded_size
-from .scan import _ident, build_fill_tables, segmented_fill_static, segmented_scan, segmented_scan_contrib
+from .scan import (
+    _ident,
+    build_fill_tables,
+    segmented_fill_static,
+    segmented_scan,
+    segmented_scan_contrib,
+    segmented_scan_contrib_gather,
+)
 
 # tensors of a plan, in the order of graphblas_tpu/ops/fastspmv.py:SpmvPlan
 ARRAYS = (
@@ -258,11 +277,21 @@ def _reference_stages(data, prefix):
     return stages
 
 
+def _check_src_dst_order(src_dst_order, n):
+    """A plan read from a file must keep ``src_dst_order`` inside x: the
+    fused gather reads ``x[src_dst_order]`` on the card unchecked."""
+    if src_dst_order.numel() and (int(src_dst_order.min()) < 0 or int(src_dst_order.max()) >= n):
+        raise IndexOutOfBound(
+            f"plan file: src_dst_order in [{int(src_dst_order.min())}, {int(src_dst_order.max())}], outside [0, {n})"
+        )
+
+
 def plan_from_reference(npz_or_dict, device="cuda"):
     """The port's SpmvPlan from the arrays the JAX package's
     ``save_spmv_plan`` writes (a path, an open npz, or a dict): each network
     is composed into its index array, ``fill_src`` is derived from
-    ``seg_start_src``."""
+    ``seg_start_src``, and ``src_dst_order``, where the file lacks it, from
+    ``src_sorted`` and the perm route."""
     data = np.load(npz_or_dict, allow_pickle=False) if isinstance(npz_or_dict, str) else npz_or_dict
     n, e_pad = (int(v) for v in data["meta"])
     arrays = {}
@@ -281,6 +310,10 @@ def plan_from_reference(npz_or_dict, device="cuda"):
             arrays[name] = _tensor(compose_reference_network(_reference_stages(data, prefix), e_pad))
     if "seg_start_src" in data:
         arrays["fill_src"] = _tensor(build_fill_tables(data["seg_start_src"]))
+    if "src_dst_order" not in arrays:
+        # dst-order slot p draws from src-order slot perm_idx[p]
+        arrays["src_dst_order"] = arrays["src_sorted"][arrays["perm_idx"].long()]
+    _check_src_dst_order(arrays["src_dst_order"], n)
 
     def scalar(key):
         return int(np.asarray(data[key])[0]) if key in data else 0
@@ -322,6 +355,7 @@ def load_spmv_plan(path, w=None, device="cuda"):
         n, e_pad, k_iso, donors, total = (int(v) for v in data["meta"])
         arrays = {k: _tensor(data[k]) for k in ARRAYS if k in data}
         order_dst = np.asarray(data["order_dst"]) if "order_dst" in data else None
+    _check_src_dst_order(arrays["src_dst_order"], n)
     if w is not None:
         if order_dst is None:
             raise ValueError(f"{path}: the plan was saved without order_dst, so its weights cannot be replaced")
@@ -340,18 +374,11 @@ def _seg_fill(plan, placed):
     return segmented_fill_static(placed, plan.fill_src)
 
 
-def _expand_v2(x, plan):
-    """x (n,) -> x[src] in src-sorted order: embed x in the edge space, route
-    it to segment starts, then fill."""
-    pad = plan.e_pad - x.shape[0]
-    x_emb = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)]) if pad else x
-    return _seg_fill(plan, apply_perm(x_emb, plan.place_idx))
-
-
 def _collect_v2(scanned, plan, ident):
-    """Segment totals -> y (n,): the collect route brings each dst segment's
-    last slot to position d; destinations with no valid in-edge get ``ident``."""
-    collected = apply_perm(scanned, plan.collect_idx)[: plan.n]
+    """Segment totals -> y (n,): the collect route's first n slots bring each
+    dst segment's last slot to position d; destinations with no valid
+    in-edge get ``ident``."""
+    collected = apply_perm(scanned, plan.collect_idx[: plan.n])
     fill = torch.full((), ident, dtype=collected.dtype, device=collected.device)
     return torch.where(plan.dst_nonempty, collected, fill)
 
@@ -365,17 +392,6 @@ def _dropping_scatter(e_pad, idx, values):
     out = torch.zeros(e_pad + 1, dtype=values.dtype, device=values.device)
     out[idx] = values
     return out[:e_pad]
-
-
-def _expand_src_sorted(x, indptr_src, e_pad):
-    """x (n,) -> x[src] for src-sorted edges: scatter x at the starts of the
-    non-empty src segments (an empty segment shares its start slot with the
-    next non-empty one and must not overwrite it), then a fill scan."""
-    starts = indptr_src[:-1].long()
-    idx = torch.where(indptr_src[1:] > indptr_src[:-1], starts, e_pad)
-    placed = _dropping_scatter(e_pad, idx, x)
-    seg_start = _dropping_scatter(e_pad, idx, torch.ones_like(x, dtype=torch.bool))
-    return segmented_scan(placed, seg_start, "fill")
 
 
 def _dst_segments(indptr_dst, e_pad):
@@ -396,12 +412,22 @@ def _read_ends(scanned, starts, ends, ident):
 
 
 def _expand_dst(x, plan):
-    """x (n,) -> x[src] of every edge, in dst order."""
-    if plan.place_idx is not None:
-        xe = _expand_v2(x, plan)
-    else:
-        xe = _expand_src_sorted(x, plan.indptr_src, plan.e_pad)
-    return apply_perm(xe, plan.perm_idx)
+    """x (n,) -> x[src] of every edge, in dst order: one gather through
+    ``src_dst_order``."""
+    return apply_perm(x.contiguous(), plan.src_dst_order)
+
+
+def _present_dst(xs, plan):
+    """x's structure at every dst-order slot (bool), expanded as one byte a
+    slot."""
+    present = xs if xs.dtype == torch.bool else xs.to(torch.float32) > 0.5
+    return _expand_dst(present.contiguous().view(torch.uint8), plan).view(torch.bool)
+
+
+def _contrib_dst(plan, x, w, valid, seg_start, op, mul, wrap=None):
+    """The contrib scan over the dst-order slots with x[src] as the value
+    channel, x gathered inside the scan's tiles through ``src_dst_order``."""
+    return segmented_scan_contrib_gather(x.contiguous(), plan.src_dst_order, w, valid, seg_start, op, mul, wrap)
 
 
 def _dst_reduce(plan):
@@ -419,10 +445,9 @@ def spmv(plan, x, add="plus", mul="times"):
     """y[d] = ADD over edges (s -> d) of (x[s] MUL w).  add in {plus, min,
     max}; mul in {times, plus, first, second}.  Destinations with no valid
     in-edge get the ADD identity."""
-    xe_dst = _expand_dst(x, plan)
     w = plan.w_dst_order if mul in ("times", "plus", "second") else None
     seg_start, read = _dst_reduce(plan)
-    scanned = segmented_scan_contrib(xe_dst, w, plan.valid_dst_order, seg_start, _OPS[add], mul)
+    scanned = _contrib_dst(plan, x, w, plan.valid_dst_order, seg_start, _OPS[add], mul)
     return read(scanned, _ident(_OPS[add], scanned.dtype))
 
 
@@ -432,7 +457,7 @@ def spmv_masked(plan, x, xs, add="plus", mul="times", x_full=False, wrap=None):
 
     y[d] = ADD over edges (s -> d) with x[s] present of (x[s] MUL w); y has an
     entry at d iff at least one such edge exists, and reads 0 elsewhere.  The
-    structure ``xs`` rides the value routes as a float32 channel unless
+    structure ``xs`` is expanded to the edges as a byte channel unless
     ``x_full`` says every x is present.  add in {plus, min, max, any} (any
     is max); mul in {times, plus, first, second, pair, secondi}: ``pair``
     counts the present edges in one scan, ``secondi`` contributes the src
@@ -446,7 +471,7 @@ def spmv_masked(plan, x, xs, add="plus", mul="times", x_full=False, wrap=None):
     if x_full:
         validc = plan.valid_dst_order
     else:
-        validc = plan.valid_dst_order & (_expand_dst(xs.to(torch.float32), plan) > 0.5)
+        validc = plan.valid_dst_order & _present_dst(xs, plan)
 
     if mul == "pair":
         # every present contribution is 1: one count scan gives values and structure
@@ -461,14 +486,12 @@ def spmv_masked(plan, x, xs, add="plus", mul="times", x_full=False, wrap=None):
         return torch.where(ys, yv, zero), ys
 
     if mul == "secondi":
-        xe_dst, w, chan_mul = plan.src_dst_order, None, "first"
+        scanned = segmented_scan_contrib(plan.src_dst_order, None, validc, seg_start, op, "first", wrap)
     else:
-        xe_dst = _expand_dst(x, plan)
         w = plan.w_dst_order if mul in ("times", "plus", "second") else None
-        if w is not None and w.dtype != xe_dst.dtype:
-            w = w.to(xe_dst.dtype)  # e.g. float weights under an integer x
-        chan_mul = mul
-    scanned = segmented_scan_contrib(xe_dst, w, validc, seg_start, op, chan_mul, wrap)
+        if w is not None and w.dtype != x.dtype:
+            w = w.to(x.dtype)  # e.g. float weights under an integer x
+        scanned = _contrib_dst(plan, x, w, validc, seg_start, op, mul, wrap)
     yv = read(scanned, _ident(op, scanned.dtype))
     if static_struct:
         ys = plan.dst_nonempty

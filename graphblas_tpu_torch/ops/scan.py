@@ -2,7 +2,9 @@
 
 Counterpart of ``graphblas_tpu/ops/pallas_scan.py``.  The four entry points
 keep the JAX signatures, less the interpret flag; the fill tables become one
-global int32 ``fill_src`` array.  Each dispatches to its Hopper kernel
+global int32 ``fill_src`` array.  ``segmented_scan_contrib_gather`` is the
+contrib scan with its value channel gathered by index (no JAX counterpart:
+the TPU pipeline routes x instead).  Each dispatches to its Hopper kernel
 (``kernels.gather`` for the fill, ``kernels.segscan`` for the scans), or to
 the kernel's plain version inside ``kernels.plain_versions()``.
 """
@@ -44,6 +46,14 @@ def segmented_scan_contrib(xe, w, valid, flags, op, mul, wrap=None):
     contributions to a narrow width after the multiply."""
     fn = _segscan.segscan_contrib_plain if kernels.plain_requested() else _segscan.segscan_contrib
     return fn(xe, w, valid, flags, op, mul, wrap)
+
+
+def segmented_scan_contrib_gather(x, idx, w, valid, flags, op, mul, wrap=None):
+    """``segmented_scan_contrib(x[idx], w, valid, flags, op, mul, wrap)`` with
+    the gather fused into the scan: x is read by index inside its tiles, and
+    no ``x[idx]`` is made."""
+    fn = _segscan.segscan_contrib_gather_plain if kernels.plain_requested() else _segscan.segscan_contrib_gather
+    return fn(x, idx, w, valid, flags, op, mul, wrap)
 
 
 def segmented_scan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=False):

@@ -26,6 +26,10 @@ instruction rates, ptxas and SASS.
   flags at 1/16 (the main path's mean segment) and with no flag at all (the
   longest look-back); then a route followed by C on its output, the main
   path's order.
+- ``contrib gather``: C with x's gather fused at 2^log2n over x of
+  2^(log2n - 4) slots (the main path's n), add/times, min/plus and
+  max/first; then G's gather x[idx] followed by C, the same work in two
+  launches.
 - ``segscan``: the generic scan at 2^log2n with flags at 1/16: add in every
   dtype, f32 fill, min and max, a uint8 fill, f32 add with no flag and on a
   view one slot into its buffer (the plain loads).
@@ -310,6 +314,19 @@ def main():
         for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
             wv = None if mul == "first" else w
             report(f"contrib {op}/{mul}, {label}", ms(lambda: ks.segscan_contrib(x, wv, valid, fl, op, mul)))
+    # C with x's gather fused, over the main path's n; then G's gather and C
+    xg = torch.rand(n >> 4, generator=gen, device=dev)
+    idx_g = torch.randint(0, n >> 4, (n,), generator=gen, device=dev, dtype=torch.int32)
+    for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
+        wv = None if mul == "first" else w
+        report(
+            f"contrib gather {op}/{mul}, x 2^{args.log2n - 4}",
+            ms(lambda: ks.segscan_contrib_gather(xg, idx_g, wv, valid, flags, op, mul)),
+        )
+    report(
+        f"gather then contrib add/times, x 2^{args.log2n - 4}",
+        ms(lambda: ks.segscan_contrib(kg.gather(xg, idx_g), w, valid, flags, "add", "times")),
+    )
     # the path's order: a route, then C on its output (does x's evict-last
     # residency slow the next kernel?)
     report(

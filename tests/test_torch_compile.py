@@ -881,7 +881,12 @@ def test_cuda_recipes_graph_equals_eager(card, strategy, edge, monkeypatch):
                 bad.append((name, "graph != eager", float(np.max(np.abs(first - eager)))))
             if not np.array_equal(second, first) and not (name == "pagerank" and np.allclose(second, first, rtol=1e-6, atol=0)):
                 bad.append((name, "second replay != first"))
-            scan = "segscan" if name == "bfs_level" else "segscan_contrib"  # any_pair counts with the generic scan
+            # any_pair counts with the generic scan; the contrib scan is fused
+            # with x's gather in the n space and runs alone in the edge layout
+            if name == "bfs_level":
+                scan = "segscan"
+            else:
+                scan = "segscan_contrib" if runner.layout == "edge" else "segscan_contrib_gather"
             if strategy == "plan" and not counts.get(scan, 0):
                 bad.append((name, "launches", counts))
     assert not bad, bad
@@ -907,7 +912,7 @@ def test_cuda_compile_replays_and_returns_clones(card):
         b = step(AT, x2)
         assert len(step._cache) == 1 and next(iter(step._cache.values())).capture == "graph"
         # the warm step's launch, then one a replay (the capture launches nothing)
-        assert kernels.launch_counts()["segscan_contrib"] == 3
+        assert kernels.launch_counts()["segscan_contrib_gather"] == 3
         with P.tx.config.set(platform="cuda"):
             ea = AT.mxv(x1, P.semiring.plus_times).new(P.dtypes.FP32)
             eb = AT.mxv(x2, P.semiring.plus_times).new(P.dtypes.FP32)

@@ -6,11 +6,14 @@ the JAX package's, on the CPU.
 - Every route index array equals the reference network applied to arange.
 - One iteration of each loop algorithm matches slot for slot.
 - ``spmv`` matches for plus_times, min_plus and max_first, on plans with and
-  without endpoint routes; without them, the expand (``_expand_src_sorted``)
-  and the reduce (against the reference's ``_segment_reduce_dst``) match
-  slot for slot too.
+  without endpoint routes; without them, the reduce (against the reference's
+  ``_segment_reduce_dst``) matches slot for slot too.
 - The port's plan files round-trip array by array, and ``load_spmv_plan(w=)``
   gives the plan a fresh build with those weights gives.
+- x gathered through ``src_dst_order`` (the expand, and the contrib scan with
+  the gather fused) equals the reference's routed expand and SpMVs, on v2,
+  non-endpoint and total plans; a JAX-package plan file without that array
+  gets it derived, and a plan file whose array leaves x is refused.
 
 Exact everywhere except float add scans, which round in another order (the
 TPU kernel's lane/row tree against the plain log-step scan): those compare
@@ -274,19 +277,6 @@ def no_endpoints(request):
     return {"jplan": jplan, "plan": plan, "v2": v2}
 
 
-def test_expand_src_sorted_matches_reference(no_endpoints):
-    plan, jplan = no_endpoints["plan"], no_endpoints["jplan"]
-    ip = _np(plan.indptr_src)
-    assert (np.diff(ip) == 0).any()  # empty src segments share their start slot
-    x = np.random.default_rng(13).random(plan.n).astype(np.float32)
-    for dt in (np.float32, np.int32, np.int8):
-        xd = (x * 100).astype(dt) if dt != np.float32 else x
-        want = ref_fs._expand_src_sorted(jnp.asarray(xd), jplan.indptr_src, jplan.e_pad)
-        got = port_fs._expand_src_sorted(_t(xd), plan.indptr_src, plan.e_pad)
-        assert got.dtype == _t(xd).dtype
-        _same(got, want, f"expand {dt.__name__}")
-
-
 @pytest.mark.parametrize("kind", ["plus", "min", "max"])
 def test_dst_reduce_matches_reference_segment_reduce(no_endpoints, kind):
     """The non-endpoint reduce of spmv (a scan over the dst segments, read at
@@ -384,3 +374,121 @@ def test_builders_default_to_the_card(tmp_path):
         for call in calls:
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
+
+
+# ---- x gathered straight into the contrib scan through src_dst_order -------
+
+GATHER_PLANS = {"v2": {}, "no_endpoints": {"endpoints": False}, "total": {"total": True}}
+
+
+@pytest.fixture(scope="module")
+def gather_plans():
+    """The corner graph's plans of each kind, the reference's and the
+    port's."""
+    g_ref, _, _ = corner_graph()
+    (src, dst, w), n = _edges(g_ref), g_ref.n
+    out = {"src": src, "dst": dst, "w": w, "n": n}
+    for kind, opts in GATHER_PLANS.items():
+        out[kind] = (ref_fs.build_spmv_plan(src, dst, w, n=n, **opts), port_fs.build_spmv_plan(src, dst, w, n=n, device="cpu", **opts))
+    return out
+
+
+def _ref_expand(jplan, x):
+    if jplan.place_plan is not None:
+        return apply_plan(ref_fs._expand_v2(x, jplan), jplan.perm_plan)
+    return apply_plan(ref_fs._expand_src_sorted(x, jplan.indptr_src, jplan.e_pad), jplan.perm_plan)
+
+
+def _wrap_oracle(src, dst, w, n, x, xs, wrap):
+    """numpy: per present edge x[s] * int32(w) wrapped to ``wrap`` bits,
+    summed per destination in int32 (plus_times on a narrow output)."""
+    c = x[src].astype(np.int64) * w.astype(np.int32).astype(np.int64)
+    bits, signed = wrap
+    c &= (1 << bits) - 1
+    if signed:
+        c = np.where(c >= 1 << (bits - 1), c - (1 << bits), c)
+    keep = xs[src]
+    y = np.zeros(n, np.int64)
+    np.add.at(y, dst[keep], c[keep])
+    present = np.bincount(dst[keep], minlength=n) > 0
+    return np.where(present, y, 0).astype(np.int32), present
+
+
+@pytest.mark.parametrize("x_full", [False, True], ids=["x_struct", "x_full"])
+@pytest.mark.parametrize("dt", ["f32", "i32"])
+@pytest.mark.parametrize("kind", list(GATHER_PLANS))
+def test_gathered_expand_and_spmv_match_reference(gather_plans, kind, dt, x_full):
+    """x read by index through ``src_dst_order``: ``_expand_dst`` equals the
+    reference's routed expand slot for slot; ``spmv`` and ``spmv_masked``
+    through the fused scan equal the reference (float plus within rtol
+    1e-6), wrapped int8 its numpy oracle."""
+    jplan, plan = gather_plans[kind]
+    src, dst, w, n = (gather_plans[k] for k in ("src", "dst", "w", "n"))
+    rng = np.random.default_rng(31)
+    x = (rng.random(n) + 0.5).astype(np.float32) if dt == "f32" else rng.integers(-300, 300, n).astype(np.int32)
+    xs = np.ones(n, bool) if x_full else rng.random(n) < 0.4
+    got = port_fs._expand_dst(_t(x), plan)
+    assert got.dtype == _t(x).dtype and got.shape == (plan.e_pad,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_ref_expand(jplan, jnp.asarray(x))))
+    present = port_fs._present_dst(_t(xs), plan)
+    assert present.dtype == torch.bool
+    np.testing.assert_array_equal(present.numpy(), np.asarray(_ref_expand(jplan, jnp.asarray(xs.astype(np.float32)))) > 0.5)
+
+    for add, mul in [("plus", "times"), ("min", "plus"), ("max", "first")]:
+        name = f"{kind} {dt} {add}_{mul}"
+        if dt == "f32":
+            y = port_fs.spmv(plan, _t(x), add, mul)
+            _same(y, ref_fs.spmv(jplan, jnp.asarray(x), add, mul), f"spmv {name}", rtol=1e-6 if add == "plus" else None)
+        yv, ys = port_fs.spmv_masked(plan, _t(x), _t(xs), add, mul, x_full)
+        want = ref_fs.spmv_masked(jplan, jnp.asarray(x), jnp.asarray(xs), add, mul, x_full)
+        np.testing.assert_array_equal(ys.numpy(), np.asarray(want[1]), err_msg=name)
+        float_add = dt == "f32" and add == "plus"
+        _same(yv, want[0], f"spmv_masked {name}", rtol=1e-6 if float_add else None)
+    if dt == "i32":
+        wrap = (8, True)
+        yv, ys = port_fs.spmv_masked(plan, _t(x), _t(xs), "plus", "times", x_full, wrap)
+        want_v, want_s = _wrap_oracle(src, dst, w, n, x, xs, wrap)
+        np.testing.assert_array_equal(ys.numpy(), want_s)
+        np.testing.assert_array_equal(yv.numpy(), want_v)
+
+
+@pytest.mark.parametrize("kind", list(GATHER_PLANS))
+def test_reference_plan_file_without_src_dst_order(gather_plans, kind, tmp_path):
+    """A JAX-package plan file that lacks ``src_dst_order`` reads with the
+    array derived from ``src_sorted`` and the perm route: the build's, slot
+    for slot."""
+    jplan, plan = gather_plans[kind]
+    path = str(tmp_path / "jax.npz")
+    ref_fs.save_spmv_plan(jplan, path)
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files if k != "src_dst_order"}
+    carried = port_fs.plan_from_reference(arrays, device="cpu")
+    assert carried.src_dst_order.dtype == torch.int32
+    np.testing.assert_array_equal(_np(carried.src_dst_order), _np(plan.src_dst_order))
+
+
+@pytest.mark.parametrize("bad", [-1, "n"], ids=["negative", "n"])
+def test_plan_files_keep_src_dst_order_inside_x(gather_plans, tmp_path, bad):
+    """The fused gather reads x[src_dst_order] unchecked on the card, so a
+    plan file, the port's or the JAX package's, whose array leaves [0, n)
+    is refused on reading."""
+    from graphblas_tpu_torch.exceptions import IndexOutOfBound
+
+    jplan, plan = gather_plans["v2"]
+    bad = plan.n if bad == "n" else bad
+    path = str(tmp_path / "port.npz")
+    port_fs.save_spmv_plan(plan, path)
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    arrays["src_dst_order"] = arrays["src_dst_order"].copy()
+    arrays["src_dst_order"][3] = bad
+    np.savez(path, **arrays)
+    with pytest.raises(IndexOutOfBound, match="src_dst_order"):
+        port_fs.load_spmv_plan(path, device="cpu")
+    jpath = str(tmp_path / "jax.npz")
+    ref_fs.save_spmv_plan(jplan, jpath)
+    with np.load(jpath) as data:
+        jarrays = {k: data[k] for k in data.files}
+    jarrays["src_dst_order"] = arrays["src_dst_order"]
+    with pytest.raises(IndexOutOfBound, match="src_dst_order"):
+        port_fs.plan_from_reference(jarrays, device="cpu")

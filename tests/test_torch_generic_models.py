@@ -300,7 +300,7 @@ def test_sparse_dsl_path_on_cpu_calls_only_plain_versions():
     rank, levels, dist, count, (g, s, L) = _sparse_dsl_drive(torch.device("cpu"))
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
     assert not any(launches.values()), launches
-    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
+    for name in ("gather", "segscan_contrib_gather", "segscan", "eqjoin"):
         assert plain[name] > 0, (name, plain)
     np.testing.assert_array_equal(levels.to_dense(-1), PM.bfs_level(g, s).numpy())
     d = PM.sssp(g, s).numpy()
@@ -316,8 +316,8 @@ def test_sparse_dsl_path_on_cpu_calls_only_plain_versions():
 
 @pytest.mark.cuda
 def test_sparse_dsl_path_on_cuda_launches_only_kernels():
-    """On the card the same statements launch G, fill, C, the generic scan
-    and eqjoin, never a plain version, and equal their plain replay (float
+    """On the card the same statements launch G, C with its fused gather,
+    the generic scan and eqjoin, never a plain version, and equal their plain replay (float
     PageRank within 1e-5: the adds are reordered) and the generic models."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -326,7 +326,7 @@ def test_sparse_dsl_path_on_cuda_launches_only_kernels():
     got = _sparse_dsl_drive(dev)
     torch.cuda.synchronize()
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
-    for name in ("gather", "gather_fill", "segscan_contrib", "segscan", "eqjoin"):
+    for name in ("gather", "segscan_contrib_gather", "segscan", "eqjoin"):
         assert launches[name] > 0, (name, launches)
     assert not any(plain.values()), plain
     with kernels.plain_versions():

@@ -9,7 +9,9 @@ the CUDA half also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-Tolerances: min, max, fill, gathers and all integer scans are bit-exact.  A
+Tolerances: min, max, fill, gathers and all integer scans are bit-exact;
+C with x's gather fused equals C on ``x[idx]`` bit for bit on the card,
+float add included.  A
 float add scan rounds in another order in each implementation (the TPU
 kernel's lane/row tree, the plain log-step scan, the CUDA thread/warp tree),
 so float add compares within rtol 1e-6 on positive inputs.  eqjoin is exact
@@ -453,6 +455,64 @@ def test_scan_contrib_rejects_what_it_does_not_take():
         ts.segmented_scan_contrib(_t(x), _t(w.astype(np.int32)), _t(valid), _t(flags), "add", "times")
 
 
+# ---- contrib scan with x's gather fused ------------------------------------
+
+
+def _gather_inputs(seed, dt, n=N, nx=97):
+    """C's inputs with the values drawn as ``x[idx]``: x of ``nx`` slots, an
+    int32 index of ``n``."""
+    _, w, valid, flags = _inputs(seed, dt, n=n, positive=True)
+    x = _inputs(seed + 1, dt, n=nx, positive=True)[0]
+    idx = np.random.default_rng(seed).integers(0, nx, n).astype(np.int32)
+    return x, idx, w, valid, flags
+
+
+@pytest.mark.parametrize("dt,op,mul,has_w,wrap", CONTRIB_CASES)
+def test_scan_contrib_gather_is_the_contrib_scan_of_the_gather(ref, dt, op, mul, has_w, wrap):
+    """The plain version equals C's plain version on ``x[idx]`` exactly, and
+    the reference's contrib scan on ``x[idx]`` (float add within rtol 1e-6)."""
+    jnp = ref.jnp
+    x, idx, w, valid, flags = _gather_inputs(5, dt)
+    wt = _t(w) if has_w else None
+    kernels.reset_counts()
+    got = ts.segmented_scan_contrib_gather(_t(x), _t(idx), wt, _t(valid), _t(flags), op, mul, wrap)
+    assert kernels.plain_counts()["segscan_contrib_gather"] == 1 and kernels.plain_counts()["segscan_contrib"] == 0
+    assert torch.equal(got, ts.segmented_scan_contrib(_t(x[idx]), wt, _t(valid), _t(flags), op, mul, wrap))
+    fn = ref.scan.segmented_scan_contrib
+    want = (fn.__wrapped__ if wrap else fn)(
+        jnp.asarray(x[idx]), jnp.asarray(w) if has_w else None, jnp.asarray(valid), jnp.asarray(flags),
+        op, mul, interpret=True, wrap=wrap,
+    )
+    if dt == "f32" and op == "add":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    else:
+        _assert_equal(got, want)
+
+
+def test_scan_contrib_gather_rejects_what_it_does_not_take():
+    x, idx, w, valid, flags = _gather_inputs(3, "f32")
+    with pytest.raises(TypeError):
+        ts.segmented_scan_contrib_gather(_t(x), _t(idx.astype(np.int64)), _t(w), _t(valid), _t(flags), "add", "times")
+    with pytest.raises(ValueError):
+        ts.segmented_scan_contrib_gather(_t(x), _t(idx), _t(w), _t(valid[1:]), _t(flags), "add", "times")
+    with pytest.raises(ValueError):
+        ts.segmented_scan_contrib_gather(_t(x).reshape(-1, 1), _t(idx), _t(w), _t(valid), _t(flags), "add", "times")
+    with pytest.raises(TypeError):
+        ts.segmented_scan_contrib_gather(_t(x), _t(idx), _t(w.astype(np.int32)), _t(valid), _t(flags), "add", "times")
+    with pytest.raises(ValueError):
+        ts.segmented_scan_contrib_gather(_t(x), _t(idx), _t(w), _t(valid), _t(flags), "add", "times", (8, True))
+
+
+@pytest.mark.parametrize("bad", [-98, 97], ids=["below", "past_x"])
+def test_scan_contrib_gather_plain_raises_outside_x(bad):
+    """An index outside x raises in the plain version (the card's kernel
+    reads x[idx] unchecked: its callers keep idx inside x)."""
+    x, idx, w, valid, flags = _gather_inputs(3, "f32")
+    idx[7] = bad
+    with pytest.raises(IndexError):
+        ts.segmented_scan_contrib_gather(_t(x), _t(idx), _t(w), _t(valid), _t(flags), "add", "times")
+
+
 # ---- state scan (Kernel S) ------------------------------------------------
 
 
@@ -593,7 +653,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count():
     tm.int_matmul(a, a.T, torch.int32)
     assert kernels.plain_counts() == {
         "gather": 1, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
-        "eqjoin": 1, "compare_probe": 1, "tropical_mxm": 1, "imatmul": 1,
+        "segscan_contrib_gather": 0, "eqjoin": 1, "compare_probe": 1, "tropical_mxm": 1, "imatmul": 1,
     }
     assert sum(kernels.launch_counts().values()) == 0
     kernels.reset_counts()
@@ -1235,6 +1295,80 @@ def test_cuda_scan_contrib_on_views(cuda, offsets, pattern):
         want = ks.segscan_contrib_plain(xd, wd, vd, fd, op, mul)
         torch.cuda.synchronize()
         _check_contrib(got, want, "f32", op)
+
+
+def _check_gathered(got, dev, x, idx, w, valid, flags, op, mul, wrap=None, dt="f32"):
+    """The fused gather's output ``got`` against C on ``x[idx]`` bit for bit
+    (the same tiles in the same order, float sums included) and against its
+    plain version within C's tolerances."""
+    torch.cuda.synchronize()
+    want = ks.segscan_contrib(kg.gather(x, idx), w, valid, flags, op, mul, wrap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = ks.segscan_contrib_gather_plain(x, idx, w, valid, flags, op, mul, wrap)
+    torch.cuda.synchronize()
+    _check_contrib(got, plain, dt, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nx", [(5, 3), (3 * 2048 + 100, 1000), ((1 << 20) + 77, 1 << 16)])
+@pytest.mark.parametrize("dt,op,mul,has_w,wrap", CONTRIB_CASES)
+def test_cuda_scan_contrib_gather_is_c_on_the_gather(cuda, dt, op, mul, has_w, wrap, n, nx):
+    """Every op x mul x wrap of C's cases, f32, int32 and int8 (widened over
+    x's own slots): a ragged tail, x shorter than a tile."""
+    x, idx, w, valid, flags = _on(cuda, *_gather_inputs(n + nx, dt, n=n, nx=nx))
+    wd = w if has_w else None
+    got = ks.segscan_contrib_gather(x, idx, wd, valid, flags, op, mul, wrap)
+    assert got.dtype == x.dtype and got.shape == (n,)
+    _check_gathered(got, cuda, x, idx, wd, valid, flags, op, mul, wrap, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["none", "every", "tile_starts", "random"])
+@pytest.mark.parametrize("n", [1, 2047, 2049, (1 << 20) + 77, 1 << 25])
+def test_cuda_scan_contrib_gather_lengths_flags_and_invalid_tiles(cuda, n, pattern):
+    """Lengths around the 2048-slot tile and up to 2^25, with no flag at all
+    (the longest look-back), a flag at every slot, at tile starts and at
+    random; every third tile wholly invalid (nothing of x read there)."""
+    _, w, valid, flags = _contrib_inputs_on(cuda, n, pattern, seed=n + 1)
+    nx = max(n >> 4, 1)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    x = torch.rand(nx, generator=gen, device=cuda)
+    idx = torch.randint(0, nx, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    tile = kernels._build.library().gb_segscan_tile()
+    valid = valid & (torch.arange(n, device=cuda) // tile % 3 != 1)
+    for op, mul in (("add", "times"), ("min", "plus"), ("max", "first")):
+        wv = None if mul == "first" else w
+        got = ks.segscan_contrib_gather(x, idx, wv, valid, flags, op, mul)
+        _check_gathered(got, cuda, x, idx, wv, valid, flags, op, mul)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0, 0, 0, 0), (0, 1, 0, 0, 0), (0, 0, 2, 0, 0), (0, 0, 0, 3, 1), (3, 1, 2, 5, 7)])
+@pytest.mark.parametrize("pattern", ["none", "random"])
+def test_cuda_scan_contrib_gather_on_views(cuda, offsets, pattern):
+    """x, idx, w, valid and flags as views off 16-byte alignment (idx, w,
+    valid or flags unaligned: the plain loads) in the same single pass."""
+    n = (1 << 20) + 77
+    _, w, valid, flags = (t.cpu().numpy() for t in _contrib_inputs_on(cuda, n, pattern, seed=13))
+    rng = np.random.default_rng(13)
+    x = rng.random(1 << 16).astype(np.float32)
+    idx = rng.integers(0, 1 << 16, n).astype(np.int32)
+    xd, idd, wd, vd, fd = (_view(cuda, a, o) for a, o in zip((x, idx, w, valid, flags), offsets))
+    for op, mul in (("add", "times"), ("min", "plus")):
+        got = ks.segscan_contrib_gather(xd, idd, wd, vd, fd, op, mul)
+        _check_gathered(got, cuda, xd, idd, wd, vd, fd, op, mul)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_contrib_gather_counts_its_launch(cuda):
+    x, idx, w, valid, flags = _on(cuda, *_gather_inputs(17, "f32", n=4096, nx=300))
+    kernels.reset_counts()
+    ks.segscan_contrib_gather(x, idx, w, valid, flags, "add", "times")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["segscan_contrib_gather"] == 1 and kernels.launch_counts()["segscan_contrib"] == 0
+    assert not any(kernels.plain_counts().values())
 
 
 # ---- CUDA half: NaN through the scans, S and the tropical matmul at their edges

@@ -296,8 +296,10 @@ def test_edge_layout_total_plan_indeg0_values_preserved(R):
 
 def test_edge_mxv_is_one_route_fewer(monkeypatch):
     """On the plan engine an edge-layout SpMV is loop route -> fill -> perm
-    route -> C: one gather launch fewer than the n-space place -> fill ->
-    perm -> C -> collect (counted by the plain versions here)."""
+    route -> C: one route fewer than the n space's routed expand (place ->
+    fill -> perm -> C -> collect), which the n space now replaces by C with
+    x's gather fused and the collect: two launches a step against the edge
+    layout's four (counted by the plain versions here)."""
     from graphblas_tpu_torch import kernels
 
     r, c, w, n = _graph(seed=31)
@@ -317,9 +319,10 @@ def test_edge_mxv_is_one_route_fewer(monkeypatch):
         calls[runner.layout] = (kernels.plain_counts(), _dense(out))
     (n_counts, n_out), (e_counts, e_out) = calls["n"], calls["edge"]
     np.testing.assert_allclose(e_out, n_out, rtol=1e-6)
-    assert n_counts["gather"] == 4 * 3 and e_counts["gather"] == 4 * 2 + 1  # + one collect at the exit
-    assert n_counts["gather_fill"] == e_counts["gather_fill"] == 4
-    assert n_counts["segscan_contrib"] == e_counts["segscan_contrib"] == 4
+    assert n_counts["gather"] == 4 * 1 and e_counts["gather"] == 4 * 2 + 1  # + one collect at the exit
+    assert n_counts["gather_fill"] == 0 and e_counts["gather_fill"] == 4
+    assert n_counts["segscan_contrib_gather"] == e_counts["segscan_contrib"] == 4
+    assert n_counts["segscan_contrib"] == e_counts["segscan_contrib_gather"] == 0
     assert torch.is_tensor(runner._values0[0]) and runner._values0[0].shape[0] == runner._edge[1].e_pad
 
 

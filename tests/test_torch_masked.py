@@ -162,9 +162,10 @@ def test_spmv_masked_on_cpu_calls_only_plain_versions(graph):
     kernels.reset_counts()
     port_fs.spmv_masked(plan, x, _t(graph["xs"]), "any", "secondi")
     plain = kernels.plain_counts()
-    # per call on a v2 plan: place, perm, 2 collects; the fill; one contrib and one count scan
+    # per call on a v2 plan: x's structure gathered through src_dst_order, 2
+    # collects; one contrib scan (secondi reads the index itself) and one count scan
     assert plain == {
-        "gather": 4, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
-        "eqjoin": 0, "compare_probe": 0, "tropical_mxm": 0, "imatmul": 0,
+        "gather": 3, "gather_fill": 0, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
+        "eqjoin": 0, "compare_probe": 0, "tropical_mxm": 0, "imatmul": 0, "segscan_contrib_gather": 0,
     }, plain
     assert sum(kernels.launch_counts().values()) == 0

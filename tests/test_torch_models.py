@@ -125,7 +125,7 @@ def test_loop_path_on_cpu_calls_only_plain_versions(case):
     port_fast.bfs_parent(plan, case["sources"][0], n)
     port_fs.spmv(case["plan_ne"], torch.ones(n), "min", "plus")
     plain = kernels.plain_counts()
-    spmv_kernels = ("gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan")
+    spmv_kernels = ("gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather")
     assert all(plain[k] > 0 for k in spmv_kernels), plain
     assert all(v == 0 for k, v in plain.items() if k not in spmv_kernels), plain
     assert sum(kernels.launch_counts().values()) == 0

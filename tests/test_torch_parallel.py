@@ -941,7 +941,7 @@ def _launched(names):
 def test_cuda_sharded_spmv_matches_single_device():
     """RMAT scale 12: the sharded SpMV and masked SpMV = the single-device
     engine on the card (min, max, any/secondi bit for bit, plus rtol 1e-5),
-    through G, its fill, C and the generic scan."""
+    through G, C with its fused gather, C and the generic scan."""
     mesh = _cuda_mesh()
     from graphblas_tpu_torch.models import graph as pg
     from graphblas_tpu_torch.ops import fastspmv as pfs
@@ -968,7 +968,7 @@ def test_cuda_sharded_spmv_matches_single_device():
             torch.testing.assert_close(v, v1, rtol=1e-5, atol=0)
         else:
             assert torch.equal(v, v1)
-    _launched(("gather", "gather_fill", "segscan_contrib", "segscan"))
+    _launched(("gather", "segscan_contrib_gather", "segscan_contrib", "segscan"))
 
 
 @pytest.mark.cuda

@@ -197,8 +197,8 @@ def test_the_profiler_check_is_an_attribute():
 
 
 def test_launch_counts_are_counters():
-    names = ["gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "eqjoin", "compare_probe",
-             "tropical_mxm", "imatmul"]
+    names = ["gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather",
+             "eqjoin", "compare_probe", "tropical_mxm", "imatmul"]
     kernels.reset_counts()
     assert list(kernels.launch_counts()) == names and set(kernels.launch_counts().values()) == {0}
     kernels.gather.gather(torch.arange(4.0), torch.tensor([3, 0], dtype=torch.int32))
@@ -353,3 +353,4 @@ def test_device_readers_read_nothing_off_the_card(name, monkeypatch):
     itself: their readers stay out of a run in which no device worked."""
     monkeypatch.setattr(telemetry, "snapshot", _snapshot)
     assert registry.metric(name).read(run.Readings({}, reduced=types.SimpleNamespace(busy_s=0.0, window_s=1.0))) is None
+

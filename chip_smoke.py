@@ -199,6 +199,8 @@ KERNELS = {
     "compare_probe": ("graphblas_tpu_torch/csrc/eqjoin.cu", "graphblas_tpu/tools/profile_spgemm_roofline.py:161"),
     # no Pallas kernel: the integer matmul the JAX package leaves to XLA
     "imatmul": ("graphblas_tpu_torch/csrc/imatmul.cu", "graphblas_tpu/ops/densemasked.py:565"),
+    # no Pallas kernel: the sparse x dense (n x k) product, which the JAX package densifies
+    "segscan_spmm": ("graphblas_tpu_torch/csrc/spmm.cu", "graphblas_tpu/ops/densemasked.py:703"),
 }
 # the paths whose runs count a kernel's launches
 PATH_OF = {
@@ -212,6 +214,7 @@ PATH_OF = {
     "tropical_mxm": ("tropical", "dsl", "mesh", "bench"),
     "compare_probe": ("roofline",),
     "imatmul": ("dsl", "mesh"),
+    "segscan_spmm": ("sparse_dsl",),
 }
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
 # memory rate, operations over the rate of their kind
@@ -469,6 +472,39 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
                 (xg, idx, wv, vg, fg), 2, rtol=1e-6 if op == "add" else None,
             )
         del xg, idx, wg, vg, fg, got, want
+    # the k-column product at the bc cell's size: e_pad 2^26 slots in
+    # segments of 32 on average, n 2^21 rows, k = 4 FP64 columns with 60% of x
+    # present (the bound counts x's structure, not its present values, as
+    # the benchmark's spmm_roofline); then FP32, against four SpMVs (C with
+    # x's gather and the collect over n slots) doing the same work a column
+    # at a time
+    ep, nx, kc = 1 << 26, 1 << 21, 4
+    fs_ = torch.zeros(ep, dtype=torch.bool, device=dev)
+    fs_[torch.randperm(ep - 1, generator=gen, device=dev)[: nx - 1] + 1] = True
+    fs_[0] = True
+    rows_ = torch.arange(nx, dtype=torch.int32, device=dev)
+    idx = torch.randint(0, nx, (ep,), generator=gen, device=dev, dtype=torch.int32)
+    vs_ = rand(ep) < 0.95
+    xs_ = rand(nx, kc) < 0.6
+    base_ = ks.spmm_tile_base(fs_)
+    for dt, rt in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+        xk = (rand(nx, kc) * 9 + 1).to(dt)
+        record(
+            "segscan_spmm", f"{str(dt)[6:]} plus/first, k {kc}, 2^26 slots, x of 2^21 rows, 60% present",
+            lambda: ks.segscan_spmm(xk, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first", base_),
+            lambda: ks.segscan_spmm_plain(xk, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first"),
+            (xs_, idx, vs_, fs_), 0, rtol=rt, reps=10,
+        )
+    ends_ = torch.cat([fs_[1:], torch.ones(1, dtype=torch.bool, device=dev)]).nonzero().flatten().int()
+    cols_ = [xk[:, j].contiguous() for j in range(kc)]
+    vcol_ = [vs_ & xs_[:, j][idx.long()] for j in range(kc)]
+
+    def columns_():
+        return [kg.gather(ks.segscan_contrib_gather(cols_[j], idx, None, vcol_[j], fs_, "add", "first"), ends_)
+                for j in range(kc)]
+
+    say("3 kernels", f"segscan_spmm A/B: {kc} x (C with x's gather + the collect), float32: {cuda_ms(torch, columns_, 10):.4f} ms")
+    del fs_, rows_, idx, vs_, xs_, base_, xk, ends_, cols_, vcol_
     frontier = (rand(e_pad) < 0.05).float()
     levels = torch.where(rand(e_pad) < 0.7, -1, torch.randint(0, 4, (e_pad,), generator=gen, device=dev)).to(torch.int32)
     record(
@@ -1273,11 +1309,43 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
         C(L.S) << L.mxm(U, semiring.plus_pair)
         return C, int(C.reduce_scalar(monoid.plus[dtypes.INT64]).new().value)
 
+    # the benchmark's bc recipe, eagerly: batch Brandes from the 4 sources
+    # over the symmetrised pattern, the products A.mxm(F) of n x 4 FP64
+    sym = Matrix.from_coo(
+        np.concatenate([src, dst]), np.concatenate([dst, src]), 1.0, FP32, nrows=n, ncols=n, dup_op=binary.first,
+        name="sym",
+    )
+
+    def brandes_dsl(batch):
+        FP64, k = dtypes.FP64, len(batch)
+        cols = np.arange(k)
+        F = Matrix.from_coo(batch, cols, 1.0, FP64, nrows=n, ncols=k)
+        P = F.dup()
+        D = Matrix.from_coo(batch, cols, 0, dtypes.INT32, nrows=n, ncols=k)
+        depth = 0
+        while F.nvals:
+            Fn = Matrix(FP64, n, k)
+            Fn(~P.S, replace=True) << sym.mxm(F, semiring.plus_second)
+            P(accum=binary.plus) << Fn
+            if Fn.nvals:
+                depth += 1
+                D(Fn.S)[:, :] = depth
+            F = Fn
+        B = P.apply(unary.one).new(FP64)
+        for d in range(depth, 1, -1):
+            W = Matrix(FP64, n, k)
+            W((D == d).new().V) << B.ewise_mult(P, binary.truediv)
+            Y = Matrix(FP64, n, k)
+            Y((D == d - 1).new().V) << sym.mxm(W, semiring.plus_second)
+            B(accum=binary.plus) << Y.ewise_mult(P, binary.times)
+        return B.apply(binary.minus, right=1.0).reduce_rowwise(monoid.plus).new(FP64).to_dense(fill_value=0.0), depth
+
     def drive(with_triangles=True):
         first = []
         out = {"pagerank": pagerank_dsl(first), "pagerank complete": pagerank_dsl(complete=True)}
         out["bfs"] = [bfs_dsl(s) for s in sources]
         out["sssp"] = [sssp_dsl(s) for s in sources]
+        out["brandes"] = brandes_dsl(sources[:4])
         if with_triangles:
             out["triangles"] = triangles_dsl()
         return out, first
@@ -1346,8 +1414,34 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
     # (d) triangles = scipy and phase 6s
     C, tc = got["triangles"]
     require(C._sparse is not None and tc == tc_ref, f"DSL triangles {tc}, scipy {tc_ref}")
-    # launches on (a)-(d)
-    for name in ("gather", "segscan_contrib_gather", "segscan", "eqjoin"):
+    # (d2) batch Brandes = the plain replay (rtol 1e-12: float64 sums
+    # reordered) = Brandes in float64 on scipy's CSR, source by source
+    (bc, depth), (bc_p, depth_p) = got["brandes"], want["brandes"]
+    np.testing.assert_allclose(bc, bc_p, rtol=1e-12, atol=1e-12 * float(np.abs(bc_p).max()))
+    sr_, sc_, _ = sym.to_coo()
+    s01 = scsp.csr_matrix((np.ones(len(sr_)), (sr_.astype(np.int64), sc_.astype(np.int64))), shape=(n, n))
+    oracle, deepest = np.zeros(n), 0
+    for s0 in sources[:4]:
+        lvl, sig = np.full(n, -1), np.zeros(n)
+        lvl[s0], sig[s0], fr, d = 0, 1.0, np.zeros(n), 0
+        fr[s0] = 1.0
+        while True:
+            nxt = np.where(lvl < 0, s01 @ fr, 0.0)
+            if not (nxt > 0).any():
+                break
+            d += 1
+            lvl[nxt > 0], sig = d, np.where(nxt > 0, nxt, sig)
+            fr = np.where(lvl == d, sig, 0.0)
+        dep = np.zeros(n)
+        for lv_ in range(d, 1, -1):
+            coef = np.where(lvl == lv_, (1.0 + dep) / np.where(lvl == lv_, sig, 1.0), 0.0)
+            dep = np.where(lvl == lv_ - 1, sig * (s01 @ coef), dep)
+        oracle += np.where(lvl > 0, dep, 0.0)
+        deepest = max(deepest, d)
+    require(depth == depth_p == deepest, f"DSL Brandes: deepest level {depth} (plain {depth_p}, oracle {deepest})")
+    np.testing.assert_allclose(bc, oracle, rtol=1e-9, atol=1e-9 * float(oracle.max()))
+    # launches on (a)-(d2)
+    for name in ("gather", "segscan_contrib_gather", "segscan", "eqjoin", "segscan_spmm"):
         require(launches[name] > 0, f"sparse DSL path: {name} was not launched")
     require(not any(plain.values()), f"sparse DSL path: plain versions ran: {plain}")
     say(
@@ -1357,6 +1451,8 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
         f"= the scipy float64 recurrence rtol 1e-4, patterns exact; (sum, oracle's sum, ranked vertices) "
         f"{pr_sums} (as written, a vertex without in-edges loses its rank and its teleport term); (b) level BFS (example 02) from {sources} = models.fast.bfs_level exactly; (c) SSSP "
         f"(example 01) = models.fast.sssp bit for bit; (d) C(L.S) << L plus_pair U: {tc} triangles = scipy; "
+        f"(d2) batch Brandes from {sources[:4]} over A.mxm(F) of n x 4 FP64 (deepest level {depth}) = the plain path "
+        f"rtol 1e-12 = scipy float64 Brandes rtol 1e-9; "
         f"launches {launches}, plain calls {plain}; drive {times['drive s']:.2f} s",
     )
 

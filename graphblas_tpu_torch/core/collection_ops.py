@@ -745,8 +745,10 @@ def _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape):
     mxv/vxm run the O(E) SpMV engine (``sparse_mxv``: the plan channel or the
     generic gather + segment reduce), never densifying the matrix; with a
     sparse vector or an output past ``dense_limit``, the host join
-    ``sparse_mxv_sv`` gives a sparse vector.  A product of two sparse
-    matrices is the unmasked ``sparse_spgemm_full`` (sparse output), and
+    ``sparse_mxv_sv`` gives a sparse vector.  ``A.mxm(B)`` with a dense B
+    of k columns is the engine's k-column product (``sparse_mxm_dense``).
+    A product of two sparse matrices is the unmasked ``sparse_spgemm_full``
+    (sparse output), and
     ``C(M) << A.mxm(B)`` hands the masked SpGEMM to ``_update``
     (``_sparse_masked_mxm``); its dense compute densifies the operands
     (guarded)."""
@@ -804,6 +806,26 @@ def _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape):
 
         return BaseExpression(
             method_name, out_cls, sparse_mv, op=sr, dtype=sr.return_type, shape=shape, args=(a, b),
+            opname=f"{method_name}[{sr.name}]",
+        )
+
+    if (
+        _sp_nonudt(a_sp)
+        and not b_is_vec
+        and b_sp is None
+        and not b.dtype._is_udt
+        and shape[0] * shape[1] <= _dense_limit()
+    ):
+        # GrB_mxm of a sparse A and a dense n x k B: the SpMV engine's
+        # k-column product, A never densified
+        def sparse_mm():
+            from .sparse import sparse_mxm_dense
+
+            bv, bs = _arrays_of(b)
+            return sparse_mxm_dense(a_sp, not a_t, True, bv, bs, sr, sr.return_type, x_type=b.dtype)
+
+        return BaseExpression(
+            method_name, out_cls, sparse_mm, op=sr, dtype=sr.return_type, shape=shape, args=(a, b),
             opname=f"{method_name}[{sr.name}]",
         )
 

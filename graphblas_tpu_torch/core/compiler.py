@@ -317,7 +317,11 @@ class CompiledLoop:
     """A reusable compiled DSL loop.
 
     ``runner()`` runs from the captured initial state; ``runner(*state)``
-    from new state collections of the same shapes and types.  In hoisted
+    from new state collections of the same shapes and types.  A fixed-count
+    loop takes another count per run, ``runner(*state, n_iters=m)``: it
+    replays the graph of ``steps_per_replay`` steps m // K times (and records
+    one of m % K steps on first use), so a runner built for one step runs
+    any count without a new recording.  In hoisted
     mode the structures are constants of the loop, so new inputs must carry
     the same structures (checked on the host).  Diagnostics: ``mode``
     ("hoisted" | "carried"), ``layout`` ("n" | "edge"), ``capture``
@@ -612,22 +616,34 @@ class CompiledLoop:
         return [_like(v, _leaf_layout(v0)) for v, v0 in zip(values, self._values0)]
 
     @_telemetry.timed("compiler.run")
-    def __call__(self, *state):
+    def __call__(self, *state, n_iters=None):
+        n = self._count(n_iters)
         leaves = self._state_leaves(state)
         with _cap.holding(self._held):
             if self.capture == "graph" and self._device.type == "cuda":
-                final = self._run_graph(leaves)
+                final = self._run_graph(leaves, n)
             else:
-                final = self._run_eager(leaves)
+                final = self._run_eager(leaves, n)
         return self._outputs(final)
 
-    def eager(self, *state):
+    def eager(self, *state, n_iters=None):
         """The same runner with every step run eagerly, no CUDA graph: the
         graph's reference on the card."""
+        n = self._count(n_iters)
         leaves = self._state_leaves(state)
         with _cap.holding(self._held):
-            final = self._run_eager(leaves)
+            final = self._run_eager(leaves, n)
         return self._outputs(final)
+
+    def _count(self, n_iters):
+        """The body steps of a fixed-count run: the built count, or ``n_iters``."""
+        if n_iters is None:
+            return self._n_iters
+        if self._kind != "fori":
+            raise TypeError("n_iters sets the count of a loop_runner; an until_runner stops on its condition")
+        if int(n_iters) < 0:
+            raise ValueError(f"n_iters must be 0 or more, not {n_iters}")
+        return int(n_iters)
 
     def _outputs(self, final):
         specs = self._specs
@@ -651,12 +667,12 @@ class CompiledLoop:
             leaves = self._step(leaves)
         return leaves
 
-    def _run_eager(self, leaves):
+    def _run_eager(self, leaves, n_iters=None):
         """Each step eagerly (the CPU, an eager capture decision, or a loop
         nested in another compiled function)."""
         leaves = list(leaves) if self._nested else _fresh(leaves)
         if self._kind == "fori":
-            for _ in range(self._n_iters):
+            for _ in range(self._n_iters if n_iters is None else n_iters):
                 leaves = self._in_scope(self._steps, leaves, 1)
             return leaves
         k = self._unroll
@@ -722,14 +738,14 @@ class CompiledLoop:
         self._graphs[k] = (graph, delta, flag, kept)
         return self._graphs[k]
 
-    def _run_graph(self, leaves):
+    def _run_graph(self, leaves, n_iters=None):
         if self._static is None:
             self._static = _fresh(leaves)
         else:
             for d, s in zip(self._static, leaves):
                 d.copy_(s)
         if self._kind == "fori":
-            n = self._n_iters
+            n = self._n_iters if n_iters is None else n_iters
             k = min(self.steps_per_replay, n) if n else 0
             for _ in range(n // k if k else 0):
                 self._replay(k)

@@ -30,6 +30,7 @@ from .utils import (
     collection_device,
     device_asarray,
     ensure_int,
+    fill_dense,
     udt_fill_dense,
     udt_struct_from_missing,
     values_to_numpy_buffer,
@@ -494,10 +495,7 @@ class Matrix(InfixMixin, BaseType):
         if fill_value is None:
             fill_value = 0
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else self._dtype
-        v = _dt.to_numpy(self._values, self._dtype).astype(dtype.np_type)
-        with _telemetry.host_read("to_dense"):
-            s = self._struct.cpu().numpy()
-        return np.where(s, v, np.asarray(fill_value, dtype.np_type))
+        return fill_dense(self._values, self._struct, self._dtype, fill_value, dtype)
 
     def to_dicts(self, order="rowwise"):
         """{row: {col: val}}."""

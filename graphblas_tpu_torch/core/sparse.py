@@ -43,6 +43,7 @@ from . import capture as _cap
 from . import dtypes as _dt
 from . import telemetry as _telemetry
 from ..kernels.eqjoin import USES_AV, USES_BV
+from ..kernels.segscan import SPMM_MAX_COLUMNS
 from ..ops import eqjoin as _ej
 from ..ops.densemasked import _host_concrete
 from ..ops.edgewise import _jax_extreme_fix
@@ -648,6 +649,99 @@ def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
         contrib = _dt.cast(prod, mul.return_type, out_dtype)
     monoid_t = addm if addm.type_ == out_dtype else _retype_monoid(addm, out_dtype)
     return _segment_reduce(contrib, valid, dst, n_out, monoid_t)
+
+
+def _spmm_mul(sp, mul, a_first, pos, out_dtype, x_type):
+    """The plan-engine multiply of a k-column product (``spmm_masked``), or
+    None where it would not be exact: out and x ride FP32 or FP64, the
+    weights (when read) the plan's float32, so the matrix must be FP32."""
+    plan_mul = _plan_mul_name(mul, a_first, pos)
+    if pos is not None or plan_mul is None or out_dtype not in (_dt.FP32, _dt.FP64):
+        return None
+    if mul.return_type != out_dtype:
+        return None
+    a_t, x_t = (mul.type_, mul.type2) if a_first else (mul.type2, mul.type_)
+    if plan_mul in ("times", "plus", "first") and x_t != out_dtype:
+        return None
+    if plan_mul in ("times", "plus", "second") and not (sp.dtype == _dt.FP32 and a_t in (_dt.FP32, _dt.FP64)):
+        return None
+    return plan_mul
+
+
+@_telemetry.timed("ops.sparse_mxm_dense")
+def sparse_mxm_dense(sp, pull, a_first, bv, bs, sr, out_dtype, *, x_type=None):
+    """Semiring Y = A (.) X over one direction of a sparse matrix and a dense
+    n x k X (``bv`` values, ``bs`` structure), on the device of ``bv``:
+    ``sparse_mxv``'s product for k columns.  Returns dense (values,
+    structure), n_out x k.
+
+    The plan engine's k-column product (``ops.fastspmv.spmm_masked``, one
+    launch a block of up to 8 columns) serves float32 and float64 outputs
+    over the semirings ``sparse_mxv``'s plan channel serves, where the
+    strategy takes the plan; anything else runs ``sparse_mxv`` column by
+    column.  The counters ``ops.spmm_products``, ``ops.spmm_columns`` and
+    ``ops.spmm_launches`` (the hand-kernel launches inside the products)
+    count every call."""
+    from .. import kernels
+
+    k = bv.shape[1]
+    _telemetry.count("ops.spmm_products")
+    _telemetry.count("ops.spmm_columns", k)
+    before = sum(kernels.launch_counts().values())
+    x_type = _dt.lookup_dtype(bv.dtype) if x_type is None else x_type
+    out = _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type)
+    _telemetry.count("ops.spmm_launches", sum(kernels.launch_counts().values()) - before)
+    return out
+
+
+def _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type):
+    mul, addm = sr.binaryop, sr.monoid
+    add_name = addm.parent.name
+    plan_mul = _spmm_mul(sp, mul, a_first, mul.positional, out_dtype, x_type)
+    strategy = _mxv_strategy()
+    from .collection_ops import _mesh_context
+
+    ctx = _mesh_context()
+    direction = "pull" if pull else "push"
+    use_plan = (
+        plan_mul is not None
+        and add_name in _PLAN_ADDS
+        and bv.shape[1] > 0
+        and _plan_allowed(sp, strategy, bv)
+        and not (ctx is not None and ctx.mesh.size > 1)
+    )
+    if use_plan:
+        eager = _cap.active() is None
+        setting = os.environ.get("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1")
+        if _serve_generic_while_building(strategy, eager, setting, lambda: sp.plan_ready(direction, bv.device)):
+            sp.plan_background(direction, bv.device)
+            use_plan = False
+    if not use_plan:
+        cols = [sparse_mxv(sp, pull, a_first, bv[:, j], bs[:, j], sr, out_dtype, x_type=x_type) for j in range(bv.shape[1])]
+        if not cols:
+            n_out = sp.nrows if pull else sp.ncols
+            return (
+                torch.zeros((n_out, 0), dtype=out_dtype.carrier, device=bv.device),
+                torch.zeros((n_out, 0), dtype=torch.bool, device=bv.device),
+            )
+        return torch.stack([c[0] for c in cols], 1), torch.stack([c[1] for c in cols], 1)
+    plan = sp.plan(direction, bv.device)
+    n_out = sp.nrows if pull else sp.ncols
+    x, xs = _dt.cast(bv, x_type, out_dtype), bs
+    if x.shape[0] != plan.n:
+        pad = plan.n - x.shape[0]
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        xs = torch.cat([xs, xs.new_zeros((pad, xs.shape[1]))])
+    if _cap.active() is not None:
+        hx = _cap.host_of(bs)
+        x_full = hx is not None and bool(hx.all())
+    else:
+        x_full = bool(bs.all())
+    blocks = [slice(j, j + SPMM_MAX_COLUMNS) for j in range(0, x.shape[1], SPMM_MAX_COLUMNS)]
+    parts = [_fs.spmm_masked(plan, x[:, b], xs[:, b], add=add_name, mul=plan_mul, x_full=x_full) for b in blocks]
+    yv = parts[0][0] if len(parts) == 1 else torch.cat([p[0] for p in parts], 1)
+    ys = parts[0][1] if len(parts) == 1 else torch.cat([p[1] for p in parts], 1)
+    return yv[:n_out], ys[:n_out]
 
 
 def _retype_monoid(monoid_t, out_dtype):

@@ -172,6 +172,26 @@ def udt_fill_dense(values, struct, np_type, fill_value):
     return out
 
 
+def fill_dense(values, struct, dtype, fill_value, out_dtype):
+    """The host array of a dense collection's carrier ``values`` (``dtype``)
+    with the entries absent from ``struct`` set to ``fill_value``, as
+    ``out_dtype``.  Without a cast the fill runs on the values' device and
+    one copy reaches the host; with one, the values and the structure come
+    to the host and numpy casts and fills."""
+    from . import dtypes as _dt
+    from . import telemetry as _telemetry
+
+    if out_dtype is dtype:
+        fill = _dt.scalar_tensor(fill_value, dtype, values.device)
+        filled = torch.where(struct, values, fill)
+        with _telemetry.host_read("to_dense"):
+            return _dt.host_array(filled, dtype)
+    v = _dt.to_numpy(values, dtype).astype(out_dtype.np_type)
+    with _telemetry.host_read("to_dense"):
+        s = struct.cpu().numpy()
+    return np.where(s, v, np.asarray(fill_value, out_dtype.np_type))
+
+
 def zero_values(shape, dtype, device):
     """All-zero values of ``dtype`` on ``device``: the carrier tensor, or a
     dict of field tensors for a UDT."""

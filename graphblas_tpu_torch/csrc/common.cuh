@@ -18,6 +18,20 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return d;
 }
 
+// The same in double, in software (PTX has no min.NaN.f64): a NaN operand
+// gives NaN, and of two zeros -0.0 is the smaller.
+__device__ __forceinline__ double min_nan(double a, double b) {
+  if (a != a || b != b) return a + b;
+  if (a == b) return __longlong_as_double(__double_as_longlong(a) | __double_as_longlong(b));
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ double max_nan(double a, double b) {
+  if (a != a || b != b) return a + b;
+  if (a == b) return __longlong_as_double(__double_as_longlong(a) & __double_as_longlong(b));
+  return a > b ? a : b;
+}
+
 // An L2 cache policy that marks lines evict-last (the random reads of a
 // gather's source, kept resident while the streams pass through L2).
 __device__ __forceinline__ uint64_t evict_last_policy() {

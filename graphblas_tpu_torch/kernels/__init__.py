@@ -3,15 +3,16 @@
 Counterpart of the Pallas kernels of ``graphblas_tpu/ops/pallas_scan.py``,
 ``graphblas_tpu/ops/permute.py``, ``graphblas_tpu/ops/pallas_eqjoin.py``,
 ``graphblas_tpu/ops/pallas_mxm.py`` and the compare probe of
-``graphblas_tpu/tools/profile_spgemm_roofline.py``; and one kernel for a
-product the JAX package leaves to XLA, the integer matmul.
+``graphblas_tpu/tools/profile_spgemm_roofline.py``; and kernels for two
+products the JAX package leaves to XLA, the integer matmul and the sparse x
+dense (n x k) product.
 
 - ``gather``: Kernel G (``csrc/gather.cu``), ``out[p] = x[idx[p]]`` with the
   ``none``, ``fill`` and ``pagerank`` epilogues; a route's index may be the
   composition of a network with transpose and row-select stages.
 - ``segscan``: Kernels C and S (``csrc/segscan.cu``), the fused segmented
   scans ``segscan_contrib`` and ``segscan_state``, and the generic scan
-  ``segscan``.
+  ``segscan``; the k-column product ``segscan_spmm`` (``csrc/spmm.cu``).
 - ``eqjoin``: the masked-SpGEMM inner loop ``eqjoin`` and the compare-rate
   probe ``compare_probe`` (``csrc/eqjoin.cu``).
 - ``tropical``: the tropical matmul ``tropical_mxm`` (``csrc/tropical.cu``).

@@ -8,6 +8,11 @@
   read from the n-long x inside the tile: the SpMV engine's expand (x to
   every edge slot, ``idx`` the plan's ``src_dst_order``) fused into C.  Its
   output equals ``segscan_contrib(x[idx], ...)`` bit for bit.
+- ``segscan_spmm`` is the k-column product of the SpMV engine
+  (``csrc/spmm.cu``): the contrib scan of a dense n x k x (k <= 8, float32
+  or float64) read by row through ``idx``, all k columns in one pass over
+  the plan, written only at the dst segments' last slots as rows of Y and
+  of Y's structure.  No JAX counterpart: the reference densifies.
 - ``segscan_state`` (Kernel S) replaces
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
   x) or SSSP (min of x + w) scan fused with the per-round state update.
@@ -40,7 +45,13 @@ MULS = ("times", "plus", "second", "first")
 # the generic scan's ops and dtypes, in the order of gb_segscan's codes
 SCAN_OPS = ("add", "min", "max", "fill")
 SCAN_DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
-KERNELS = ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather")  # launch counts by kernel name
+# launch counts by kernel name
+KERNELS = ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather", "segscan_spmm")
+# the k-column product's multiplies (w alone for second, x alone for first,
+# 1 for pair), value types and widest k
+SPMM_MULS = ("times", "plus", "second", "first", "pair")
+SPMM_DTYPES = (torch.float32, torch.float64)
+SPMM_MAX_COLUMNS = 8
 
 
 def _ident(op, dtype):
@@ -99,16 +110,17 @@ def _compute_dtype(dtype):
 
 
 def _scan_plain(op, v, f):
-    """Inclusive segmented scan by shifted combines, until every slot's
-    window reaches past slot 0 into the identity (floor(log2 n) + 1 of them):
-    a fill before the first flag then reads 0, slot n - 1 of a power-of-two
-    n included."""
+    """Inclusive segmented scan along the first axis by shifted combines,
+    until every slot's window reaches past slot 0 into the identity
+    (floor(log2 n) + 1 of them): a fill before the first flag then reads 0,
+    slot n - 1 of a power-of-two n included.  ``v`` may have columns; ``f``
+    then has one column that every column shares."""
     ident = _ident(op, v.dtype)
     n = v.shape[0]
     d = 1
     while d <= n:
-        sv = torch.cat([torch.full((d,), ident, dtype=v.dtype, device=v.device), v[:-d]])
-        sf = torch.cat([torch.zeros(d, dtype=torch.bool, device=f.device), f[:-d]])
+        sv = torch.cat([torch.full((d,) + v.shape[1:], ident, dtype=v.dtype, device=v.device), v[:-d]])
+        sf = torch.cat([torch.zeros((d,) + f.shape[1:], dtype=torch.bool, device=f.device), f[:-d]])
         v, f = _combine(op, sv, sf, v, f)
         d *= 2
     return v
@@ -273,6 +285,136 @@ def segscan_contrib_gather(x, idx, w, valid, flags, op, mul, wrap=None):
     with _telemetry.span("kernels.segscan_contrib_gather"):
         _check_contrib(x, w, valid, flags, op, mul, wrap, idx)
         return _launch_contrib("segscan_contrib_gather", x, idx, w, valid, flags, op, mul, wrap)
+
+
+def _check_spmm(x, xs, idx, w, valid, flags, seg_vertex, op, mul):
+    if x.dim() != 2 or not 1 <= x.shape[1] <= SPMM_MAX_COLUMNS:
+        raise ValueError(f"segscan_spmm: x must be 2-D with 1 to {SPMM_MAX_COLUMNS} columns, got {tuple(x.shape)}")
+    if x.dtype not in SPMM_DTYPES:
+        raise TypeError(f"segscan_spmm: x must be float32 or float64, got {x.dtype}")
+    if xs is not None and (xs.dtype != torch.bool or xs.shape != x.shape):
+        raise ValueError("segscan_spmm: xs must be bool of x's shape")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"segscan_spmm: idx must be int32, got {idx.dtype}")
+    if seg_vertex.dtype != torch.int32 or seg_vertex.dim() != 1:
+        raise TypeError("segscan_spmm: seg_vertex must be 1-D int32")
+    _check_common(idx, w, valid, flags)
+    _same_device(x, xs, idx, seg_vertex)
+    if op not in OPS:
+        raise ValueError(f"segscan_spmm: op {op!r} not in {OPS}")
+    if mul not in SPMM_MULS:
+        raise ValueError(f"segscan_spmm: mul {mul!r} not in {SPMM_MULS}")
+    if (w is not None) != (mul in ("times", "plus", "second")):
+        raise ValueError(f"segscan_spmm: mul {mul!r} {'takes no' if w is not None else 'needs'} w")
+    if w is not None and w.dtype != torch.float32:
+        raise TypeError(f"segscan_spmm: w must be float32, got {w.dtype}")
+
+
+def segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
+    """Plain PyTorch version of the k-column product (any device): the
+    contributions ``x[idx] MUL w`` where ``valid`` and x's structure
+    ``xs`` (None: every x present) hold, else the identity; the segmented
+    scan of each column; and at each segment's last slot, the row
+    ``seg_vertex[o]`` (o: the flags up to the slot, less one) of Y, 0 where
+    no contribution was present, and of Y's structure.  Rows of no segment
+    read 0 and absent.  ``tile_base`` is the kernel's and is not read."""
+    _check_spmm(x, xs, idx, w, valid, flags, seg_vertex, op, mul)
+    _telemetry.count("kernels.plain.segscan_spmm")
+    j = idx.long()
+    present = valid[:, None] if xs is None else valid[:, None] & xs[j]
+    xe = x[j]
+    wc = w.to(x.dtype)[:, None] if w is not None else None
+    if mul == "times":
+        c = xe * wc
+    elif mul == "plus":
+        c = xe + wc
+    elif mul == "second":
+        c = wc.expand_as(xe)
+    elif mul == "pair":
+        c = torch.ones_like(xe)
+    else:
+        c = xe
+    c = torch.where(present, c, torch.tensor(_ident(op, x.dtype), dtype=x.dtype, device=x.device))
+    f = flags[:, None]
+    scanned = _scan_plain(op, c, f)
+    seen = _scan_plain("add", present.to(torch.int32), f) > 0
+    # each segment's last slot writes its row; every other slot the spare row n_out
+    last = torch.ones_like(flags)
+    last[:-1] = flags[1:]
+    ordinal = torch.cumsum(flags, 0) - 1
+    rows = seg_vertex.long()[ordinal.clamp(min=0)]
+    rows = torch.where(last & (ordinal >= 0), rows, torch.full_like(rows, n_out))
+    out_v = torch.zeros((n_out + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    out_s = torch.zeros((n_out + 1, x.shape[1]), dtype=torch.bool, device=x.device)
+    out_v[rows] = torch.where(seen, scanned, torch.zeros((), dtype=x.dtype, device=x.device))
+    out_s[rows] = seen
+    return out_v[:n_out], out_s[:n_out]
+
+
+def spmm_tile_base(flags):
+    """The k-column kernel's flags before each of its tiles (int32, one
+    more than the tiles), on ``flags``' device: a plan's, computed once."""
+    tile = _build.library().gb_segscan_spmm_tile()
+    n = flags.numel()
+    nt = -(-n // tile)
+    padded = torch.zeros(nt * tile, dtype=torch.int32, device=flags.device)
+    padded[:n] = flags
+    counts = padded.view(nt, tile).sum(1, dtype=torch.int32)
+    return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+
+
+def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
+    """Y = A (.) X for a dense n x k X in one launch: ``segscan_spmm_plain``'s
+    function.  ``idx`` must lie in [0, len(x)) wherever ``valid`` is set and
+    ``seg_vertex`` in [0, n_out), as the SpMV plans keep them (the kernel
+    reads both unchecked); ``tile_base`` is ``spmm_tile_base(flags)``,
+    computed here when not given.  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base)
+    with _telemetry.span("kernels.segscan_spmm"):
+        _check_spmm(x, xs, idx, w, valid, flags, seg_vertex, op, mul)
+        _require_cuda("segscan_spmm", x, xs, idx, w, valid, flags, seg_vertex)
+        lib = _build.library()
+        k = x.shape[1]
+        n = valid.numel()
+        nt = -(-n // lib.gb_segscan_spmm_tile())
+        if tile_base is None:
+            tile_base = spmm_tile_base(flags)
+        dev = x.device
+        out_v = torch.zeros((n_out, k), dtype=x.dtype, device=dev)
+        out_s = torch.zeros((n_out, k), dtype=torch.bool, device=dev)
+        status = torch.zeros(nt + 1, dtype=torch.int64, device=dev)
+        vals = torch.empty(2 * nt * SPMM_MAX_COLUMNS, dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.gb_segscan_spmm(
+                x.data_ptr(), _ptr(xs), idx.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
+                seg_vertex.data_ptr(), tile_base.data_ptr(), out_v.data_ptr(), out_s.data_ptr(),
+                status.data_ptr(), vals.data_ptr(), n, k, int(x.dtype == torch.float64), OPS.index(op),
+                SPMM_MULS.index(mul), _build.stream_of(x),
+            )
+        _build.check(rc, "segscan_spmm")
+        _telemetry.count("kernels.launches.segscan_spmm")
+        _count_spmm_sizes(x, xs, w, n, n_out, mul)
+        return out_v, out_s
+
+
+def _count_spmm_sizes(x, xs, w, n, n_out, mul):
+    """What one launch moves at the least, by kind (the counters
+    ``kernels.spmm.*``; the benchmark's ``spmm_roofline`` prices them):
+    the slots streamed, those whose weight is read, x's structure read, x's
+    values read (by element size) where x is full, and Y's cells written.
+    Where x's structure is given the kernel reads only the present values,
+    a share known on the card alone: they are left out."""
+    item = x.element_size()
+    _telemetry.count("kernels.spmm.calls")
+    _telemetry.count("kernels.spmm.slots", n)
+    if w is not None:
+        _telemetry.count("kernels.spmm.weight_slots", n)
+    if xs is not None:
+        _telemetry.count("kernels.spmm.x_struct_cells", xs.numel())
+    elif mul not in ("second", "pair"):
+        _telemetry.count(f"kernels.spmm.x_cells.{item}", x.numel())
+    _telemetry.count(f"kernels.spmm.y_cells.{item}", n_out * x.shape[1])
 
 
 def _check_state(mode, xe, w, valid, flags, is_last, state, fr_reduce):

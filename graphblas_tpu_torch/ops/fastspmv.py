@@ -40,6 +40,9 @@ import torch
 from ..exceptions import IndexOutOfBound
 from ..native import counting_sort
 from .permute import apply_perm, compose_reference_network, padded_size
+from .. import kernels
+from ..core import capture as _cap
+from ..kernels import segscan as _segscan
 from .scan import (
     _ident,
     build_fill_tables,
@@ -47,6 +50,7 @@ from .scan import (
     segmented_scan,
     segmented_scan_contrib,
     segmented_scan_contrib_gather,
+    segmented_spmm,
 )
 
 # tensors of a plan, in the order of graphblas_tpu/ops/fastspmv.py:SpmvPlan
@@ -498,6 +502,44 @@ def spmv_masked(plan, x, xs, add="plus", mul="times", x_full=False, wrap=None):
     else:
         ys = read(segmented_scan(validc.to(torch.float32), seg_start, "add"), 0) > 0
     return torch.where(ys, yv, torch.zeros((), dtype=yv.dtype, device=yv.device)), ys
+
+
+def _spmm_index(plan, seg_start, x):
+    """(seg_vertex, tile_base) of the k-column product, derived once a plan:
+    the row of each dst segment in slot order (the non-empty dst segments)
+    and the kernel's flags before each of its tiles (None where the plain
+    version runs)."""
+    cache = plan.__dict__.setdefault("_spmm", {})
+    with _cap.constants():
+        if "seg_vertex" not in cache:
+            ipd = plan.indptr_dst
+            cache["seg_vertex"] = torch.nonzero(ipd[1:] > ipd[:-1]).flatten().to(torch.int32)
+        if not x.is_cuda or kernels.plain_requested():
+            return cache["seg_vertex"], None
+        if "tile_base" not in cache:
+            cache["tile_base"] = _segscan.spmm_tile_base(seg_start)
+    return cache["seg_vertex"], cache["tile_base"]
+
+
+def spmm_masked(plan, x, xs, add="plus", mul="times", x_full=False):
+    """The k-column ``spmv_masked``: (values, structure) of Y = A (.) X for
+    a dense n x k X (float32 or float64, k <= 8), column j what
+    ``spmv_masked(plan, x[:, j], xs[:, j], add, mul, x_full)`` gives, in one
+    launch that streams the plan once and writes Y's rows at the dst
+    segments' ends.  add in {plus, min, max, any}; mul in {times, plus,
+    first, second, pair}; the weights ride float32 (widened exactly)."""
+    op = _OPS[add]
+    seg_start, _ = _dst_reduce(plan)
+    w = plan.w_dst_order if mul in ("times", "plus", "second") else None
+    seg_vertex, tile_base = _spmm_index(plan, seg_start, x)
+    yv, ys = segmented_spmm(
+        x.contiguous(), None if x_full else xs.contiguous(), plan.src_dst_order, w, plan.valid_dst_order,
+        seg_start, seg_vertex, plan.n, op, mul, tile_base,
+    )
+    if x_full and plan.place_idx is not None:
+        # every x present: the structure is the plan's, a constant of a compiled loop
+        ys = plan.dst_nonempty[:, None].expand(ys.shape)
+    return yv, ys
 
 
 def spmv_state(plan, x_start, add, mul, w=None):

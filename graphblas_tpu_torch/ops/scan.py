@@ -4,7 +4,8 @@ Counterpart of ``graphblas_tpu/ops/pallas_scan.py``.  The four entry points
 keep the JAX signatures, less the interpret flag; the fill tables become one
 global int32 ``fill_src`` array.  ``segmented_scan_contrib_gather`` is the
 contrib scan with its value channel gathered by index (no JAX counterpart:
-the TPU pipeline routes x instead).  Each dispatches to its Hopper kernel
+the TPU pipeline routes x instead), and ``segmented_spmm`` its k-column
+form.  Each dispatches to its Hopper kernel
 (``kernels.gather`` for the fill, ``kernels.segscan`` for the scans), or to
 the kernel's plain version inside ``kernels.plain_versions()``.
 """
@@ -54,6 +55,14 @@ def segmented_scan_contrib_gather(x, idx, w, valid, flags, op, mul, wrap=None):
     no ``x[idx]`` is made."""
     fn = _segscan.segscan_contrib_gather_plain if kernels.plain_requested() else _segscan.segscan_contrib_gather
     return fn(x, idx, w, valid, flags, op, mul, wrap)
+
+
+def segmented_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
+    """The k-column product over a plan's dst-order slots: (values, structure)
+    of Y (n_out x k), each dst segment's scan of ``x[idx] MUL w`` written at
+    its row ``seg_vertex[o]`` (``kernels.segscan.segscan_spmm``)."""
+    fn = _segscan.segscan_spmm_plain if kernels.plain_requested() else _segscan.segscan_spmm
+    return fn(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base)
 
 
 def segmented_scan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=False):

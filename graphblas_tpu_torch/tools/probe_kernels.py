@@ -3,9 +3,9 @@ alone on the card: CUDA-event times, the L2 probe, the f32 and integer
 instruction rates, ptxas and SASS.
 
 - ``ptxas``: ``nvcc -Xptxas -v`` of ``csrc/gather.cu``, ``csrc/segscan.cu``,
-  ``csrc/eqjoin.cu``, ``csrc/tropical.cu`` and ``csrc/imatmul.cu`` with the
-  build's own flags: registers, stack and spills of every kernel of the five
-  files (the whole listing goes to ``--out``).
+  ``csrc/eqjoin.cu``, ``csrc/tropical.cu``, ``csrc/imatmul.cu`` and
+  ``csrc/spmm.cu`` with the build's own flags: registers, stack and spills
+  of every kernel of the six files (the whole listing goes to ``--out``).
 - ``sass``: the tropical and integer matmul kernels' SASS (``cuobjdump
   -sass`` of the built library, to ``--out``'s directory as
   ``tropical.sass`` and ``imatmul.sass``): per instance the count of each
@@ -30,6 +30,12 @@ instruction rates, ptxas and SASS.
   2^(log2n - 4) slots (the main path's n), add/times, min/plus and
   max/first; then G's gather x[idx] followed by C, the same work in two
   launches.
+- ``spmm``: the k-column product (``segscan_spmm``) at 2^spmm_log2n slots
+  (the bc cell's 2^26) in segments of 32 on average over x of
+  2^(spmm_log2n - 5) rows (the cell's n), k = 4, plus/first, in float64 and
+  float32 with 60% and 5% of x present and with every x present, against
+  its byte bound; then the same work in float32 as four SpMVs (C with x's
+  gather, and the collect over the segment ends), a column at a time.
 - ``segscan``: the generic scan at 2^log2n with flags at 1/16: add in every
   dtype, f32 fill, min and max, a uint8 fill, f32 add with no flag and on a
   view one slot into its buffer (the plain loads).
@@ -52,7 +58,7 @@ Each time is the mean of ``--reps`` launches between two CUDA events, after
 one warm-up launch (warm L2: the inputs were just written).  One line per
 time, the card's name and power limit first, then one JSON line of all times.
 
-    python -m graphblas_tpu_torch.tools.probe_kernels [--log2n 23] [--reps 50] [--out chiprun_out/ptxas.txt]
+    python -m graphblas_tpu_torch.tools.probe_kernels [--log2n 23] [--spmm-log2n 26] [--reps 50] [--out chiprun_out/ptxas.txt]
 """
 
 import argparse
@@ -65,7 +71,7 @@ import subprocess
 
 def ptxas_report(build, out_path):
     """Registers, stack and spills of each kernel of gather.cu, segscan.cu,
-    eqjoin.cu, tropical.cu and imatmul.cu, as ptxas prints them for the build's flags
+    eqjoin.cu, tropical.cu, imatmul.cu and spmm.cu, as ptxas prints them for the build's flags
     (eqjoin.cu's many instances summed up in one line, less any that
     spill)."""
     lines = []
@@ -73,7 +79,7 @@ def ptxas_report(build, out_path):
     nvcc = build.nvcc_path()
     filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
     with open(out_path, "w") as f:
-        for name in ("gather.cu", "segscan.cu", "eqjoin.cu", "tropical.cu", "imatmul.cu"):
+        for name in ("gather.cu", "segscan.cu", "eqjoin.cu", "tropical.cu", "imatmul.cu", "spmm.cu"):
             src = os.path.join(build.CSRC_DIR, name)
             obj = os.path.join(os.path.dirname(out_path) or ".", f"{name}.ptxas.o")
             proc = subprocess.run(
@@ -243,9 +249,49 @@ def l2_window(stream, t):
     return nbytes, ratio
 
 
+def spmm_bytes(e_pad, n, k, item, x_struct):
+    """The k-column product's least bytes (plus/first), as the benchmark's
+    ``spmm_roofline`` counts them: the index, valid and segment-start bytes
+    of each slot, x's structure bytes where given (else its values), Y's
+    values and structure bytes written."""
+    return 6 * e_pad + n * k * (1 if x_struct else item) + n * k * (item + 1)
+
+
+def spmm_probe(torch, ks, kg, gen, dev, log2n, ms, report):
+    """The k-column product at 2^log2n slots over x of 2^(log2n - 5) rows,
+    k = 4, against its byte bound and against four SpMVs in float32."""
+    ep, n, k = 1 << log2n, 1 << (log2n - 5), 4
+    flags = torch.zeros(ep, dtype=torch.bool, device=dev)
+    flags[torch.randperm(ep - 1, generator=gen, device=dev)[: n - 1] + 1] = True
+    flags[0] = True
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    idx = torch.randint(0, n, (ep,), generator=gen, device=dev, dtype=torch.int32)
+    valid = torch.rand(ep, generator=gen, device=dev) < 0.95
+    base = ks.spmm_tile_base(flags)
+    for dt in (torch.float64, torch.float32):
+        x = (torch.rand((n, k), generator=gen, device=dev) * 9 + 1).to(dt)
+        for dens in (0.6, 0.05, None):
+            xs = None if dens is None else torch.rand((n, k), generator=gen, device=dev) < dens
+            t = ms(lambda: ks.segscan_spmm(x, xs, idx, None, valid, flags, rows, n, "add", "first", base))
+            bound = spmm_bytes(ep, n, k, x.element_size(), xs is not None) / 3.35e12 * 1e3
+            present = "every x" if dens is None else f"{int(dens * 100)}% of x"
+            report(f"spmm {str(dt)[6:]} k {k}, 2^{log2n} slots, {present} present (bound {bound:.4f})", t)
+    ends = torch.cat([flags[1:], torch.ones(1, dtype=torch.bool, device=dev)]).nonzero().flatten().int()
+    xs = torch.rand((n, k), generator=gen, device=dev) < 0.6
+    cols = [x[:, j].contiguous() for j in range(k)]
+    vcol = [valid & xs[:, j][idx.long()] for j in range(k)]
+
+    def spmvs():
+        for j in range(k):
+            kg.gather(ks.segscan_contrib_gather(cols[j], idx, None, vcol[j], flags, "add", "first"), ends)
+
+    report(f"spmm as {k} SpMVs (C with x's gather + collect), float32, 60% of x present", ms(spmvs))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2n", type=int, default=23)
+    ap.add_argument("--spmm-log2n", type=int, default=26)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--out", default="chiprun_out/ptxas.txt")
     args = ap.parse_args()
@@ -327,6 +373,7 @@ def main():
         f"gather then contrib add/times, x 2^{args.log2n - 4}",
         ms(lambda: ks.segscan_contrib(kg.gather(xg, idx_g), w, valid, flags, "add", "times")),
     )
+    spmm_probe(torch, ks, kg, gen, dev, args.spmm_log2n, ms, report)
     # the path's order: a route, then C on its output (does x's evict-last
     # residency slow the next kernel?)
     report(

@@ -696,6 +696,26 @@ def test_results_do_not_share_the_runners_buffers():
     np.testing.assert_array_equal(dense(b), np.full(3, 12.0))
 
 
+@pytest.mark.parametrize("n_iters", [0, 1, 3, 7])
+def test_a_fixed_loop_runs_another_count(n_iters):
+    """``runner(*state, n_iters=m)`` runs m body steps on the built runner
+    (one built for one step runs any count); without it the built count
+    runs.  An until_runner takes no count."""
+    g = ns(P)
+    v = g.Vector.from_dense(np.zeros(3))
+    r = g.gb.loop_runner(1, lambda x: x.apply(g.binary.plus, right=1.0).new(x.dtype), v)
+    np.testing.assert_array_equal(dense(r(v, n_iters=n_iters)), np.full(3, float(n_iters)))
+    np.testing.assert_array_equal(dense(r.eager(v, n_iters=n_iters)), np.full(3, float(n_iters)))
+    np.testing.assert_array_equal(dense(r(v)), np.ones(3))
+    with pytest.raises(ValueError, match="0 or more"):
+        r(v, n_iters=-1)
+    u = g.gb.until_runner(
+        lambda x: (x.reduce(g.monoid.plus) < 9.0).new(g.dtm.BOOL), lambda x: x.apply(g.binary.plus, right=1.0).new(x.dtype), v
+    )
+    with pytest.raises(TypeError, match="until_runner"):
+        u(v, n_iters=2)
+
+
 @pytest.mark.parametrize("strategy", ["generic", "plan"])
 def test_a_capture_keeps_what_it_reads(strategy):
     """A CUDA graph replays on the addresses its inputs had at capture, so
@@ -959,6 +979,21 @@ def test_cuda_graphs_keep_their_inputs_alive(card):
         k << k.apply(P.binary.times, right=3.0)  # the operand moves on; the graph keeps its capture
         torch.cuda.synchronize()
         np.testing.assert_allclose(_host(step(AT, x), 0.0), eager, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_one_step_graph_replays_any_count(card):
+    """A loop_runner of one step records one graph of one step and replays it
+    as often as ``n_iters`` asks, with no new recording."""
+    g = ns(P)
+    with P.tx.config.set(platform="cuda"):
+        v = g.Vector.from_dense(np.arange(4, dtype=np.float32))
+        r = g.gb.loop_runner(1, lambda x: x.apply(g.binary.times, right=2.0).new(x.dtype), v)
+        assert r.capture == "graph" and r.steps_per_replay == 1
+        outs = [dense(r(v, n_iters=m)) for m in (1, 5, 3)]
+        assert list(r._graphs) == [1]
+    for m, out in zip((1, 5, 3), outs):
+        np.testing.assert_array_equal(out, np.arange(4) * 2.0**m)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,460 @@
+"""The SpMV engine's k-column product: ``A.mxm(F, sr)`` with a sparse A and
+a dense n x k F (``core.sparse.sparse_mxm_dense`` → ``ops.fastspmv.spmm_masked``
+→ ``kernels.segscan.segscan_spmm``).
+
+On the CPU the product runs the kernel's plain version ("plan") or the
+column-by-column ``sparse_mxv`` ("auto": CPU tensors take the generic path);
+each is held to a dense float64 product computed here, to k separate
+``mxv`` calls, to the JAX package's product on the same COO and frontier,
+and, through masks, complements, replace and accumulators, to the same
+statements over a dense-backed copy of A (the dense engine) and in the JAX
+package.
+The plain version is held to Kernel C's plain version read at the segment
+ends.  The ``cuda`` cases hold the kernel to its plain version on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import graphblas_tpu_torch as gb
+from graphblas_tpu_torch import Matrix, binary, semiring
+from graphblas_tpu_torch.core import telemetry
+from graphblas_tpu_torch.kernels import segscan as ks
+from graphblas_tpu_torch.models.graph import rmat
+from graphblas_tpu_torch.ops import fastspmv as fs
+
+N = 256
+SEMIRINGS = ["plus_second", "plus_times", "min_plus", "any_pair"]
+DTYPES = {"FP64": (gb.dtypes.FP64, np.float64), "FP32": (gb.dtypes.FP32, np.float32)}
+
+
+def _pattern(kind, seed=3):
+    """(rows, cols, weights) of an n = 256 pattern: Kronecker-skewed or uniform."""
+    rng = np.random.default_rng(seed)
+    if kind == "rmat":
+        g = rmat(8, 8, seed=seed, weighted=True, device="cpu")
+        r, c = g.dst.cpu().numpy().astype(np.int64), g.src.cpu().numpy().astype(np.int64)
+        keep = r < N
+        r, c = r[keep], c[keep]
+    else:
+        r, c = rng.integers(0, N, 8 * N), rng.integers(0, N, 8 * N)
+    key = np.unique(r * N + c)
+    r, c = key // N, key % N
+    w = (rng.integers(1, 8, r.size) / 4.0).astype(np.float32)  # exact in float32
+    return r, c, w
+
+
+def _frontier(k, np_t, seed=5, density=0.3):
+    rng = np.random.default_rng(seed)
+    vals = (rng.integers(1, 64, (N, k)) / 8.0).astype(np_t)
+    present = rng.random((N, k)) < density
+    return vals, present
+
+
+def _matrices(kind, k, dt, np_t):
+    r, c, w = _pattern(kind)
+    with gb.tx.config.set(dense_limit=4096):
+        A = Matrix.from_coo(r, c, w, gb.dtypes.FP32, nrows=N, ncols=N)
+    assert A._sparse is not None
+    vals, present = _frontier(k, np_t)
+    fr, fc = np.nonzero(present)
+    F = Matrix.from_coo(fr, fc, vals[fr, fc], dt, nrows=N, ncols=k)
+    assert F._sparse is None
+    return A, F, (r, c, w), (vals, present)
+
+
+def _dense_product(coo, frontier, sr):
+    """(values, structure) of A (.) F in float64 from the COO and F's arrays."""
+    r, c, w = coo
+    vals, present = frontier
+    k = vals.shape[1]
+    out = np.zeros((N, k))
+    struct = np.zeros((N, k), bool)
+    for j in range(k):
+        ok = present[c, j]
+        rr, aa, xx = r[ok], w[ok].astype(np.float64), vals[c[ok], j].astype(np.float64)
+        if sr == "plus_second":
+            contrib, reduce, fill = xx, np.add, 0.0
+        elif sr == "plus_times":
+            contrib, reduce, fill = aa * xx, np.add, 0.0
+        elif sr == "min_plus":
+            contrib, reduce, fill = aa + xx, np.minimum, np.inf
+        else:  # any_pair
+            contrib, reduce, fill = np.ones_like(xx), np.maximum, 0.0
+        col = np.full(N, fill)
+        reduce.at(col, rr, contrib)
+        hit = np.bincount(rr, minlength=N) > 0
+        struct[:, j] = hit
+        out[:, j] = np.where(hit, col, 0.0)
+    return out, struct
+
+
+def _arrays(M):
+    return M._values.double().numpy(), M._struct.numpy()
+
+
+@pytest.fixture(params=["plan", "auto"])
+def strategy(request, monkeypatch):
+    monkeypatch.setenv("GRAPHBLAS_TPU_PLAN_BACKGROUND", "0")
+    with gb.tx.config.set(platform="cpu", mxv_strategy=request.param):
+        yield request.param
+
+
+@pytest.mark.parametrize("kind", ["rmat", "uniform"])
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 11])  # 11: two launches, of 8 and 3 columns
+def test_product_matches_dense_and_columns(strategy, kind, sr, dt, k):
+    dtype, np_t = DTYPES[dt]
+    A, F, coo, frontier = _matrices(kind, k, dtype, np_t)
+    before = telemetry.counter("kernels.plain.segscan_spmm")
+    Y = A.mxm(F, getattr(semiring, sr)).new()
+    calls = telemetry.counter("kernels.plain.segscan_spmm") - before
+    # "plan": one pass of the plain version for each 8 columns; "auto" on the CPU: k generic mxv
+    assert calls == (-(-k // 8) if strategy == "plan" else 0)
+    assert Y.dtype == dtype and Y.shape == (N, k) and Y._sparse is None
+    yv, ys = _arrays(Y)
+    want_v, want_s = _dense_product(coo, frontier, sr)
+    assert np.array_equal(ys, want_s)
+    # the operands are exact binary fractions: sums of at most 64 of them
+    # round in neither float32 nor float64, whatever the order
+    assert np.array_equal(yv, want_v)
+    for j in range(k):
+        y = A.mxv(F[:, j].new(), getattr(semiring, sr)).new()
+        cv, cs = y._values.double().numpy(), y._struct.numpy()
+        assert np.array_equal(cs, ys[:, j]) and np.array_equal(cv, yv[:, j]), j
+
+
+STATEMENTS = ["mask", "complement_replace", "accum", "mask_accum_replace", "value_mask", "transposed"]
+
+
+def _statement(pkg, A, F, M, stmt):
+    """One of the BC recipe's statement forms, in package ``pkg`` (the port
+    or the JAX package), on a copy of M."""
+    sr, binop = pkg.semiring, pkg.binary
+    C = M.dup()
+    if stmt == "mask":
+        C(M.S) << A.mxm(F, sr.plus_second)
+    elif stmt == "complement_replace":
+        C(~M.S, replace=True) << A.mxm(F, sr.plus_second)
+    elif stmt == "accum":
+        C(accum=binop.plus) << A.mxm(F, sr.plus_times)
+    elif stmt == "mask_accum_replace":
+        C(M.S, accum=binop.min, replace=True) << A.mxm(F, sr.min_plus)
+    elif stmt == "value_mask":
+        C((M == 2.0).new().V) << A.mxm(F, sr.plus_second)
+    else:
+        C(accum=binop.plus) << A.T.mxm(F, sr.plus_times)
+    return C
+
+
+def _mask(dt, np_t):
+    vals, present = _frontier(4, np_t, seed=11, density=0.5)
+    mr, mc = np.nonzero(present)
+    return mr, mc, vals[mr, mc]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("stmt", STATEMENTS)
+def test_masks_and_accumulators_match_the_dense_engine(strategy, dt, stmt):
+    """The BC recipe's statement forms, against the same statements over a
+    dense-backed A (the dense engine computes that product)."""
+    dtype, np_t = DTYPES[dt]
+    A, F, coo, _ = _matrices("rmat", 4, dtype, np_t)
+    with gb.tx.config.set(dense_limit=1 << 20):
+        Ad = Matrix.from_coo(*coo, gb.dtypes.FP32, nrows=N, ncols=N)
+    assert Ad._sparse is None
+    M = Matrix.from_coo(*_mask(dt, np_t), dtype, nrows=N, ncols=4)
+    outs = [_arrays(_statement(gb, mat, F, M, stmt)) for mat in (A, Ad)]
+    assert np.array_equal(outs[0][1], outs[1][1])
+    assert np.array_equal(outs[0][0], outs[1][0])
+
+
+# ---- the JAX package on the same inputs ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref():
+    pytest.importorskip("jax")
+    import graphblas_tpu as R
+
+    return R
+
+
+def _reference_operands(R, coo, frontier, dt):
+    """A (densified by the JAX package at n = 256) and F in the JAX package,
+    from the arrays the port's operands were built from."""
+    r, c, w = coo
+    A = R.Matrix.from_coo(r, c, w, R.dtypes.FP32, nrows=N, ncols=N)
+    vals, present = frontier
+    fr, fc = np.nonzero(present)
+    F = R.Matrix.from_coo(fr, fc, vals[fr, fc], getattr(R.dtypes, dt), nrows=N, ncols=vals.shape[1])
+    return A, F
+
+
+def _same(port, reference):
+    """Equal structure and equal values (exact: the operands are binary
+    fractions, whose sums round in neither float32 nor float64)."""
+    assert port.dtype.name == reference.dtype.name and port.shape == reference.shape
+    pr, pc, pv = port.to_coo()
+    rr, rc, rv = reference.to_coo()
+    assert np.array_equal(np.asarray(pr, np.int64), np.asarray(rr, np.int64))
+    assert np.array_equal(np.asarray(pc, np.int64), np.asarray(rc, np.int64))
+    assert pv.dtype == rv.dtype and np.array_equal(pv, rv)
+
+
+@pytest.mark.parametrize("kind", ["rmat", "uniform"])
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 11])
+def test_product_matches_the_jax_package(ref, strategy, kind, sr, dt, k):
+    dtype, np_t = DTYPES[dt]
+    A, F, coo, frontier = _matrices(kind, k, dtype, np_t)
+    RA, RF = _reference_operands(ref, coo, frontier, dt)
+    _same(A.mxm(F, getattr(semiring, sr)).new(), RA.mxm(RF, getattr(ref.semiring, sr)).new())
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("stmt", STATEMENTS)
+def test_masks_and_accumulators_match_the_jax_package(ref, strategy, dt, stmt):
+    dtype, np_t = DTYPES[dt]
+    A, F, coo, frontier = _matrices("rmat", 4, dtype, np_t)
+    RA, RF = _reference_operands(ref, coo, frontier, dt)
+    mask = _mask(dt, np_t)
+    M = Matrix.from_coo(*mask, dtype, nrows=N, ncols=4)
+    RM = ref.Matrix.from_coo(*mask, getattr(ref.dtypes, dt), nrows=N, ncols=4)
+    _same(_statement(gb, A, F, M, stmt), _statement(ref, RA, RF, RM, stmt))
+
+
+def test_product_never_densifies_a():
+    """Past ``densify_limit`` the dense engine would refuse A; the k-column
+    product runs on its plan."""
+    rng = np.random.default_rng(1)
+    n = 1 << 14
+    r, c = rng.integers(0, n, 8 * n), rng.integers(0, n, 8 * n)
+    with gb.tx.config.set(platform="cpu", mxv_strategy="plan", densify_limit=1 << 20):
+        A = Matrix.from_coo(r, c, 1.0, gb.dtypes.FP32, nrows=n, ncols=n, dup_op=binary.first)
+        F = Matrix.from_coo(np.arange(4), np.arange(4), 1.0, gb.dtypes.FP64, nrows=n, ncols=4)
+        Y = A.mxm(F, semiring.plus_second).new()
+        want = np.stack([np.bincount(r[c == j], minlength=n) > 0 for j in range(4)], 1)
+        assert np.array_equal(Y._struct.numpy(), want)
+
+
+@pytest.mark.parametrize("op,mul", [("add", "times"), ("min", "plus"), ("max", "second"), ("add", "first")])
+@pytest.mark.parametrize("xs_given", [True, False])
+def test_plain_equals_contrib_scan_at_segment_ends(op, mul, xs_given):
+    """The plain k-column product equals Kernel C's plain version with x's
+    gather, one column at a time, read at each dst segment's end (float
+    sums bit for bit: both scan in the same order)."""
+    r, c, w = _pattern("rmat", seed=9)
+    plan = fs.build_spmv_plan(c.astype(np.int32), r.astype(np.int32), w, n=N, device="cpu")
+    vals, present = _frontier(3, np.float32, seed=4)
+    x, xs = torch.from_numpy(vals), torch.from_numpy(present)
+    seg_start, read = fs._dst_reduce(plan)
+    seg_vertex, _ = fs._spmm_index(plan, seg_start, x)
+    wt = plan.w_dst_order if mul in ("times", "plus", "second") else None
+    yv, ys = ks.segscan_spmm_plain(
+        x, xs if xs_given else None, plan.src_dst_order, wt, plan.valid_dst_order, seg_start, seg_vertex, plan.n, op, mul
+    )
+    for j in range(3):
+        valid = plan.valid_dst_order & (xs[:, j][plan.src_dst_order.long()] if xs_given else True)
+        scanned = ks.segscan_contrib_gather_plain(x[:, j].contiguous(), plan.src_dst_order, wt, valid, seg_start, op, mul)
+        col = read(scanned, ks._ident(op, torch.float32))
+        struct = read(ks._scan_plain("add", valid.int(), seg_start), 0) > 0
+        assert torch.equal(ys[:, j], struct), j
+        assert torch.equal(yv[:, j], torch.where(struct, col, torch.zeros(()))), j
+
+
+def test_checks():
+    x = torch.zeros((4, 9), dtype=torch.float64)
+    idx = torch.zeros(8, dtype=torch.int32)
+    b = torch.zeros(8, dtype=torch.bool)
+    sv = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 to 8 columns"):
+        ks.segscan_spmm_plain(x, None, idx, None, b, b, sv, 4, "add", "first")
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ks.segscan_spmm_plain(x[:, :2].int(), None, idx, None, b, b, sv, 4, "add", "first")
+    with pytest.raises(ValueError, match="needs w"):
+        ks.segscan_spmm_plain(x[:, :2], None, idx, None, b, b, sv, 4, "add", "times")
+    with pytest.raises(ValueError, match="takes no w"):
+        ks.segscan_spmm_plain(x[:, :2], None, idx, torch.zeros(8), b, b, sv, 4, "add", "pair")
+
+
+def test_counters_and_span(strategy):
+    A, F, _, _ = _matrices("rmat", 4, gb.dtypes.FP64, np.float64)
+    telemetry.reset("ops.spmm", "ops.sparse_mxm_dense")
+    A.mxm(F, semiring.plus_second).new()
+    snap = telemetry.snapshot()
+    assert snap["counters"]["ops.spmm_products"] == 1 and snap["counters"]["ops.spmm_columns"] == 4
+    assert snap["counters"]["ops.spmm_launches"] == 0  # no card: no hand-kernel launch
+    assert snap["spans"]["ops.sparse_mxm_dense"]["count"] == 1
+
+
+def test_compiled_loop_carries_the_product(strategy):
+    """A frontier loop of the BC forward sweep's form under ``gb.until_runner``
+    (on the CPU every step runs eagerly) gives what the statements give
+    eagerly."""
+    A, F0, _, _ = _matrices("rmat", 4, gb.dtypes.FP64, np.float64)
+    from graphblas_tpu_torch import monoid
+
+    def body(F, P):
+        Fn = Matrix(gb.dtypes.FP64, N, 4)
+        Fn(~P.S, replace=True) << A.mxm(F, semiring.plus_second)
+        Pn = P.dup()
+        Pn(accum=binary.plus) << Fn
+        return Fn, Pn
+
+    def cond(F, P):
+        return F.reduce_scalar(monoid.plus).apply(binary.gt, right=0.0)
+
+    runner = gb.until_runner(cond, body, F0.dup(), F0.dup(), max_iters=N)
+    Fc, Pc = runner(F0.dup(), F0.dup())
+    F, P = F0.dup(), F0.dup()
+    steps = 0
+    while F.nvals:
+        F, P = body(F, P)
+        steps += 1
+    assert runner.last_iters == steps
+    assert np.array_equal(_arrays(Pc)[1], _arrays(P)[1]) and np.array_equal(_arrays(Pc)[0], _arrays(P)[0])
+
+
+# ---- CUDA half: the kernel against its plain version on the card -------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _kernel_inputs(seed, n_slots, k, dtype, xs_given, mul, n_src=1 << 14, n_out=1 << 14):
+    """Slots in dst order over segments of mixed length (some a few tiles
+    long), a fifth of them invalid, and x of k columns."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, 40, (n_out,), generator=g)
+    lens[torch.randint(0, n_out, (8,), generator=g)] = torch.randint(5000, 30000, (8,), generator=g)
+    lens[torch.rand(n_out, generator=g) < 0.3] = 0  # rows of no segment
+    ends = torch.cumsum(lens, 0)
+    keep = ends <= n_slots
+    lens = torch.where(keep, lens, torch.zeros_like(lens))
+    used = int(lens.sum())
+    lens[-1] += n_slots - used  # the last row takes the rest (n_slots in all)
+    seg_vertex = torch.nonzero(lens > 0).flatten().int()
+    starts = torch.cumsum(lens, 0) - lens
+    flags = torch.zeros(n_slots, dtype=torch.bool)
+    flags[starts[lens > 0]] = True
+    idx = torch.randint(0, n_src, (n_slots,), generator=g, dtype=torch.int32)
+    valid = torch.rand(n_slots, generator=g) < 0.8
+    w = (torch.randint(1, 9, (n_slots,), generator=g) / 4.0).float() if mul in ("times", "plus", "second") else None
+    x = (torch.randn((n_src, k), generator=g, dtype=torch.float64) * 100).to(dtype)
+    xs = torch.rand((n_src, k), generator=g) < 0.6 if xs_given else None
+    return x, xs, idx, w, valid, flags, seg_vertex, n_out
+
+
+def _tolerance(dtype, op):
+    """min and max are exact; sums round in the kernel's tile order against
+    the plain version's log-step order: 1e-12 relative in float64, 1e-6 in
+    float32 (Kernel C's tolerance)."""
+    if op != "add":
+        return 0.0
+    return 1e-12 if dtype == torch.float64 else 1e-6
+
+
+def _kernel_against_plain(cuda, seed, n_slots, k, dtype, op, mul, xs_given):
+    x, xs, idx, w, valid, flags, seg_vertex, n_out = _kernel_inputs(seed, n_slots, k, dtype, xs_given, mul)
+    dev = [None if t is None else t.to(cuda) for t in (x, xs, idx, w, valid, flags, seg_vertex)]
+    want_v, want_s = ks.segscan_spmm_plain(*dev, n_out, op, mul)
+    got_v, got_s = ks.segscan_spmm(*dev, n_out, op, mul)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s, want_s)
+    tol = _tolerance(dtype, op)
+    if tol:
+        torch.testing.assert_close(got_v, want_v, rtol=tol, atol=tol * float(want_v.abs().max()))
+    else:
+        assert torch.equal(got_v, want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op,mul", [("add", "first"), ("add", "times"), ("min", "plus"), ("max", "second"), ("add", "pair")])
+@pytest.mark.parametrize("xs_given", [True, False])
+@pytest.mark.parametrize("n_slots", [5, 4096 + 13])
+def test_cuda_spmm_matches_plain(cuda, k, dtype, op, mul, xs_given, n_slots):
+    _kernel_against_plain(cuda, k * 7 + n_slots % 97, n_slots, k, dtype, op, mul, xs_given)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op,mul", [("add", "first"), ("min", "plus")])
+def test_cuda_spmm_matches_plain_long(cuda, k, dtype, op, mul):
+    """2^20 slots: segments of up to 30000 slots cross many tiles' look-back."""
+    _kernel_against_plain(cuda, k, (1 << 20) + 77, k, dtype, op, mul, True)
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_unaligned_views(cuda):
+    """Inputs one slot into their storage take the kernel's plain loads."""
+    x, xs, idx, w, valid, flags, _, _ = _kernel_inputs(3, (1 << 18) + 1, 4, torch.float64, True, "times")
+    flags[1] = True
+    cut = [t[1:] for t in (idx, w, valid, flags)]
+    # each segment of the cut slots its own row
+    nseg = int(cut[3].sum())
+    rows = torch.arange(nseg, dtype=torch.int32)
+    want_v, want_s = ks.segscan_spmm_plain(x, xs, cut[0], cut[1], cut[2], cut[3], rows, nseg, "add", "times")
+    dev = [t.to(cuda) for t in (x, xs, *cut, rows)]
+    got_v, got_s = ks.segscan_spmm(*dev, nseg, "add", "times")
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.cpu(), want_s)
+    torch.testing.assert_close(got_v.cpu(), want_v, rtol=1e-12, atol=1e-12 * float(want_v.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", SEMIRINGS)
+def test_cuda_product_one_launch(cuda, sr):
+    """On the card the DSL's product is one hand-kernel launch for k = 4,
+    and matches the plain versions' run of the same statement."""
+    from graphblas_tpu_torch import kernels
+
+    with gb.tx.config.set(platform="cuda", mxv_strategy="plan"):
+        r, c, w = _pattern("rmat")
+        with gb.tx.config.set(dense_limit=4096):
+            A = Matrix.from_coo(r, c, w, gb.dtypes.FP32, nrows=N, ncols=N)
+        vals, present = _frontier(4, np.float64)
+        fr, fc = np.nonzero(present)
+        F = Matrix.from_coo(fr, fc, vals[fr, fc], gb.dtypes.FP64, nrows=N, ncols=4)
+        A.mxm(F, getattr(semiring, sr)).new()  # the plan and its derived arrays
+        before = telemetry.counter("ops.spmm_launches")
+        Y = A.mxm(F, getattr(semiring, sr)).new()
+        assert telemetry.counter("ops.spmm_launches") - before == 1
+        with kernels.plain_versions():
+            Yp = A.mxm(F, getattr(semiring, sr)).new()
+        torch.cuda.synchronize()
+        assert torch.equal(Y._struct, Yp._struct)
+        assert torch.equal(Y._values, Yp._values)  # exact binary fractions: no rounding in any order
+
+
+@pytest.mark.cuda
+def test_cuda_product_in_a_graph_replay(cuda):
+    """``gb.compile`` captures the product in a CUDA graph; two replays give
+    the eager answer."""
+    with gb.tx.config.set(platform="cuda", mxv_strategy="plan"):
+        r, c, w = _pattern("uniform")
+        with gb.tx.config.set(dense_limit=4096):
+            A = Matrix.from_coo(r, c, w, gb.dtypes.FP32, nrows=N, ncols=N)
+
+        @gb.compile
+        def step(F):
+            return A.mxm(F, semiring.plus_times).new()
+
+        for seed in (5, 6):
+            vals, present = _frontier(4, np.float64, seed=seed)
+            fr, fc = np.nonzero(present)
+            F = Matrix.from_coo(fr, fc, vals[fr, fc], gb.dtypes.FP64, nrows=N, ncols=4)
+            got = step(F)
+            want = A.mxm(F, semiring.plus_times).new()
+            torch.cuda.synchronize()
+            assert torch.equal(got._values, want._values) and torch.equal(got._struct, want._struct)

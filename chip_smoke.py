@@ -329,6 +329,7 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
     """Phase 3: each kernel against its plain version on the card."""
     import numpy as np
 
+    from graphblas_tpu_torch.core import telemetry
     from graphblas_tpu_torch.kernels import eqjoin as ke
     from graphblas_tpu_torch.kernels import gather as kg
     from graphblas_tpu_torch.kernels import imatmul as ki
@@ -472,12 +473,13 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
                 (xg, idx, wv, vg, fg), 2, rtol=1e-6 if op == "add" else None,
             )
         del xg, idx, wg, vg, fg, got, want
-    # the k-column product at the bc cell's size: e_pad 2^26 slots in
-    # segments of 32 on average, n 2^21 rows, k = 4 FP64 columns with 60% of x
-    # present (the bound counts x's structure, not its present values, as
-    # the benchmark's spmm_roofline); then FP32, against four SpMVs (C with
-    # x's gather and the collect over n slots) doing the same work a column
-    # at a time
+    # the k-column product: each instance's tile, shared memory, residency,
+    # registers and spills; then at the bc cell's size, e_pad 2^26 slots in
+    # segments of 32 on average, n 2^21 rows, k = 4 FP64 and FP32 columns
+    # with 60%, 5% and all of x present (the bound counts x's structure, not
+    # its present values, as the benchmark's spmm_roofline), every full tile
+    # staged; then FP32 against four SpMVs (C with x's gather and the
+    # collect over n slots) doing the same work a column at a time
     ep, nx, kc = 1 << 26, 1 << 21, 4
     fs_ = torch.zeros(ep, dtype=torch.bool, device=dev)
     fs_[torch.randperm(ep - 1, generator=gen, device=dev)[: nx - 1] + 1] = True
@@ -487,14 +489,31 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
     vs_ = rand(ep) < 0.95
     xs_ = rand(nx, kc) < 0.6
     base_ = ks.spmm_tile_base(fs_)
+    for dt in (torch.float64, torch.float32):  # each instance's shape on this card
+        for kp in (1, 2, 4, 8):
+            geo = ks.spmm_geometry(kp, dt)
+            require(geo["tile"] == ks.spmm_tile(kp, dt), f"segscan_spmm: the card's tile differs from the wrapper's: {geo}")
+            say(
+                "3 kernels",
+                f"segscan_spmm {str(dt)[6:]} KP {kp}: tile {geo['tile']}, {geo['smem']} B dynamic shared memory, "
+                f"{geo['blocks_per_sm']} blocks an SM, {geo['registers']} registers, {geo['local_bytes']} B local",
+            )
     for dt, rt in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
         xk = (rand(nx, kc) * 9 + 1).to(dt)
-        record(
-            "segscan_spmm", f"{str(dt)[6:]} plus/first, k {kc}, 2^26 slots, x of 2^21 rows, 60% present",
-            lambda: ks.segscan_spmm(xk, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first", base_),
-            lambda: ks.segscan_spmm_plain(xk, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first"),
-            (xs_, idx, vs_, fs_), 0, rtol=rt, reps=10,
-        )
+        for dens, xsd in ((0.6, xs_), (0.05, rand(nx, kc) < 0.05), (None, None)):
+            present = "every x present" if dens is None else f"{int(dens * 100)}% present"
+            staged = telemetry.counter("kernels.spmm.async_tiles"), telemetry.counter("kernels.spmm.tiles")
+            record(
+                "segscan_spmm", f"{str(dt)[6:]} plus/first, k {kc}, 2^26 slots, x of 2^21 rows, {present}",
+                lambda: ks.segscan_spmm(xk, xsd, idx, None, vs_, fs_, rows_, nx, "add", "first", base_),
+                lambda: ks.segscan_spmm_plain(xk, xsd, idx, None, vs_, fs_, rows_, nx, "add", "first"),
+                (xsd if xsd is not None else xk, idx, vs_, fs_), 0, rtol=rt, reps=10,
+            )
+            share = (telemetry.counter("kernels.spmm.async_tiles") - staged[0]) / (
+                telemetry.counter("kernels.spmm.tiles") - staged[1]
+            )
+            tiles = -(-ep // ks.spmm_tile(kc, dt))
+            require(share == (tiles - (ep % ks.spmm_tile(kc, dt) != 0)) / tiles, f"segscan_spmm: staged share {share}")
     ends_ = torch.cat([fs_[1:], torch.ones(1, dtype=torch.bool, device=dev)]).nonzero().flatten().int()
     cols_ = [xk[:, j].contiguous() for j in range(kc)]
     vcol_ = [vs_ & xs_[:, j][idx.long()] for j in range(kc)]
@@ -504,7 +523,7 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
                 for j in range(kc)]
 
     say("3 kernels", f"segscan_spmm A/B: {kc} x (C with x's gather + the collect), float32: {cuda_ms(torch, columns_, 10):.4f} ms")
-    del fs_, rows_, idx, vs_, xs_, base_, xk, ends_, cols_, vcol_
+    del fs_, rows_, idx, vs_, xs_, xsd, base_, xk, ends_, cols_, vcol_
     frontier = (rand(e_pad) < 0.05).float()
     levels = torch.where(rand(e_pad) < 0.7, -1, torch.randint(0, 4, (e_pad,), generator=gen, device=dev)).to(torch.int32)
     record(

@@ -28,6 +28,7 @@ prologue and epilogue.  Float sums therefore round in another order than the ker
 below +0.0, as ``jnp.minimum`` / ``jnp.maximum`` and the kernels do.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -52,6 +53,9 @@ KERNELS = ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gathe
 SPMM_MULS = ("times", "plus", "second", "first", "pair")
 SPMM_DTYPES = (torch.float32, torch.float64)
 SPMM_MAX_COLUMNS = 8
+# slots a ``spmm_tile_base`` entry covers; every tile of the k-column kernel
+# is a multiple (``csrc/spmm.cu`` kGranule)
+SPMM_GRANULE = 256
 
 
 def _ident(op, dtype):
@@ -352,15 +356,61 @@ def segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, 
 
 
 def spmm_tile_base(flags):
-    """The k-column kernel's flags before each of its tiles (int32, one
-    more than the tiles), on ``flags``' device: a plan's, computed once."""
-    tile = _build.library().gb_segscan_spmm_tile()
+    """The k-column kernel's flags before each ``SPMM_GRANULE``-slot block
+    (int32, ``ceil(n / SPMM_GRANULE) + 1`` entries, the last the total), on
+    ``flags``' device: a plan's, computed once, whatever k and dtype."""
     n = flags.numel()
-    nt = -(-n // tile)
-    padded = torch.zeros(nt * tile, dtype=torch.int32, device=flags.device)
+    nb = -(-n // SPMM_GRANULE)
+    padded = torch.zeros(nb * SPMM_GRANULE, dtype=torch.int32, device=flags.device)
     padded[:n] = flags
-    counts = padded.view(nt, tile).sum(1, dtype=torch.int32)
+    counts = padded.view(nb, SPMM_GRANULE).sum(1, dtype=torch.int32)
     return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+
+
+def spmm_columns(k):
+    """The columns a launch of k columns computes: k rounded up to 1, 2, 4 or 8."""
+    return 1 if k <= 1 else 2 if k <= 2 else 4 if k <= 4 else 8
+
+
+def spmm_tile(k, dtype):
+    """Slots a tile of the k-column kernel holds for k columns of ``dtype``:
+    its shared memory keeps, a slot, two stages of the plan's stream (10
+    bytes each), a value row (the columns rounded up, in ``dtype``), a cell
+    of x's structure (16 bytes from 4 columns, else the 4-byte words a row
+    spans), a presence byte and a segment row (4 bytes); the tile is the
+    largest multiple of 2048 / columns slots up to 2048 within 112 KiB, and
+    at least 2048 / columns (``csrc/spmm.cu`` ``tile_for``)."""
+    kp = spmm_columns(k)
+    cell = 16 if kp >= 4 else 4 * ((kp + 6) // 4)
+    slot = 2 * 10 + kp * torch.empty((), dtype=dtype).element_size() + cell + 1 + 4
+    step = max(2048 // kp, SPMM_GRANULE)
+    for tile in range(2048, step, -step):
+        if tile * slot + 32 <= 112 * 1024:
+            return tile
+    return step
+
+
+def spmm_tiles(n, k, dtype, idx, w, valid, flags):
+    """(tiles, staged tiles) of a launch over n slots: the staged ones are
+    the full tiles, where the plan's streams (idx, w, valid, flags) are
+    16-byte aligned and arrive by bulk copy; the ragged last tile and every
+    tile of an unaligned stream are loaded by the threads instead.  Both
+    gather their x rows by ``cp.async``.  From the sizes and pointers alone,
+    on any device."""
+    tile = spmm_tile(k, dtype)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (idx, w, valid, flags) if t is not None)
+    return -(-n // tile), (n // tile if aligned else 0)
+
+
+def spmm_geometry(k, dtype):
+    """The k-column kernel's instance for k columns of ``dtype``, as the card
+    reports it: ``tile`` (slots), ``smem`` (dynamic shared memory bytes),
+    ``blocks_per_sm`` (resident), ``registers`` and ``local_bytes`` (spills
+    and stack) a thread of its plus instance."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.library()
+    _build.check(lib.gb_segscan_spmm_geometry(k, int(dtype == torch.float64), out), "segscan_spmm")
+    return dict(zip(("tile", "smem", "blocks_per_sm", "registers", "local_bytes"), out))
 
 
 def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
@@ -377,24 +427,26 @@ def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_b
         lib = _build.library()
         k = x.shape[1]
         n = valid.numel()
-        nt = -(-n // lib.gb_segscan_spmm_tile())
+        tiles, staged = spmm_tiles(n, k, x.dtype, idx, w, valid, flags)
         if tile_base is None:
             tile_base = spmm_tile_base(flags)
         dev = x.device
         out_v = torch.zeros((n_out, k), dtype=x.dtype, device=dev)
         out_s = torch.zeros((n_out, k), dtype=torch.bool, device=dev)
-        status = torch.zeros(nt + 1, dtype=torch.int64, device=dev)
-        vals = torch.empty(2 * nt * SPMM_MAX_COLUMNS, dtype=torch.int64, device=dev)
+        status = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+        vals = torch.empty(2 * tiles * spmm_columns(k), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             rc = lib.gb_segscan_spmm(
                 x.data_ptr(), _ptr(xs), idx.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
                 seg_vertex.data_ptr(), tile_base.data_ptr(), out_v.data_ptr(), out_s.data_ptr(),
                 status.data_ptr(), vals.data_ptr(), n, k, int(x.dtype == torch.float64), OPS.index(op),
-                SPMM_MULS.index(mul), _build.stream_of(x),
+                SPMM_MULS.index(mul), spmm_tile(k, x.dtype), _build.stream_of(x),
             )
         _build.check(rc, "segscan_spmm")
         _telemetry.count("kernels.launches.segscan_spmm")
         _count_spmm_sizes(x, xs, w, n, n_out, mul)
+        _telemetry.count("kernels.spmm.tiles", tiles)
+        _telemetry.count("kernels.spmm.async_tiles", staged)
         return out_v, out_s
 
 

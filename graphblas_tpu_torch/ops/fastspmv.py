@@ -507,8 +507,8 @@ def spmv_masked(plan, x, xs, add="plus", mul="times", x_full=False, wrap=None):
 def _spmm_index(plan, seg_start, x):
     """(seg_vertex, tile_base) of the k-column product, derived once a plan:
     the row of each dst segment in slot order (the non-empty dst segments)
-    and the kernel's flags before each of its tiles (None where the plain
-    version runs)."""
+    and the flags before each 256-slot block, which every tile of the kernel
+    spans a whole number of (None where the plain version runs)."""
     cache = plan.__dict__.setdefault("_spmm", {})
     with _cap.constants():
         if "seg_vertex" not in cache:

@@ -30,7 +30,10 @@ instruction rates, ptxas and SASS.
   2^(log2n - 4) slots (the main path's n), add/times, min/plus and
   max/first; then G's gather x[idx] followed by C, the same work in two
   launches.
-- ``spmm``: the k-column product (``segscan_spmm``) at 2^spmm_log2n slots
+- ``spmm``: each instance of the k-column kernel (k rounded up to 1, 2, 4
+  or 8, float and double): its tile, dynamic shared memory, resident blocks
+  an SM, registers and local bytes, as the card reports them; then the
+  k-column product (``segscan_spmm``) at 2^spmm_log2n slots
   (the bc cell's 2^26) in segments of 32 on average over x of
   2^(spmm_log2n - 5) rows (the cell's n), k = 4, plus/first, in float64 and
   float32 with 60% and 5% of x present and with every x present, against
@@ -268,6 +271,14 @@ def spmm_probe(torch, ks, kg, gen, dev, log2n, ms, report):
     idx = torch.randint(0, n, (ep,), generator=gen, device=dev, dtype=torch.int32)
     valid = torch.rand(ep, generator=gen, device=dev) < 0.95
     base = ks.spmm_tile_base(flags)
+    for dt in (torch.float64, torch.float32):
+        for kp in (1, 2, 4, 8):
+            geo = ks.spmm_geometry(kp, dt)
+            print(
+                f"[spmm] {str(dt)[6:]} KP {kp}: tile {geo['tile']}, {geo['smem']} B dynamic shared memory, "
+                f"{geo['blocks_per_sm']} blocks an SM, {geo['registers']} registers, {geo['local_bytes']} B local",
+                flush=True,
+            )
     for dt in (torch.float64, torch.float32):
         x = (torch.rand((n, k), generator=gen, device=dev) * 9 + 1).to(dt)
         for dens in (0.6, 0.05, None):

@@ -319,6 +319,55 @@ def test_compiled_loop_carries_the_product(strategy):
     assert np.array_equal(_arrays(Pc)[1], _arrays(P)[1]) and np.array_equal(_arrays(Pc)[0], _arrays(P)[0])
 
 
+# ---- the k-column kernel's tiles, from sizes and pointers (no card needed) ----
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_spmm_tile_fits_shared_memory(k, dtype):
+    """The tile follows from the value row's bytes: a multiple of 8 slots a
+    scan thread and of the tile_base block, the largest such that fits two
+    blocks' shared memory on an SM."""
+    kp = ks.spmm_columns(k)
+    tile = ks.spmm_tile(k, dtype)
+    step = max(2048 // kp, ks.SPMM_GRANULE)
+    assert tile % step == 0 and tile % ks.SPMM_GRANULE == 0 and step <= tile <= 2048
+    row = kp * torch.empty((), dtype=dtype).element_size()
+    smem = tile * (20 + row + (16 if kp >= 4 else 4 * ((kp + 6) // 4)) + 5) + 32
+    assert smem <= 112 * 1024
+    assert tile == 2048 or smem + step * (smem - 32) // tile > 112 * 1024  # the largest that fits
+    if dtype == torch.float64 and k == 4:
+        assert tile == 1536  # the bc cell's product
+
+
+def test_spmm_tiles_counts_staged_tiles():
+    """Full tiles of 16-byte aligned streams are staged; the ragged last
+    tile is not, and no tile of an unaligned stream is."""
+    tile = ks.spmm_tile(4, torch.float64)
+    n = 3 * tile + 5
+    idx = torch.zeros(n + 4, dtype=torch.int32)
+    valid = torch.zeros(n + 16, dtype=torch.bool)
+    flags = torch.zeros(n + 16, dtype=torch.bool)
+    w = torch.zeros(n + 4)
+    assert ks.spmm_tiles(n, 4, torch.float64, idx[:n], w[:n], valid[:n], flags[:n]) == (4, 3)
+    assert ks.spmm_tiles(3 * tile, 4, torch.float64, idx, None, valid, flags) == (3, 3)
+    assert ks.spmm_tiles(n, 4, torch.float64, idx[1:], None, valid[:n], flags[:n]) == (4, 0)
+    assert ks.spmm_tiles(n, 4, torch.float64, idx[:n], w[1:], valid[:n], flags[:n]) == (4, 0)
+    assert ks.spmm_tiles(n, 4, torch.float64, idx[:n], None, valid[1:], flags[:n]) == (4, 0)
+    assert ks.spmm_tiles(5, 1, torch.float32, idx[:5], None, valid[:5], flags[:5]) == (1, 0)
+
+
+def test_spmm_tile_base_counts_flags_before_each_block():
+    g = torch.Generator().manual_seed(2)
+    for n in (1, 255, 256, 257, 5 * ks.SPMM_GRANULE + 17):
+        flags = torch.rand(n, generator=g) < 0.1
+        base = ks.spmm_tile_base(flags)
+        nb = -(-n // ks.SPMM_GRANULE)
+        assert base.dtype == torch.int32 and base.shape == (nb + 1,)
+        want = [int(flags[: b * ks.SPMM_GRANULE].sum()) for b in range(nb + 1)]
+        assert base.tolist() == want
+
+
 # ---- CUDA half: the kernel against its plain version on the card -------------
 
 
@@ -362,18 +411,27 @@ def _tolerance(dtype, op):
     return 1e-12 if dtype == torch.float64 else 1e-6
 
 
-def _kernel_against_plain(cuda, seed, n_slots, k, dtype, op, mul, xs_given):
-    x, xs, idx, w, valid, flags, seg_vertex, n_out = _kernel_inputs(seed, n_slots, k, dtype, xs_given, mul)
+def _against_plain(cuda, x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul):
+    """The kernel against its plain version on the card; returns the share
+    of the launch's tiles that took the staged (bulk-copied) stream."""
     dev = [None if t is None else t.to(cuda) for t in (x, xs, idx, w, valid, flags, seg_vertex)]
     want_v, want_s = ks.segscan_spmm_plain(*dev, n_out, op, mul)
+    before = telemetry.counter("kernels.spmm.tiles"), telemetry.counter("kernels.spmm.async_tiles")
     got_v, got_s = ks.segscan_spmm(*dev, n_out, op, mul)
     torch.cuda.synchronize()
     assert torch.equal(got_s, want_s)
-    tol = _tolerance(dtype, op)
+    tol = _tolerance(x.dtype, op)
     if tol:
         torch.testing.assert_close(got_v, want_v, rtol=tol, atol=tol * float(want_v.abs().max()))
     else:
         assert torch.equal(got_v, want_v)
+    tiles = telemetry.counter("kernels.spmm.tiles") - before[0]
+    return (telemetry.counter("kernels.spmm.async_tiles") - before[1]) / tiles
+
+
+def _kernel_against_plain(cuda, seed, n_slots, k, dtype, op, mul, xs_given):
+    x, xs, idx, w, valid, flags, seg_vertex, n_out = _kernel_inputs(seed, n_slots, k, dtype, xs_given, mul)
+    return _against_plain(cuda, x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul)
 
 
 @pytest.mark.cuda
@@ -397,7 +455,8 @@ def test_cuda_spmm_matches_plain_long(cuda, k, dtype, op, mul):
 
 @pytest.mark.cuda
 def test_cuda_spmm_unaligned_views(cuda):
-    """Inputs one slot into their storage take the kernel's plain loads."""
+    """Streams one slot into their storage on the card: no tile's stream
+    arrives by bulk copy, the threads load every one."""
     x, xs, idx, w, valid, flags, _, _ = _kernel_inputs(3, (1 << 18) + 1, 4, torch.float64, True, "times")
     flags[1] = True
     cut = [t[1:] for t in (idx, w, valid, flags)]
@@ -405,9 +464,13 @@ def test_cuda_spmm_unaligned_views(cuda):
     nseg = int(cut[3].sum())
     rows = torch.arange(nseg, dtype=torch.int32)
     want_v, want_s = ks.segscan_spmm_plain(x, xs, cut[0], cut[1], cut[2], cut[3], rows, nseg, "add", "times")
-    dev = [t.to(cuda) for t in (x, xs, *cut, rows)]
+    dev = [x.to(cuda), xs.to(cuda), *[t.to(cuda)[1:] for t in (idx, w, valid, flags)], rows.to(cuda)]
+    assert all(t.data_ptr() % 16 for t in dev[2:6])
+    before = telemetry.counter("kernels.spmm.tiles"), telemetry.counter("kernels.spmm.async_tiles")
     got_v, got_s = ks.segscan_spmm(*dev, nseg, "add", "times")
     torch.cuda.synchronize()
+    assert telemetry.counter("kernels.spmm.tiles") > before[0]
+    assert telemetry.counter("kernels.spmm.async_tiles") == before[1]  # no tile of an unaligned stream is staged
     assert torch.equal(got_s.cpu(), want_s)
     torch.testing.assert_close(got_v.cpu(), want_v, rtol=1e-12, atol=1e-12 * float(want_v.abs().max()))
 
@@ -458,3 +521,158 @@ def test_cuda_product_in_a_graph_replay(cuda):
             want = A.mxm(F, semiring.plus_times).new()
             torch.cuda.synchronize()
             assert torch.equal(got._values, want._values) and torch.equal(got._struct, want._struct)
+
+
+# ---- CUDA: the staged gather's edges ----------------------------------------
+
+
+def _segments(lens, n_src, k, dtype, mul, seed, xs_kind="random"):
+    """Inputs over segments of the given lengths (one a row, 0: no segment),
+    a fifth of the slots invalid; x's structure random (60%), all absent,
+    all present, or None."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.as_tensor(lens, dtype=torch.int64)
+    n_slots = int(lens.sum())
+    seg_vertex = torch.nonzero(lens > 0).flatten().int()
+    flags = torch.zeros(n_slots, dtype=torch.bool)
+    flags[(torch.cumsum(lens, 0) - lens)[lens > 0]] = True
+    idx = torch.randint(0, n_src, (n_slots,), generator=g, dtype=torch.int32)
+    valid = torch.rand(n_slots, generator=g) < 0.8
+    w = (torch.randint(1, 9, (n_slots,), generator=g) / 4.0).float() if mul in ("times", "plus", "second") else None
+    x = (torch.randn((n_src, k), generator=g, dtype=torch.float64) * 100).to(dtype)
+    xs = {
+        "random": lambda: torch.rand((n_src, k), generator=g) < 0.6,
+        "absent": lambda: torch.zeros((n_src, k), dtype=torch.bool),
+        "present": lambda: torch.ones((n_src, k), dtype=torch.bool),
+        "none": lambda: None,
+    }[xs_kind]()
+    return x, xs, idx, w, valid, flags, seg_vertex, lens.numel()
+
+
+def _lens_for(n_slots, seed, n_out=4096):
+    """Row lengths summing to n_slots: segments of 1-40 slots, three rows in
+    ten without one."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, 40, (n_out,), generator=g)
+    lens[torch.rand(n_out, generator=g) < 0.3] = 0
+    lens = torch.where(torch.cumsum(lens, 0) <= n_slots, lens, torch.zeros_like(lens))
+    lens[-1] += n_slots - int(lens.sum())
+    return lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float64, 4), (torch.float32, 1), (torch.float64, 8)])
+@pytest.mark.parametrize("unit", ["block", "tile", "tiles"])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_cuda_spmm_slot_counts_at_the_edges(cuda, dtype, k, unit, delta):
+    """Slot counts at one 256-slot block (one gather round of the block's
+    threads), one tile and three tiles, and one either side: the ragged last
+    tile is loaded by the threads, every full tile by bulk copy."""
+    tile = ks.spmm_tile(k, dtype)
+    n = {"block": ks.SPMM_GRANULE, "tile": tile, "tiles": 3 * tile}[unit] + delta
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(_lens_for(n, n), 1 << 12, k, dtype, "times", 7)
+    share = _against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, "add", "times")
+    assert share == (n // tile) / -(-n // tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op,mul", [("add", "first"), ("min", "plus"), ("max", "times")])
+def test_cuda_spmm_one_segment_over_every_tile(cuda, dtype, op, mul):
+    """One segment of 9 tiles and a bit: the look-back carries it through
+    every tile to its one end."""
+    n = 9 * ks.spmm_tile(4, dtype) + 3
+    x, xs, idx, w, valid, flags, sv, n_out = _segments([0, 0, n, 0], 1 << 12, 4, dtype, mul, 3)
+    assert _against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, op, mul) == 9 / 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_spmm_runs_of_empty_segments(cuda, dtype):
+    """Rows of no segment in runs of hundreds between short segments, and a
+    tile that holds only ends: the segment-row runs each tile reads cross
+    long stretches of empty rows."""
+    g = torch.Generator().manual_seed(5)
+    lens = torch.randint(1, 4, (1 << 16,), generator=g)
+    for start in range(0, 1 << 16, 1000):
+        lens[start : start + 700] = 0
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(lens, 1 << 12, 4, dtype, "times", 5)
+    assert int(flags.sum()) < n_out
+    _against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, "add", "times")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs_kind", ["absent", "present", "none"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_cuda_spmm_x_all_absent_all_present_or_full(cuda, xs_kind, dtype, op):
+    """Tiles in which x is all absent (no value is gathered), all present,
+    or full (no structure round)."""
+    n = 4 * ks.spmm_tile(4, dtype) + 77
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(_lens_for(n, 11), 1 << 12, 4, dtype, "plus", 13, xs_kind)
+    _against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, op, "plus")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_cuda_spmm_every_k(cuda, k, dtype, op):
+    """Every k in both precisions and every op, over several tiles of each
+    instance's own size, aligned: every full tile staged."""
+    tile = ks.spmm_tile(k, dtype)
+    n = 5 * tile + 19
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(_lens_for(n, k), 1 << 12, k, dtype, "times", 17 + k)
+    assert _against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, op, "times") == 5 / 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 7])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_spmm_unaligned_x_and_structure(cuda, k, dtype):
+    """x and its structure as views one row into their buffers: rows of
+    x's structure start at any byte, and float rows at any 4 bytes (the
+    narrowest value copies)."""
+    n = 3 * ks.spmm_tile(k, dtype) + 1
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(_lens_for(n, 3), 1 << 12, k, dtype, "times", 23)
+    x_buf = torch.cat([x[:1], x])
+    xs_buf = torch.cat([xs[:1], xs])
+    dev = torch.device("cuda")
+    xv, xsv = x_buf.to(dev)[1:], xs_buf.to(dev)[1:]
+    assert xsv.data_ptr() % 4 != 0 or k % 4 == 0
+    _against_plain(cuda, xv, xsv, idx, w, valid, flags, sv, n_out, "add", "times")
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_geometry(cuda):
+    """The card's instances: the tile that the wrapper sizes its scratch for,
+    shared memory within an SM's, at least one block resident, no spills."""
+    for dtype in (torch.float32, torch.float64):
+        for k in range(1, 9):
+            geo = ks.spmm_geometry(k, dtype)
+            assert geo["tile"] == ks.spmm_tile(k, dtype), (k, dtype)
+            assert 0 < geo["smem"] <= 227 * 1024 and geo["blocks_per_sm"] >= 1, (k, dtype, geo)
+    assert ks.spmm_geometry(4, torch.float64)["blocks_per_sm"] >= 2  # the bc cell's instance
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_graph_replay(cuda):
+    """The launch captured in a CUDA graph: replays over new x and new
+    structure give the plain version's answer."""
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(_lens_for(1 << 16, 9), 1 << 12, 4, torch.float64, "times", 9)
+    dev = [None if t is None else t.to(cuda) for t in (x, xs, idx, w, valid, flags, sv)]
+    base = ks.spmm_tile_base(dev[5])
+    ks.segscan_spmm(*dev, n_out, "add", "times", base)  # the library and the instance's attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_v, out_s = ks.segscan_spmm(*dev, n_out, "add", "times", base)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for _ in range(2):
+        dev[0].copy_(torch.randn(dev[0].shape, generator=g, device=cuda, dtype=torch.float64))
+        dev[1].copy_(torch.rand(dev[1].shape, generator=g, device=cuda) < 0.5)
+        graph.replay()
+        want_v, want_s = ks.segscan_spmm_plain(*dev, n_out, "add", "times")
+        torch.cuda.synchronize()
+        assert torch.equal(out_s, want_s)
+        torch.testing.assert_close(out_v, want_v, rtol=1e-12, atol=1e-12 * float(want_v.abs().max()))

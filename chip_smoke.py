@@ -110,11 +110,10 @@ matmuls.  One line per check:
      graph: graph = the same runner run eagerly on the card, a second replay
      = the first; PageRank = models.fast rtol 1e-5, levels and distances =
      models.fast bit for bit, CC = scipy; capture "graph", the modes the CPU
-     tests hold to the reference in the card's n-space lowering, and the
-     edge layout asked for (= eager, = the n space, the reference's modes);
-     bench.py's dsl_* and cc_* keys, eager against graph ms per step, the
-     edge layout's, launches per step; the kernels torch.profiler sees in a
-     second run of the main path = the launches counted
+     tests hold to the reference, layout "n" (the port's one lowering);
+     bench.py's dsl_* and cc_* keys, eager against graph ms per step,
+     launches per step; the kernels torch.profiler sees in a second run of
+     the main path = the launches counted
   6m dense models. On rmat(14, 16, seed=5) on the card (n = 16384, the scale
      the reference's louvain docstring names): triangle_count (int8 counts,
      torch._int_mm) = scipy's int64 count = the f32 path's; k_truss at k = 4
@@ -1546,16 +1545,14 @@ def sparse_dsl_phase(torch, np, dev, g, plan, src, dst, w, sources, L_tc, tc_ref
     return {"launches": launches, "plain": plain, "A": A}
 
 
-# the layout each compiled recipe takes on the plan engine where the edge
-# layout is asked for (GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1, the reference's
-# default): the modes the CPU tests hold to the reference
-# (tests/test_torch_compile.py, tests/test_torch_looplayout.py).  On the card
-# the default lowering is the n space: the same modes with layout "n".
+# the mode/layout each compiled recipe takes on the plan engine: the modes
+# the CPU tests hold to the reference (tests/test_torch_compile.py,
+# tests/test_torch_sparse_loops.py), in the port's one lowering, the n space
 DSL_MODES = {
-    "pagerank": "hoisted/edge",
+    "pagerank": "hoisted/n",
     "bfs_level": "carried/n",
-    "bfs_level_dense": "hoisted/edge",
-    "sssp": "hoisted/edge",
+    "bfs_level_dense": "hoisted/n",
+    "sssp": "hoisted/n",
     "connected_components": "hoisted/n",
 }
 
@@ -1583,18 +1580,15 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
     """Phase 6c (compiled loops): the recipes of models.dsl at RMAT scale 19,
     built as bench.py's dsl_metrics builds them (AT = from_coo(dst, src, 1.0,
     dup_op=plus), ATw with dup_op=min, connected components on AT pull and
-    push; mxv_strategy "plan"), each a CUDA graph replayed, in the card's
-    default lowering (the n space).  Checks, before any timing: each recipe's
+    push; mxv_strategy "plan"), each a CUDA graph replayed, in the n space.
+    Checks, before any timing: each recipe's
     graph result = the same runner run eagerly on the card (PageRank rtol
     1e-6: C's look-back may add floats in another order; the rest bit for
     bit); PageRank = models.fast.pagerank rtol 1e-5; levels and distances =
     models.fast bit for bit; CC = scipy's weak components (least vertex
-    labels); capture "graph" for every recipe; mode as DSL_MODES, layout
-    "n"; the edge layout (GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1) for the three
-    recipes the reference lowers to it: mode/layout as DSL_MODES, graph =
-    eager, and = the n space.  Then bench.py's dsl_* and cc_* keys, the
-    eager ms per step beside the graph's, the edge layout's beside the n
-    space's, one PageRank run's device time by kernel (torch.profiler),
+    labels); capture "graph" for every recipe; mode/layout as DSL_MODES.
+    Then bench.py's dsl_* and cc_* keys, the eager ms per step beside the
+    graph's, one PageRank run's device time by kernel (torch.profiler),
     launches per step, and fastsv (host-driven, eager) = scipy on a
     symmetrized RMAT scale-14 graph.  Last, the main path's run again under
     torch.profiler: its counters = the main path's, and the kernels the
@@ -1631,9 +1625,8 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
         torch.cuda.synchronize()
         info["build s (plans, warm steps)"] = time.perf_counter() - t0
         for name, (r, _) in runners.items():
-            want = DSL_MODES[name].split("/")[0] + "/n"
             require(r.capture == "graph", f"6c {name}: capture {r.capture} ({r.capture_reason})")
-            require(f"{r.mode}/{r.layout}" == want, f"6c {name}: {r.mode}/{r.layout} != {want}")
+            require(f"{r.mode}/{r.layout}" == DSL_MODES[name], f"6c {name}: {r.mode}/{r.layout} != {DSL_MODES[name]}")
 
         def pick(res, k):
             return res if k is None else res[k]
@@ -1723,30 +1716,6 @@ def compiled_phase(torch, np, dev, src, dst, w, n, plan, sources, outdeg, smi):
             "graph ms/step": t * 1e3 / out["cc_iters"],
             "eager ms/step": wall_s(torch, cc_run.eager, 1) * 1e3 / out["cc_iters"], "steps": out["cc_iters"],
         }
-        # the edge layout of the recipes the reference lowers to it (its
-        # default, GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1), against the card's n space
-        os.environ["GRAPHBLAS_TPU_DSL_EDGE_LAYOUT"] = "1"
-        try:
-            edge = {
-                "pagerank": (dsl.pagerank_runner(AT, max_iters=iters), None),
-                "bfs_level_dense": (dsl.bfs_level_dense_runner(AT, sources[0]).runner, 0),
-                "sssp": (dsl.sssp_runner(ATw, sources[0]).runner, 0),
-            }
-        finally:
-            os.environ.pop("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT")
-        for name, (r, k) in edge.items():
-            require(f"{r.mode}/{r.layout}" == DSL_MODES[name], f"6c {name}: {r.mode}/{r.layout} != {DSL_MODES[name]}")
-            require(r.capture == "graph", f"6c {name} (edge layout): capture {r.capture} ({r.capture_reason})")
-            fill = {"pagerank": 0.0, "bfs_level_dense": -1, "sssp": np.float32(np.inf)}[name]
-            a, b = (np.asarray(pick(x, k).to_dense(fill_value=fill)) for x in (r(), r.eager()))
-            n_space = np.asarray(got[name].to_dense(fill_value=fill))
-            if name == "pagerank":
-                np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg="6c pagerank (edge layout): graph != eager")
-                np.testing.assert_allclose(a, n_space, rtol=1e-5, atol=0, err_msg="6c pagerank: edge layout != n space")
-            else:
-                require(np.array_equal(a.view(np.int32), b.view(np.int32)), f"6c {name} (edge layout): graph != eager")
-                require(np.array_equal(a.view(np.int32), n_space.view(np.int32)), f"6c {name}: edge layout != n space")
-            per[name]["edge-layout graph ms/step"] = wall_s(torch, r) * 1e3 / (iters if name == "pagerank" else int(r.last_iters))
         # the capture scope's share of an eager step's host time: the own
         # time of core/capture.py's frames (the TorchFunctionMode's tagging
         # and watching) over the run's, under cProfile (which slows both)

@@ -38,10 +38,10 @@ tensors (struct of arrays) and runs every engine family with user
 operators.  ``compile``, ``loop``, ``until``, ``loop_runner`` and
 ``until_runner`` (``core.compiler``) run a loop of DSL statements as one
 CUDA graph on the card (eagerly on the CPU, holding the closed-over
-operands of the first call), with structure hoisting and the edge layout;
-``models.dsl`` holds the DSL recipes written with them.  ``models`` also
-carries the dense n x n models (triangle count, k-truss, maximal matching,
-betweenness centrality, Louvain).
+operands of the first call), with structure hoisting; ``models.dsl``
+holds the DSL recipes written with them.  ``models`` also carries the dense
+n x n models (triangle count, k-truss, maximal matching, betweenness
+centrality, Louvain).
 
 Interop and the extension namespace: ``io`` (scipy.sparse, networkx,
 Matrix Market, pydata sparse, awkward), ``viz`` (``draw``, ``spy``,

@@ -24,11 +24,10 @@ host-valued tensor, ``core/capture.py``); if the body's output structure is
 traced (a BFS frontier) or differs from the input's, they carry the
 structure too (``mode == "carried"``).  A constant all-present vector takes
 the SpMV's ``x_full`` path, so the compiled DSL loop does the work of the
-hand-written models.  With one sparse matrix and direction in the body the
-state may ride the edge layout (``core/looplayout.py``, ``layout ==
-"edge"``): one G route fewer per SpMV, but every state operation on e_pad
-entries instead of n.  It is the reference's default and the port's on the
-CPU; on the card the n space is (``CompiledLoop._edge_layout_enabled``).
+hand-written models.  The state lives in the n space on every device: the
+port has one lowering of a loop (``layout == "n"``).  The reference's edge
+layout, state at the slots of a total plan, is a TPU lowering the port
+leaves out (ROADMAP.md §1).
 
 A graph replays on the addresses it was captured with: the runner keeps
 every tensor the capture read (``core/capture.py``), so a plan replaced in
@@ -43,9 +42,7 @@ Inside a compiled function collection values are abstract: host reads
 ``.value``) raise ``TracerError`` (``docs/compile.md``).
 """
 
-import contextlib
 import functools
-import os
 
 import numpy as np
 import torch
@@ -324,10 +321,15 @@ class CompiledLoop:
     any count without a new recording.  In hoisted
     mode the structures are constants of the loop, so new inputs must carry
     the same structures (checked on the host).  Diagnostics: ``mode``
-    ("hoisted" | "carried"), ``layout`` ("n" | "edge"), ``capture``
-    ("graph" | "eager") with ``capture_reason``, ``last_iters`` (body steps
-    of the last ``until`` run) and ``steps_per_replay``.
+    ("hoisted" | "carried"), ``layout``, ``capture`` ("graph" | "eager")
+    with ``capture_reason``, ``last_iters`` (body steps of the last
+    ``until`` run) and ``steps_per_replay``.
     """
+
+    #: The state's layout, the reference's public name.  The port has one
+    #: lowering, the n space, on the CPU and the card; the reference's
+    #: ``"edge"`` is a TPU lowering the port leaves out by design.
+    layout = "n"
 
     def __init__(self, kind, body, specs, leaves, single, *, n_iters=None, cond=None, max_iters=None, unroll=1):
         self._kind = kind
@@ -340,17 +342,14 @@ class CompiledLoop:
         self._max_iters = max_iters
         self._unroll = max(1, int(unroll))
         self.mode = None
-        self.layout = "n"  # "edge" when the edge-layout lowering applied
         self.capture = None
         self.capture_reason = None
         self.last_iters = None  # while loops: body steps of the last run
         self.steps_per_replay = self._unroll if kind == "while" else _graph_steps(n_iters or 0)
         self._device = next((l.device for l in leaves if l.dim() > 0), leaves[0].device if leaves else None)
         self._out_layouts = None  # the warm step's output layouts (state that mesh routes place)
-        self._structs = None  # hoisted: the constant structures, n space
-        self._run_structs = None  # hoisted: the structures the body sees (edge space in edge layout)
+        self._structs = None  # hoisted: the constant structures
         self._values0 = None
-        self._edge = None  # (ctx, plan) in edge layout
         self._graphs = {}
         self._pool = None
         self._static = None
@@ -371,10 +370,9 @@ class CompiledLoop:
     def _step(self, leaves, structs=None):
         """One body step inside a scope: the next state leaves."""
         specs = self._specs
-        structs = self._run_structs if structs is None and self._hoisted else structs
+        structs = self._structs if structs is None and self._hoisted else structs
         st = _rebuild_state(specs, list(leaves), structs=structs)
-        with self._layout_ctx():
-            out = _check_body_out(self._body(*st), specs, "loop body")
+        out = _check_body_out(self._body(*st), specs, "loop body")
         if self._out_layouts is None:
             self._out_layouts = [[_leaf_layout(leaf) for leaf in _flatten_one(o)[0]] for o in out]
         if structs is not None:
@@ -392,27 +390,22 @@ class CompiledLoop:
         from .base import BaseExpression
         from .scalar import Scalar
 
-        structs = self._run_structs if structs is None and self._hoisted else structs
+        structs = self._structs if structs is None and self._hoisted else structs
         st = _rebuild_state(self._specs, list(leaves), structs=structs)
-        with self._layout_ctx():
-            c = self._cond(*st)
-            if isinstance(c, BaseExpression):
-                c = c.new()
+        c = self._cond(*st)
+        if isinstance(c, BaseExpression):
+            c = c.new()
         if isinstance(c, Scalar):
             c = c._device_value(device=self._device)
         if not isinstance(c, torch.Tensor):
             return _cap.fill(bool(c), torch.bool, self._device)
         return c.to(torch.bool).reshape(())
 
-    def _layout_ctx(self):
-        return self._edge[0] if self._edge is not None else contextlib.nullcontext()
-
-    def _warm(self, leaves, structs, probe=None):
+    def _warm(self, leaves, structs):
         """The warm step: one body step (and the condition) on copies of the
         initial state, eagerly.  Returns its scope (uploads, host reads)."""
         with _cap.Scope("warm", held=self._held) as scope:
-            with probe or contextlib.nullcontext():
-                out = self._step(_fresh(leaves), structs)
+            out = self._step(_fresh(leaves), structs)
             if self._kind == "while":
                 self._cond_value(out, structs)
         return scope
@@ -449,8 +442,6 @@ class CompiledLoop:
         return moved
 
     def _build_once(self):
-        from . import looplayout as _ll
-
         if self._nested:
             # inside another compiled function: the steps run (and are
             # captured) within the enclosing scope, structure carried
@@ -461,20 +452,14 @@ class CompiledLoop:
         # -- attempt 1: values-only state; structures constants of the loop ---
         values0, structs0 = _split_values_structs(_rebuild_state(self._specs, self._leaves0))
         consts = [None if s is None else _with_host(s) for s in structs0]
-        probe = _ll._ProbeScope() if self._edge_layout_enabled() else None
         try:
-            scope = self._warm(values0, consts, probe)
+            scope = self._warm(values0, consts)
         except _StructureDiverged:
             scope = None
         if scope is not None:
             self.mode = "hoisted"
             self._structs = consts
-            self._run_structs = consts
             self._values0 = values0
-            if probe is not None:
-                edge_scope = self._try_edge_layout(probe, values0, consts)
-                if edge_scope is not None:
-                    scope = edge_scope
             self._decide_capture(scope)
             return
         # -- attempt 2: the structures ride the state -------------------------
@@ -485,102 +470,6 @@ class CompiledLoop:
         reason = _mesh_devices_reason(self._leaves0) or scope.eager_reason
         self.capture = "eager" if reason else "graph"
         self.capture_reason = reason
-
-    # -- edge-layout upgrade (core/looplayout.py) -------------------------------
-
-    def _edge_layout_enabled(self):
-        """Whether the build tries the edge layout.  ``GRAPHBLAS_TPU_DSL_EDGE_LAYOUT``
-        set to 1 asks for it and any other value keeps the n space.  Unset,
-        state on the CPU takes it (the reference's default, which the CPU
-        tests hold to the reference) and state on the card keeps the n space:
-        there every state operation of the edge layout touches e_pad entries
-        where the n space touches n, and the card ran a PageRank step 2.6-2.8x
-        slower in the edge layout (PERF.md, "compiled loops")."""
-        flag = os.environ.get("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT")
-        if flag is None and self._device is not None and self._device.type == "cuda":
-            return False
-        if flag not in (None, "1"):
-            return False
-        from ..parallel import current_context
-
-        if current_context() is not None:
-            return False  # the mesh routes run in the n space
-        from .sparse import _mxv_strategy
-
-        # the "generic" strategy keeps exercising the generic lowering; the
-        # edge layout is a plan-engine feature
-        return _mxv_strategy() != "generic"
-
-    def _try_edge_layout(self, probe, values0, consts):
-        """Warm the body again with its state in the EDGE layout (values at
-        the state slots of a total plan): every SpMV runs the loop route.  On
-        success the loop keeps this lowering and the warm step's scope is
-        returned; anything the layout cannot express keeps the n-space one
-        (the same kernels and results)."""
-        from . import looplayout as _ll
-        from .vector import Vector
-
-        elig = probe.eligible()
-        if elig is None:
-            return None
-        sp, pull = elig
-        for spec in self._specs:
-            if spec.kind != "scalar" and spec.cls is not Vector:
-                return None
-        try:
-            plan = sp.plan("pull" if pull else "push", self._device, loop=True)
-            ctx = _ll.EdgeLayoutCtx(sp, plan, pull)
-        except _ll.LayoutUnsupported:
-            return None
-        # all dense state must be n-sized (the virtual vertex space)
-        for spec, s in zip(self._specs, consts):
-            if spec.kind != "scalar" and tuple(s.shape) != (ctx.n,):
-                return None
-        edge_structs = []
-        for spec, s in zip(self._specs, consts):
-            if spec.kind == "scalar":
-                edge_structs.append(None)
-                continue
-            es = ctx.lift_struct_np(_cap.host_of(s))
-            edge_structs.append(_cap.with_host(torch.from_numpy(es).to(self._device), es))
-        saved = (self._edge, self._run_structs)
-        self._edge = (ctx, plan)
-        self._run_structs = edge_structs
-        edge_values0 = self._edge_lift_values(values0)
-        try:
-            scope = self._warm(edge_values0, edge_structs)
-        except (_ll.LayoutUnsupported, _StructureDiverged, _exc.DimensionMismatch):
-            # anything the layout cannot express (an index-dependent op, a
-            # second matrix, a shape mismatch, structure divergence): keep
-            # the n-space build
-            self._edge, self._run_structs = saved
-            return None
-        self.layout = "edge"
-        self._values0 = edge_values0
-        return scope
-
-    def _edge_lift_values(self, values):
-        """n -> edge conversion of state values on the device (each vertex's
-        value at its state slot, zero elsewhere)."""
-        ctx, _ = self._edge
-        out = []
-        for spec, v in zip(self._specs, values):
-            if spec.kind == "scalar":
-                out.append(v)
-                continue
-            ev = torch.zeros(ctx.e_pad, dtype=v.dtype, device=v.device)
-            ev[ctx.slots(v.device)] = v
-            out.append(ev)
-        return out
-
-    def _edge_lower(self, values):
-        """edge -> n conversion of final state values (the collect route)."""
-        from . import looplayout as _ll
-
-        _, plan = self._edge
-        return [
-            v if spec.kind == "scalar" else _ll.state_to_n_total(plan, v) for spec, v in zip(self._specs, values)
-        ]
 
     # -- execute ----------------------------------------------------------------
 
@@ -611,8 +500,6 @@ class CompiledLoop:
                         "compiled loop was specialized to a fixed structure; "
                         "input structure differs - rebuild with loop_runner"
                     )
-        if self.layout == "edge":
-            values = self._edge_lift_values(values)
         return [_like(v, _leaf_layout(v0)) for v, v0 in zip(values, self._values0)]
 
     @_telemetry.timed("compiler.run")
@@ -651,8 +538,6 @@ class CompiledLoop:
             # results are new tensor objects: no scope marks reach the caller
             out = _rebuild_state(specs, [l.detach() for l in final])
         else:
-            if self.layout == "edge":
-                final = self._edge_lower(final)
             out_leaves, pos = [], 0
             for i, sp in enumerate(specs):
                 out_leaves.append(final[pos].detach())

@@ -92,18 +92,6 @@ class IndexerResolver:
                 if len(keys) != 1:
                     raise TypeError(f"Index for {type(parent).__name__} cannot be a {len(keys)}-tuple")
                 keys = keys[0]
-            # edge-layout loop body: positions are slot ids, not vertex ids;
-            # only the full slice is layout-agnostic (core/looplayout.py)
-            from . import looplayout as _ll
-
-            _lctx = _ll.active()
-            if (
-                _lctx is not None
-                and parent.shape[0] == _lctx.e_pad
-                and not (isinstance(keys, slice) and keys == slice(None))
-                and keys is not Ellipsis
-            ):
-                raise _ll.LayoutUnsupported("indexed extract/assign in an edge-layout loop")
             self.indices = (_parse_one(keys, parent.shape[0], "size"),)
         else:
             if not isinstance(keys, tuple):

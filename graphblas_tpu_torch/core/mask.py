@@ -45,10 +45,7 @@ class Mask:
         """Resolve to a dense bool tensor on the parent's device."""
         from ..ops import densemasked as _dm
 
-        bits = _dm.mask_to_bits(self.parent._values, self.parent._struct, self.complement, self.structure)
-        if self.complement:
-            bits = _edge_guard(bits)
-        return bits
+        return _dm.mask_to_bits(self.parent._values, self.parent._struct, self.complement, self.structure)
 
     def new(self, dtype=None, *, complement=False, mask=None, name=None, **opts):
         """Materialize the mask pattern as a collection of True values."""
@@ -56,7 +53,7 @@ class Mask:
 
         bits = self._bits()
         if complement:
-            bits = _edge_guard(~bits)
+            bits = ~bits
         if mask is not None:
             if not isinstance(mask, Mask):
                 raise TypeError("Mask must be a Mask object")
@@ -88,17 +85,6 @@ class Mask:
 
     __rand__ = __and__
     __ror__ = __or__
-
-
-def _edge_guard(bits):
-    """In an edge-layout loop body a complemented mask's universe is the
-    state slots, never the other slots (core/looplayout.py)."""
-    from . import looplayout as _ll
-
-    ctx = _ll.active()
-    if ctx is not None and bits.dim() == 1 and bits.shape[0] == ctx.e_pad:
-        return ctx.guard_universe(bits)
-    return bits
 
 
 class StructuralMask(Mask):

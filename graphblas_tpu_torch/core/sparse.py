@@ -229,10 +229,10 @@ class SparseMatrixData:
         (``plan_background``) is waited for, not repeated.
 
         ``loop=True`` asks for the loop-capable plan (total, with the loop
-        route): compiled DSL loops need it for the edge layout
-        (``core/looplayout.py``).  It serves every n-space dispatch the same
-        way, so it replaces the plain plan in the cache; a CUDA graph
-        captured on the plain plan keeps its tensors (``core/capture.py``).
+        route), which ``tools/build_plan.py`` and older plan-cache files
+        hold.  It serves every dispatch the same way, so it replaces the
+        plain plan in the cache; a CUDA graph captured on the plain plan
+        keeps its tensors (``core/capture.py``).
         A build is the span ``sparse.plan_build`` (counted in
         ``sparse.plan_builds``)."""
         key = (direction, str(torch.device(device)))
@@ -590,30 +590,12 @@ def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype, *, x_type=None):
     pos = mul.positional
     strategy = _mxv_strategy()
 
-    from . import looplayout as _ll
-
-    probe = _ll.probing()
-    if probe is not None:
-        # compiled-loop warm step: record the dispatch so the compiler can
-        # decide edge-layout eligibility (core/looplayout.py)
-        probe.record(sp, pull, a_first, sr)
-    lctx = _ll.active()
-    if lctx is not None and xv.dim() == 1 and xv.shape[0] == lctx.e_pad:
-        # edge-layout body: the input is loop state in the edge space, one
-        # G launch fewer per SpMV through the loop route
-        return _ll.edge_mxv(lctx, sp, pull, a_first, xv, xs, sr, out_dtype)
-
     plan_mul = _plan_mul_name(mul, a_first, pos)
     channel = None
     if _plan_allowed(sp, strategy, xv):
         channel = _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv, x_type)
-    if channel is not None:
-        direction = "pull" if pull else "push"
-        eager = _cap.active() is None and probe is None and lctx is None
-        setting = os.environ.get("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1")
-        if _serve_generic_while_building(strategy, eager, setting, lambda: sp.plan_ready(direction, xv.device)):
-            sp.plan_background(direction, xv.device)
-            channel = None
+    if channel is not None and _building_in_background(sp, strategy, "pull" if pull else "push", xv.device):
+        channel = None
     if channel is not None:
         yv, ys = _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type)
         if yv.shape[0] != n_out:
@@ -710,12 +692,8 @@ def _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type):
         and _plan_allowed(sp, strategy, bv)
         and not (ctx is not None and ctx.mesh.size > 1)
     )
-    if use_plan:
-        eager = _cap.active() is None
-        setting = os.environ.get("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1")
-        if _serve_generic_while_building(strategy, eager, setting, lambda: sp.plan_ready(direction, bv.device)):
-            sp.plan_background(direction, bv.device)
-            use_plan = False
+    if use_plan and _building_in_background(sp, strategy, direction, bv.device):
+        use_plan = False
     if not use_plan:
         cols = [sparse_mxv(sp, pull, a_first, bv[:, j], bs[:, j], sr, out_dtype, x_type=x_type) for j in range(bv.shape[1])]
         if not cols:
@@ -865,17 +843,28 @@ def _serve_generic_while_building(strategy, eager, setting, ready):
     """Whether a dispatch the plan engine would take starts the plan's
     background build and runs on the generic path meanwhile: under "auto"
     (strategy "plan" always blocks), for an eager dispatch (a compiled
-    loop's scope or layout probe bakes the path it records into the loop,
-    so it blocks), unless GRAPHBLAS_TPU_PLAN_BACKGROUND (``setting``) is "0",
-    and while the plan is not ready (``ready()``, asked last: it may take in
-    a finished build, which moves the plan to the device)."""
+    loop's scope bakes the path it records into the loop, so it blocks),
+    unless GRAPHBLAS_TPU_PLAN_BACKGROUND (``setting``) is "0", and while the
+    plan is not ready (``ready()``, asked last: it may take in a finished
+    build, which moves the plan to the device)."""
     return strategy == "auto" and eager and setting != "0" and not ready()
+
+
+def _building_in_background(sp, strategy, direction, device):
+    """For a dispatch the plan engine would take: True when it runs on the
+    generic path while the plan of ``direction`` builds in the background
+    (``_serve_generic_while_building``), the build then started."""
+    setting = os.environ.get("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1")
+    eager = _cap.active() is None
+    if not _serve_generic_while_building(strategy, eager, setting, lambda: sp.plan_ready(direction, device)):
+        return False
+    sp.plan_background(direction, device)
+    return True
 
 
 def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_type):
     out_np = np.dtype(out_dtype.np_type)
     dev = xv.device
-    from . import looplayout as _ll
     from .collection_ops import _mesh_context
 
     # an engaged mesh Context of more than one shard: the float32 channel
@@ -886,10 +875,7 @@ def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_dtype, channel, x_t
     if sharded:
         n = max(sp.nrows, sp.ncols)
     else:
-        # in a compiled loop's warm step, build the loop-capable (total) plan
-        # once: it serves this n-space dispatch the same way AND the edge layout
-        loop_variant = _ll.probing() is not None or _ll.active() is not None
-        plan = sp.plan("pull" if pull else "push", dev, loop=loop_variant)
+        plan = sp.plan("pull" if pull else "push", dev)
         n = plan.n
     ch = _dt.INT32 if channel == np.int32 else _dt.FP32
     # narrow integer outputs: contributions wrap to the output width in

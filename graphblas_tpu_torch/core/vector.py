@@ -122,13 +122,6 @@ class Vector(InfixMixin, BaseType):
         self._sparse = None
         self.name = name
         udt = self._dtype._is_udt
-        from . import looplayout as _ll
-
-        _llctx = _ll.active()
-        if _llctx is not None and size == _llctx.n and not udt:
-            # edge-layout loop body: empty n-sized vectors made inside the
-            # body live in the edge layout (core/looplayout.py)
-            size = _llctx.e_pad
         if size > _sparse_limit() and not udt:
             self._sparse, self._sp_dev = _empty_sparse(size, self._dtype), dev
             return
@@ -337,15 +330,6 @@ class Vector(InfixMixin, BaseType):
         dtype = _dt.lookup_dtype(dtype) if dtype is not None else sc.dtype
         size = ensure_int(size, "size")
         dev = collection_device()
-        from . import looplayout as _ll
-
-        ctx = _ll.active()
-        if ctx is not None and size == ctx.n and not dtype._is_udt:
-            # edge-layout loop body: an n-sized iso vector made inside the body
-            # is built in the edge layout, present exactly at the state slots
-            return cls._from_arrays(
-                sc._device_value(dtype, dev).expand(ctx.e_pad).clone(), ctx.universe(dev), dtype, name=name
-            )
         return cls._from_arrays(
             _dm.tmap(lambda a: a.expand(size).clone(), sc._device_value(dtype, dev)), _dm.s_ones((size,), dev), dtype, name=name
         )

@@ -171,23 +171,6 @@ def s_where(c, a, b):
             if ab is not None and np.array_equal(ab, bb):
                 shape = np.broadcast_shapes(tuple(c.shape), ab.shape)
                 return _hosted(torch.where(c, a, b), np.broadcast_to(ab, shape).copy())
-            # edge-layout invariant (core/looplayout.py): in the context every
-            # traced mask is a subset of the state slots U (is_last); when both
-            # branches hold all of U and the false branch nothing outside it,
-            # where(c, a, b) == U for any c within U
-            if ab is not None:
-                from ..core import looplayout as _ll
-
-                ctx = _ll.active()
-                if ctx is not None and tuple(c.shape) == (ctx.e_pad,):
-                    U = ctx.is_last
-                    try:
-                        aU = np.broadcast_to(an, (ctx.e_pad,))
-                        bU = np.broadcast_to(bn, (ctx.e_pad,))
-                    except ValueError:
-                        aU = None
-                    if aU is not None and aU[U].all() and bU[U].all() and not bU[~U].any():
-                        return ctx.universe(c.device)
     return torch.where(c, a, b)
 
 

@@ -233,8 +233,16 @@ def reference_values(ref_tool):
     ],
 )
 def test_counts_and_modes_equal_the_reference_packages(runs, reference_values, key):
+    """A ``mode/layout`` key: the mode equals the reference's, and the layout
+    is the port's one lowering, "n" (the reference's "edge" is a TPU
+    lowering the port leaves out)."""
+    want = reference_values[key]
     for r in runs[:2]:
-        assert r["detail"][key] == reference_values[key]
+        got = r["detail"][key]
+        if isinstance(want, str) and "/" in want:
+            assert got.split("/") == [want.split("/")[0], "n"], (got, want)
+        else:
+            assert got == want
 
 
 def test_the_full_spgemm_mask_is_the_reference_benchs():

@@ -8,11 +8,12 @@ the port to the reference: results bit for bit for integer, bool, min and
 max (BFS levels, SSSP distances: a min over float32 path sums, CC labels);
 float plus within 1e-6 relative; PageRank within 1e-5 (float32 sums, and
 the plan channel's scan adds in another order than the reference's
-segment sum).  ``mode``, ``layout`` and ``last_iters`` equal the
-reference's.  The port runs on the CPU, where a compiled loop runs its steps
-eagerly; ``capture`` reports the decision the card takes ("graph" unless
-the body uploads host data or reads the card).  Host reads inside a body
-raise ``TracerError``.
+segment sum).  ``mode`` and ``last_iters`` equal the reference's; the
+port's ``layout`` is always "n" (the reference's edge layout is a TPU
+lowering the port leaves out).  The port runs on the CPU, where a compiled
+loop runs its steps eagerly; ``capture`` reports the decision the card
+takes ("graph" unless the body uploads host data or reads the card).
+Host reads inside a body raise ``TracerError``.
 
 The CUDA tests (``-m cuda``; they skip here) hold the captured CUDA graphs
 against the same runners run eagerly on the card, across two replays:
@@ -318,7 +319,7 @@ def test_dsl_pagerank_matches_model(R, sparse):
         return dense(r()), r.mode, r.layout
 
     p, r = both(R, run)
-    assert p[1:] == r[1:] and p[1] == "hoisted"  # rank vector is structurally stable
+    assert p[1] == r[1] == "hoisted" and p[2] == "n"  # rank vector is structurally stable
     # float32 sums over 25 rounds, added in another order than XLA's
     np.testing.assert_allclose(p[0], r[0], rtol=1e-5, atol=1e-7)
     # and the port's own hand-written model
@@ -844,10 +845,6 @@ def _card_graph(n=2000, e=20000, seed=1):
     return src, dst, w, n
 
 
-# the recipes the reference lowers to the edge layout (tests/test_looplayout.py)
-EDGE_RECIPES = ("pagerank", "bfs_level_dense", "sssp")
-
-
 def _recipes(dsl, AT, ATw):
     return {
         "pagerank": (dsl.pagerank_runner(AT, max_iters=10), lambda out: out),
@@ -863,16 +860,13 @@ def _host(v, fill):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("strategy,edge", [("plan", None), ("plan", "1"), ("generic", None)])
-def test_cuda_recipes_graph_equals_eager(card, strategy, edge, monkeypatch):
+@pytest.mark.parametrize("strategy", ["plan", "generic"])
+def test_cuda_recipes_graph_equals_eager(card, strategy):
     """Each recipe's graph against the same runner run eagerly on the card,
-    across two replays: in the card's default lowering (the n space) and,
-    with GRAPHBLAS_TPU_DSL_EDGE_LAYOUT=1, in the edge layout."""
+    across two replays, in the n space."""
     from graphblas_tpu_torch import kernels
     from graphblas_tpu_torch.models import dsl
 
-    if edge is not None:
-        monkeypatch.setenv("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT", edge)
     src, dst, w, n = _card_graph()
     bad = []
     with P.tx.config.set(platform="cuda", mxv_strategy=strategy):
@@ -880,7 +874,7 @@ def test_cuda_recipes_graph_equals_eager(card, strategy, edge, monkeypatch):
             AT = P.Matrix.from_coo(dst, src, np.float32(1.0), P.dtypes.FP32, nrows=n, ncols=n, dup_op=P.binary.plus)
             ATw = P.Matrix.from_coo(dst, src, w, P.dtypes.FP32, nrows=n, ncols=n, dup_op=P.binary.min)
         for name, (runner, pick) in _recipes(dsl, AT, ATw).items():
-            if runner.layout != ("edge" if edge and name in EDGE_RECIPES else "n"):
+            if runner.layout != "n":
                 bad.append((name, "layout", runner.layout))
             if runner.capture != "graph":
                 bad.append((name, "capture", runner.capture, runner.capture_reason))
@@ -902,11 +896,8 @@ def test_cuda_recipes_graph_equals_eager(card, strategy, edge, monkeypatch):
             if not np.array_equal(second, first) and not (name == "pagerank" and np.allclose(second, first, rtol=1e-6, atol=0)):
                 bad.append((name, "second replay != first"))
             # any_pair counts with the generic scan; the contrib scan is fused
-            # with x's gather in the n space and runs alone in the edge layout
-            if name == "bfs_level":
-                scan = "segscan"
-            else:
-                scan = "segscan_contrib" if runner.layout == "edge" else "segscan_contrib_gather"
+            # with x's gather
+            scan = "segscan" if name == "bfs_level" else "segscan_contrib_gather"
             if strategy == "plan" and not counts.get(scan, 0):
                 bad.append((name, "launches", counts))
     assert not bad, bad
@@ -942,9 +933,7 @@ def test_cuda_compile_replays_and_returns_clones(card):
 
 @pytest.mark.cuda
 def test_cuda_graphs_keep_their_inputs_alive(card):
-    """A graph captured on the matrix's plain plan replays right after a
-    loop runner on the same matrix replaced that plan in its cache (the
-    blocks of the old plan would otherwise go to the new one), and a
+    """A graph replays right after a loop runner on the same matrix, and a
     closed-over operand updated after the capture leaves the graph reading
     the value it was captured with, as the reference's trace bakes it."""
     from graphblas_tpu_torch.models import dsl
@@ -965,15 +954,7 @@ def test_cuda_graphs_keep_their_inputs_alive(card):
         with P.tx.config.set(platform="cuda"):
             eager = _host(AT.mxv(x, P.semiring.plus_times).new(P.dtypes.FP32).ewise_mult(k, P.binary.times).new(), 0.0)
         np.testing.assert_allclose(first, eager, rtol=1e-6, atol=0)
-        import os
-
-        os.environ["GRAPHBLAS_TPU_DSL_EDGE_LAYOUT"] = "1"  # the loop plan replaces the plain one
-        try:
-            pr = dsl.pagerank_runner(AT, max_iters=5)
-        finally:
-            os.environ.pop("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT")
-        assert pr.layout == "edge"
-        pr()
+        dsl.pagerank_runner(AT, max_iters=5)()
         again = _host(step(AT, x), 0.0)
         np.testing.assert_allclose(again, eager, rtol=1e-6, atol=0)
         k << k.apply(P.binary.times, right=3.0)  # the operand moves on; the graph keeps its capture

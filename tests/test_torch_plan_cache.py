@@ -28,7 +28,6 @@ import torch
 
 import graphblas_tpu_torch as P
 from graphblas_tpu_torch.core import dtypes as pdt
-from graphblas_tpu_torch.core import looplayout as pll
 from graphblas_tpu_torch.core import sparse as ps
 from graphblas_tpu_torch.ops import fastspmv as pfs
 
@@ -357,10 +356,10 @@ def test_auto_dispatch_serves_generic_while_the_plan_builds(auto_takes_cpu_plans
         assert torch.equal(y1.view(torch.int32), y0.view(torch.int32))
 
 
-@pytest.mark.parametrize("case", ["plan strategy", "setting 0", "probe", "capture"])
+@pytest.mark.parametrize("case", ["plan strategy", "setting 0", "capture"])
 def test_a_dispatch_that_is_not_eager_auto_blocks(auto_takes_cpu_plans, monkeypatch, builds, case):
-    """Strategy "plan", GRAPHBLAS_TPU_PLAN_BACKGROUND=0, a compiled loop's
-    layout probe or capture scope: the dispatch builds the plan and takes it."""
+    """Strategy "plan", GRAPHBLAS_TPU_PLAN_BACKGROUND=0 or a compiled loop's
+    capture scope: the dispatch builds the plan and takes it."""
     from graphblas_tpu_torch.core import capture as pcap
 
     sr = P.semiring.plus_times["FP32"]
@@ -369,7 +368,7 @@ def test_a_dispatch_that_is_not_eager_auto_blocks(auto_takes_cpu_plans, monkeypa
     strategy = "plan" if case == "plan strategy" else "auto"
     if case == "setting 0":
         monkeypatch.setenv("GRAPHBLAS_TPU_PLAN_BACKGROUND", "0")
-    scope = {"probe": pll._ProbeScope, "capture": lambda: pcap.Scope("warm")}.get(case)
+    scope = {"capture": lambda: pcap.Scope("warm")}.get(case)
     with P.tx.config.set(mxv_strategy=strategy):
         if scope is None:
             _, on_plan = plan_path_calls(lambda: _dispatch(a, x, xs, sr))

@@ -75,6 +75,12 @@ EXPECTED_FAILURES = {
     "test_int_channels.py": _entries(
         "hands jax arrays to the engine", "test_int_channels.py", "test_int64_plus_times_pagerank_style"
     ),
+    "test_looplayout.py": _entries(
+        "asserts the edge layout, a TPU lowering the port leaves out by design (ROADMAP §1)", "test_looplayout.py",
+        "test_pagerank_edge_layout_matches_n_space", "test_sssp_edge_layout_bit_identical",
+        "test_bfs_dense_edge_layout_bit_identical", "test_edge_layout_runner_with_new_state",
+        "test_edge_layout_total_plan_indeg0_values_preserved",
+    ),
     "test_matrix_full.py": _entries(
         _CUDA_DEFAULT, "test_matrix_full.py", "test_reduce_string_default_without_monoid_import"
     ),

@@ -264,7 +264,6 @@ def library(monkeypatch):
     through the plan engine's plain versions."""
     monkeypatch.delenv("GRAPHBLAS_TPU_PLAN_CACHE", raising=False)
     monkeypatch.setenv("GRAPHBLAS_TPU_PLAN_BACKGROUND", "0")
-    monkeypatch.setenv("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT", "0")
     with gb.tx.config.set(platform="cpu", dense_limit=4096, mxv_strategy="plan"):
         yield
 

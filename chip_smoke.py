@@ -200,6 +200,8 @@ KERNELS = {
     "imatmul": ("graphblas_tpu_torch/csrc/imatmul.cu", "graphblas_tpu/ops/densemasked.py:565"),
     # no Pallas kernel: the sparse x dense (n x k) product, which the JAX package densifies
     "segscan_spmm": ("graphblas_tpu_torch/csrc/spmm.cu", "graphblas_tpu/ops/densemasked.py:703"),
+    # and the list of the rows a statement's mask lets it write, which the product then streams alone
+    "segscan_spmm_keep": ("graphblas_tpu_torch/csrc/spmm.cu", "graphblas_tpu/ops/densemasked.py:703"),
 }
 # the paths whose runs count a kernel's launches
 PATH_OF = {
@@ -214,6 +216,7 @@ PATH_OF = {
     "compare_probe": ("roofline",),
     "imatmul": ("dsl", "mesh"),
     "segscan_spmm": ("sparse_dsl",),
+    "segscan_spmm_keep": ("sparse_dsl",),
 }
 # the least time of a kernel's work (H100 SXM data sheet): bytes over the
 # memory rate, operations over the rate of their kind
@@ -329,6 +332,7 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
     import numpy as np
 
     from graphblas_tpu_torch.core import telemetry
+    from graphblas_tpu_torch.kernels import _build
     from graphblas_tpu_torch.kernels import eqjoin as ke
     from graphblas_tpu_torch.kernels import gather as kg
     from graphblas_tpu_torch.kernels import imatmul as ki
@@ -513,6 +517,42 @@ def check_kernels(torch, e_pad, dev, tc_plan, rm_plan, mt, dsl_n, roofline):
             )
             tiles = -(-ep // ks.spmm_tile(kc, dt))
             require(share == (tiles - (ep % ks.spmm_tile(kc, dt) != 0)) / tiles, f"segscan_spmm: staged share {share}")
+    # the row-selected product at the same size, FP64, k 4, 60% of x present:
+    # masks of one cell a row whose rows hold all (the whole plan streamed),
+    # 17% and 0.1% of the slots, against the plain version and the unmasked
+    # launch; then the mask's list (segscan_spmm_keep) against its plain version
+    xm = (rand(nx, kc) * 9 + 1).to(torch.float64)
+    sel_ = ks.SpmmRows.of(fs_, rows_, vs_, nx)
+    tile_ = ks.spmm_tile(kc, torch.float64)
+    lib_ = _build.library()
+    unmasked_ms = cuda_ms(torch, lambda: ks.segscan_spmm(xm, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first", base_), 10)
+    for share in (1.0, 0.17, 0.001):
+        keep_ = torch.zeros((nx, kc), dtype=torch.bool, device=dev)
+        keep_[rand(nx) < share, 0] = True
+        lists_ = ks.spmm_keep_plain(keep_, sel_, tile_)
+        label = f"the mask's rows holding {lists_['kept_slots'] / ep:.2%} of the slots"
+        record(
+            "segscan_spmm", f"float64 plus/first, k {kc}, 2^26 slots, x of 2^21 rows, 60% present, {label}",
+            lambda: ks.segscan_spmm(xm, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first", base_, keep=keep_, rows=sel_),
+            lambda: ks.segscan_spmm_plain(xm, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first", keep=keep_),
+            (xs_, idx, vs_, fs_), 0, rtol=1e-12, reps=10,
+        )
+        masked_ms = cuda_ms(
+            torch, lambda: ks.segscan_spmm(xm, xs_, idx, None, vs_, fs_, rows_, nx, "add", "first", base_, keep=keep_, rows=sel_), 10
+        )
+        say("3 kernels", f"segscan_spmm masked / unmasked ({label}): {masked_ms:.4f} / {unmasked_ms:.4f} ms = {masked_ms / unmasked_ms:.3f}")
+        sizes = {"kept_row": lists_["n_kept"], "kept_start": lists_["n_kept"], "kept_cum": lists_["n_kept"] + 1,
+                 "masked_rows": nx, "tile_info": lists_["tile_info"].numel()}
+
+        def keep_kernel():
+            ks._launch_keep(lib_, keep_, sel_, tile_, torch.cuda.current_stream().cuda_stream)
+            return tuple(sel_.scratch[name][:size] for name, size in sizes.items())
+
+        record(
+            "segscan_spmm_keep", f"2^21 segments, k {kc}, {label}", keep_kernel,
+            lambda: tuple(lists_[name] for name in sizes), (keep_, rows_, sel_.row_first), 0, reps=10,
+        )
+    del xm, sel_, keep_, lists_
     ends_ = torch.cat([fs_[1:], torch.ones(1, dtype=torch.bool, device=dev)]).nonzero().flatten().int()
     cols_ = [xk[:, j].contiguous() for j in range(kc)]
     vcol_ = [vs_ & xs_[:, j][idx.long()] for j in range(kc)]

@@ -275,8 +275,24 @@ class BaseType:
             self._adopt_sparse(_retyped(result._sparse, self.dtype))
             return
 
-        with _engine_opts_ctx(opts):
-            zv, zs = expr._compute()
+        # a product that can skip the rows its mask cannot write (the sparse x
+        # dense k-column product) takes the mask's bits with its compute; the
+        # merge below reads the same bits, so the rows it left absent are
+        # never written
+        mask_bits = None
+        masked_compute = getattr(expr, "_masked_compute", None)
+        if (
+            masked_compute is not None
+            and mask is not None
+            and mask.parent.shape == self.shape
+            and layout_of(mask.parent) is None
+        ):
+            mask_bits = mask._bits()
+            with _engine_opts_ctx(opts):
+                zv, zs = masked_compute(mask_bits)
+        else:
+            with _engine_opts_ctx(opts):
+                zv, zs = expr._compute()
         if mask is not None and mask.parent.shape != self.shape:
             raise _exc.DimensionMismatch("mask shape does not match output shape")
         # placed operands: the merge runs block by block in the layout of C,
@@ -294,7 +310,8 @@ class BaseType:
             self._set_arrays(*_merge_blocks(self, mask, accum, replace, zv, zs, expr.dtype, lay, reads_c))
             _maybe_block(self)
             return
-        mask_bits = mask._bits() if mask is not None else None
+        if mask_bits is None and mask is not None:
+            mask_bits = mask._bits()
         # a placed C that the merge does not read is not gathered
         cv, cs = (zv, zs) if not reads_c and layout_of(self) is not None else (self._values, self._struct)
         cv, cs = _dm.masked_merge(

@@ -785,17 +785,21 @@ def _sparse_mxm_expr(a, b, sr, method_name, out_cls, shape):
         and shape[0] * shape[1] <= _dense_limit()
     ):
         # GrB_mxm of a sparse A and a dense n x k B: the SpMV engine's
-        # k-column product, A never densified
-        def sparse_mm():
+        # k-column product, A never densified; C(M) << A.mxm(B) hands _update
+        # the mask's bits (``_masked_compute``), and the product computes
+        # only the rows they reach
+        def sparse_mm(keep=None):
             from .sparse import sparse_mxm_dense
 
             bv, bs = _arrays_of(b)
-            return sparse_mxm_dense(a_sp, not a_t, True, bv, bs, sr, sr.return_type, x_type=b.dtype)
+            return sparse_mxm_dense(a_sp, not a_t, True, bv, bs, sr, sr.return_type, x_type=b.dtype, keep=keep)
 
-        return BaseExpression(
+        expr = BaseExpression(
             method_name, out_cls, sparse_mm, op=sr, dtype=sr.return_type, shape=shape, args=(a, b),
             opname=f"{method_name}[{sr.name}]",
         )
+        expr._masked_compute = sparse_mm
+        return expr
 
     if not (_sp_nonudt(a_sp) and _sp_nonudt(b_sp) and not a_is_vec and not b_is_vec):
         return None

@@ -651,7 +651,7 @@ def _spmm_mul(sp, mul, a_first, pos, out_dtype, x_type):
 
 
 @_telemetry.timed("ops.sparse_mxm_dense")
-def sparse_mxm_dense(sp, pull, a_first, bv, bs, sr, out_dtype, *, x_type=None):
+def sparse_mxm_dense(sp, pull, a_first, bv, bs, sr, out_dtype, *, x_type=None, keep=None):
     """Semiring Y = A (.) X over one direction of a sparse matrix and a dense
     n x k X (``bv`` values, ``bs`` structure), on the device of ``bv``:
     ``sparse_mxv``'s product for k columns.  Returns dense (values,
@@ -661,9 +661,13 @@ def sparse_mxm_dense(sp, pull, a_first, bv, bs, sr, out_dtype, *, x_type=None):
     launch a block of up to 8 columns) serves float32 and float64 outputs
     over the semirings ``sparse_mxv``'s plan channel serves, where the
     strategy takes the plan; anything else runs ``sparse_mxv`` column by
-    column.  The counters ``ops.spmm_products``, ``ops.spmm_columns`` and
-    ``ops.spmm_launches`` (the hand-kernel launches inside the products)
-    count every call."""
+    column.  ``keep`` (bool, n_out x k: the cells the statement's mask lets
+    it write) selects the rows the plan engine computes, those where some
+    cell is set: the others read absent (the column-by-column product
+    computes every row).  The counters ``ops.spmm_products``,
+    ``ops.spmm_columns`` and ``ops.spmm_launches`` (the hand-kernel launches
+    inside the products) count every call, ``ops.spmm_masked_products`` the
+    products that took a mask into the plan engine."""
     from .. import kernels
 
     k = bv.shape[1]
@@ -671,12 +675,12 @@ def sparse_mxm_dense(sp, pull, a_first, bv, bs, sr, out_dtype, *, x_type=None):
     _telemetry.count("ops.spmm_columns", k)
     before = sum(kernels.launch_counts().values())
     x_type = _dt.lookup_dtype(bv.dtype) if x_type is None else x_type
-    out = _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type)
+    out = _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type, keep)
     _telemetry.count("ops.spmm_launches", sum(kernels.launch_counts().values()) - before)
     return out
 
 
-def _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type):
+def _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type, keep):
     mul, addm = sr.binaryop, sr.monoid
     add_name = addm.parent.name
     plan_mul = _spmm_mul(sp, mul, a_first, mul.positional, out_dtype, x_type)
@@ -715,8 +719,18 @@ def _spmm(sp, pull, a_first, bv, bs, sr, out_dtype, x_type):
         x_full = hx is not None and bool(hx.all())
     else:
         x_full = bool(bs.all())
+    if keep is not None:
+        _telemetry.count("ops.spmm_masked_products")
+        if keep.shape[0] != plan.n:
+            keep = torch.cat([keep, keep.new_zeros((plan.n - keep.shape[0], keep.shape[1]))])
     blocks = [slice(j, j + SPMM_MAX_COLUMNS) for j in range(0, x.shape[1], SPMM_MAX_COLUMNS)]
-    parts = [_fs.spmm_masked(plan, x[:, b], xs[:, b], add=add_name, mul=plan_mul, x_full=x_full) for b in blocks]
+    parts = [
+        _fs.spmm_masked(
+            plan, x[:, b], xs[:, b], add=add_name, mul=plan_mul, x_full=x_full,
+            keep=None if keep is None else keep[:, b].contiguous(),
+        )
+        for b in blocks
+    ]
     yv = parts[0][0] if len(parts) == 1 else torch.cat([p[0] for p in parts], 1)
     ys = parts[0][1] if len(parts) == 1 else torch.cat([p[1] for p in parts], 1)
     return yv[:n_out], ys[:n_out]

@@ -16,6 +16,11 @@
 - ``host_read(site)`` counts one read of a device value by the host into
   ``host_reads`` and ``host_reads.<site>`` and gives the span
   (``collections.read``) that times it.
+- ``device_counters(names, device)`` is a tensor of counts that kernels add
+  to on the card, where a count is known there alone (and a replayed graph
+  adds at every replay); ``snapshot()`` folds what it gained since the last
+  snapshot into the counters ``names`` (one read of the card, outside any
+  capture).
 - ``snapshot()`` returns ``{"spans": {name: {"count", "total_s", "self_s"}},
   "counters": {name: int}}``; ``reset(*prefixes)`` clears the spans and
   counters whose names start with one of ``prefixes`` (all of them when none
@@ -35,12 +40,14 @@ import functools
 import threading
 import time
 
+import torch
 import torch.autograd.profiler as _profiler
 
 _clock = time.perf_counter
 _SPANS = {}  # name -> [calls, total seconds, self seconds]
 _COUNTS = {}  # name -> int
 _BY_NAME = {}  # name -> its _Span
+_DEVICE = {}  # (names, device) -> [int64 tensor of counts, the values last folded]
 
 
 class _Thread(threading.local):
@@ -148,8 +155,33 @@ def counter(name):
     return _COUNTS.get(name, 0)
 
 
+def device_counters(names, device):
+    """The int64 tensor of counts, one a name, that kernels on ``device`` add
+    to; ``snapshot()`` folds what it gained into the counters ``names``.  Made
+    (zeros) at the first call for the names and device: make it before any
+    CUDA graph capture, which would record the zeroing."""
+    key = (tuple(names), str(torch.device(device)))
+    entry = _DEVICE.get(key)
+    if entry is None:
+        entry = _DEVICE.setdefault(key, [torch.zeros(len(names), dtype=torch.int64, device=device), [0] * len(names)])
+    return entry[0]
+
+
+def _fold():
+    """Add what each device tensor of counts gained since the last fold."""
+    if not _DEVICE or torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return
+    for (names, _), entry in list(_DEVICE.items()):
+        now = entry[0].tolist()
+        for name, v, last in zip(names, now, entry[1]):
+            if v != last:
+                count(name, v - last)
+        entry[1] = now
+
+
 def snapshot():
     """Every span that ran (calls, total and self seconds) and every counter."""
+    _fold()
     return {
         "spans": {k: {"count": c, "total_s": t, "self_s": s} for k, (c, t, s) in list(_SPANS.items()) if c},
         "counters": dict(_COUNTS),
@@ -165,3 +197,7 @@ def reset(*prefixes):
     for k in list(_COUNTS):
         if not prefixes or k.startswith(prefixes):
             del _COUNTS[k]
+    for (names, _), entry in _DEVICE.items():
+        if not prefixes or any(k.startswith(prefixes) for k in names):
+            entry[0].zero_()  # what the card counted before the reset, queued or not
+            entry[1] = [0] * len(names)

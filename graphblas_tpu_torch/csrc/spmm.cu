@@ -82,6 +82,31 @@
 // and Y's values and structure written once.  x's random rows are 32-byte
 // sectors from L2, or from memory where x outgrows L2 (n x 4 doubles at
 // 2^21 rows: 64 MB against 50 MB).
+//
+// The row-selected traversal.  A statement C(M) << A.mxm(X) can write only
+// the rows where its mask allows some column; the others' totals would be
+// discarded.  Given the mask, a first launch (spmm_keep, one pass over the
+// segments with decoupled look-back) keeps the segments whose row the mask
+// reaches, each trimmed of the slots from pad_from on (never valid), and
+// lists them in slot order: their rows, first slots and the running count
+// of their slots, the kept slot space.  It also enters, for every tile of
+// that space, the kept segment that holds its first slot and whether one
+// starts there (tile_info).  The product's blocks then take tiles of the
+// kept space.  A tile's run of list entries (the running counts and first
+// slots of its segments) arrives by cp.async a step ahead, into its stage's
+// idx and w arrays; each thread finds its slots' segments by binary search
+// in that run, loads idx, w and the valid byte of the plan slot behind each
+// (one round trip: runs of consecutive slots, so a warp's loads coalesce
+// within a segment), sets the flag where a segment starts, and the tile
+// goes on as any other: structure, values, scan, look-back, with the
+// segment rows read from the kept list.  Nothing kept: no tile, and Y
+// stays zero.  It reads the kept slots' stream once, their rows of x, the
+// list (12 B a kept segment) and writes the kept rows of Y; what bounds it
+// is a step's extra round trip, the loads behind the search.  Where the
+// kept slots reach kFullNum / kFullDen of the plan's, the whole plan is
+// streamed as without a mask, and the rows outside the kept ones are not
+// written (masked_rows reads -1 there): the per-slot loads would cost more
+// than the slots they skip.  Every row outside the kept ones reads absent.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -102,6 +127,8 @@ constexpr int kRowSpare = 8;     // words past a tile's segment rows: their run'
 constexpr int kSmemBudget = 112 * 1024;  // a block's dynamic shared memory, where the tile allows
 constexpr int kSmemPerSM = 228 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
+// the share of the plan's slots from which a masked product streams them all
+constexpr int64_t kFullNum = 3, kFullDen = 4;
 
 enum { kAdd = 0, kMin = 1, kMax = 2 };
 enum { kTimes = 0, kPlus = 1, kSecond = 2, kFirst = 3, kPair = 4 };
@@ -165,7 +192,17 @@ struct SpmmArgs {
   int k, mul, bulk_ok;
   int vcopy;               // bytes of one cp.async of a value row: 16, 8 or 4
   int scopy16;             // a row's structure by one 16-byte copy (KP >= 4, k 4 or 8, xs 16-byte aligned)
+  // the rows a mask selects, as spmm_keep lists them (hdr null: every row)
+  const int32_t* hdr;          // the kept segments and slots
+  const int32_t* kept_row;     // a kept segment's row, first slot and the kept slots before it
+  const int32_t* kept_start;
+  const int32_t* kept_cum;
+  const int32_t* tile_info;    // a kept tile's first segment, 2 o + 1 where it starts the tile, else 2 (o + 1)
+  const int32_t* masked_rows;  // seg_vertex with -1 at the segments not kept
 };
+
+// spmm_keep's header words
+enum { kHdrKept = 0, kHdrSlots = 1, kHdrTicket = 2, kHdrWords = 4 };
 
 template <int MUL, typename T>
 __device__ __forceinline__ T contrib(T x, float w) {
@@ -412,6 +449,7 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
   __shared__ int64_t s_hand_tile[2];  // the tile, or -1: no more
   __shared__ C s_pre[2][KP];  // and its exclusive prefix, handed back
   __shared__ unsigned s_prep[2];
+  __shared__ int32_t s_ti[kStages][2];  // kept: a tile's tile_info entry and the next tile's (-1: no tile)
 
   const int tid = threadIdx.x;
   const int col = tid % KP;
@@ -427,12 +465,41 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
   const uint64_t keep = evict_last_policy();  // x's structure stays in L2 while the value rows pass
   const uintptr_t cell_mask = a.scopy16 ? 15 : 3;  // a row's first byte in its cell
 
+  // The traversal: its slots and tiles and the segments' rows.  With a mask,
+  // the kept slot space (kept), or the whole plan with the rows outside the
+  // kept ones never written.  Thread 0 sets it before the block's first
+  // barrier; it lives in shared memory, read where it is used, so that no
+  // register holds it across a step.
+  __shared__ struct {
+    int64_t n, nt;
+    const int32_t* rows;
+    int kept;
+  } s_tr;
+  if (tid == 0) {
+    s_tr.n = a.n;
+    s_tr.nt = a.ntiles;
+    s_tr.rows = a.seg_vertex;
+    s_tr.kept = 0;
+    if (a.hdr != nullptr) {
+      const int64_t kept_slots = a.hdr[kHdrSlots];
+      if (kept_slots * kFullDen >= a.n * kFullNum) {
+        s_tr.rows = a.masked_rows;
+      } else {
+        s_tr.kept = 1;
+        s_tr.n = kept_slots;
+        s_tr.nt = (kept_slots + TS - 1) / TS;
+        s_tr.rows = a.kept_row;
+      }
+    }
+  }
+
   // Thread 0: tile t into stage stg.  Its stream by bulk copy where it can,
   // and by cp.async the flags before it and after it and the word holding
-  // the flag after it (the caller commits them).
+  // the flag after it (the caller commits them).  A s_tr.kept tile's stream is
+  // gathered by the block when it starts (gather, first round).
   auto start_tile = [&](int stg, int64_t t) {
     s_tile[stg] = t;
-    if (t >= a.ntiles) return;
+    if (t >= s_tr.nt || s_tr.kept) return;
     if (a.bulk_ok && (t + 1) * TS <= a.n) issue(s_stream[stg], &s_bar[stg], t, a.idx, a.w, a.valid, a.flags);
     constexpr int R = TS / kGranule;
     const int64_t next = (t + 1) * R < last_base ? (t + 1) * R : last_base;
@@ -441,6 +508,31 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
     const int64_t after = (t + 1) * TS;
     if (after < a.n) cp_async<4>(&s_nf[stg], reinterpret_cast<const void*>((uintptr_t)(a.flags + after) & ~(uintptr_t)3));
   };
+  // Thread 0, s_tr.kept: s_tr.kept tile t's tile_info entries into s_ti[slot] by
+  // cp.async (the caller commits them), or the mark of no tile.
+  auto tile_entries = [&](int slot, int64_t t) {
+    if (t < s_tr.nt) {
+      cp_async<4>(&s_ti[slot][0], a.tile_info + t);
+      cp_async<4>(&s_ti[slot][1], a.tile_info + t + 1);
+    } else {
+      s_ti[slot][0] = -1;
+    }
+  };
+  // The scan's threads, s_tr.kept: the run of list entries of the tile that
+  // s_ti[stg] describes (its segments' running counts and first slots) into
+  // stage stg's idx and w arrays, by cp.async (the caller commits them).
+  auto start_run = [&](int stg) {
+    const int e0 = s_ti[stg][0];
+    if (e0 < 0) return;
+    const int j0 = (e0 & 1) ? e0 >> 1 : (e0 >> 1) - 1;  // the segment holding the tile's first slot
+    const int segs = (s_ti[stg][1] >> 1) - j0;          // it and those that start in the tile
+    int32_t* cum = s_stream[stg].idx;
+    int32_t* first = reinterpret_cast<int32_t*>(s_stream[stg].w);
+    for (int q = tid; q < segs; q += kThreads) {
+      cp_async<4>(cum + q, a.kept_cum + j0 + q);
+      cp_async<4>(first + q, a.kept_start + j0 + q);
+    }
+  };
 
   // Thread 0 takes each ticket a step before its tile starts, so no step
   // waits for the atomic's answer.
@@ -448,8 +540,13 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&s_bar[s]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    start_tile(0, atomicAdd(ticket, 1u));
+    const int64_t first = atomicAdd(ticket, 1u);
+    start_tile(0, first);
     pending = atomicAdd(ticket, 1u);
+    if (s_tr.kept) {
+      tile_entries(0, first);
+      tile_entries(1, pending);
+    }
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -477,6 +574,10 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
       bar_arrive(kBarPrefix, kBlockThreads);
     }
     return;
+  }
+  if (s_tr.kept) {
+    start_run(0);
+    cp_async_commit();
   }
 
   // a scanned tile's first segment end, when its segment started before the
@@ -519,17 +620,75 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
     const int sn = it & 1;  // nx's stream stage; t's is sn ^ 1
     const int sc = sn ^ 1;
     const int64_t nx = s_tile[sn];
-    const int64_t t = it > 0 ? s_tile[sc] : a.ntiles;
-    if (nx >= a.ntiles && t >= a.ntiles) break;
-    const bool gathers = nx < a.ntiles;
-    const bool scans = t < a.ntiles;
+    const int64_t t = it > 0 ? s_tile[sc] : s_tr.nt;
+    if (nx >= s_tr.nt && t >= s_tr.nt) break;
+    const bool gathers = nx < s_tr.nt;
+    const bool scans = t < s_tr.nt;
     Stage& sx = s_stream[sn];
 
     // -- gather, first round: nx's stream, then the structure of its valid
     // slots' rows ------------------------------------------------------------
     if (gathers) {
       const int64_t base = nx * TS;
-      if (a.bulk_ok && base + TS <= a.n) {
+      if (s_tr.kept) {
+        // the run of nx's list entries landed (it went out a step ago):
+        // each slot's segment by binary search in it, then the plan slot
+        // behind it, whose idx, w and valid byte are loaded (one round trip)
+        cp_async_wait_all();
+        bar_sync(kBarWorkers, kThreads);
+        const int e0 = s_ti[sn][0], e1 = s_ti[sn][1];
+        const int j0 = (e0 & 1) ? e0 >> 1 : (e0 >> 1) - 1;
+        const int segs = (e1 >> 1) - j0;
+        const int32_t* cum = sx.idx;
+        const int32_t* first = reinterpret_cast<const int32_t*>(sx.w);
+        const int64_t kept_slots = s_tr.n;
+        int lo[G::kPerThread];
+        int32_t p[G::kPerThread];  // the slot in the kept space
+#pragma unroll
+        for (int i = 0; i < G::kPerThread; ++i) {
+          lo[i] = 0;
+          p[i] = (int32_t)(base + tid + i * kThreads);
+        }
+        for (int step = segs > 1 ? 1 << (31 - __clz(segs - 1)) : 0; step > 0; step >>= 1) {
+#pragma unroll
+          for (int i = 0; i < G::kPerThread; ++i) {
+            const int c = lo[i] + step;
+            if (c < segs && cum[c] <= p[i]) lo[i] = c;
+          }
+        }
+        int64_t g[G::kPerThread];  // the plan slot, or -1 past the kept slots
+        bool starts[G::kPerThread];
+#pragma unroll
+        for (int i = 0; i < G::kPerThread; ++i) {
+          const bool in = p[i] < kept_slots;
+          g[i] = in ? (int64_t)first[lo[i]] + (p[i] - cum[lo[i]]) : -1;
+          starts[i] = !in || cum[lo[i]] == p[i];  // past the end: segments of one slot, never written
+        }
+        int32_t gi[G::kPerThread];
+        float gwt[G::kPerThread];
+        bool gv[G::kPerThread];
+#pragma unroll
+        for (int i = 0; i < G::kPerThread; ++i) {
+          const bool in = g[i] >= 0;
+          gi[i] = in ? a.idx[g[i]] : 0;
+          gwt[i] = in && a.w != nullptr ? a.w[g[i]] : 0.f;
+          gv[i] = in && a.valid[g[i]] != 0;
+        }
+        bar_sync(kBarWorkers, kThreads);  // the run is read
+#pragma unroll
+        for (int i = 0; i < G::kPerThread; ++i) {
+          const int s = tid + i * kThreads;
+          sx.idx[s] = gi[i];
+          sx.w[s] = gwt[i];
+          sx.valid[s] = gv[i];
+          sx.flags[s] = starts[i];
+        }
+        if (tid == 0) {  // as the unmasked tile's: the kept segments before nx and before the next
+          s_tb[sn][0] = e0 >> 1;
+          s_tb[sn][1] = e1 >> 1;
+          s_nf[sn] = e1 & 1;
+        }
+      } else if (a.bulk_ok && base + TS <= a.n) {
         mbar_wait(&s_bar[sn], (parity >> sn) & 1u);
         parity ^= 1u << sn;
       } else {
@@ -581,10 +740,13 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
       const int64_t base = t * TS;
       const int tile_base = s_tb[sc][0];
       const int lo = tile_base > 0 ? tile_base - 1 : 0;
-      const int rbase = lo - (int)(((uintptr_t)(a.seg_vertex + lo) & 15) >> 2);  // the ordinal of s_rows[0]
+      const int rbase = lo - (int)(((uintptr_t)(s_tr.rows + lo) & 15) >> 2);  // the ordinal of s_rows[0]
       const int64_t after = base + TS;
-      const int flag_after =
-          after < a.n ? ((s_nf[sc] >> (8 * ((uintptr_t)(a.flags + after) & 3))) & 0xffu) != 0 : 1;
+      const int64_t slots = s_tr.n;
+      const int flag_after = after >= slots ? 1
+                             : s_tr.kept    ? (int)s_nf[sc]
+                                            : ((s_nf[sc] >> (8 * ((uintptr_t)(a.flags + after) & 3))) & 0xffu) != 0;
+      const int lim = slots - base < TS ? (int)(slots - base) : TS;  // the tile's slots
 
       // the segment starts before each group: the rows of its segment ends
       int cnt = 0;
@@ -622,8 +784,11 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
         if (!__any_sync(kFull, (mb.x | mb.y) != 0)) {
           const int first = fbits ? __ffs(fbits) - 1 : kChunk;  // the chunk's first flag
           const int k = first - 1;
-          if (k >= 0 && in_col && ((ebits >> k) & 1) && base + i + k < a.n && seen > 0) {
-            const int64_t at = (int64_t)s_rows[seen - 1 - rbase] * a.k + col;
+          const int32_t row = k >= 0 && in_col && ((ebits >> k) & 1) && i + k < lim && seen > 0
+                                  ? s_rows[seen - 1 - rbase]
+                                  : -1;
+          if (row >= 0) {
+            const int64_t at = (int64_t)row * a.k + col;
             if (run_f) {
               a.out_v[at] = run_p ? run : (T)0;
               a.out_s[at] = (uint8_t)run_p;
@@ -661,8 +826,10 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
             run_p |= p;
           }
           const int upto = seen + __popc(fbits & ((2u << k) - 1u));  // segment starts up to slot k
-          if (in_col && ((ebits >> k) & 1) && base + i + k < a.n && upto > 0) {
-            const int64_t at = (int64_t)s_rows[upto - 1 - rbase] * a.k + col;
+          const int32_t row =
+              in_col && ((ebits >> k) & 1) && i + k < lim && upto > 0 ? s_rows[upto - 1 - rbase] : -1;
+          if (row >= 0) {  // -1: a row the mask does not reach
+            const int64_t at = (int64_t)row * a.k + col;
             if (run_f) {
               a.out_v[at] = run_p ? run : (T)0;
               a.out_s[at] = (uint8_t)run_p;
@@ -811,22 +978,29 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
         }
       }
       // the ordinals of nx's slots run from the flags before it less one to
-      // the flags before the next tile less one: that run of seg_vertex in
+      // the flags before the next tile less one: that run of the segments'
+      // rows (seg_vertex; with a mask the s_tr.kept list or masked_rows) in
       // 16-byte pieces
       const int lo = s_tb[sn][0] > 0 ? s_tb[sn][0] - 1 : 0;
       const int hi = s_tb[sn][1] - 1;
       if (hi >= lo) {
-        const uintptr_t from = (uintptr_t)(a.seg_vertex + lo) & ~(uintptr_t)15;
-        const int pieces = (int)(((uintptr_t)(a.seg_vertex + hi) + 4 - from + 15) >> 4);
+        const uintptr_t from = (uintptr_t)(s_tr.rows + lo) & ~(uintptr_t)15;
+        const int pieces = (int)(((uintptr_t)(s_tr.rows + hi) + 4 - from + 15) >> 4);
         for (int q = tid; q < pieces; q += kThreads)
           cp_async_stream<16>(s_rows + 4 * q, reinterpret_cast<const void*>(from + 16 * q));
       }
+      // s_tr.kept: the run of list entries of the tile that starts after nx,
+      // into t's stage, free since t's scan
+      if (s_tr.kept) start_run(sc);
     }
     if (tid == 0) {
       // t's stage is free; a ticket past the last tile ends the block (every
       // later one is past it too)
-      start_tile(sc, gathers ? pending : a.ntiles);
-      if (gathers && pending < a.ntiles) pending = atomicAdd(ticket, 1u);
+      start_tile(sc, gathers ? pending : s_tr.nt);
+      if (gathers && pending < s_tr.nt) {
+        pending = atomicAdd(ticket, 1u);
+        if (s_tr.kept) tile_entries(sn, pending);  // its run goes out in the next step's second round
+      }
     }
     cp_async_commit();
 
@@ -835,6 +1009,169 @@ __global__ void __launch_bounds__(kBlockThreads, Geometry<T, KP>::kMinBlocks) sp
   if (held) resolve();
   if (tid == 0) s_hand_tile[hj & 1] = -1;
   bar_arrive(kBarAggregate, kBlockThreads);
+}
+
+// The rows a mask selects (spmm_keep): segment o of the plan is kept when
+// the mask lets its row, seg_vertex[o], write some column and a slot of it
+// lies before pad_from.  One pass over the segments in tiles of kKeepTile,
+// taken by ticket.  A thread reads and writes segments kKeepThreads apart
+// (a warp's accesses coalesce) and scans kKeepItems consecutive ones, the
+// two orders exchanged through shared memory.  The kept segments and their
+// slots are counted as one 64-bit word (segments in bits 31-61, slots in
+// 0-30), scanned in the block and across tiles by decoupled look-back, the
+// word carrying its own value in its status (as Kernel C's descriptors).
+// Each kept segment then writes its list entry and the tile_info entries of
+// the kept tiles that start in it; the last tile writes the totals.
+constexpr int kKeepThreads = 256;
+constexpr int kKeepItems = 8;
+constexpr int kKeepTile = kKeepThreads * kKeepItems;  // segments a block takes
+constexpr uint64_t kKeepValue = (1ull << 62) - 1;     // a status word's value bits
+constexpr uint32_t kKeepSlots = (1u << 31) - 1;
+
+struct KeepArgs {
+  const uint8_t* bits;        // the mask's writable cells: rows of k bytes, 0 or 1
+  const int32_t* seg_vertex;  // segment o's row
+  const int32_t* row_first;   // row r's slots: [row_first[r], row_first[r + 1])
+  int32_t* kept_row;          // the list, n_kept entries
+  int32_t* kept_start;
+  int32_t* kept_cum;          // n_kept + 1 entries, the last the kept slots
+  int32_t* masked_rows;       // nseg entries
+  int32_t* tile_info;         // ceil(kept slots / tile) + 1 entries
+  int32_t* hdr;               // kHdrWords words, zeroed
+  uint64_t* status;           // a word a keep tile, zeroed
+  unsigned long long* tally;  // kept slots and plan slots, added to once a launch
+  int64_t nseg, ntiles, n_slots;
+  int32_t pad_from;
+  int k, tile;
+};
+
+__device__ __forceinline__ uint64_t keep_word(uint32_t status, uint64_t v) { return ((uint64_t)status << 62) | v; }
+// an item's place in the exchange: one word of padding every 8, so that the
+// scan's threads (8 items apart) spread over the banks
+__device__ __forceinline__ int keep_at(int e) { return e + (e >> 3); }
+
+// any of the k mask bytes at b set (one word where k is 4 or 8 and the row aligned)
+__device__ __forceinline__ bool any_cell(const uint8_t* b, int k) {
+  if (k == 4 && ((uintptr_t)b & 3) == 0) return *reinterpret_cast<const uint32_t*>(b) != 0;
+  if (k == 8 && ((uintptr_t)b & 7) == 0) return *reinterpret_cast<const uint64_t*>(b) != 0;
+  bool any = false;
+  for (int c = 0; c < k; ++c) any |= b[c] != 0;
+  return any;
+}
+
+__global__ void __launch_bounds__(kKeepThreads) spmm_keep(KeepArgs a) {
+  __shared__ int64_t s_t;
+  __shared__ uint64_t s_items[kKeepTile + kKeepTile / 8];
+  __shared__ uint64_t s_warp[kKeepThreads / 32];
+  __shared__ uint64_t s_prefix;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  if (tid == 0) s_t = atomicAdd(reinterpret_cast<unsigned*>(a.hdr + kHdrTicket), 1u);
+  __syncthreads();
+  const int64_t t = s_t;
+  const int64_t o0 = t * kKeepTile + tid;  // item i is segment o0 + i kKeepThreads
+  int32_t row[kKeepItems], first[kKeepItems], len[kKeepItems];
+#pragma unroll
+  for (int i = 0; i < kKeepItems; ++i) row[i] = o0 + i * kKeepThreads < a.nseg ? a.seg_vertex[o0 + i * kKeepThreads] : -1;
+#pragma unroll
+  for (int i = 0; i < kKeepItems; ++i) {
+    len[i] = 0;
+    first[i] = 0;
+    if (row[i] >= 0) {
+      const int32_t r = row[i];
+      first[i] = a.row_first[r];
+      const int32_t e = min(a.row_first[r + 1], a.pad_from);
+      len[i] = e > first[i] && any_cell(a.bits + (int64_t)r * a.k, a.k) ? e - first[i] : 0;
+    }
+    s_items[keep_at(i * kKeepThreads + tid)] = len[i] > 0 ? (1ull << 31) + (uint64_t)len[i] : 0;
+  }
+  __syncthreads();
+  // the block's scan over consecutive items: each thread's 8, within each
+  // warp, then over the warps' totals
+  uint64_t mine = 0;
+#pragma unroll
+  for (int j = 0; j < kKeepItems; ++j) mine += s_items[keep_at(tid * kKeepItems + j)];
+  uint64_t inc = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint64_t v = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += v;
+  }
+  if (lane == 31) s_warp[wid] = inc;
+  __syncthreads();
+  uint64_t before = inc - mine, total = 0;
+#pragma unroll
+  for (int w = 0; w < kKeepThreads / 32; ++w) {
+    if (w < wid) before += s_warp[w];
+    total += s_warp[w];
+  }
+  // warp 0: the tile's exclusive prefix by decoupled look-back
+  if (wid == 0) {
+    uint64_t ex = 0;
+    if (t > 0) {
+      if (lane == 0) st_desc(a.status + t, keep_word(kAggregate, total));
+      for (int64_t end = t;; end -= 32) {
+        const int64_t i = end - 1 - lane;  // lane 0 the nearest predecessor
+        uint64_t d = i >= 0 ? ld_desc(a.status + i) : keep_word(kPrefix, 0);
+        unsigned stops, need;
+        for (;;) {
+          const uint32_t st = status_of(d);
+          stops = __ballot_sync(kFull, st == kPrefix);
+          const unsigned ready = __ballot_sync(kFull, st != kNone);
+          need = stops ? ((stops & (0u - stops)) << 1) - 1u : kFull;
+          if ((ready & need) == need) break;
+          if (st == kNone) d = ld_desc(a.status + i);
+        }
+        uint64_t v = ((need >> lane) & 1) ? (d & kKeepValue) : 0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+        ex += v;
+        if (stops) break;
+      }
+    }
+    if (lane == 0) {
+      st_desc(a.status + t, keep_word(kPrefix, ex + total));
+      s_prefix = ex;
+    }
+  }
+  __syncthreads();
+  // each item's exclusive prefix, in place
+  uint64_t run = s_prefix + before;
+#pragma unroll
+  for (int j = 0; j < kKeepItems; ++j) {
+    const int e = keep_at(tid * kKeepItems + j);
+    const uint64_t v = s_items[e];
+    s_items[e] = run;
+    run += v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kKeepItems; ++i) {
+    const int64_t o = o0 + i * kKeepThreads;
+    if (o >= a.nseg) break;
+    a.masked_rows[o] = len[i] > 0 ? row[i] : -1;
+    if (len[i] > 0) {
+      const uint64_t at = s_items[keep_at(i * kKeepThreads + tid)];
+      const int32_t pos = (int32_t)(at >> 31);
+      const int32_t cum = (int32_t)(at & kKeepSlots);
+      a.kept_row[pos] = row[i];
+      a.kept_start[pos] = first[i];
+      a.kept_cum[pos] = cum;
+      // the kept tiles whose first slot lies in this segment
+      for (int64_t tt = ((int64_t)cum + a.tile - 1) / a.tile; tt * a.tile < (int64_t)cum + len[i]; ++tt)
+        a.tile_info[tt] = tt * a.tile == cum ? 2 * pos + 1 : 2 * (pos + 1);
+    }
+  }
+  if (t == a.ntiles - 1 && tid == 0) {  // the totals
+    const uint64_t all = s_prefix + total;
+    const int32_t n_kept = (int32_t)(all >> 31);
+    const int32_t kept_slots = (int32_t)(all & kKeepSlots);
+    a.hdr[kHdrKept] = n_kept;
+    a.hdr[kHdrSlots] = kept_slots;
+    a.kept_cum[n_kept] = kept_slots;
+    a.tile_info[((int64_t)kept_slots + a.tile - 1) / a.tile] = 2 * n_kept + 1;  // past the last kept tile
+    atomicAdd(a.tally, (unsigned long long)kept_slots);
+    atomicAdd(a.tally + 1, (unsigned long long)a.n_slots);
+  }
 }
 
 // Resident blocks an SM of an instantiation.  Its first call lets the
@@ -880,10 +1217,15 @@ int by_columns(const SpmmArgs<T>& a, int tile, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The mask's list, or none (hdr null): spmm_keep's outputs.
+struct Kept {
+  const void *hdr, *kept_row, *kept_start, *kept_cum, *tile_info, *masked_rows;
+};
+
 template <typename T>
 int typed(const void* x, const void* xs, const void* idx, const void* w, const void* valid, const void* flags,
           const void* seg_vertex, const void* tile_base, void* out_v, void* out_s, void* status, void* vals,
-          int64_t n, int k, int op, int mul, int tile, cudaStream_t s) {
+          int64_t n, int k, int op, int mul, int tile, const Kept& kp, cudaStream_t s) {
   const int bulk_ok = aligned16(idx) && aligned16(valid) && aligned16(flags) && (w == nullptr || aligned16(w));
   // the bytes of one value copy: the widest that divides a row and x's alignment
   const int rb = k * (int)sizeof(T);
@@ -894,7 +1236,9 @@ int typed(const void* x, const void* xs, const void* idx, const void* w, const v
   const SpmmArgs<T> a{(const T*)x, (const uint8_t*)xs, (const int32_t*)idx, (const float*)w,
                       (const uint8_t*)valid, (const uint8_t*)flags, (const int32_t*)seg_vertex,
                       (const int32_t*)tile_base, (T*)out_v, (uint8_t*)out_s, (uint64_t*)status,
-                      (uint64_t*)vals, n, 0, k, mul, bulk_ok, vcopy, scopy16};
+                      (uint64_t*)vals, n, 0, k, mul, bulk_ok, vcopy, scopy16,
+                      (const int32_t*)kp.hdr, (const int32_t*)kp.kept_row, (const int32_t*)kp.kept_start,
+                      (const int32_t*)kp.kept_cum, (const int32_t*)kp.tile_info, (const int32_t*)kp.masked_rows};
   switch (op) {
     case kAdd: return by_columns<T, kAdd>(a, tile, s);
     case kMin: return by_columns<T, kMin>(a, tile, s);
@@ -949,16 +1293,44 @@ extern "C" int gb_segscan_spmm_geometry(int k, int is_double, int* out) {
 // up to a power of two.  op: 0 plus, 1 min, 2 max; mul: 0 times, 1 plus, 2
 // second (w alone), 3 first (x alone), 4 pair (1).  tile: the slots a tile
 // that the caller sized status and vals for (gb_segscan_spmm_geometry's);
-// another value is refused.
+// another value is refused.  hdr, kept_row, kept_start, kept_cum, tile_info
+// and masked_rows: gb_segscan_spmm_keep's outputs, launched before on the
+// stream for this tile, or all null: every row.
 extern "C" int gb_segscan_spmm(const void* x, const void* xs, const void* idx, const void* w, const void* valid,
                                const void* flags, const void* seg_vertex, const void* tile_base, void* out_v,
                                void* out_s, void* status, void* vals, int64_t n, int k, int is_double, int op,
-                               int mul, int tile, void* stream) {
+                               int mul, int tile, void* stream, const void* hdr, const void* kept_row,
+                               const void* kept_start, const void* kept_cum, const void* tile_info,
+                               const void* masked_rows) {
   if (k < 1 || k > 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Kept kp{hdr, kept_row, kept_start, kept_cum, tile_info, masked_rows};
   if (is_double)
     return typed<double>(x, xs, idx, w, valid, flags, seg_vertex, tile_base, out_v, out_s, status, vals, n, k, op,
-                         mul, tile, s);
+                         mul, tile, kp, s);
   return typed<float>(x, xs, idx, w, valid, flags, seg_vertex, tile_base, out_v, out_s, status, vals, n, k, op, mul,
-                      tile, s);
+                      tile, kp, s);
+}
+
+// The rows a mask selects, for gb_segscan_spmm over n_slots slots in tiles
+// of tile slots: bits, n_rows x k bytes (0 or 1), the cells the mask lets
+// the product write; segment o (nseg of them) is row seg_vertex[o], its
+// slots [row_first[r], row_first[r + 1]) cut at pad_from.  Writes kept_row,
+// kept_start (nseg entries), kept_cum (nseg + 1), masked_rows (nseg),
+// tile_info (ceil(n_slots / tile) + 1) and the header ctl[0..1], the status
+// words after it (ctl: 2 + ceil(nseg / 2048) 64-bit words, zeroed), and adds
+// the kept slots and n_slots to tally[0] and tally[1].
+extern "C" int gb_segscan_spmm_keep(const void* bits, int k, const void* seg_vertex, const void* row_first,
+                                    int64_t nseg, int pad_from, void* kept_row, void* kept_start, void* kept_cum,
+                                    void* masked_rows, void* tile_info, void* ctl, void* tally, int64_t n_slots,
+                                    int tile, void* stream) {
+  if (k < 1 || k > 8 || tile <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t ntiles = (nseg + kKeepTile - 1) / kKeepTile;
+  if (ntiles == 0) return (int)cudaGetLastError();
+  const KeepArgs a{(const uint8_t*)bits, (const int32_t*)seg_vertex, (const int32_t*)row_first, (int32_t*)kept_row,
+                   (int32_t*)kept_start, (int32_t*)kept_cum, (int32_t*)masked_rows, (int32_t*)tile_info,
+                   (int32_t*)ctl, (uint64_t*)ctl + kHdrWords / 2, (unsigned long long*)tally, nseg, ntiles, n_slots,
+                   (int32_t)pad_from, k, tile};
+  spmm_keep<<<(unsigned)ntiles, kKeepThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -45,7 +45,8 @@ _SIGNATURES = {
     "gb_segscan": [_P] * 4 + [_I64, _I, _I, _P],
     "gb_segscan_tile": [],
     "gb_segscan_state_tile": [],
-    "gb_segscan_spmm": [_P] * 12 + [_I64, _I, _I, _I, _I, _I, _P],
+    "gb_segscan_spmm": [_P] * 12 + [_I64, _I, _I, _I, _I, _I, _P] + [_P] * 6,
+    "gb_segscan_spmm_keep": [_P, _I, _P, _P, _I64, _I] + [_P] * 7 + [_I64, _I, _P],
     "gb_segscan_spmm_geometry": [_I, _I, _P],
     "gb_eqjoin": [_P] * 6 + [_I, _I, _I64, _I, _I, _I, _P],
     "gb_compare_probe": [_P] * 3 + [_I64, _P],

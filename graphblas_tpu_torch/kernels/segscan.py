@@ -12,7 +12,10 @@
   (``csrc/spmm.cu``): the contrib scan of a dense n x k x (k <= 8, float32
   or float64) read by row through ``idx``, all k columns in one pass over
   the plan, written only at the dst segments' last slots as rows of Y and
-  of Y's structure.  No JAX counterpart: the reference densifies.
+  of Y's structure.  No JAX counterpart: the reference densifies.  Given a
+  statement's mask (``keep``), a launch of ``segscan_spmm_keep`` first lists
+  the segments whose rows the mask reaches, and the product streams only
+  their slots (``SpmmRows`` holds the layout's constants and scratch).
 - ``segscan_state`` (Kernel S) replaces
   ``graphblas_tpu/ops/pallas_scan.py:segmented_scan_state``: the BFS (max of
   x) or SSSP (min of x + w) scan fused with the per-round state update.
@@ -47,7 +50,7 @@ MULS = ("times", "plus", "second", "first")
 SCAN_OPS = ("add", "min", "max", "fill")
 SCAN_DTYPES = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8)
 # launch counts by kernel name
-KERNELS = ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather", "segscan_spmm")
+KERNELS = ("segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather", "segscan_spmm", "segscan_spmm_keep")
 # the k-column product's multiplies (w alone for second, x alone for first,
 # 1 for pair), value types and widest k
 SPMM_MULS = ("times", "plus", "second", "first", "pair")
@@ -56,6 +59,11 @@ SPMM_MAX_COLUMNS = 8
 # slots a ``spmm_tile_base`` entry covers; every tile of the k-column kernel
 # is a multiple (``csrc/spmm.cu`` kGranule)
 SPMM_GRANULE = 256
+# segments a block of ``segscan_spmm_keep`` takes (``csrc/spmm.cu`` kKeepTile)
+SPMM_KEEP_TILE = 2048
+# the device counts of the masked products: the slots kept, and the plan's
+# slots (``core.telemetry.device_counters``)
+SPMM_KEPT_COUNTERS = ("ops.spmm_kept_slots", "ops.spmm_masked_slots")
 
 
 def _ident(op, dtype):
@@ -314,15 +322,120 @@ def _check_spmm(x, xs, idx, w, valid, flags, seg_vertex, op, mul):
         raise TypeError(f"segscan_spmm: w must be float32, got {w.dtype}")
 
 
-def segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
+class SpmmRows:
+    """What the row-selected k-column product needs of one slot layout (a
+    plan's dst order): segment o is row ``seg_vertex[o]`` over the slots
+    ``[row_first[r], row_first[r + 1])``; ``pad_from`` is the first slot of
+    the run of invalid slots that ends the layout (a plan's padding), cut
+    from every segment.  On a CUDA device it also holds the scratch of
+    ``segscan_spmm_keep`` (int32: the kept list, three entries a segment and
+    one more, ``masked_rows``, and a tile entry for every 256 slots; its
+    header and look-back words) and the device counts it adds to, all made
+    here, before any capture, and reused by every product of the layout.
+    ``valid`` is read once on the host."""
+
+    def __init__(self, row_first, seg_vertex, valid):
+        if row_first.dtype != torch.int32 or seg_vertex.dtype != torch.int32:
+            raise TypeError("SpmmRows: row_first and seg_vertex must be int32")
+        self.row_first, self.seg_vertex = row_first, seg_vertex
+        self.n_slots = valid.numel()
+        if self.n_slots >= 1 << 31:
+            raise ValueError(f"SpmmRows: {self.n_slots} slots do not fit the kept list's int32 counts")
+        v = valid.cpu().numpy()
+        self.pad_from = int(v.size - np.argmax(v[::-1])) if v.any() else 0
+        dev = seg_vertex.device
+        self.tally = _telemetry.device_counters(SPMM_KEPT_COUNTERS, dev)
+        self.scratch = None
+        if dev.type == "cuda":
+            nseg = seg_vertex.numel()
+
+            def i32(size):
+                return torch.zeros(size, dtype=torch.int32, device=dev)
+
+            self.scratch = {
+                "ctl": torch.zeros(2 + -(-nseg // SPMM_KEEP_TILE), dtype=torch.int64, device=dev),
+                "kept_row": i32(nseg + 8),  # the product reads a tile's rows in 16-byte pieces
+                "kept_start": i32(nseg),
+                "kept_cum": i32(nseg + 1),
+                "tile_info": i32(-(-self.n_slots // SPMM_GRANULE) + 2),
+                "masked_rows": i32(nseg + 8),
+            }
+
+    @classmethod
+    def of(cls, flags, seg_vertex, valid, n_out):
+        """The layout of a kernel's inputs whose segments' rows increase
+        with their slots (as a plan's): each row's slots from the flags."""
+        starts = torch.nonzero(flags).flatten()
+        lens = torch.diff(torch.cat([starts, starts.new_full((1,), flags.numel())]))
+        per_row = torch.zeros(n_out, dtype=torch.int64, device=flags.device)
+        per_row[seg_vertex.long()] = lens
+        row_first = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0)]).to(torch.int32)
+        if starts.numel() and not torch.equal(row_first[seg_vertex.long()], starts.to(torch.int32)):
+            raise ValueError("SpmmRows.of: the segments' rows must increase with their slots")
+        return cls(row_first, seg_vertex, valid)
+
+
+def _kept_segments(keep, rows):
+    """(kept, lens, start): the segments the mask bits ``keep`` reach with a
+    slot before ``rows.pad_from``, every segment's slots so cut, and its
+    first slot."""
+    sv = rows.seg_vertex.long()
+    rf = rows.row_first.long()
+    start = rf[sv]
+    lens = (torch.clamp(rf[sv + 1], max=rows.pad_from) - start).clamp(min=0)
+    return keep[sv].any(1) & (lens > 0), lens, start
+
+
+def spmm_keep_plain(keep, rows, tile):
+    """Plain version of ``segscan_spmm_keep`` (any device; reads the card):
+    the kept segments in slot order, their rows (``kept_row``), first slots
+    (``kept_start``) and the kept slots before each and in all
+    (``kept_cum``, one entry more), ``masked_rows`` (seg_vertex, -1 where
+    not kept), ``tile_info`` (for each kept tile of ``tile`` slots and the
+    one past them: 2 o + 1 where kept segment o starts at its first slot,
+    else 2 (o + 1), o the one holding it; past them 2 n_kept + 1), and the
+    totals ``n_kept`` and ``kept_slots``."""
+    _telemetry.count("kernels.plain.segscan_spmm_keep")
+    kept, lens, start = _kept_segments(keep, rows)
+    lk = lens[kept]
+    cum = torch.cat([lk.new_zeros(1), torch.cumsum(lk, 0)])
+    n_kept, total = int(kept.sum()), int(cum[-1])
+    at = torch.arange(0, -(-total // tile) * tile, tile, device=cum.device)
+    j = torch.searchsorted(cum[:-1], at, right=True) - 1
+    info = torch.where(cum[j.clamp(min=0)] == at, 2 * j + 1, 2 * (j + 1))
+    info = torch.cat([info, info.new_full((1,), 2 * n_kept + 1)])
+    sv = rows.seg_vertex
+    return {
+        "kept_row": sv[kept], "kept_start": start[kept].int(), "kept_cum": cum.int(),
+        "masked_rows": torch.where(kept, sv, torch.full_like(sv, -1)), "tile_info": info.int(),
+        "n_kept": n_kept, "kept_slots": total,
+    }
+
+
+def _check_keep(keep, x, n_out, rows, n):
+    if keep.dtype != torch.bool or keep.shape != (n_out, x.shape[1]):
+        raise ValueError(f"segscan_spmm: keep must be bool of Y's shape {(n_out, x.shape[1])}, got {tuple(keep.shape)}")
+    if rows is not None and rows.n_slots != n:
+        raise ValueError(f"segscan_spmm: the SpmmRows are of {rows.n_slots} slots, not {n}")
+    _same_device(x, keep)
+
+
+def segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None, keep=None, rows=None):
     """Plain PyTorch version of the k-column product (any device): the
     contributions ``x[idx] MUL w`` where ``valid`` and x's structure
     ``xs`` (None: every x present) hold, else the identity; the segmented
     scan of each column; and at each segment's last slot, the row
     ``seg_vertex[o]`` (o: the flags up to the slot, less one) of Y, 0 where
     no contribution was present, and of Y's structure.  Rows of no segment
-    read 0 and absent.  ``tile_base`` is the kernel's and is not read."""
+    read 0 and absent.  ``tile_base`` is the kernel's and is not read.
+
+    The row-selected product: with ``keep`` (bool, Y's shape: the cells a
+    statement's mask lets it write), the rows where no cell of ``keep`` is
+    set read 0 and absent, and ``rows`` (the layout's ``SpmmRows``, if
+    given) takes the kept slots and the plan's into its device counts."""
     _check_spmm(x, xs, idx, w, valid, flags, seg_vertex, op, mul)
+    if keep is not None:
+        _check_keep(keep, x, n_out, rows, valid.numel())
     _telemetry.count("kernels.plain.segscan_spmm")
     j = idx.long()
     present = valid[:, None] if xs is None else valid[:, None] & xs[j]
@@ -346,13 +459,21 @@ def segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, 
     last = torch.ones_like(flags)
     last[:-1] = flags[1:]
     ordinal = torch.cumsum(flags, 0) - 1
-    rows = seg_vertex.long()[ordinal.clamp(min=0)]
-    rows = torch.where(last & (ordinal >= 0), rows, torch.full_like(rows, n_out))
+    dest = seg_vertex.long()[ordinal.clamp(min=0)]
+    dest = torch.where(last & (ordinal >= 0), dest, torch.full_like(dest, n_out))
     out_v = torch.zeros((n_out + 1, x.shape[1]), dtype=x.dtype, device=x.device)
     out_s = torch.zeros((n_out + 1, x.shape[1]), dtype=torch.bool, device=x.device)
-    out_v[rows] = torch.where(seen, scanned, torch.zeros((), dtype=x.dtype, device=x.device))
-    out_s[rows] = seen
-    return out_v[:n_out], out_s[:n_out]
+    out_v[dest] = torch.where(seen, scanned, torch.zeros((), dtype=x.dtype, device=x.device))
+    out_s[dest] = seen
+    out_v, out_s = out_v[:n_out], out_s[:n_out]
+    if keep is None:
+        return out_v, out_s
+    _telemetry.count("kernels.plain.segscan_spmm_keep")
+    if rows is not None:
+        kept, lens, _ = _kept_segments(keep, rows)
+        rows.tally.add_(torch.stack([(lens * kept).sum(), lens.new_tensor(valid.numel())]).to(rows.tally))
+    sel = keep.any(1, keepdim=True)
+    return torch.where(sel, out_v, torch.zeros((), dtype=x.dtype, device=x.device)), out_s & sel
 
 
 def spmm_tile_base(flags):
@@ -413,14 +534,34 @@ def spmm_geometry(k, dtype):
     return dict(zip(("tile", "smem", "blocks_per_sm", "registers", "local_bytes"), out))
 
 
-def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
+def _launch_keep(lib, keep, rows, tile, stream):
+    """``segscan_spmm_keep`` into ``rows``' scratch: the segments that the mask
+    bits ``keep`` reach, listed for tiles of ``tile`` slots."""
+    sc = rows.scratch
+    sc["ctl"].zero_()
+    rc = lib.gb_segscan_spmm_keep(
+        keep.data_ptr(), keep.shape[1], rows.seg_vertex.data_ptr(), rows.row_first.data_ptr(),
+        rows.seg_vertex.numel(), rows.pad_from, sc["kept_row"].data_ptr(), sc["kept_start"].data_ptr(),
+        sc["kept_cum"].data_ptr(), sc["masked_rows"].data_ptr(), sc["tile_info"].data_ptr(), sc["ctl"].data_ptr(),
+        rows.tally.data_ptr(), rows.n_slots, tile, stream,
+    )
+    _build.check(rc, "segscan_spmm_keep")
+    _telemetry.count("kernels.launches.segscan_spmm_keep")
+    return [sc[name].data_ptr() for name in ("ctl", "kept_row", "kept_start", "kept_cum", "tile_info", "masked_rows")]
+
+
+def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None, keep=None, rows=None):
     """Y = A (.) X for a dense n x k X in one launch: ``segscan_spmm_plain``'s
     function.  ``idx`` must lie in [0, len(x)) wherever ``valid`` is set and
     ``seg_vertex`` in [0, n_out), as the SpMV plans keep them (the kernel
     reads both unchecked); ``tile_base`` is ``spmm_tile_base(flags)``,
-    computed here when not given.  CPU tensors take the plain version."""
+    computed here when not given.  With ``keep`` (the cells a statement's
+    mask lets it write) and ``rows`` (the layout's ``SpmmRows``), a launch
+    of ``segscan_spmm_keep`` lists the rows it reaches first, and the
+    product streams their segments alone; the other rows read absent.  CPU
+    tensors take the plain version."""
     if x.device.type == "cpu":
-        return segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base)
+        return segscan_spmm_plain(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base, keep, rows)
     with _telemetry.span("kernels.segscan_spmm"):
         _check_spmm(x, xs, idx, w, valid, flags, seg_vertex, op, mul)
         _require_cuda("segscan_spmm", x, xs, idx, w, valid, flags, seg_vertex)
@@ -431,6 +572,14 @@ def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_b
         if tile_base is None:
             tile_base = spmm_tile_base(flags)
         dev = x.device
+        stream = _build.stream_of(x)
+        kept = [None] * 6
+        if keep is not None:
+            _check_keep(keep, x, n_out, rows, n)
+            if rows is None or rows.scratch is None or rows.seg_vertex.numel() != seg_vertex.numel():
+                raise ValueError("segscan_spmm: a mask needs the layout's SpmmRows on the card")
+            with torch.cuda.device(dev):
+                kept = _launch_keep(lib, keep.contiguous(), rows, spmm_tile(k, x.dtype), stream)
         out_v = torch.zeros((n_out, k), dtype=x.dtype, device=dev)
         out_s = torch.zeros((n_out, k), dtype=torch.bool, device=dev)
         status = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
@@ -440,7 +589,7 @@ def segscan_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_b
                 x.data_ptr(), _ptr(xs), idx.data_ptr(), _ptr(w), valid.data_ptr(), flags.data_ptr(),
                 seg_vertex.data_ptr(), tile_base.data_ptr(), out_v.data_ptr(), out_s.data_ptr(),
                 status.data_ptr(), vals.data_ptr(), n, k, int(x.dtype == torch.float64), OPS.index(op),
-                SPMM_MULS.index(mul), spmm_tile(k, x.dtype), _build.stream_of(x),
+                SPMM_MULS.index(mul), spmm_tile(k, x.dtype), stream, *kept,
             )
         _build.check(rc, "segscan_spmm")
         _telemetry.count("kernels.launches.segscan_spmm")

@@ -521,22 +521,37 @@ def _spmm_index(plan, seg_start, x):
     return cache["seg_vertex"], cache["tile_base"]
 
 
-def spmm_masked(plan, x, xs, add="plus", mul="times", x_full=False):
+def _spmm_rows(plan, seg_vertex):
+    """The row-selected product's ``SpmmRows`` of the plan, made once (each
+    row's slots from ``indptr_dst``; on the card, its scratch)."""
+    cache = plan.__dict__.setdefault("_spmm", {})
+    if "rows" not in cache:
+        with _cap.constants():
+            cache["rows"] = _segscan.SpmmRows(plan.indptr_dst, seg_vertex, plan.valid_dst_order)
+    return cache["rows"]
+
+
+def spmm_masked(plan, x, xs, add="plus", mul="times", x_full=False, keep=None):
     """The k-column ``spmv_masked``: (values, structure) of Y = A (.) X for
     a dense n x k X (float32 or float64, k <= 8), column j what
     ``spmv_masked(plan, x[:, j], xs[:, j], add, mul, x_full)`` gives, in one
     launch that streams the plan once and writes Y's rows at the dst
     segments' ends.  add in {plus, min, max, any}; mul in {times, plus,
-    first, second, pair}; the weights ride float32 (widened exactly)."""
+    first, second, pair}; the weights ride float32 (widened exactly).
+
+    ``keep`` (bool, n x k): the cells a statement's mask lets it write.  The
+    product then computes only the rows where some cell is set (a launch
+    lists them first); every other row reads absent."""
     op = _OPS[add]
     seg_start, _ = _dst_reduce(plan)
     w = plan.w_dst_order if mul in ("times", "plus", "second") else None
     seg_vertex, tile_base = _spmm_index(plan, seg_start, x)
+    rows = None if keep is None else _spmm_rows(plan, seg_vertex)
     yv, ys = segmented_spmm(
         x.contiguous(), None if x_full else xs.contiguous(), plan.src_dst_order, w, plan.valid_dst_order,
-        seg_start, seg_vertex, plan.n, op, mul, tile_base,
+        seg_start, seg_vertex, plan.n, op, mul, tile_base, keep, rows,
     )
-    if x_full and plan.place_idx is not None:
+    if x_full and plan.place_idx is not None and keep is None:
         # every x present: the structure is the plan's, a constant of a compiled loop
         ys = plan.dst_nonempty[:, None].expand(ys.shape)
     return yv, ys

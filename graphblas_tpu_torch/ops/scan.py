@@ -57,12 +57,14 @@ def segmented_scan_contrib_gather(x, idx, w, valid, flags, op, mul, wrap=None):
     return fn(x, idx, w, valid, flags, op, mul, wrap)
 
 
-def segmented_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None):
+def segmented_spmm(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base=None, keep=None, rows=None):
     """The k-column product over a plan's dst-order slots: (values, structure)
     of Y (n_out x k), each dst segment's scan of ``x[idx] MUL w`` written at
-    its row ``seg_vertex[o]`` (``kernels.segscan.segscan_spmm``)."""
+    its row ``seg_vertex[o]`` (``kernels.segscan.segscan_spmm``); with the
+    mask bits ``keep``, only the rows they reach (``rows``: the layout's
+    ``SpmmRows``)."""
     fn = _segscan.segscan_spmm_plain if kernels.plain_requested() else _segscan.segscan_spmm
-    return fn(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base)
+    return fn(x, xs, idx, w, valid, flags, seg_vertex, n_out, op, mul, tile_base, keep, rows)
 
 
 def segmented_scan_state(mode, xe, w, valid, flags, is_last, state, depth, fr_reduce=False):

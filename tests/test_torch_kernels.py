@@ -653,8 +653,8 @@ def test_wrappers_take_plain_versions_on_cpu_and_count():
     tm.int_matmul(a, a.T, torch.int32)
     assert kernels.plain_counts() == {
         "gather": 1, "gather_fill": 1, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
-        "segscan_contrib_gather": 0, "segscan_spmm": 0, "eqjoin": 1, "compare_probe": 1, "tropical_mxm": 1,
-        "imatmul": 1,
+        "segscan_contrib_gather": 0, "segscan_spmm": 0, "segscan_spmm_keep": 0, "eqjoin": 1, "compare_probe": 1,
+        "tropical_mxm": 1, "imatmul": 1,
     }
     assert sum(kernels.launch_counts().values()) == 0
     kernels.reset_counts()

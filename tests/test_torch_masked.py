@@ -167,6 +167,6 @@ def test_spmv_masked_on_cpu_calls_only_plain_versions(graph):
     assert plain == {
         "gather": 3, "gather_fill": 0, "segscan_contrib": 1, "segscan_state": 0, "segscan": 1,
         "eqjoin": 0, "compare_probe": 0, "tropical_mxm": 0, "imatmul": 0, "segscan_contrib_gather": 0,
-        "segscan_spmm": 0,
+        "segscan_spmm": 0, "segscan_spmm_keep": 0,
     }, plain
     assert sum(kernels.launch_counts().values()) == 0

@@ -368,6 +368,189 @@ def test_spmm_tile_base_counts_flags_before_each_block():
         assert base.tolist() == want
 
 
+# ---- the row-selected product: C(M) << A.mxm(F) computes the rows M reaches --
+
+MASK_KINDS = ["S", "V", "~S", "~V"]
+MODES = ["plain", "replace", "accum", "accum_replace"]
+
+
+def _row_mask(k, seed, rows=0.4):
+    """(rows, cols, values) of a mask of k columns whose entries lie in a
+    share ``rows`` of the rows, half the cells there, valued 0 or 2: its
+    value form reaches fewer rows than its structure."""
+    rng = np.random.default_rng(seed)
+    on = (rng.random(N) < rows)[:, None] & (rng.random((N, k)) < 0.5)
+    mr, mc = np.nonzero(on)
+    return mr, mc, rng.integers(0, 2, mr.size).astype(np.float64) * 2
+
+
+def _masked_statement(pkg, A, F, M, C, kind, mode, sr="plus_times"):
+    """``C(mask, accum, replace) << A.mxm(F)`` in package ``pkg`` on a copy of C."""
+    mask = {"S": M.S, "V": M.V, "~S": ~M.S, "~V": ~M.V}[kind]
+    C = C.dup()
+    accum = pkg.binary.plus if mode.startswith("accum") else None
+    C(mask, accum=accum, replace=mode.endswith("replace")) << A.mxm(F, getattr(pkg.semiring, sr))
+    return C
+
+
+def _both(ref, coo_mask, k):
+    """The mask collection (from COO) in the port and in the JAX package."""
+    r, c, v = coo_mask
+    return (
+        Matrix.from_coo(r, c, v, gb.dtypes.FP64, nrows=N, ncols=k),
+        ref.Matrix.from_coo(r, c, v, ref.dtypes.FP64, nrows=N, ncols=k),
+    )
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_masked_product_matches_the_jax_package(ref, strategy, kind, mode, k):
+    """Structure and value masks, plain and complemented, with and without
+    replace and an accumulator: the statement over the row-selected product
+    gives the JAX package's result on the same operands."""
+    A, F, coo, frontier = _matrices("rmat", k, gb.dtypes.FP64, np.float64)
+    RA, RF = _reference_operands(ref, coo, frontier, "FP64")
+    M, RM = _both(ref, _row_mask(k, 7), k)
+    C, RC = _both(ref, _row_mask(k, 8, rows=0.7), k)
+    _same(_masked_statement(gb, A, F, M, C, kind, mode), _masked_statement(ref, RA, RF, RM, RC, kind, mode))
+
+
+def _hub_row(coo):
+    """The row of A with the most entries: the longest dst segment."""
+    return int(np.argmax(np.bincount(coo[0], minlength=N)))
+
+
+def _shape_mask(shape, k, coo):
+    if shape == "nothing":
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0)
+    rows = np.arange(N) if shape == "everything" else np.array([_hub_row(coo)])
+    mr, mc = np.repeat(rows, k), np.tile(np.arange(k), rows.size)
+    return mr, mc, np.ones(mr.size)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("shape", ["nothing", "everything", "hub"])
+def test_masked_product_keeps_nothing_everything_or_a_hub_row(ref, strategy, shape, k):
+    """A mask that reaches no row, every row, or the one row of the longest
+    segment, under replace and without."""
+    A, F, coo, frontier = _matrices("rmat", k, gb.dtypes.FP64, np.float64)
+    RA, RF = _reference_operands(ref, coo, frontier, "FP64")
+    M, RM = _both(ref, _shape_mask(shape, k, coo), k)
+    C, RC = _both(ref, _row_mask(k, 9, rows=0.7), k)
+    for mode in ("plain", "replace"):
+        got = _masked_statement(gb, A, F, M, C, "S", mode, "plus_second")
+        _same(got, _masked_statement(ref, RA, RF, RM, RC, "S", mode, "plus_second"))
+
+
+def test_masked_product_counts_the_kept_slots(strategy):
+    """The plan engine takes the mask (``ops.spmm_masked_products``) and
+    streams the hub row's segment alone: its entries are the kept slots,
+    the plan's slots the masked ones; the column-by-column product takes
+    none."""
+    A, F, coo, _ = _matrices("rmat", 4, gb.dtypes.FP64, np.float64)
+    M = Matrix.from_coo(*_shape_mask("hub", 4, coo), gb.dtypes.FP64, nrows=N, ncols=4)
+    telemetry.reset("ops.spmm")
+    C = Matrix(gb.dtypes.FP64, N, 4)
+    C(M.S) << A.mxm(F, semiring.plus_second)
+    counters = telemetry.snapshot()["counters"]
+    assert counters["ops.spmm_products"] == 1
+    if strategy == "plan":
+        plan = A._sparse.plan("pull", torch.device("cpu"))
+        assert counters["ops.spmm_masked_products"] == 1
+        assert counters["ops.spmm_kept_slots"] == int(np.bincount(coo[0], minlength=N)[_hub_row(coo)])
+        assert counters["ops.spmm_masked_slots"] == plan.e_pad
+    else:
+        assert not any(counters.get(name, 0) for name in ("ops.spmm_masked_products", "ops.spmm_kept_slots"))
+
+
+def _plan_and_frontier(k=4, seed=4):
+    r, c, w = _pattern("rmat", seed=9)
+    # two entries in row n - 1, whose segment also holds the plan's padding
+    r, c, w = np.append(r, [N - 1, N - 1]), np.append(c, [0, 5]), np.append(w, np.float32([1, 2]))
+    plan = fs.build_spmv_plan(c.astype(np.int32), r.astype(np.int32), w, n=N, device="cpu")
+    vals, present = _frontier(k, np.float64, seed=seed)
+    return plan, torch.from_numpy(vals), torch.from_numpy(present), r
+
+
+@pytest.mark.parametrize("x_full", [False, True])
+@pytest.mark.parametrize("add,mul", [("plus", "times"), ("min", "plus"), ("any", "pair")])
+def test_row_selected_rows_outside_read_absent(x_full, add, mul):
+    """The product with mask bits: the rows that no bit reaches read 0 and
+    absent (a full x included, whose structure would otherwise be the
+    plan's), every other row what the unmasked product gives."""
+    plan, x, xs, _ = _plan_and_frontier()
+    g = torch.Generator().manual_seed(3)
+    keep = (torch.rand(N, generator=g) < 0.3)[:, None] & (torch.rand((N, 4), generator=g) < 0.5)
+    if x_full:
+        xs = torch.ones_like(xs)
+    yv, ys = fs.spmm_masked(plan, x, xs, add, mul, x_full=x_full, keep=keep)
+    fv, fss = fs.spmm_masked(plan, x, xs, add, mul, x_full=x_full)
+    sel = keep.any(1)
+    assert 0 < int(sel.sum()) < N
+    assert not bool(ys[~sel].any()) and bool((yv[~sel] == 0).all())
+    assert torch.equal(ys[sel], fss[sel]) and torch.equal(yv[sel], fv[sel])
+
+
+def test_keep_plain_lists_the_kept_segments():
+    """``spmm_keep_plain``: the kept segments in slot order, each trimmed of
+    the plan's padding (row n - 1's invalid tail), their running counts, and
+    the tile entries, against a walk over the segments here."""
+    plan, x, _, r = _plan_and_frontier()
+    seg_start, _ = fs._dst_reduce(plan)
+    seg_vertex, _ = fs._spmm_index(plan, seg_start, x)
+    rows = fs._spmm_rows(plan, seg_vertex)
+    indeg = np.bincount(r, minlength=N)
+    assert plan.e_pad > indeg.sum() and rows.pad_from == indeg.sum()  # the padding ends the slots
+    g = torch.Generator().manual_seed(5)
+    keep = (torch.rand(N, generator=g) < 0.4)[:, None] & (torch.rand((N, 4), generator=g) < 0.5)
+    keep[N - 1] = True  # the row whose segment holds the padding
+    tile = 32
+    out = ks.spmm_keep_plain(keep, rows, tile)
+    ipd = plan.indptr_dst.numpy()
+    want_rows, want_start, want_cum, masked = [], [], [0], []
+    for v in seg_vertex.tolist():
+        n_slots = min(ipd[v + 1], rows.pad_from) - ipd[v]
+        kept = bool(keep[v].any()) and n_slots > 0
+        masked.append(v if kept else -1)
+        if kept:
+            want_rows.append(v)
+            want_start.append(ipd[v])
+            want_cum.append(want_cum[-1] + n_slots)
+    assert out["kept_row"].tolist() == want_rows and out["kept_start"].tolist() == want_start
+    assert out["kept_cum"].tolist() == want_cum and out["masked_rows"].tolist() == masked
+    assert out["n_kept"] == len(want_rows) and out["kept_slots"] == want_cum[-1]
+    assert want_rows[-1] == N - 1 and want_cum[-1] - want_cum[-2] == indeg[N - 1] == 2  # without its padding
+    info = out["tile_info"].tolist()
+    assert len(info) == -(-want_cum[-1] // tile) + 1 and info[-1] == 2 * len(want_rows) + 1
+    for t, e in enumerate(info[:-1]):
+        o = max(j for j in range(len(want_rows)) if want_cum[j] <= t * tile)
+        assert e == (2 * o + 1 if want_cum[o] == t * tile else 2 * (o + 1)), t
+
+
+def test_compiled_loop_carries_the_masked_backward_step(strategy):
+    """The BC recipe's backward statement ``Y(at.V) << A.mxm(W)`` under a
+    value mask, in a ``gb.loop_runner`` (eager on the CPU), gives what the
+    statements give eagerly."""
+    A, W0, _, _ = _matrices("rmat", 4, gb.dtypes.FP64, np.float64)
+    levels = Matrix.from_coo(*_row_mask(4, 12, rows=0.6), gb.dtypes.FP64, nrows=N, ncols=4)
+
+    def body(B, D):
+        at = D.apply(binary.eq, right=2.0).new(gb.dtypes.BOOL)
+        Y = Matrix(gb.dtypes.FP64, N, 4)
+        Y(at.V) << A.mxm(B, semiring.plus_second)
+        Bn = B.dup()
+        Bn(accum=binary.plus) << Y
+        return Bn, D
+
+    runner = gb.loop_runner(3, body, W0.dup(), levels)
+    Bc, _ = runner(W0.dup(), levels)
+    B, D = W0.dup(), levels
+    for _ in range(3):
+        B, D = body(B, D)
+    assert np.array_equal(_arrays(Bc)[1], _arrays(B)[1]) and np.array_equal(_arrays(Bc)[0], _arrays(B)[0])
+
+
 # ---- CUDA half: the kernel against its plain version on the card -------------
 
 
@@ -676,3 +859,140 @@ def test_cuda_spmm_graph_replay(cuda):
         torch.cuda.synchronize()
         assert torch.equal(out_s, want_s)
         torch.testing.assert_close(out_v, want_v, rtol=1e-12, atol=1e-12 * float(want_v.abs().max()))
+
+
+# ---- CUDA: the row-selected product -------------------------------------------
+
+
+def _keep_bits(n_out, k, rows_kept, lens, seed):
+    """Mask bits of n_out x k over rows with segments of ``lens``: none, all,
+    the longest segment's row, a share of the rows (one cell of each at
+    least), or one row in a hundred."""
+    g = torch.Generator().manual_seed(seed)
+    keep = torch.zeros((n_out, k), dtype=torch.bool)
+    if rows_kept == "all":
+        keep[:] = True
+    elif rows_kept == "hub":
+        keep[int(torch.argmax(lens)), k - 1] = True
+    elif rows_kept != "none":
+        share = {"most": 0.9, "some": 0.3, "few": 0.01}[rows_kept]
+        pick = torch.rand(n_out, generator=g) < share
+        keep[pick, torch.randint(0, k, (int(pick.sum()),), generator=g)] = True
+    return keep
+
+
+def _row_selected_against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, op, mul, keep):
+    """The kernel with the mask bits against the plain version, and its list
+    (``segscan_spmm_keep``'s outputs) against the plain list."""
+    dev = [None if t is None else t.to(cuda) for t in (x, xs, idx, w, valid, flags, sv)]
+    kd = keep.to(cuda)
+    rows = ks.SpmmRows.of(dev[5], dev[6], dev[4], n_out)
+    want_v, want_s = ks.segscan_spmm_plain(*dev, n_out, op, mul, keep=kd)
+    before = telemetry.counter("kernels.launches.segscan_spmm_keep")
+    got_v, got_s = ks.segscan_spmm(*dev, n_out, op, mul, keep=kd, rows=rows)
+    torch.cuda.synchronize()
+    assert telemetry.counter("kernels.launches.segscan_spmm_keep") == before + 1
+    assert torch.equal(got_s, want_s)
+    tol = _tolerance(x.dtype, op)
+    if tol:
+        torch.testing.assert_close(got_v, want_v, rtol=tol, atol=tol * float(want_v.abs().max().clamp(min=1)))
+    else:
+        assert torch.equal(got_v, want_v)
+    lists = ks.spmm_keep_plain(kd, rows, ks.spmm_tile(x.shape[1], x.dtype))
+    sc, nk, total = rows.scratch, lists["n_kept"], lists["kept_slots"]
+    assert sc["ctl"].view(torch.int32)[:2].tolist() == [nk, total]
+    for name, size in (("kept_row", nk), ("kept_start", nk), ("kept_cum", nk + 1), ("masked_rows", sv.numel()),
+                       ("tile_info", lists["tile_info"].numel())):
+        assert torch.equal(sc[name][:size], lists[name].to(sc[name])), name
+    return total / valid.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_kept", ["none", "all", "most", "some", "few", "hub"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_cuda_row_selected_matches_plain(cuda, k, dtype, rows_kept):
+    """Masks that reach no row, every row, 90% (the whole plan streamed, the
+    other rows left unwritten), 30% and 1% of the rows (the kept slots
+    alone), or the row of the longest segment (one segment over many kept
+    tiles), over segments of mixed length and a fifth of the slots invalid."""
+    x, xs, idx, w, valid, flags, sv, n_out = _kernel_inputs(k + 40, (1 << 18) + 77, k, dtype, True, "times")
+    lens = torch.zeros(n_out, dtype=torch.int64)
+    starts = torch.nonzero(flags).flatten()
+    lens[sv.long()] = torch.diff(torch.cat([starts, torch.tensor([flags.numel()])]))
+    keep = _keep_bits(n_out, k, rows_kept, lens, seed=k)
+    share = _row_selected_against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, "add", "times", keep)
+    assert (share == 0) == (rows_kept == "none")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op,mul", [("add", "first"), ("min", "plus"), ("max", "second"), ("add", "pair")])
+@pytest.mark.parametrize("xs_kind", ["random", "none"])
+def test_cuda_row_selected_ops_and_full_x(cuda, dtype, op, mul, xs_kind):
+    """Every op and multiply, x's structure given or x full, at 30% of the
+    rows; and a segment over every tile kept alone."""
+    n = 6 * ks.spmm_tile(4, dtype) + 11
+    lens = _lens_for(n, 21)
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(lens, 1 << 12, 4, dtype, mul, 21, xs_kind)
+    keep = _keep_bits(n_out, 4, "some", lens, seed=2)
+    _row_selected_against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, op, mul, keep)
+    one = [0, 0, 9 * ks.spmm_tile(4, dtype) + 3, 0]
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(one, 1 << 12, 4, dtype, mul, 3, xs_kind)
+    keep = _keep_bits(n_out, 4, "hub", torch.tensor(one), seed=1)
+    _row_selected_against_plain(cuda, x, xs, idx, w, valid, flags, sv, n_out, op, mul, keep)
+
+
+@pytest.mark.cuda
+def test_cuda_row_selected_graph_replay(cuda):
+    """The mask's launch and the product captured in a CUDA graph: replays
+    over new mask bits and new x give the plain version's answer."""
+    lens = _lens_for(1 << 16, 9)
+    x, xs, idx, w, valid, flags, sv, n_out = _segments(lens, 1 << 12, 4, torch.float64, "times", 9)
+    dev = [None if t is None else t.to(cuda) for t in (x, xs, idx, w, valid, flags, sv)]
+    keep = _keep_bits(n_out, 4, "some", lens, seed=3).to(cuda)
+    rows = ks.SpmmRows.of(dev[5], dev[6], dev[4], n_out)
+    base = ks.spmm_tile_base(dev[5])
+    ks.segscan_spmm(*dev, n_out, "add", "times", base, keep=keep, rows=rows)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_v, out_s = ks.segscan_spmm(*dev, n_out, "add", "times", base, keep=keep, rows=rows)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for share in (0.05, 0.5, 0.95):
+        dev[0].copy_(torch.randn(dev[0].shape, generator=g, device=cuda, dtype=torch.float64))
+        keep.copy_(torch.rand(keep.shape, generator=g, device=cuda) < share / 4)
+        graph.replay()
+        want_v, want_s = ks.segscan_spmm_plain(*dev, n_out, "add", "times", keep=keep)
+        torch.cuda.synchronize()
+        assert torch.equal(out_s, want_s), share
+        torch.testing.assert_close(out_v, want_v, rtol=1e-12, atol=1e-12 * float(want_v.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_cuda_masked_statement_matches_plain_versions(cuda, kind):
+    """On the card ``C(M) << A.mxm(F)`` is two hand-kernel launches (the
+    mask's list, then the product) and gives the plain versions' result;
+    the kept slots are counted on the card."""
+    from graphblas_tpu_torch import kernels
+
+    with gb.tx.config.set(platform="cuda", mxv_strategy="plan"):
+        r, c, w = _pattern("rmat")
+        with gb.tx.config.set(dense_limit=4096):
+            A = Matrix.from_coo(r, c, w, gb.dtypes.FP32, nrows=N, ncols=N)
+        vals, present = _frontier(4, np.float64)
+        fr, fc = np.nonzero(present)
+        F = Matrix.from_coo(fr, fc, vals[fr, fc], gb.dtypes.FP64, nrows=N, ncols=4)
+        M = Matrix.from_coo(*_row_mask(4, 7), gb.dtypes.FP64, nrows=N, ncols=4)
+        C = Matrix.from_coo(*_row_mask(4, 8, rows=0.7), gb.dtypes.FP64, nrows=N, ncols=4)
+        _masked_statement(gb, A, F, M, C, kind, "replace")  # the plan and its derived arrays
+        telemetry.reset("ops.spmm")
+        got = _masked_statement(gb, A, F, M, C, kind, "replace")
+        counters = telemetry.snapshot()["counters"]
+        assert counters["ops.spmm_launches"] == 2 and counters["ops.spmm_masked_products"] == 1
+        assert 0 < counters["ops.spmm_kept_slots"] < counters["ops.spmm_masked_slots"]
+        with kernels.plain_versions():
+            want = _masked_statement(gb, A, F, M, C, kind, "replace")
+        torch.cuda.synchronize()
+        assert torch.equal(got._struct, want._struct) and torch.equal(got._values, want._values)

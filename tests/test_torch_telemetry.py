@@ -117,6 +117,44 @@ def test_counters_snapshot_and_reset():
     assert telemetry.snapshot() == {"spans": {}, "counters": {}}
 
 
+def test_device_counters_fold_at_snapshot():
+    """Counts a kernel adds on its device reach the counters at a snapshot,
+    by what they gained since the last; a reset zeroes them."""
+    t = telemetry.device_counters(("t.kept", "t.all"), "cpu")
+    assert telemetry.device_counters(("t.kept", "t.all"), "cpu") is t and t.dtype == torch.int64
+    t.add_(torch.tensor([3, 8]))
+    assert telemetry.snapshot()["counters"] == {"t.kept": 3, "t.all": 8}
+    t.add_(torch.tensor([1, 0]))
+    assert telemetry.snapshot()["counters"] == {"t.kept": 4, "t.all": 8}
+    t.add_(torch.tensor([5, 5]))
+    telemetry.reset("t.")
+    assert telemetry.snapshot()["counters"] == {} and t.tolist() == [0, 0]
+    t.add_(torch.tensor([2, 2]))
+    assert telemetry.snapshot()["counters"] == {"t.kept": 2, "t.all": 2}
+
+
+def test_kept_share_reads_the_masked_products_counts(monkeypatch):
+    """``ops.spmm_kept_share``: the kept slots over the masked products'
+    plan slots, in percent, in a traced run that kept the card busy; nothing
+    without a masked product, without such a trace, or without the registry
+    (a parent library)."""
+    import sys
+
+    import graphblas_tpu_torch.core as core
+
+    reader = registry.metric("ops.spmm_kept_share")
+    busy = run.Readings({}, reduced=types.SimpleNamespace(busy_s=1.0))
+    assert reader.read(busy) is None
+    telemetry.count("ops.spmm_kept_slots", 25)
+    telemetry.count("ops.spmm_masked_slots", 200)
+    assert reader.read(busy) == pytest.approx(12.5)
+    assert reader.read(run.Readings({})) is None
+    assert reader.read(run.Readings({}, reduced=types.SimpleNamespace(busy_s=0.0))) is None
+    monkeypatch.delattr(core, "telemetry")
+    monkeypatch.setitem(sys.modules, "graphblas_tpu_torch.core.telemetry", None)
+    assert reader.read(busy) is None
+
+
 def test_timed_and_host_read():
     @telemetry.timed("t.fn")
     def fn(x, y=1):
@@ -199,7 +237,7 @@ def test_the_profiler_check_is_an_attribute():
 
 def test_launch_counts_are_counters():
     names = ["gather", "gather_fill", "segscan_contrib", "segscan_state", "segscan", "segscan_contrib_gather",
-             "segscan_spmm", "eqjoin", "compare_probe", "tropical_mxm", "imatmul"]
+             "segscan_spmm", "segscan_spmm_keep", "eqjoin", "compare_probe", "tropical_mxm", "imatmul"]
     kernels.reset_counts()
     assert list(kernels.launch_counts()) == names and set(kernels.launch_counts().values()) == {0}
     kernels.gather.gather(torch.arange(4.0), torch.tensor([3, 0], dtype=torch.int32))
